@@ -1,0 +1,301 @@
+"""Smoke test of the PyTorch port on one NVIDIA GPU (H100): builds the CUDA
+kernels from ``multinerf_tpu_torch/csrc``, holds each against its plain
+PyTorch version at the render path's shapes, then renders ``configs/360.gin``
+at full model width through ``python -m multinerf_tpu_torch.render``'s entry
+point and checks that the main path went through the kernels.
+
+Run from the repository root, with no arguments:
+
+    python3 chip_smoke.py
+
+Exits non-zero on any failure (and without a GPU); on success the last line
+is ``{"ok": true, "device": {...}}`` and the line before it the per-kernel
+JSON summary.
+"""
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+# max |kernel - plain| <= TOL * max(1, max |plain|): the bf16-level bound of
+# tests/test_pallas_*.py.  Both sides round features and weights to bf16;
+# they differ only in summation order and in the last bits of sin/exp.
+TOL = 2e-2
+
+K1_SAMPLES = 4096 * 64  # One 4,096-ray chunk of a proposal level.
+K2_SAMPLES = 4096 * 32  # One 4,096-ray chunk of the NerfMLP level.
+RAGGED = 37  # Samples cut off the full tile count to exercise the edge mask.
+
+
+def log(msg):
+  print(msg, flush=True)
+
+
+def phase_device():
+  if not torch.cuda.is_available():
+    raise SystemExit('FAIL device: torch.cuda.is_available() is false.')
+  smi = subprocess.run(
+      ['nvidia-smi', '--query-gpu=name,power.limit',
+       '--format=csv,noheader'], capture_output=True, text=True, check=True)
+  log(smi.stdout.strip().splitlines()[0])
+  log(f'device: {torch.cuda.get_device_name(0)}, count '
+      f'{torch.cuda.device_count()}, torch {torch.__version__}, '
+      f'cuda {torch.version.cuda}, python {sys.version.split()[0]}')
+  # 360.gin's hidden layers are float32; the reference numerics are full f32.
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+
+
+def phase_build():
+  from multinerf_tpu_torch.ops.kernels import build
+  for name in ('density_mlp', 'featurize_dense'):
+    build.load(name)
+    info = build.BUILD_INFO[name]
+    log(f'build {name}: {info["seconds"]:.2f} s')
+    for line in info['log'].splitlines():
+      if 'registers' in line or 'spill' in line or 'smem' in line:
+        log(f'  ptxas: {line.strip()}')
+
+
+def _gaussians(n, seed):
+  """Means and covs as in tests/test_pallas_density_mlp.py, with one sample
+  in 8 moved out to radius 1e3..1e6: the contraction's far branch and the
+  safe_sin modulo branch both run."""
+  rng = np.random.RandomState(seed)
+  means = (rng.randn(n, 3) * 2.0).astype(np.float32)
+  far = rng.rand(n) < 0.125
+  dirs = rng.randn(n, 3)
+  dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+  radius = 10.0**rng.uniform(3, 6, n)
+  means[far] = (dirs * radius[:, None])[far].astype(np.float32)
+  a = rng.randn(n, 3, 3).astype(np.float32) * 0.05
+  covs = a @ np.swapaxes(a, -1, -2)
+  return (torch.tensor(means, device='cuda'),
+          torch.tensor(covs, device='cuda'))
+
+
+def _he_uniform(rng, fan_in, fan_out):
+  lim = np.sqrt(6.0 / fan_in)
+  return torch.tensor(rng.uniform(-lim, lim, (fan_in, fan_out)).astype(
+      np.float32), device='cuda')
+
+
+def _time_ms(fn, reps=10, warmup=3):
+  """Median of `reps` single-call times (CUDA events), after warm-up."""
+  for _ in range(warmup):
+    fn()
+  torch.cuda.synchronize()
+  times = []
+  for _ in range(reps):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    times.append(start.elapsed_time(end))
+  return statistics.median(times)
+
+
+def _compare(name, run_kernel, run_plain, n_full):
+  """Kernel vs plain at n_full and n_full - RAGGED; returns the summary."""
+  worst = 0.0
+  for n in (n_full, n_full - RAGGED):
+    got = run_kernel(n)
+    want = run_plain(n)
+    torch.cuda.synchronize()
+    if got.shape != want.shape:
+      raise SystemExit(f'FAIL {name}: shape {tuple(got.shape)} vs '
+                       f'{tuple(want.shape)}')
+    if not bool(torch.isfinite(got).all()):
+      raise SystemExit(f'FAIL {name}: non-finite kernel output at N={n}')
+    err = float((got - want).abs().max())
+    bound = TOL * max(1.0, float(want.abs().max()))
+    log(f'{name} N={n}: max|kernel - plain| = {err:.3e} '
+        f'(bound {bound:.3e}, max|plain| {float(want.abs().max()):.3e})')
+    if not err <= bound:
+      raise SystemExit(f'FAIL {name}: disagrees with its plain version.')
+    worst = max(worst, err)
+  ms = _time_ms(lambda: run_kernel(n_full))
+  plain_ms = _time_ms(lambda: run_plain(n_full))
+  log(f'{name} N={n_full}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms '
+      '(median of 10, CUDA events)')
+  return {'max_abs_err': worst, 'ms': ms, 'plain_ms': plain_ms}
+
+
+def phase_kernels():
+  from multinerf_tpu_torch.ops import geopoly
+  from multinerf_tpu_torch.ops.kernels import density_mlp as dm
+  from multinerf_tpu_torch.ops.kernels import featurize_dense as fd
+  basis = np.array(geopoly.generate_basis('icosahedron', 2)).T  # [3, 21]
+  num_feats = 2 * 12 * basis.shape[-1]
+  rng = np.random.RandomState(0)
+  results = {}
+
+  # K1: PropMLP 504 -> 4 x 256 -> 1.
+  means, covs = _gaussians(K1_SAMPLES, seed=1)
+  ws = [_he_uniform(rng, num_feats, 256)] + [
+      _he_uniform(rng, 256, 256) for _ in range(3)]
+  bs = [torch.tensor(rng.randn(256).astype(np.float32) * 0.1, device='cuda')
+        for _ in ws]
+  wd = _he_uniform(rng, 256, 1)
+  bd = torch.tensor(np.float32(-0.3), device='cuda')
+  args = lambda n: (means[:n], covs[:n], ws, bs, wd, bd, basis)
+  results['density_mlp'] = _compare(
+      'density_mlp',
+      lambda n: dm.density_mlp(*args(n), use_contract=True),
+      lambda n: dm.density_mlp_plain(*args(n), use_contract=True),
+      K1_SAMPLES)
+
+  # K2: NerfMLP layer 0, 504 -> 1024.
+  means, covs = _gaussians(K2_SAMPLES, seed=2)
+  w = _he_uniform(rng, num_feats, 1024)
+  b = torch.tensor(rng.randn(1024).astype(np.float32) * 0.1, device='cuda')
+  args = lambda n: (means[:n], covs[:n], w, b, basis)
+  results['featurize_dense'] = _compare(
+      'featurize_dense',
+      lambda n: fd.featurize_dense(*args(n), use_contract=True),
+      lambda n: fd.featurize_dense_plain(*args(n), use_contract=True),
+      K2_SAMPLES)
+  return results
+
+
+def _check_frames(tag, summary, shape):
+  """Every rendered buffer finite, rgb in range, files under JAX names."""
+  for idx, rendering in summary['renderings'].items():
+    for key, val in rendering.items():
+      if key.startswith('ray_'):
+        continue
+      if not np.isfinite(val).all():
+        raise SystemExit(f'FAIL {tag}: non-finite {key} in frame {idx}')
+    rgb = rendering['rgb']
+    if rgb.shape != shape + (3,):
+      raise SystemExit(f'FAIL {tag}: rgb shape {rgb.shape}')
+    if not (rgb.min() >= -0.001 and rgb.max() <= 1.001):
+      raise SystemExit(f'FAIL {tag}: rgb outside [-0.001, 1.001]')
+    for name in (f'color_{idx:03d}.png', f'acc_{idx:03d}.tiff',
+                 f'distance_mean_{idx:03d}.tiff',
+                 f'distance_median_{idx:03d}.tiff'):
+      if not os.path.exists(os.path.join(summary['out_dir'], name)):
+        raise SystemExit(f'FAIL {tag}: missing {name}')
+  num_rays = shape[0] * shape[1]
+  for idx, sec in zip(summary['frames'], summary['seconds']):
+    log(f'{tag} frame {idx}: {sec:.3f} s, {num_rays / sec:,.0f} rays/s')
+
+
+def phase_main_path():
+  from multinerf_tpu_torch import render
+  from multinerf_tpu_torch.ops.kernels import density_mlp as dm
+  from multinerf_tpu_torch.ops.kernels import featurize_dense as fd
+  with tempfile.TemporaryDirectory() as tmp:
+    base = [f'--gin_configs={os.path.join(REPO, "configs", "360.gin")}',
+            "--gin_bindings=Config.dataset_loader='dummy_unbounded'",
+            f"--gin_bindings=Config.checkpoint_dir='{tmp}/ckpt'",
+            f"--gin_bindings=Config.render_dir='{tmp}/render'",
+            '--gin_bindings=Config.render_job_id=0', '--device=cuda']
+    dm.reset_counts()
+    fd.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    # Test views 0, 16 and 32 at 64 x 64: one 4,096-ray chunk per frame.
+    views = render.main(base + ['--gin_bindings=Config.render_num_jobs=16'])
+    # One path frame at 256 x 256: 65,536 rays in 4 chunks of 16,384.
+    path = render.main(base + [
+        '--gin_bindings=Config.render_num_jobs=48',
+        '--gin_bindings=Config.render_path=True',
+        '--gin_bindings=Config.render_resolution=(256, 256)'])
+    torch.cuda.synchronize()
+    launches = {'density_mlp': dm.counts['launches'],
+                'featurize_dense': fd.counts['launches']}
+    plain = {'density_mlp': dm.counts['plain_calls'],
+             'featurize_dense': fd.counts['plain_calls']}
+    if views['frames'] != [0, 16, 32] or path['frames'] != [0]:
+      raise SystemExit(f'FAIL main path: frames {views["frames"]}, '
+                       f'{path["frames"]}')
+    _check_frames('render 64x64', views, (64, 64))
+    _check_frames('render 256x256', path, (256, 256))
+  log(f'main path launches {launches}, plain-version calls {plain}, '
+      f'max memory allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} '
+      'GiB')
+  if min(launches.values()) < 1 or max(plain.values()) != 0:
+    raise SystemExit('FAIL main path: a kernel was not launched, or a plain '
+                     'version ran.')
+  return launches
+
+
+def phase_reference():
+  """The whole render path on the GPU (kernels) against the same model on
+  the CPU (the kernels' plain versions), one 16 x 16 path frame at full
+  width.  Same seed, same weights: the initializer draws on the CPU.
+
+  Bounds: the two sides differ where an f32 value crosses a bf16 rounding
+  boundary (features, K1's activations), which the CPU parity tests bound
+  at 3e-3 for colors and 2e-3 for near / distance at test widths; at full
+  width the sums are longer, so 1e-2 and 5e-3 here.
+  """
+  import argparse
+  from multinerf_tpu_torch import configs
+  from multinerf_tpu_torch import render
+  from multinerf_tpu_torch import train_lib
+  from multinerf_tpu_torch.data import datasets
+  from multinerf_tpu_torch.models import nerf
+  args = argparse.Namespace(
+      gin_configs=[os.path.join(REPO, 'configs', '360.gin')],
+      gin_bindings=["Config.dataset_loader = 'dummy_unbounded'",
+                    'Config.render_path = True',
+                    'Config.render_resolution = (16, 16)'])
+  config = configs.load_config(args)
+  dataset = datasets.load_dataset('test', None, config)
+  frames = {}
+  for device in ('cuda', 'cpu'):
+    _, _, render_fn = train_lib.setup_model(config, render.SEED,
+                                            torch.device(device))
+    frames[device] = nerf.DeviceImageRenderer(
+        render_fn, config, dataset, torch.device(device))(1.0, 0)
+  got, want = frames['cuda'], frames['cpu']
+  gaps = {key: float(np.abs(got[key] - want[key]).max())
+          for key in ('rgb', 'acc')}
+  for key in ('distance_mean', 'distance_median'):
+    gaps[f'near/{key}'] = float(np.abs(config.near / got[key] -
+                                       config.near / want[key]).max())
+  log(f'reference (GPU kernels vs CPU plain versions, 16x16 frame): {gaps}')
+  bounds = {'rgb': 1e-2, 'acc': 1e-2, 'near/distance_mean': 5e-3,
+            'near/distance_median': 5e-3}
+  if not all(gaps[k] <= bounds[k] for k in bounds):
+    raise SystemExit(f'FAIL reference: gaps {gaps} over bounds {bounds}')
+
+
+def main():
+  t0 = time.perf_counter()
+  phase_device()
+  phase_build()
+  results = phase_kernels()
+  launches = phase_main_path()
+  phase_reference()
+  sources = {
+      'density_mlp': ('multinerf_tpu_torch/csrc/density_mlp.cu',
+                      'multinerf_tpu/ops/pallas/density_mlp.py:65'),
+      'featurize_dense': ('multinerf_tpu_torch/csrc/featurize_dense.cu',
+                          'multinerf_tpu/ops/pallas/featurize_dense.py:117'),
+  }
+  kernels = [dict(name=name, route='cuda', source=sources[name][0],
+                  replaces=sources[name][1], launches=launches[name],
+                  **results[name]) for name in sources]
+  log(f'total {time.perf_counter() - t0:.1f} s')
+  print(json.dumps({'kernels': kernels}))
+  print(json.dumps({'ok': True, 'device': {
+      'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+      'count': torch.cuda.device_count()}}))
+  return 0
+
+
+if __name__ == '__main__':
+  sys.exit(main())

@@ -1,0 +1,64 @@
+"""Parameter bridge between the JAX package's flax tree and the port.
+
+The port's modules register their parameters under the flax names and in
+the flax layout (``NerfMLP_0/Dense_0/kernel`` is [in, out]), so the bridge
+is a renaming: the flax path joined with '/' is the checkpoint name, and
+joined with '.' the PyTorch ``state_dict`` key.  No transposes.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+
+def flatten(tree: Dict[str, Any], prefix: str = '') -> Dict[str, Any]:
+  """Nested dicts of arrays -> {'A/B/kernel': array} (leaves unchanged)."""
+  flat = {}
+  for key, value in tree.items():
+    name = f'{prefix}{key}'
+    if isinstance(value, dict) or hasattr(value, 'items'):
+      flat.update(flatten(dict(value.items()), f'{name}/'))
+    else:
+      flat[name] = value
+  return flat
+
+
+def unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
+  """{'A/B/kernel': array} -> nested dicts."""
+  tree = {}
+  for name, value in flat.items():
+    node = tree
+    *parents, leaf = name.split('/')
+    for p in parents:
+      node = node.setdefault(p, {})
+    node[leaf] = value
+  return tree
+
+
+def named_params(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+  """The model's parameters under their flax names ('A/B/kernel')."""
+  return {k.replace('.', '/'): v for k, v in model.state_dict().items()}
+
+
+def load_flat(model: torch.nn.Module, flat: Dict[str, Any]):
+  """Copy {'A/B/kernel': array} into the model; names and shapes must
+  match its parameters exactly."""
+  state = {k.replace('/', '.'): (v if isinstance(v, torch.Tensor) else
+                                 torch.tensor(np.asarray(v)))
+           for k, v in flat.items()}
+  model.load_state_dict(state, strict=True)
+
+
+def load_jax_params(model: torch.nn.Module, params: Dict[str, Any]):
+  """Load a JAX parameter tree (nested dicts of arrays, e.g.
+  ``variables['params']``) into the port's model."""
+  load_flat(model, flatten(params))
+
+
+def jax_params(model: torch.nn.Module) -> Dict[str, Any]:
+  """The model's parameters as a JAX-style tree of numpy arrays."""
+  return unflatten({k: v.detach().cpu().numpy()
+                    for k, v in named_params(model).items()})

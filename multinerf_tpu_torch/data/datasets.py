@@ -1,0 +1,189 @@
+"""Datasets of the render path (port of parts of data/datasets.py).
+
+``Dataset`` holds what rendering reads from a test split: the cameras, the
+camera type, image size, near/far and the exposure records.  It is a plain
+object; the threaded training-batch producer comes with the training port.
+The synthetic scenes ``dummy_scatter`` and ``dummy_unbounded`` are made with
+the same numpy as the JAX loaders (datasets.py:842-959), so both packages
+see identical cameras and images.
+"""
+
+from __future__ import annotations
+
+import abc
+
+import numpy as np
+
+from multinerf_tpu_torch.data import cameras as camera_lib
+from multinerf_tpu_torch.data import types
+
+
+def load_dataset(split, train_dir, config):
+  """Load a split of a dataset using config.dataset_loader."""
+  loaders = {
+      'dummy_scatter': DummyScatter,
+      'dummy_unbounded': DummyUnbounded,
+  }
+  if config.dataset_loader not in loaders:
+    raise NotImplementedError(
+        f'Not ported yet: dataset_loader={config.dataset_loader!r} '
+        '(ROADMAP.md Queue 1: the rest of the model zoo, loaders).')
+  return loaders[config.dataset_loader](split, train_dir, config)
+
+
+class Dataset(metaclass=abc.ABCMeta):
+  """Cameras and render settings of one split (see datasets.py:93-300)."""
+
+  def __init__(self, split: str, data_dir: str, config):
+    self.split = types.DataSplit(split)
+    self.data_dir = data_dir
+    self.near = config.near
+    self.far = config.far
+    self.render_path = config.render_path
+    self.distortion_params = None
+    self.pixtocam_ndc = None
+    self.metadata = None
+    self.camtype = camera_lib.ProjectionType.PERSPECTIVE
+    self.exposures = None
+    self.render_exposures = None
+    self._render_spherical = False
+
+    # Set by _load_renderings:
+    self.images: np.ndarray = None
+    self.camtoworlds: np.ndarray = None
+    self.pixtocams: np.ndarray = None
+    self.height: int = None
+    self.width: int = None
+
+    self._load_renderings(config)
+
+    if self.render_path:
+      if config.render_path_file is not None:
+        with open(config.render_path_file, 'rb') as fp:
+          self.camtoworlds = np.load(fp)
+      if config.render_resolution is not None:
+        self.width, self.height = config.render_resolution
+      if config.render_focal is not None:
+        self.focal = config.render_focal
+      if config.render_camtype is not None:
+        if config.render_camtype == 'pano':
+          self._render_spherical = True
+        else:
+          self.camtype = camera_lib.ProjectionType(config.render_camtype)
+      self.distortion_params = None
+      self.pixtocams = camera_lib.get_pixtocam(self.focal, self.width,
+                                               self.height)
+
+    self._n_examples = self.camtoworlds.shape[0]
+    self.cameras = (self.pixtocams, self.camtoworlds,
+                    self.distortion_params, self.pixtocam_ndc)
+
+  @property
+  def size(self):
+    return self._n_examples
+
+  @abc.abstractmethod
+  def _load_renderings(self, config):
+    """Load images/poses; must set the attributes listed in __init__."""
+
+  def exposure_records(self, cam_idx):
+    """Exposure ray fields for camera(s) `cam_idx` (datasets.py:202-223)."""
+    out = {}
+    if self.metadata is not None:
+      idx = 0 if self.render_path else cam_idx
+      for key in ['exposure_idx', 'exposure_values']:
+        out[key] = np.asarray(self.metadata[key])[idx]
+    if self.exposures is not None:
+      idx = 0 if self.render_path else cam_idx
+      out['exposure_values'] = np.asarray(self.exposures)[idx]
+    if self.render_path and self.render_exposures is not None:
+      out['exposure_values'] = np.asarray(self.render_exposures)[cam_idx]
+    return out
+
+
+class DummyScatter(Dataset):
+  """Small spheres scattered in mostly empty space, analytic ground truth."""
+
+  NUM_IMAGES = 24
+  RESOLUTION = 48
+  RADIUS = 0.4
+  CENTERS = np.array([
+      [1.0, 0.2, 0.1], [-0.8, 0.7, -0.3], [0.1, -1.1, 0.35],
+      [-0.35, -0.45, -0.5], [0.55, 0.95, -0.2],
+  ], dtype=np.float32)
+
+  def _load_renderings(self, config):
+    n = self.NUM_IMAGES
+    res = self.RESOLUTION
+    test = self.split == types.DataSplit.TEST
+
+    poses = []
+    for i in range(n):
+      theta = 2 * np.pi * (i + (0.5 if test else 0.0)) / n
+      # Train views alternate between two heights; the test ring sits
+      # between them at an offset azimuth.
+      height = 1.0 if test else (0.6 if i % 2 == 0 else 1.4)
+      position = np.array(
+          [3.5 * np.cos(theta), 3.5 * np.sin(theta), height])
+      poses.append(camera_lib.viewmatrix(
+          lookdir=position, up=np.array([0.0, 0.0, 1.0]), position=position))
+    self.camtoworlds = np.stack(poses).astype(np.float32)
+    self.height = self.width = res
+    self.focal = res * 1.2
+    self.pixtocams = camera_lib.get_pixtocam(self.focal, self.width,
+                                             self.height)
+
+    images = []
+    for i in range(n):
+      pix_x, pix_y = camera_lib.pixel_coordinates(res, res)
+      origins, _, viewdirs, _, _ = camera_lib.pixels_to_rays(
+          pix_x, pix_y, self.pixtocams, self.camtoworlds[i], xnp=np)
+      # Nearest positive ray-sphere hit across all spheres.
+      t_best = np.full(origins.shape[:-1], np.inf, np.float32)
+      nearest = np.zeros(origins.shape[:-1], np.int32)
+      for k, center in enumerate(self.CENTERS):
+        oc = origins - center
+        b = 2 * np.sum(oc * viewdirs, -1)
+        c = np.sum(oc ** 2, -1) - self.RADIUS ** 2
+        disc = b ** 2 - 4 * c
+        t = np.where(disc > 0, (-b - np.sqrt(np.maximum(disc, 0))) / 2,
+                     np.inf)
+        t = np.where(t > 0, t, np.inf)
+        nearest = np.where(t < t_best, k, nearest)
+        t_best = np.minimum(t_best, t)
+      hit = np.isfinite(t_best)
+      t_safe = np.where(hit, t_best, 0.0)
+      p = origins + t_safe[..., None] * viewdirs
+      phase = (2 * np.pi / len(self.CENTERS)) * nearest
+      texture = 0.5 + 0.5 * np.sin(4.0 * p + phase[..., None])
+      images.append(
+          np.where(hit[..., None], texture,
+                   self._miss_color(origins, viewdirs)).astype(np.float32))
+    self.images = np.stack(images)
+
+  def _miss_color(self, origins, viewdirs):
+    """Color for rays that miss every sphere (white)."""
+    del origins, viewdirs
+    return np.float32(1.0)
+
+
+class DummyUnbounded(DummyScatter):
+  """DummyScatter plus a textured radius-60 shell: an unbounded scene."""
+
+  NUM_IMAGES = 48
+  RESOLUTION = 64
+  SHELL_RADIUS = 60.0
+  CENTERS = np.array([
+      [1.0, 0.2, 0.1], [-0.8, 0.7, -0.3], [0.1, -1.1, 0.35],
+      [-0.35, -0.45, -0.5], [0.55, 0.95, -0.2], [1.3, -0.6, -0.15],
+      [-1.2, -0.9, 0.2], [0.0, 1.3, 0.45], [-0.2, 0.1, 0.75],
+  ], dtype=np.float32)
+
+  def _miss_color(self, origins, viewdirs):
+    # Cameras sit inside the shell, so its far root always exists.
+    b = 2 * np.sum(origins * viewdirs, -1)
+    c = np.sum(origins ** 2, -1) - self.SHELL_RADIUS ** 2
+    t = (-b + np.sqrt(np.maximum(b ** 2 - 4 * c, 0.0))) / 2
+    q = (origins + t[..., None] * viewdirs) / self.SHELL_RADIUS
+    phases = np.array([0.0, 2.1, 4.2], np.float32)
+    return (0.5 + 0.5 * np.sin(6.0 * q + phases)).astype(np.float32)

@@ -1,0 +1,332 @@
+"""The multi-level model and whole-image rendering (port of models/nerf.py).
+
+``Model.forward`` is nerf.py:71-329 at ``rng=None``: per level, dilate ->
+anneal -> resample -> s_to_t -> cast Gaussians -> MLP -> alpha weights ->
+background -> composite, plus the ``ray_*`` visualization extras.  Training
+options (jitter, noise, occupancy culling, GLO, learned exposure scaling)
+are not ported yet and raise.  Nothing here needs a gradient, so the
+per-level stop-gradient of the JAX model has no counterpart.
+
+``DeviceImageRenderer`` (nerf.py:545-660) uploads the cameras once and casts
+every chunk's rays on the device; one frame is a Python loop over chunks of
+``Config.render_chunk_size`` rays and one transfer of the assembled frame.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from multinerf_tpu_torch import ginlite
+from multinerf_tpu_torch.data import cameras as camera_lib
+from multinerf_tpu_torch.data import types
+from multinerf_tpu_torch.models import mlp as mlp_lib
+from multinerf_tpu_torch.ops import coord
+from multinerf_tpu_torch.ops import rendering
+from multinerf_tpu_torch.ops import stepfun
+
+
+def _schlick_ease(t, slope):
+  """Schlick's bias curve: 0 -> 0, 1 -> 1, `slope` sets the ramp."""
+  return (slope * t) / ((slope - 1) * t + 1)
+
+
+@ginlite.configurable(name='Model')
+@dataclasses.dataclass
+class ModelConfig:
+  """The fields of multinerf_tpu.models.nerf.Model, same defaults."""
+  config: Any = None
+  num_prop_samples: int = 64
+  num_nerf_samples: int = 32
+  num_levels: int = 3
+  bg_intensity_range: Tuple[float, ...] = (1.0, 1.0)
+  anneal_slope: float = 10.0
+  stop_level_grad: bool = True
+  use_viewdirs: bool = True
+  raydist_fn: Callable[..., Any] = None
+  ray_shape: str = 'cone'
+  disable_integration: bool = False
+  single_jitter: bool = True
+  dilation_multiplier: float = 0.5
+  dilation_bias: float = 0.0025
+  num_glo_features: int = 0
+  num_glo_embeddings: int = 1000
+  learned_exposure_scaling: bool = False
+  near_anneal_rate: Optional[float] = None
+  near_anneal_init: float = 0.95
+  single_mlp: bool = False
+  resample_padding: float = 0.0
+  use_gpu_resampling: bool = False
+  opaque_background: bool = False
+
+
+class Model(nn.Module):
+  """A mip-NeRF 360 model containing all MLPs (NerfMLP_0, PropMLP_0)."""
+
+  def __init__(self, cfg: ModelConfig, *, generator, device):
+    super().__init__()
+    later = 'ROADMAP.md Queue 1: the rest of the model zoo'
+    if cfg.num_glo_features > 0:
+      raise NotImplementedError(f'Not ported yet: GLO embeddings ({later}).')
+    if cfg.learned_exposure_scaling:
+      raise NotImplementedError(
+          f'Not ported yet: learned exposure scaling ({later}, RawNeRF).')
+    if cfg.config is not None and cfg.config.occupancy_culling:
+      raise NotImplementedError(
+          'Not ported yet: occupancy culling (ROADMAP.md Queue 1).')
+    self.cfg = cfg
+    # Built in the JAX creation order: NerfMLP first.
+    self.NerfMLP_0 = mlp_lib.MLP(ginlite.make('NerfMLP'), cfg.use_viewdirs,
+                                 generator=generator, device=device)
+    if not cfg.single_mlp:
+      self.PropMLP_0 = mlp_lib.MLP(ginlite.make('PropMLP'), cfg.use_viewdirs,
+                                   generator=generator, device=device)
+
+  def forward(self, rays: types.Rays, train_frac, compute_extras):
+    """Render a batch of rays through all sampling levels (rng=None).
+
+    Returns:
+      (renderings, ray_history): per-level rendering dicts and raw results.
+    """
+    cfg = self.cfg
+    nerf_mlp = self.NerfMLP_0
+    prop_mlp = nerf_mlp if cfg.single_mlp else self.PropMLP_0
+    _, s_to_t = coord.construct_ray_warps(cfg.raydist_fn, rays.near,
+                                          rays.far)
+    if cfg.near_anneal_rate is None:
+      init_s_near = 0.0
+    else:
+      init_s_near = float(np.clip(1 - train_frac / cfg.near_anneal_rate, 0,
+                                  cfg.near_anneal_init))
+    init_s_far = 1.0
+    # The running histogram over normalized ray distance: one interval
+    # holding all the mass, resampled finer at every level.
+    s_edges = torch.cat([torch.full_like(rays.near, init_s_near),
+                         torch.full_like(rays.far, init_s_far)], dim=-1)
+    hist_weights = torch.ones_like(rays.near)
+    resolution_so_far = 1
+
+    ray_history = []
+    renderings = []
+    for level in range(cfg.num_levels):
+      final_level = level == cfg.num_levels - 1
+      level_samples = (cfg.num_nerf_samples if final_level
+                       else cfg.num_prop_samples)
+
+      if level > 0 and (cfg.dilation_bias > 0 or
+                        cfg.dilation_multiplier > 0):
+        pad = (cfg.dilation_bias + cfg.dilation_multiplier *
+               (init_s_far - init_s_near) / resolution_so_far)
+        s_edges, hist_weights = stepfun.max_dilate_weights(
+            s_edges, hist_weights, pad, domain=(init_s_near, init_s_far),
+            renormalize=True)
+        s_edges = s_edges[..., 1:-1]
+        hist_weights = hist_weights[..., 1:-1]
+      resolution_so_far *= level_samples
+
+      ease = (_schlick_ease(train_frac, cfg.anneal_slope)
+              if cfg.anneal_slope > 0 else 1.0)
+      # Zero-width intervals are pinned to -inf so resampling skips them.
+      log_resample_weights = torch.where(
+          s_edges[..., 1:] > s_edges[..., :-1],
+          ease * torch.log(hist_weights + cfg.resample_padding), -torch.inf)
+      s_edges = stepfun.sample_intervals(
+          None, s_edges, log_resample_weights, level_samples,
+          single_jitter=cfg.single_jitter, domain=(init_s_near, init_s_far),
+          use_gpu_resampling=cfg.use_gpu_resampling)
+
+      t_edges = s_to_t(s_edges)
+      means, covs = rendering.cast_rays(t_edges, rays.origins,
+                                        rays.directions, rays.radii,
+                                        cfg.ray_shape)
+      if cfg.disable_integration:
+        covs = torch.zeros_like(covs)  # Zero covariance: IPE becomes PE.
+      mlp = nerf_mlp if final_level else prop_mlp
+      ray_results = mlp(means, covs,
+                        viewdirs=rays.viewdirs if cfg.use_viewdirs else None)
+
+      hist_weights = rendering.compute_alpha_weights(
+          ray_results['density'], t_edges, rays.directions,
+          opaque_background=cfg.opaque_background)[0]
+
+      lo, hi = cfg.bg_intensity_range[0], cfg.bg_intensity_range[1]
+      bg_rgbs = lo if lo == hi else (lo + hi) / 2  # Deterministic midpoint.
+
+      if rays.exposure_idx is not None:
+        ray_results['rgb'] = (ray_results['rgb'] *
+                              rays.exposure_values[..., None, :])
+
+      rendering_out = rendering.volumetric_rendering(
+          ray_results['rgb'], hist_weights, t_edges, bg_rgbs, rays.far,
+          compute_extras)
+
+      if compute_extras:
+        n = cfg.config.vis_num_rays if cfg.config is not None else 16
+        rendering_out['ray_sdist'] = s_edges.reshape(
+            [-1, s_edges.shape[-1]])[:n, :]
+        rendering_out['ray_weights'] = hist_weights.reshape(
+            [-1, hist_weights.shape[-1]])[:n, :]
+        rgb = ray_results['rgb']
+        rendering_out['ray_rgbs'] = rgb.reshape(
+            (-1,) + rgb.shape[-2:])[:n, :, :]
+
+      renderings.append(rendering_out)
+      ray_results['sdist'] = s_edges.clone()
+      ray_results['weights'] = hist_weights.clone()
+      ray_history.append(ray_results)
+
+    if compute_extras:
+      # Proposal colors are meaningless; show the final level's average.
+      final_rgb = torch.sum(renderings[-1]['ray_rgbs'] *
+                            renderings[-1]['ray_weights'][..., None], dim=-2)
+      for r in renderings[:-1]:
+        r['ray_rgbs'] = torch.broadcast_to(final_rgb[:, None, :],
+                                           r['ray_rgbs'].shape)
+
+    return renderings, ray_history
+
+
+def construct_model(config, generator, device):
+  """Build the Model from the gin bindings, initialized from `generator`."""
+  return Model(ginlite.make('Model', config=config), generator=generator,
+               device=device)
+
+
+def _keep_chunk_outputs(renderings, config):
+  """Final-level image buffers + every level's capped ray vis bundles."""
+  out = dict(renderings[-1])
+  for k in renderings[0]:
+    if k.startswith('ray_'):
+      out[k] = [r[k][:config.vis_num_rays] for r in renderings]
+  return out
+
+
+def _subsample_ray_bundles(rendering, config):
+  """Cut the concatenated per-chunk bundles to one bundle of vis_num_rays.
+
+  A fixed permutation (seed 0), as in the JAX package; its bits differ
+  from JAX's, which only changes which rays are shown.
+  """
+  keys = [k for k in rendering if k.startswith('ray_')]
+  if keys:
+    num_bundle_rays = rendering[keys[0]][0].shape[0]
+    perm = torch.randperm(num_bundle_rays,
+                          generator=torch.Generator().manual_seed(0))
+    ray_idx = perm[:config.vis_num_rays]
+    for k in keys:
+      rendering[k] = [r[ray_idx.to(r.device)] for r in rendering[k]]
+  return rendering
+
+
+def _plan_chunks(config, num_rays):
+  """(chunk, num_chunks, padding) of a whole-image render on one device
+  (nerf.py:369 with a device count of 1)."""
+  chunk = min(config.render_chunk_size, num_rays)
+  num_chunks = -(-num_rays // chunk)
+  return chunk, num_chunks, num_chunks * chunk - num_rays
+
+
+def _assemble_image(outs, config, height, width, chunk, num_chunks,
+                    padding):
+  """Chunk outputs {k: [num_chunks, chunk, ...]} -> one [H, W] dict."""
+  num_rays = height * width
+  last_real = min(config.vis_num_rays, chunk - padding)
+
+  def cat_bundles(r):
+    head = r[:-1].reshape((-1,) + r.shape[2:])
+    return torch.cat([head, r[-1][:last_real]], dim=0)
+
+  out = {}
+  for k, z in outs.items():
+    if k.startswith('ray_'):
+      out[k] = [cat_bundles(r) for r in z]
+    else:
+      flat = z.reshape((num_chunks * chunk,) + z.shape[2:])[:num_rays]
+      out[k] = flat.reshape((height, width) + flat.shape[1:])
+  return _subsample_ray_bundles(out, config)
+
+
+class DeviceImageRenderer:
+  """Whole-image renderer that casts rays on the device from cameras
+  uploaded once; per frame only the camera index goes to the device and
+  the assembled rendering comes back."""
+
+  def __init__(self, render_fn, config, dataset, device):
+    """Args:
+      render_fn: (train_frac, rays) -> (renderings, history), e.g. from
+        train_lib.create_render_fn.
+      config: Config (render_chunk_size, vis_num_rays).
+      dataset: a Dataset (cameras, camtype, size, near/far, exposures).
+      device: where the rays are cast and rendered.
+    """
+    if dataset._render_spherical:  # pylint: disable=protected-access
+      raise NotImplementedError(
+          'Not ported yet: pano rendering (ROADMAP.md Queue 1: serving '
+          'slice, deferred items).')
+    self._render_fn = render_fn
+    self._config = config
+    self._device = device
+    self._camtype = dataset.camtype
+    self._height, self._width = dataset.height, dataset.width
+    self._near, self._far = float(dataset.near), float(dataset.far)
+    pixtocams, camtoworlds, distortion_params, pixtocam_ndc = dataset.cameras
+    as_f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32),
+                                       device=device)
+    self._cameras = (as_f32(pixtocams), as_f32(camtoworlds),
+                     distortion_params,
+                     None if pixtocam_ndc is None else as_f32(pixtocam_ndc))
+    n_cams = np.asarray(camtoworlds).shape[0]
+    records = dataset.exposure_records(np.arange(n_cams))
+    self._exposure_idx = self._exposure_values = None
+    if 'exposure_idx' in records:
+      self._exposure_idx = torch.as_tensor(np.broadcast_to(
+          np.asarray(records['exposure_idx'], np.int64), (n_cams,)),
+                                           device=device)
+    if 'exposure_values' in records:
+      self._exposure_values = as_f32(np.broadcast_to(
+          np.asarray(records['exposure_values'], np.float32), (n_cams,)))
+
+  def _cast_chunk(self, chunk_start, chunk, cam_idx):
+    """Rays for [chunk_start, chunk_start + chunk), clamped at the image
+    end (the clamped duplicates are dropped at assembly)."""
+    num_rays = self._height * self._width
+    flat = torch.clamp(
+        chunk_start + torch.arange(chunk, device=self._device),
+        max=num_rays - 1)
+    ones = torch.ones((chunk, 1), dtype=torch.float32, device=self._device)
+    kw = dict(lossmult=ones, near=self._near * ones, far=self._far * ones,
+              cam_idx=torch.full((chunk, 1), cam_idx, dtype=torch.int64,
+                                 device=self._device))
+    if self._exposure_idx is not None:
+      kw['exposure_idx'] = self._exposure_idx[cam_idx].expand(chunk, 1)
+    if self._exposure_values is not None:
+      kw['exposure_values'] = self._exposure_values[cam_idx] * ones
+    pixels = types.Pixels(flat % self._width, flat // self._width, **kw)
+    return camera_lib.cast_ray_batch(self._cameras, pixels, self._camtype,
+                                     xnp=torch)
+
+  def __call__(self, train_frac, cam_idx):
+    """Render the dataset's camera `cam_idx`: a dict of [H, W, ...] numpy
+    buffers plus the 'ray_' bundles (lists of one array per level)."""
+    height, width = self._height, self._width
+    chunk, num_chunks, padding = _plan_chunks(self._config, height * width)
+    outs = []
+    for i in range(num_chunks):
+      rays = self._cast_chunk(i * chunk, chunk, int(cam_idx))
+      renderings, _ = self._render_fn(train_frac, rays)
+      outs.append(_keep_chunk_outputs(renderings, self._config))
+    stacked = {}
+    for k, v in outs[0].items():
+      if k.startswith('ray_'):
+        stacked[k] = [torch.stack([o[k][lvl] for o in outs])
+                      for lvl in range(len(v))]
+      else:
+        stacked[k] = torch.stack([o[k] for o in outs])
+    rendering = _assemble_image(stacked, self._config, height, width, chunk,
+                                num_chunks, padding)
+    return {k: ([r.cpu().numpy() for r in v] if isinstance(v, list)
+                else v.cpu().numpy()) for k, v in rendering.items()}

@@ -1,0 +1,118 @@
+"""Step-function algebra for hierarchical sampling (render subset).
+
+Torch port of the parts of ``multinerf_tpu.ops.stepfun`` that rendering
+runs: max-dilation of the proposal histogram, the inverse-CDF sampler at
+``rng=None``, interval sampling and weighted percentiles.  Conventions as
+there: ``t`` are sorted endpoints [..., n+1], ``w`` bin weights [..., n].
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from multinerf_tpu_torch.ops import mathx
+
+_F32_EPS = float(np.finfo(np.float32).eps)
+
+
+def weight_to_pdf(t, w, eps=_F32_EPS**2):
+  """Weights (sum<=1) -> densities (integral<=1) over bins of t."""
+  return w / torch.clamp(t[..., 1:] - t[..., :-1], min=eps)
+
+
+def pdf_to_weight(t, p):
+  """Densities -> weights over bins of t."""
+  return p * (t[..., 1:] - t[..., :-1])
+
+
+def max_dilate(t, w, dilation, domain=(-math.inf, math.inf)):
+  """Max-pool dilate a non-negative step function by +-dilation."""
+  t0 = t[..., :-1] - dilation
+  t1 = t[..., 1:] + dilation
+  t_d = torch.sort(torch.cat([t, t0, t1], dim=-1), dim=-1).values
+  t_d = torch.clamp(t_d, *domain)
+  # New bin value = max over all dilated source bins covering its left edge.
+  covers = ((t0[..., None, :] <= t_d[..., None]) &
+            (t1[..., None, :] > t_d[..., None]))
+  w_d = torch.where(covers, w[..., None, :], 0).amax(dim=-1)[..., :-1]
+  return t_d, w_d
+
+
+def max_dilate_weights(t, w, dilation, domain=(-math.inf, math.inf),
+                       renormalize=False, eps=_F32_EPS**2):
+  """Dilate weights in *density* space so wide bins don't dominate."""
+  p = weight_to_pdf(t, w)
+  t_d, p_d = max_dilate(t, p, dilation, domain=domain)
+  w_d = pdf_to_weight(t_d, p_d)
+  if renormalize:
+    w_d = w_d / torch.clamp(torch.sum(w_d, dim=-1, keepdim=True), min=eps)
+  return t_d, w_d
+
+
+def integrate_weights(w):
+  """CDF fenceposts of w: starts at exactly 0, ends at exactly 1."""
+  cw = torch.clamp(torch.cumsum(w[..., :-1], dim=-1), max=1)
+  pad = torch.zeros(cw.shape[:-1] + (1,), dtype=cw.dtype, device=cw.device)
+  return torch.cat([pad, cw, torch.ones_like(pad)], dim=-1)
+
+
+def invert_cdf(u, t, w_logits, use_gpu_resampling=False):
+  """Inverse-CDF lookup of the step fn (t, softmax(w_logits)) at u."""
+  w = torch.softmax(w_logits, dim=-1)
+  cw = integrate_weights(w)
+  interp = mathx.interp_gather if use_gpu_resampling else mathx.interp_sorted
+  return interp(u, cw, t)
+
+
+def sample(rng, t, w_logits, num_samples, single_jitter=False,
+           deterministic_center=False, use_gpu_resampling=False):
+  """Stratified inverse-CDF sampling; only ``rng=None`` (rendering) here."""
+  del single_jitter  # Only shapes the jitter, which rng=None never draws.
+  if rng is not None:
+    raise NotImplementedError(
+        'Not ported yet: jittered sampling (ROADMAP.md Queue 1: training '
+        'step).')
+  eps = _F32_EPS
+  strata = torch.arange(num_samples, dtype=t.dtype, device=t.device)
+  if deterministic_center:
+    pad = 1 / (2 * num_samples)
+    u = pad + strata * ((1 - 2 * pad - eps) / (num_samples - 1))
+  else:
+    u = strata * ((1 - eps) / (num_samples - 1))
+  u = torch.broadcast_to(u, t.shape[:-1] + (num_samples,))
+  return invert_cdf(u, t, w_logits, use_gpu_resampling=use_gpu_resampling)
+
+
+def sample_intervals(rng, t, w_logits, num_samples, single_jitter=False,
+                     domain=(-math.inf, math.inf), use_gpu_resampling=False):
+  """Sample `num_samples` intervals: [..., num_samples + 1] sorted fences.
+
+  Midpoints of stratum-centered samples, with a linearly extrapolated
+  ghost sample past each end; the end fences are clamped to `domain`.
+  """
+  if num_samples <= 1:
+    raise ValueError(f'num_samples must be > 1, got {num_samples}.')
+  centers = sample(rng, t, w_logits, num_samples, single_jitter,
+                   deterministic_center=True,
+                   use_gpu_resampling=use_gpu_resampling)
+  ghost_lo = 2 * centers[..., :1] - centers[..., 1:2]
+  ghost_hi = 2 * centers[..., -1:] - centers[..., -2:-1]
+  padded = torch.cat([ghost_lo, centers, ghost_hi], dim=-1)
+  fences = 0.5 * (padded[..., :-1] + padded[..., 1:])
+  minval, maxval = domain
+  return torch.cat([
+      torch.clamp(fences[..., :1], min=minval), fences[..., 1:-1],
+      torch.clamp(fences[..., -1:], max=maxval)
+  ], dim=-1)
+
+
+def weighted_percentile(t, w, ps):
+  """Percentiles of the step fn (t, w); w must sum to 1 along the last axis."""
+  cw = integrate_weights(w)
+  q = torch.broadcast_to(
+      torch.tensor(ps, dtype=t.dtype, device=t.device) / 100,
+      t.shape[:-1] + (len(ps),))
+  return mathx.interp_sorted(q, cw, t)

@@ -1,0 +1,167 @@
+"""Render entry point of the port: render test views or a camera path.
+
+    python -m multinerf_tpu_torch.render --gin_configs=configs/360.gin \
+        --gin_bindings="Config.checkpoint_dir='...'" [--device=cuda]
+
+A port of render.py:50-252 with the same flags, frame striping over jobs
+(``Config.render_job_id`` / ``render_num_jobs``), resume by skipping
+finished frames, latest-checkpoint restore and output file names.  Frames
+are rendered by the device-casting renderer; video assembly is not ported
+yet (it needs an h264 encoder).  ``--device`` defaults to ``cuda`` and the
+run fails when CUDA is not available: there is no silent CPU fallback.
+"""
+
+from __future__ import annotations
+
+import argparse
+import concurrent.futures
+import glob
+import os
+import sys
+import time
+
+import torch
+
+from multinerf_tpu_torch import bridge
+from multinerf_tpu_torch import configs
+from multinerf_tpu_torch import train_lib
+from multinerf_tpu_torch.data import datasets
+from multinerf_tpu_torch.models import nerf as models
+from multinerf_tpu_torch.ops import image_ops
+from multinerf_tpu_torch.utils import checkpoints as ckpt_lib
+from multinerf_tpu_torch.utils import io as io_lib
+
+# The JAX render script's key (render.py:218): the same seed initializes the
+# weights when no checkpoint exists.
+SEED = 20200823
+
+# Channels written per frame: tag -> file extension.
+FRAME_EXTS = {
+    'color': 'png',
+    'acc': 'tiff',
+    'distance_mean': 'tiff',
+    'distance_median': 'tiff',
+}
+
+
+class FrameStore:
+  """On-disk frames of one render job: naming, async writes, existence."""
+
+  def __init__(self, out_dir, num_frames, use_async=True):
+    self.out_dir = out_dir
+    self._digits = max(3, len(str(num_frames - 1)))
+    self._pool = (concurrent.futures.ThreadPoolExecutor(max_workers=4)
+                  if use_async else None)
+    self._writes = []
+    os.makedirs(out_dir, exist_ok=True)
+
+  def frame_name(self, tag, idx):
+    return os.path.join(self.out_dir,
+                        f'{tag}_{idx:0{self._digits}d}.{FRAME_EXTS[tag]}')
+
+  def has_frame(self, idx):
+    return os.path.exists(self.frame_name('color', idx))
+
+  def count_frames(self, tag='acc'):
+    return len(glob.glob(os.path.join(self.out_dir,
+                                      f'{tag}_*.{FRAME_EXTS[tag]}')))
+
+  def _write(self, fn, *args):
+    if self._pool is not None:
+      self._writes.append(self._pool.submit(fn, *args))
+    else:
+      fn(*args)
+
+  def put(self, rendering, idx):
+    """Queue one frame's channel images for writing."""
+    self._write(io_lib.save_img_u8, rendering['rgb'],
+                self.frame_name('color', idx))
+    for tag in ('distance_mean', 'distance_median', 'acc'):
+      self._write(io_lib.save_img_f32, rendering[tag],
+                  self.frame_name(tag, idx))
+
+  def flush(self):
+    """Finish pending writes; re-raise any worker exception."""
+    if self._pool is not None:
+      self._pool.shutdown(wait=True)
+      for w in self._writes:
+        w.result()
+
+
+def plan_frames(config, store, num_frames):
+  """This job's frame indices: stripe across jobs, skip finished work.
+
+  A frame is skipped only when its successor in the stripe also exists:
+  the last written frame may be partial, so it is always re-rendered.
+  """
+  stride = config.render_num_jobs
+  for idx in range(config.render_job_id, num_frames, stride):
+    if store.has_frame(idx) and store.has_frame(idx + stride):
+      print(f'Image {idx}/{num_frames} already exists, skipping')
+      continue
+    yield idx
+
+
+def render_job(config, dataset, renderer, store, postprocess_fn):
+  """Render this job's frames.  Returns {'frames', 'seconds',
+  'renderings'}: frame indices, seconds per frame (render + fetch) and the
+  host renderings."""
+  out = {'frames': [], 'seconds': [], 'renderings': {}}
+  for idx in plan_frames(config, store, dataset.size):
+    print(f'Evaluating image {idx + 1}/{dataset.size}')
+    t0 = time.perf_counter()
+    rendering = renderer(1.0, idx)
+    seconds = time.perf_counter() - t0
+    print(f'Rendered in {seconds:0.3f}s')
+    rendering['rgb'] = postprocess_fn(rendering['rgb'])
+    store.put(rendering, idx)
+    out['frames'].append(idx)
+    out['seconds'].append(seconds)
+    out['renderings'][idx] = rendering
+  store.flush()
+  return out
+
+
+def main(argv=None):
+  """Run one render job; returns render_job's summary plus 'out_dir'."""
+  parser = argparse.ArgumentParser(description='Render frames of a model.')
+  configs.add_common_flags(parser)
+  parser.add_argument('--device', default='cuda',
+                      help="torch device: 'cuda' (default) or 'cpu'.")
+  args = parser.parse_args(argv)
+  device = torch.device(args.device)
+  if device.type == 'cuda' and not torch.cuda.is_available():
+    raise RuntimeError('--device=cuda but CUDA is not available.')
+  # 360.gin's hidden layers are float32: keep their products in full f32.
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+
+  config = configs.load_config(args)
+  dataset = datasets.load_dataset('test', config.data_dir, config)
+  model, state, render_eval_fn = train_lib.setup_model(config, SEED, device)
+  renderer = models.DeviceImageRenderer(render_eval_fn, config, dataset,
+                                        device)
+  postprocess_fn, _ = image_ops.make_postprocess_fns(config, dataset)
+
+  ckpt = ckpt_lib.CheckpointManager(config.checkpoint_dir, keep=100)
+  state = ckpt.restore_latest(state)
+  bridge.load_flat(model, state.params)
+  print(f'Rendering checkpoint at step {state.step}.')
+
+  out_name = 'path_renders' if config.render_path else 'test_preds'
+  out_name = f'{out_name}_step_{state.step}'
+  base_dir = config.render_dir
+  if base_dir is None:
+    base_dir = os.path.join(config.checkpoint_dir, 'render')
+  store = FrameStore(os.path.join(base_dir, out_name), dataset.size,
+                     use_async=config.render_save_async)
+  summary = render_job(config, dataset, renderer, store, postprocess_fn)
+  if store.count_frames() == dataset.size:
+    print('All frames found; video assembly is not ported yet '
+          '(ROADMAP.md Queue 1: serving slice, deferred items).')
+  summary['out_dir'] = store.out_dir
+  return summary
+
+
+if __name__ == '__main__':
+  main(sys.argv[1:])

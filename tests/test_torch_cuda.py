@@ -1,0 +1,152 @@
+"""The port's CUDA kernels and render path on a GPU, against the kernels'
+plain PyTorch versions.  Every test carries the ``cuda`` marker and skips
+without a GPU.
+
+This file imports neither jax nor the JAX package, so it runs on a machine
+that has only PyTorch; there, skip the JAX conftest:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
+
+Tolerances: the kernels and their plain versions round features, weights
+and activations to bf16 at the same places and differ only in summation
+order and in the last bits of sin/exp, so the bound is the bf16-level one
+of tests/test_pallas_*.py, max |diff| <= 2e-2 * max(1, max |plain|).
+"""
+
+import argparse
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), 'helpers'))
+import torch_parity as tp  # noqa: E402
+
+from multinerf_tpu_torch import configs  # noqa: E402
+from multinerf_tpu_torch import train_lib  # noqa: E402
+from multinerf_tpu_torch.data import types  # noqa: E402
+from multinerf_tpu_torch.models import nerf  # noqa: E402
+from multinerf_tpu_torch.ops import geopoly  # noqa: E402
+from multinerf_tpu_torch.ops.kernels import density_mlp as dm  # noqa: E402
+from multinerf_tpu_torch.ops.kernels import featurize_dense as fd  # noqa: E402
+
+BASIS = np.array(geopoly.generate_basis('icosahedron', 2)).T  # [3, 21]
+NUM_FEATS = 504
+KERNEL_TOL = 2e-2
+# Full-width shapes of one 4,096-ray chunk, cut by 37 to leave a ragged tile.
+K1_N = 4096 * 64 - 37
+K2_N = 4096 * 32 - 37
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+  if not torch.cuda.is_available():
+    pytest.skip('needs a CUDA GPU.')
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  return torch.device('cuda')
+
+
+def _gaussians(n, seed, device, far_frac=0.1):
+  means, covs = tp.gaussians(n, seed=seed, far_frac=far_frac)
+  return (torch.as_tensor(means, device=device),
+          torch.as_tensor(covs, device=device))
+
+
+def _uniform(rng, shape, fan_in, device):
+  lim = np.sqrt(6.0 / fan_in)
+  return torch.as_tensor(rng.uniform(-lim, lim, shape).astype(np.float32),
+                         device=device)
+
+
+def _check(got, want, what):
+  torch.cuda.synchronize()
+  assert got.shape == want.shape, what
+  assert bool(torch.isfinite(got).all()), what
+  err = float((got - want).abs().max())
+  bound = KERNEL_TOL * max(1.0, float(want.abs().max()))
+  assert err <= bound, f'{what}: max |kernel - plain| {err:.3e} > {bound:.3e}'
+
+
+@pytest.mark.parametrize('use_contract', [True, False])
+def test_featurize_dense_kernel_matches_plain(cuda, use_contract):
+  rng = np.random.RandomState(0)
+  means, covs = _gaussians(K2_N, 1, cuda, 0.1 if use_contract else 0.0)
+  kernel = _uniform(rng, (NUM_FEATS, 1024), NUM_FEATS, cuda)
+  bias = torch.as_tensor(rng.randn(1024).astype(np.float32) * 0.1,
+                         device=cuda)
+  args = (means, covs, kernel, bias, BASIS)
+  fd.reset_counts()
+  got = fd.featurize_dense(*args, use_contract=use_contract)
+  assert fd.counts == {'launches': 1, 'plain_calls': 0}
+  want = fd.featurize_dense_plain(*args, use_contract=use_contract)
+  _check(got, want, f'featurize_dense contract={use_contract}')
+
+
+@pytest.mark.parametrize('use_contract', [True, False])
+def test_density_mlp_kernel_matches_plain(cuda, use_contract):
+  rng = np.random.RandomState(0)
+  means, covs = _gaussians(K1_N, 2, cuda, 0.1 if use_contract else 0.0)
+  ws = [_uniform(rng, (NUM_FEATS, 256), NUM_FEATS, cuda)] + [
+      _uniform(rng, (256, 256), 256, cuda) for _ in range(3)]
+  bs = [torch.as_tensor(rng.randn(256).astype(np.float32) * 0.1, device=cuda)
+        for _ in ws]
+  wd = _uniform(rng, (256, 1), 256, cuda)
+  bd = torch.tensor(-0.3, device=cuda)
+  args = (means, covs, ws, bs, wd, bd, BASIS)
+  dm.reset_counts()
+  got = dm.density_mlp(*args, use_contract=use_contract)
+  assert dm.counts == {'launches': 1, 'plain_calls': 0}
+  want = dm.density_mlp_plain(*args, use_contract=use_contract)
+  _check(got, want, f'density_mlp contract={use_contract}')
+
+
+def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
+  means, covs = _gaussians(64, 3, cuda)
+  kernel = torch.zeros((NUM_FEATS, 64), device=cuda)
+  bias = torch.zeros((64,), device=cuda)
+  with pytest.raises(TypeError, match='float32'):
+    fd.featurize_dense(means.double(), covs.double(), kernel, bias, BASIS)
+  with pytest.raises(ValueError, match='multiple of 32'):
+    fd.featurize_dense(means, covs, kernel[:, :48], bias[:48], BASIS)
+  with pytest.raises(ValueError, match='features'):
+    fd.featurize_dense(means, covs, kernel[:500], bias, BASIS)
+  with pytest.raises(ValueError, match='one device'):
+    fd.featurize_dense(means, covs, kernel.cpu(), bias, BASIS)
+  with pytest.raises(ValueError, match='trunk shapes'):
+    dm.density_mlp(means, covs, [kernel, kernel], [bias, bias],
+                   torch.zeros((64, 1), device=cuda),
+                   torch.zeros((), device=cuda), BASIS)
+
+
+def test_model_forward_on_the_gpu_matches_the_cpu(cuda):
+  # The whole Model at the test widths: kernels on the GPU, their plain
+  # versions on the CPU, the same seeded weights.  The two differ where a
+  # value crosses a bf16 rounding boundary, which the JAX parity tests
+  # (tests/test_torch_model.py) bound at the same 3e-3 / 2e-3.
+  args = argparse.Namespace(gin_configs=[tp.CONFIG_360],
+                            gin_bindings=list(tp.SMALL_BINDINGS))
+  config = configs.load_config(args)
+  fields = tp.rays(256, seed=4)
+  out = []
+  for device in (cuda, torch.device('cpu')):
+    model = nerf.construct_model(config, torch.Generator().manual_seed(0),
+                                 device)
+    rays = types.Rays(**{k: torch.as_tensor(v, device=device)
+                         for k, v in fields.items()})
+    renderings, history = train_lib.create_render_fn(model)(1.0, rays)
+    out.append((renderings[-1], history))
+  (got, got_h), (want, want_h) = out
+  for level, (g, w) in enumerate(zip(got_h, want_h)):
+    tp.assert_close(g['sdist'].cpu().numpy(), w['sdist'].numpy(), atol=2e-3,
+                    what=f'level {level} sdist')
+  for key in ('rgb', 'acc'):
+    tp.assert_close(got[key].cpu().numpy(), want[key].numpy(), atol=3e-3,
+                    what=key)
+  for key in ('distance_mean', 'distance_median'):
+    tp.assert_close(0.2 / got[key].cpu().numpy(), 0.2 / want[key].numpy(),
+                    atol=2e-3, what=f'near / {key}')
