@@ -1,8 +1,11 @@
 """Smoke test of the PyTorch port on one NVIDIA GPU (H100): builds the CUDA
 kernels from ``multinerf_tpu_torch/csrc``, holds each against its plain
-PyTorch version at the render path's shapes, then renders ``configs/360.gin``
-at full model width through ``python -m multinerf_tpu_torch.render``'s entry
-point and checks that the main path went through the kernels.
+PyTorch version at the render and training shapes, renders
+``configs/360.gin`` at full model width through ``python -m
+multinerf_tpu_torch.render``'s entry point, trains it for 100 steps of
+4,096 rays through ``python -m multinerf_tpu_torch.train``'s, holds one
+train step on the GPU against the CPU, and checks that both paths went
+through the kernels.
 
 Run from the repository root, with no arguments:
 
@@ -55,10 +58,18 @@ def phase_device():
   torch.backends.cudnn.allow_tf32 = False
 
 
+KERNEL_LIBS = ('density_mlp', 'featurize_dense', 'density_mlp_bwd',
+               'featurize_dense_dw')
+
+
 def phase_build():
+  """All four libraries, one nvcc each, started together."""
   from multinerf_tpu_torch.ops.kernels import build
-  for name in ('density_mlp', 'featurize_dense'):
-    build.load(name)
+  t0 = time.perf_counter()
+  build.load_all(KERNEL_LIBS)
+  log(f'build: {time.perf_counter() - t0:.2f} s for {len(KERNEL_LIBS)} '
+      'libraries in parallel')
+  for name in KERNEL_LIBS:
     info = build.BUILD_INFO[name]
     log(f'build {name}: {info["seconds"]:.2f} s')
     for line in info['log'].splitlines():
@@ -87,6 +98,15 @@ def _he_uniform(rng, fan_in, fan_out):
   lim = np.sqrt(6.0 / fan_in)
   return torch.tensor(rng.uniform(-lim, lim, (fan_in, fan_out)).astype(
       np.float32), device='cuda')
+
+
+def _prop_trunk(rng, num_feats):
+  """PropMLP trunk 504 -> 4 x 256 and its density head."""
+  ws = [_he_uniform(rng, num_feats, 256)] + [
+      _he_uniform(rng, 256, 256) for _ in range(3)]
+  bs = [torch.tensor(rng.randn(256).astype(np.float32) * 0.1, device='cuda')
+        for _ in ws]
+  return ws, bs, _he_uniform(rng, 256, 1)
 
 
 def _time_ms(fn, reps=10, warmup=3):
@@ -125,6 +145,11 @@ def _compare(name, run_kernel, run_plain, n_full):
     if not err <= bound:
       raise SystemExit(f'FAIL {name}: disagrees with its plain version.')
     worst = max(worst, err)
+  return _summary(name, run_kernel, run_plain, n_full, worst)
+
+
+def _summary(name, run_kernel, run_plain, n_full, worst):
+  """Times the kernel and its plain version at n_full; the summary line."""
   ms = _time_ms(lambda: run_kernel(n_full))
   plain_ms = _time_ms(lambda: run_plain(n_full))
   log(f'{name} N={n_full}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms '
@@ -143,11 +168,7 @@ def phase_kernels():
 
   # K1: PropMLP 504 -> 4 x 256 -> 1.
   means, covs = _gaussians(K1_SAMPLES, seed=1)
-  ws = [_he_uniform(rng, num_feats, 256)] + [
-      _he_uniform(rng, 256, 256) for _ in range(3)]
-  bs = [torch.tensor(rng.randn(256).astype(np.float32) * 0.1, device='cuda')
-        for _ in ws]
-  wd = _he_uniform(rng, 256, 1)
+  ws, bs, wd = _prop_trunk(rng, num_feats)
   bd = torch.tensor(np.float32(-0.3), device='cuda')
   args = lambda n: (means[:n], covs[:n], ws, bs, wd, bd, basis)
   results['density_mlp'] = _compare(
@@ -166,6 +187,75 @@ def phase_kernels():
       lambda n: fd.featurize_dense(*args(n), use_contract=True),
       lambda n: fd.featurize_dense_plain(*args(n), use_contract=True),
       K2_SAMPLES)
+  return results
+
+
+def _compare_leaves(name, run_kernel, run_plain, n_full):
+  """A backward kernel vs its plain version at n_full and n_full - RAGGED:
+  per output leaf max |kernel - plain| <= TOL * max |plain|, and two
+  launches on the same inputs bitwise equal.  Returns the summary."""
+  worst = 0.0
+  for n in (n_full, n_full - RAGGED):
+    got, again, want = run_kernel(n), run_kernel(n), run_plain(n)
+    torch.cuda.synchronize()
+    rel = []
+    for i, (a, b, w) in enumerate(zip(got, again, want)):
+      if a.shape != w.shape:
+        raise SystemExit(f'FAIL {name} leaf {i}: shape {tuple(a.shape)} vs '
+                         f'{tuple(w.shape)}')
+      if not torch.equal(a, b):
+        raise SystemExit(f'FAIL {name} leaf {i}: two launches differ '
+                         f'(N={n}): not deterministic.')
+      if not bool(torch.isfinite(a).all()):
+        raise SystemExit(f'FAIL {name} leaf {i}: non-finite at N={n}')
+      err = float((a - w).abs().max())
+      scale = float(w.abs().max())
+      rel.append(err / scale if scale > 0 else err)
+      if not err <= TOL * scale:
+        raise SystemExit(f'FAIL {name} leaf {i} N={n}: max|kernel - plain| '
+                         f'{err:.3e} > {TOL} * {scale:.3e}')
+      worst = max(worst, err)
+    log(f'{name} N={n}: {len(rel)} leaves within {TOL} * max|plain|, '
+        f'max|kernel - plain| / max|plain| per leaf '
+        f'{", ".join(f"{r:.2e}" for r in rel)}; two launches bitwise equal')
+  return _summary(name, run_kernel, run_plain, n_full, worst)
+
+
+def phase_backward_kernels():
+  """K3 and K4 against their plain versions at the training shapes."""
+  from multinerf_tpu_torch.ops import geopoly
+  from multinerf_tpu_torch.ops.kernels import density_mlp as dm
+  from multinerf_tpu_torch.ops.kernels import featurize_dense as fd
+  basis = np.array(geopoly.generate_basis('icosahedron', 2)).T  # [3, 21]
+  num_feats = 2 * 12 * basis.shape[-1]
+  rng = np.random.RandomState(3)
+  results = {}
+
+  # K3: the PropMLP backward, 504 -> 4 x 256 -> 1, g [N].
+  means, covs = _gaussians(K1_SAMPLES, seed=4)
+  ws, bs, wd = _prop_trunk(rng, num_feats)
+  g = torch.tensor(rng.randn(K1_SAMPLES).astype(np.float32), device='cuda')
+
+  def k3(fn):
+    def run(n):
+      dws, dbs, dwd, dbd = fn(means[:n], covs[:n], ws, bs, wd, g[:n], basis)
+      return [*dws, *dbs, dwd, dbd]
+    return run
+  results['density_mlp_bwd'] = _compare_leaves(
+      'density_mlp_bwd', k3(dm.density_mlp_backward),
+      k3(dm.density_mlp_bwd_plain), K1_SAMPLES)
+
+  # K4: dW of NerfMLP layer 0 (and of the skip layer's feature half),
+  # 504 x 1024 from g [N, 1024].
+  means, covs = _gaussians(K2_SAMPLES, seed=5)
+  g = torch.tensor(rng.randn(K2_SAMPLES, 1024).astype(np.float32),
+                   device='cuda')
+
+  def k4(fn):
+    return lambda n: [fn(means[:n], covs[:n], g[:n], basis)]
+  results['featurize_dense_dw'] = _compare_leaves(
+      'featurize_dense_dw', k4(fd.featurize_dense_dw),
+      k4(fd.featurize_dense_dw_plain), K2_SAMPLES)
   return results
 
 
@@ -202,9 +292,8 @@ def phase_main_path():
             f"--gin_bindings=Config.checkpoint_dir='{tmp}/ckpt'",
             f"--gin_bindings=Config.render_dir='{tmp}/render'",
             '--gin_bindings=Config.render_job_id=0', '--device=cuda']
-    dm.reset_counts()
-    fd.reset_counts()
     torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
     # Test views 0, 16 and 32 at 64 x 64: one 4,096-ray chunk per frame.
     views = render.main(base + ['--gin_bindings=Config.render_num_jobs=16'])
     # One path frame at 256 x 256: 65,536 rays in 4 chunks of 16,384.
@@ -256,8 +345,8 @@ def phase_reference():
   dataset = datasets.load_dataset('test', None, config)
   frames = {}
   for device in ('cuda', 'cpu'):
-    _, _, render_fn = train_lib.setup_model(config, render.SEED,
-                                            torch.device(device))
+    render_fn = train_lib.setup_model(config, render.SEED,
+                                      torch.device(device))[2]
     frames[device] = nerf.DeviceImageRenderer(
         render_fn, config, dataset, torch.device(device))(1.0, 0)
   got, want = frames['cuda'], frames['cpu']
@@ -273,22 +362,193 @@ def phase_reference():
     raise SystemExit(f'FAIL reference: gaps {gaps} over bounds {bounds}')
 
 
+TRAIN_STEPS = 100
+TRAIN_RAYS = 4096  # The per-device batch of bench.py:38.
+
+
+def _counts():
+  """Kernel launches and plain-version calls of K1..K4 since the reset."""
+  from multinerf_tpu_torch.ops.kernels import density_mlp as dm
+  from multinerf_tpu_torch.ops.kernels import featurize_dense as fd
+  table = {'density_mlp': dm.counts, 'featurize_dense': fd.counts,
+           'density_mlp_bwd': dm.bwd_counts,
+           'featurize_dense_dw': fd.bwd_counts}
+  return ({k: c['launches'] for k, c in table.items()},
+          {k: c['plain_calls'] for k, c in table.items()})
+
+
+def _reset_counts():
+  from multinerf_tpu_torch.ops.kernels import density_mlp as dm
+  from multinerf_tpu_torch.ops.kernels import featurize_dense as fd
+  dm.reset_counts()
+  fd.reset_counts()
+
+
+def phase_train():
+  """100 steps of configs/360.gin at full width, 4,096 rays per step, on
+  dummy_unbounded, through ``python -m multinerf_tpu_torch.train``'s entry
+  point; the launch counters, read around every step, show that each step
+  ran K1..K4."""
+  from multinerf_tpu_torch import train
+  from multinerf_tpu_torch import train_lib
+  per_step = []
+  create_train_step = train_lib.create_train_step
+
+  def counted_train_step(*args, **kwargs):
+    step_fn = create_train_step(*args, **kwargs)
+
+    def step(*step_args):
+      before = _counts()[0]
+      out = step_fn(*step_args)
+      after = _counts()[0]
+      per_step.append({k: after[k] - before[k] for k in after})
+      return out
+    return step
+
+  with tempfile.TemporaryDirectory() as tmp:
+    argv = [f'--gin_configs={os.path.join(REPO, "configs", "360.gin")}',
+            "--gin_bindings=Config.dataset_loader='dummy_unbounded'",
+            f'--gin_bindings=Config.batch_size={TRAIN_RAYS}',
+            f'--gin_bindings=Config.max_steps={TRAIN_STEPS}',
+            '--gin_bindings=Config.lr_delay_steps=0',
+            '--gin_bindings=Config.print_every=10',
+            f"--gin_bindings=Config.checkpoint_dir='{tmp}/ckpt'",
+            '--device=cuda']
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    train_lib.create_train_step = counted_train_step
+    try:
+      summary = train.main(argv)
+    finally:
+      train_lib.create_train_step = create_train_step
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, plain = _counts()
+    if not os.path.exists(summary['checkpoint']):
+      raise SystemExit('FAIL train: no final checkpoint.')
+  peak_gib = torch.cuda.max_memory_allocated() / 2**30
+  losses = np.array(summary['losses'])
+  data = np.array(summary['data_losses'])
+  if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+    raise SystemExit(f'FAIL train: losses {losses}')
+  for key, val in summary['stats'].items():
+    if not np.isfinite(np.asarray(val)).all():
+      raise SystemExit(f'FAIL train: non-finite stat {key} = {val}')
+  first, last = float(data[:10].mean()), float(data[-10:].mean())
+  log(f'train: mean data loss, steps 1-10 {first:.5f}, steps '
+      f'{TRAIN_STEPS - 9}-{TRAIN_STEPS} {last:.5f}; final psnr '
+      f'{summary["stats"]["psnr"]:.3f}')
+  if not last < first:
+    raise SystemExit('FAIL train: the data loss did not fall.')
+  fewest = {k: min(c[k] for c in per_step) for k in launches}
+  log(f'train launches {launches}, plain-version calls {plain} '
+      f'({len(per_step)} steps; fewest launches in one step {fewest})')
+  if (len(per_step) != TRAIN_STEPS or min(fewest.values()) < 1 or
+      max(plain.values()) != 0):
+    raise SystemExit('FAIL train: a kernel did not launch on every step, or '
+                     'a plain version ran.')
+  step_s = statistics.median(summary['step_seconds'][5:])
+  log(f'train: {seconds:.1f} s for {TRAIN_STEPS} steps; median step '
+      f'{step_s * 1e3:.3f} ms over steps 6-{TRAIN_STEPS} (synchronised per '
+      f'step), {TRAIN_RAYS / step_s:,.0f} train rays/s, max memory '
+      f'allocated {peak_gib:.2f} GiB')
+  return launches
+
+
+# The cap of train_lib.leaf_gaps at full width: there the CPU step's own
+# move under the nudge reaches 1.17e-1 at NerfMLP_0/Dense_0/kernel, above
+# the 0.1 that caps it at the test widths, and the GPU step was 9.84e-2
+# from the CPU step on that leaf ("NVIDIA H100 80GB HBM3, 700.00 W").
+TRAIN_GAP_CAP = 0.15
+
+
+def phase_train_reference():
+  """One full-width train step of 256 rays with Config.randomized=False,
+  from the same initial weights, on the GPU (kernels) and on the CPU
+  (plain versions): the loss terms and every gradient leaf.
+
+  Bounds: each loss term within 1e-3 relative (measured 1e-4 at most, the
+  interlevel term); each gradient leaf by train_lib.leaf_gaps, the rule
+  that also holds the CPU step against JAX, with the CPU step as the
+  reference, run a second time on nudged rays, and a cap of TRAIN_GAP_CAP.
+  """
+  import argparse
+  from multinerf_tpu_torch import configs
+  from multinerf_tpu_torch import train
+  from multinerf_tpu_torch import train_lib
+  from multinerf_tpu_torch.data import datasets
+  args = argparse.Namespace(
+      gin_configs=[os.path.join(REPO, 'configs', '360.gin')],
+      gin_bindings=["Config.dataset_loader = 'dummy_unbounded'",
+                    'Config.batch_size = 256', 'Config.randomized = False'])
+  config = configs.load_config(args)
+  host_batch = next(datasets.load_dataset('train', None, config, seed=0))
+  runs = []
+  for device, nudge in (('cuda', False), ('cpu', False), ('cpu', True)):
+    t0 = time.perf_counter()
+    model, _, _, _, _ = train_lib.setup_model(config, train.SEED,
+                                              torch.device(device))
+    batch = train_lib.batch_to_device(host_batch, torch.device(device))
+    if nudge:
+      batch = train_lib.nudge_origins(batch)
+    loss, losses, _, grads = train_lib.loss_and_grads(model, config, batch,
+                                                      0.5)
+    losses['loss'] = loss
+    runs.append(({k: v.cpu() for k, v in losses.items()},
+                 {k: v.cpu() for k, v in grads.items()}))
+    log(f'train reference: one step on {device} (nudged: {nudge}) in '
+        f'{time.perf_counter() - t0:.1f} s')
+  (losses, grads), (losses_c, grads_c), (_, grads_n) = runs
+  loss_gaps = {k: abs(float(losses[k] - losses_c[k])) / abs(float(
+      losses_c[k])) for k in losses}
+  log(f'train reference, GPU vs CPU loss terms (relative): {loss_gaps}')
+  over = {k: v for k, v in loss_gaps.items() if not v <= 1e-3}
+  for k, g in grads.items():
+    if not bool(torch.isfinite(g).all()):
+      raise SystemExit(f'FAIL train reference: non-finite gradient {k}')
+  gaps = train_lib.leaf_gaps(grads, grads_c, grads_n, cap=TRAIN_GAP_CAP)
+  for k, (gap, sens, bound) in gaps.items():
+    log(f'  {k}: GPU vs CPU relative L2 {gap:.3e}, CPU nudged {sens:.3e}, '
+        f'bound {bound:.3e}')
+    if not gap <= bound:
+      over[k] = gap
+  worst = max((gap / bound, k) for k, (gap, _, bound) in gaps.items())
+  log(f'train reference: worst gradient gap is {worst[0]:.2f} of its bound '
+      f'({worst[1]})')
+  if over:
+    raise SystemExit(f'FAIL train reference: over the bounds: {over}')
+
+
 def main():
   t0 = time.perf_counter()
   phase_device()
   phase_build()
   results = phase_kernels()
-  launches = phase_main_path()
+  results.update(phase_backward_kernels())
+  paths = {'render': phase_main_path()}
   phase_reference()
+  paths['train'] = phase_train()
+  phase_train_reference()
   sources = {
       'density_mlp': ('multinerf_tpu_torch/csrc/density_mlp.cu',
                       'multinerf_tpu/ops/pallas/density_mlp.py:65'),
       'featurize_dense': ('multinerf_tpu_torch/csrc/featurize_dense.cu',
                           'multinerf_tpu/ops/pallas/featurize_dense.py:117'),
+      'density_mlp_bwd': ('multinerf_tpu_torch/csrc/density_mlp_bwd.cu',
+                          'multinerf_tpu/ops/pallas/density_mlp.py:77'),
+      'featurize_dense_dw': (
+          'multinerf_tpu_torch/csrc/featurize_dense_dw.cu',
+          'multinerf_tpu/ops/pallas/featurize_dense.py:127'),
   }
-  kernels = [dict(name=name, route='cuda', source=sources[name][0],
-                  replaces=sources[name][1], launches=launches[name],
-                  **results[name]) for name in sources]
+  kernels = []
+  for name, (source, replaces) in sources.items():
+    # Each path's launches, counted from 0 around that path's run.
+    by_path = {path: counts.get(name, 0) for path, counts in paths.items()}
+    kernels.append(dict(name=name, route='cuda', source=source,
+                        replaces=replaces, launches=sum(by_path.values()),
+                        launches_by_path=by_path, **results[name]))
   log(f'total {time.perf_counter() - t0:.1f} s')
   print(json.dumps({'kernels': kernels}))
   print(json.dumps({'ok': True, 'device': {

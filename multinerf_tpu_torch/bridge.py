@@ -38,9 +38,29 @@ def unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
   return tree
 
 
-def named_params(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
-  """The model's parameters under their flax names ('A/B/kernel')."""
-  return {k.replace('.', '/'): v for k, v in model.state_dict().items()}
+def named_parameters(model: torch.nn.Module) -> Dict[str, torch.nn.Parameter]:
+  """The model's ``nn.Parameter``s (which carry ``.grad``) under their flax
+  names, in the order of ``model.parameters()``."""
+  return {k.replace('.', '/'): v for k, v in model.named_parameters()}
+
+
+def to_jax_tree(flat: Dict[str, Any]) -> Dict[str, Any]:
+  """{'A/B/kernel': tensor} (parameters, gradients, updates) -> the nested
+  numpy tree of the JAX package, e.g. to hold against a flax gradient."""
+  return unflatten({k: v.detach().cpu().numpy() for k, v in flat.items()})
+
+
+def adam_moments(params: Dict[str, torch.nn.Parameter],
+                 optimizer: torch.optim.Optimizer):
+  """optax's ScaleByAdamState fields of a torch Adam over `params` ({flax
+  name: parameter}): {'mu': tree, 'nu': tree} of numpy arrays (zeros
+  before the first update)."""
+  out = {'mu': {}, 'nu': {}}
+  for name, p in params.items():
+    state = optimizer.state.get(p, {})
+    for key, field in (('mu', 'exp_avg'), ('nu', 'exp_avg_sq')):
+      out[key][name] = state.get(field, torch.zeros_like(p))
+  return {k: to_jax_tree(v) for k, v in out.items()}
 
 
 def load_flat(model: torch.nn.Module, flat: Dict[str, Any]):
@@ -60,5 +80,4 @@ def load_jax_params(model: torch.nn.Module, params: Dict[str, Any]):
 
 def jax_params(model: torch.nn.Module) -> Dict[str, Any]:
   """The model's parameters as a JAX-style tree of numpy arrays."""
-  return unflatten({k: v.detach().cpu().numpy()
-                    for k, v in named_params(model).items()})
+  return to_jax_tree(named_parameters(model))

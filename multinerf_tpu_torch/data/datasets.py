@@ -1,11 +1,13 @@
-"""Datasets of the render path (port of parts of data/datasets.py).
+"""Datasets of the render and train paths (port of parts of datasets.py).
 
-``Dataset`` holds what rendering reads from a test split: the cameras, the
-camera type, image size, near/far and the exposure records.  It is a plain
-object; the threaded training-batch producer comes with the training port.
-The synthetic scenes ``dummy_scatter`` and ``dummy_unbounded`` are made with
-the same numpy as the JAX loaders (datasets.py:842-959), so both packages
-see identical cameras and images.
+``Dataset`` holds a split's cameras, camera type, image size, near/far and
+exposure records.  A train split is also an iterator of random ray batches
+(``_next_train``, datasets.py:225-282): pixels and cameras drawn from the
+dataset's own ``np.random.RandomState(seed)``, rays cast on the host with
+numpy as in the JAX package.  It is a plain iterator: the prefetch thread
+of the JAX loader is not ported.  The synthetic scenes ``dummy_scatter``
+and ``dummy_unbounded`` are made with the same numpy as the JAX loaders
+(datasets.py:842-959), so both packages see identical cameras and images.
 """
 
 from __future__ import annotations
@@ -18,8 +20,9 @@ from multinerf_tpu_torch.data import cameras as camera_lib
 from multinerf_tpu_torch.data import types
 
 
-def load_dataset(split, train_dir, config):
-  """Load a split of a dataset using config.dataset_loader."""
+def load_dataset(split, train_dir, config, seed=0):
+  """Load a split of a dataset using config.dataset_loader; `seed` seeds
+  the train split's pixel draws."""
   loaders = {
       'dummy_scatter': DummyScatter,
       'dummy_unbounded': DummyUnbounded,
@@ -28,14 +31,26 @@ def load_dataset(split, train_dir, config):
     raise NotImplementedError(
         f'Not ported yet: dataset_loader={config.dataset_loader!r} '
         '(ROADMAP.md Queue 1: the rest of the model zoo, loaders).')
-  return loaders[config.dataset_loader](split, train_dir, config)
+  return loaders[config.dataset_loader](split, train_dir, config, seed=seed)
 
 
 class Dataset(metaclass=abc.ABCMeta):
   """Cameras and render settings of one split (see datasets.py:93-300)."""
 
-  def __init__(self, split: str, data_dir: str, config):
+  def __init__(self, split: str, data_dir: str, config, seed=0):
     self.split = types.DataSplit(split)
+    self._rng = np.random.RandomState(seed)
+    self._patch_size = max(config.patch_size, 1)
+    self._batch_size = config.batch_size
+    if self._patch_size**2 > self._batch_size:
+      raise ValueError(f'Patch size {self._patch_size}^2 too large for '
+                       f'batch size {self._batch_size}')
+    self._batching = types.BatchingMethod(config.batching)
+    self._num_border_pixels_to_mask = config.num_border_pixels_to_mask
+    if config.apply_bayer_mask:
+      raise NotImplementedError(
+          'Not ported yet: the Bayer mask (ROADMAP.md Queue 1: the rest of '
+          'the model zoo, RawNeRF).')
     self.data_dir = data_dir
     self.near = config.near
     self.far = config.far
@@ -82,6 +97,16 @@ class Dataset(metaclass=abc.ABCMeta):
   def size(self):
     return self._n_examples
 
+  def __iter__(self):
+    return self
+
+  def __next__(self) -> types.Batch:
+    """The next random training batch (numpy arrays, patch-shaped)."""
+    if self.split != types.DataSplit.TRAIN:
+      raise TypeError('only a train split yields batches; test views are '
+                      'rendered by models.nerf.DeviceImageRenderer.')
+    return self._next_train()
+
   @abc.abstractmethod
   def _load_renderings(self, config):
     """Load images/poses; must set the attributes listed in __init__."""
@@ -99,6 +124,45 @@ class Dataset(metaclass=abc.ABCMeta):
     if self.render_path and self.render_exposures is not None:
       out['exposure_values'] = np.asarray(self.render_exposures)[cam_idx]
     return out
+
+  def _make_ray_batch(self, pix_x_int, pix_y_int, cam_idx,
+                      lossmult=None) -> types.Batch:
+    """A Batch of host rays from pixel coordinates and camera indices."""
+    broadcast_scalar = lambda x: np.broadcast_to(x, pix_x_int.shape)[..., None]
+    ray_kwargs = {
+        'lossmult': broadcast_scalar(1.0) if lossmult is None else lossmult,
+        'near': broadcast_scalar(self.near),
+        'far': broadcast_scalar(self.far),
+        'cam_idx': broadcast_scalar(cam_idx),
+    }
+    for key, val in self.exposure_records(cam_idx).items():
+      ray_kwargs[key] = broadcast_scalar(val)
+    pixels = types.Pixels(pix_x_int, pix_y_int, **ray_kwargs)
+    rays = camera_lib.cast_ray_batch(self.cameras, pixels, self.camtype,
+                                     xnp=np)
+    rgb = None if self.render_path else self.images[cam_idx, pix_y_int,
+                                                    pix_x_int]
+    return types.Batch(rays=rays, rgb=rgb)
+
+  def _next_train(self) -> types.Batch:
+    """Random rays (patch_size 1) or patches, all images one resolution."""
+    num_patches = self._batch_size // self._patch_size**2
+    lower_border = self._num_border_pixels_to_mask
+    upper_border = self._num_border_pixels_to_mask + self._patch_size - 1
+    pix_x_int = self._rng.randint(lower_border, self.width - upper_border,
+                                  (num_patches, 1, 1))
+    pix_y_int = self._rng.randint(lower_border, self.height - upper_border,
+                                  (num_patches, 1, 1))
+    # Offsets broadcast each patch origin to (patch_size, patch_size).
+    patch_dx_int, patch_dy_int = camera_lib.pixel_coordinates(
+        self._patch_size, self._patch_size)
+    pix_x_int = pix_x_int + patch_dx_int
+    pix_y_int = pix_y_int + patch_dy_int
+    if self._batching == types.BatchingMethod.ALL_IMAGES:
+      cam_idx = self._rng.randint(0, self._n_examples, (num_patches, 1, 1))
+    else:
+      cam_idx = self._rng.randint(0, self._n_examples, (1,))
+    return self._make_ray_batch(pix_x_int, pix_y_int, cam_idx)
 
 
 class DummyScatter(Dataset):

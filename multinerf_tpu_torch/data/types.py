@@ -53,3 +53,9 @@ class Batch:
 class DataSplit(enum.Enum):
   TRAIN = 'train'
   TEST = 'test'
+
+
+class BatchingMethod(enum.Enum):
+  """Training rays from all images at once, or from one image per batch."""
+  ALL_IMAGES = 'all_images'
+  SINGLE_IMAGE = 'single_image'

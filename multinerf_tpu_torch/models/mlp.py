@@ -1,4 +1,4 @@
-"""The NeRF MLP of the mip-NeRF 360 render path (port of models/mlp.py).
+"""The NeRF MLP of the mip-NeRF 360 render and train paths (models/mlp.py).
 
 Parameters keep the flax names and layout: ``Dense_{i}.kernel`` [in, out]
 and ``Dense_{i}.bias`` [out], numbered in the JAX creation order
@@ -18,8 +18,12 @@ Only the fused path of the 360 config is ported:
 ``use_fused_featurize=None`` means the fused kernels.  Unlike mlp.py:288,
 which takes the unfused f32 path on a CPU, the port runs the same call on
 the CPU through the kernels' plain versions, so its CPU numerics are the
-kernels' numerics.  Configurations outside this slice raise
-NotImplementedError naming the ROADMAP item that brings them.
+kernels' numerics.  Gradients reach every parameter: through the fused
+kernels' backward passes (which give the sample positions none, as in the
+JAX custom VJPs), the plain hidden-layer products, the heads and the view
+branch.  Configurations outside this slice raise NotImplementedError
+naming the ROADMAP item that brings them; so does training with density or
+bottleneck noise.
 """
 
 from __future__ import annotations
@@ -222,17 +226,24 @@ class MLP(nn.Module):
       x = cfg.net_activation(x)
     return x
 
-  def forward(self, means, covs, viewdirs=None):
+  def forward(self, means, covs, viewdirs=None, generator=None):
     """Density and color of sample Gaussians.
 
     Args:
       means: [..., S, 3]; covs: [..., S, 3, 3] sample Gaussians.
       viewdirs: [..., 3] unit view directions per ray, or None.
+      generator: the training step's torch.Generator, or None (the JAX
+        rng=None); only density and bottleneck noise would draw from it.
 
     Returns:
       dict with 'density' [..., S] and 'rgb' [..., S, 3].
     """
     cfg = self.cfg
+    if generator is not None and (cfg.density_noise > 0 or
+                                  cfg.bottleneck_noise > 0):
+      raise NotImplementedError(
+          'Not ported yet: density and bottleneck noise (ROADMAP.md Queue 1 '
+          'item 2b, the rest of the training loop).')
     sample_shape = means.shape[:-1]
     means = means.reshape(-1, 3)
     covs = covs.reshape(-1, 3, 3)

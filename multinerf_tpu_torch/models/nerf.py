@@ -1,11 +1,15 @@
 """The multi-level model and whole-image rendering (port of models/nerf.py).
 
-``Model.forward`` is nerf.py:71-329 at ``rng=None``: per level, dilate ->
-anneal -> resample -> s_to_t -> cast Gaussians -> MLP -> alpha weights ->
-background -> composite, plus the ``ray_*`` visualization extras.  Training
-options (jitter, noise, occupancy culling, GLO, learned exposure scaling)
-are not ported yet and raise.  Nothing here needs a gradient, so the
-per-level stop-gradient of the JAX model has no counterpart.
+``Model.forward`` is nerf.py:71-329: per level, dilate -> anneal ->
+resample -> stop-gradient -> s_to_t -> cast Gaussians -> MLP -> alpha
+weights -> background -> composite, plus the ``ray_*`` visualization
+extras.  With a ``torch.Generator`` (the JAX rng) the resampling is
+jittered and a background color range is sampled; with None the output is
+deterministic.  Gradients reach the MLPs through the densities and colors
+of each level; the sampled distances carry none (``stop_level_grad``, the
+only setting the fused kernels allow: they give the sample positions no
+gradient).  Occupancy culling, GLO and learned exposure scaling are not
+ported yet and raise.
 
 ``DeviceImageRenderer`` (nerf.py:545-660) uploads the cameras once and casts
 every chunk's rays on the device; one frame is a Python loop over chunks of
@@ -78,6 +82,13 @@ class Model(nn.Module):
     if cfg.config is not None and cfg.config.occupancy_culling:
       raise NotImplementedError(
           'Not ported yet: occupancy culling (ROADMAP.md Queue 1).')
+    if not cfg.stop_level_grad:
+      # JAX falls back to its unfused XLA path there (nerf.py:95-105),
+      # which the port does not have.
+      raise NotImplementedError(
+          'Not ported yet: stop_level_grad=False, gradients through the '
+          'sample positions (ROADMAP.md Queue 1: serving slice, the unfused '
+          'MLP path).')
     self.cfg = cfg
     # Built in the JAX creation order: NerfMLP first.
     self.NerfMLP_0 = mlp_lib.MLP(ginlite.make('NerfMLP'), cfg.use_viewdirs,
@@ -86,8 +97,17 @@ class Model(nn.Module):
       self.PropMLP_0 = mlp_lib.MLP(ginlite.make('PropMLP'), cfg.use_viewdirs,
                                    generator=generator, device=device)
 
-  def forward(self, rays: types.Rays, train_frac, compute_extras):
-    """Render a batch of rays through all sampling levels (rng=None).
+  def forward(self, rays: types.Rays, train_frac, compute_extras,
+              generator=None):
+    """Render a batch of rays through all sampling levels.
+
+    Args:
+      rays: a Rays batch on the model's device.
+      train_frac: fraction of training done, in [0, 1].
+      compute_extras: add the distance statistics and ray bundles.
+      generator: a torch.Generator on the rays' device for the jittered
+        sampling and the random background, or None for deterministic
+        output (the JAX rng=None).
 
     Returns:
       (renderings, ray_history): per-level rendering dicts and raw results.
@@ -117,27 +137,32 @@ class Model(nn.Module):
       level_samples = (cfg.num_nerf_samples if final_level
                        else cfg.num_prop_samples)
 
-      if level > 0 and (cfg.dilation_bias > 0 or
-                        cfg.dilation_multiplier > 0):
-        pad = (cfg.dilation_bias + cfg.dilation_multiplier *
-               (init_s_far - init_s_near) / resolution_so_far)
-        s_edges, hist_weights = stepfun.max_dilate_weights(
-            s_edges, hist_weights, pad, domain=(init_s_near, init_s_far),
-            renormalize=True)
-        s_edges = s_edges[..., 1:-1]
-        hist_weights = hist_weights[..., 1:-1]
-      resolution_so_far *= level_samples
+      # Everything up to the new sample distances runs without a graph:
+      # they are stop-gradient (nerf.py:193-195), and nothing else of this
+      # block reaches the losses.
+      with torch.no_grad():
+        if level > 0 and (cfg.dilation_bias > 0 or
+                          cfg.dilation_multiplier > 0):
+          pad = (cfg.dilation_bias + cfg.dilation_multiplier *
+                 (init_s_far - init_s_near) / resolution_so_far)
+          s_edges, hist_weights = stepfun.max_dilate_weights(
+              s_edges, hist_weights, pad, domain=(init_s_near, init_s_far),
+              renormalize=True)
+          s_edges = s_edges[..., 1:-1]
+          hist_weights = hist_weights[..., 1:-1]
+        resolution_so_far *= level_samples
 
-      ease = (_schlick_ease(train_frac, cfg.anneal_slope)
-              if cfg.anneal_slope > 0 else 1.0)
-      # Zero-width intervals are pinned to -inf so resampling skips them.
-      log_resample_weights = torch.where(
-          s_edges[..., 1:] > s_edges[..., :-1],
-          ease * torch.log(hist_weights + cfg.resample_padding), -torch.inf)
-      s_edges = stepfun.sample_intervals(
-          None, s_edges, log_resample_weights, level_samples,
-          single_jitter=cfg.single_jitter, domain=(init_s_near, init_s_far),
-          use_gpu_resampling=cfg.use_gpu_resampling)
+        ease = (_schlick_ease(train_frac, cfg.anneal_slope)
+                if cfg.anneal_slope > 0 else 1.0)
+        # Zero-width intervals are pinned to -inf so resampling skips them.
+        log_resample_weights = torch.where(
+            s_edges[..., 1:] > s_edges[..., :-1],
+            ease * torch.log(hist_weights + cfg.resample_padding), -torch.inf)
+        s_edges = stepfun.sample_intervals(
+            generator, s_edges, log_resample_weights, level_samples,
+            single_jitter=cfg.single_jitter,
+            domain=(init_s_near, init_s_far),
+            use_gpu_resampling=cfg.use_gpu_resampling)
 
       t_edges = s_to_t(s_edges)
       means, covs = rendering.cast_rays(t_edges, rays.origins,
@@ -147,14 +172,22 @@ class Model(nn.Module):
         covs = torch.zeros_like(covs)  # Zero covariance: IPE becomes PE.
       mlp = nerf_mlp if final_level else prop_mlp
       ray_results = mlp(means, covs,
-                        viewdirs=rays.viewdirs if cfg.use_viewdirs else None)
+                        viewdirs=rays.viewdirs if cfg.use_viewdirs else None,
+                        generator=generator)
 
       hist_weights = rendering.compute_alpha_weights(
           ray_results['density'], t_edges, rays.directions,
           opaque_background=cfg.opaque_background)[0]
 
       lo, hi = cfg.bg_intensity_range[0], cfg.bg_intensity_range[1]
-      bg_rgbs = lo if lo == hi else (lo + hi) / 2  # Deterministic midpoint.
+      if lo == hi:
+        bg_rgbs = lo
+      elif generator is None:
+        bg_rgbs = (lo + hi) / 2  # Deterministic midpoint.
+      else:
+        bg_rgbs = lo + (hi - lo) * torch.rand(
+            hist_weights.shape[:-1] + (3,), generator=generator,
+            dtype=hist_weights.dtype, device=hist_weights.device)
 
       if rays.exposure_idx is not None:
         ray_results['rgb'] = (ray_results['rgb'] *

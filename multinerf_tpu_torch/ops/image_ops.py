@@ -1,11 +1,18 @@
-"""Image transforms of the render path (port of parts of ops/image_ops.py)."""
+"""Image transforms and metrics (port of parts of ops/image_ops.py)."""
 
 from __future__ import annotations
 
+import math
 import types
 from typing import Optional
 
 import numpy as np
+import torch
+
+
+def mse_to_psnr(mse):
+  """PSNR of a torch MSE, for a maximum pixel value of 1."""
+  return -10.0 / math.log(10.0) * torch.log(mse)
 
 
 def linear_to_srgb(linear, eps: Optional[float] = None,

@@ -57,26 +57,56 @@ def library_path(name):
   return os.path.join(BUILD_DIR, f'{name}-{digest.hexdigest()[:16]}.so')
 
 
+def _start(name):
+  """Start nvcc for csrc/<name>.cu unless its library exists: (out, tmp,
+  process, start time) or None."""
+  if name in _LIBS:
+    return None
+  out = library_path(name)
+  if os.path.exists(out):
+    return None
+  os.makedirs(BUILD_DIR, exist_ok=True)
+  tmp = f'{out}.{os.getpid()}.tmp'
+  cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp, _sources(name)[0]]
+  t0 = time.perf_counter()
+  proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                          text=True)
+  return out, tmp, proc, t0
+
+
+def _finish(name, started):
+  if started is not None:
+    out, tmp, proc, t0 = started
+    stdout, stderr = proc.communicate()
+    BUILD_INFO[name] = {'seconds': time.perf_counter() - t0, 'log': stderr}
+    if proc.returncode != 0:
+      raise RuntimeError(f'nvcc failed for {name}:\n{stdout}\n{stderr}')
+    os.replace(tmp, out)
+  elif name not in BUILD_INFO:
+    BUILD_INFO[name] = {'seconds': 0.0, 'log': ''}
+  if name not in _LIBS:
+    _LIBS[name] = ctypes.CDLL(library_path(name))
+  return _LIBS[name]
+
+
 def load(name):
   """The ctypes handle of csrc/<name>.cu, compiled on first use."""
-  if name in _LIBS:
+  if name in _LIBS:  # Every launch asks: skip hashing the sources.
     return _LIBS[name]
-  out = library_path(name)
-  info = {'seconds': 0.0, 'log': ''}
-  if not os.path.exists(out):
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f'{out}.{os.getpid()}.tmp'
-    cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp, _sources(name)[0]]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    info = {'seconds': time.perf_counter() - t0, 'log': proc.stderr}
-    if proc.returncode != 0:
-      raise RuntimeError(f'nvcc failed for {name}:\n{proc.stdout}\n'
-                         f'{proc.stderr}')
-    os.replace(tmp, out)
-  BUILD_INFO[name] = info
-  _LIBS[name] = ctypes.CDLL(out)
-  return _LIBS[name]
+  return _finish(name, _start(name))
+
+
+def load_all(names):
+  """Compile the missing libraries of `names` at once, one nvcc process
+  each, then load them all."""
+  started = {name: _start(name) for name in names}
+  try:
+    return {name: _finish(name, started[name]) for name in names}
+  finally:
+    for job in started.values():
+      if job is not None and job[2].poll() is None:
+        job[2].kill()
+        job[2].wait()
 
 
 def check(status, what):

@@ -1,20 +1,26 @@
-"""Fully fused density MLP forward: CUDA kernel wrapper and plain version.
+"""Fully fused density MLP: CUDA kernel wrappers, plain versions, autograd.
 
-Replaces ``multinerf_tpu/ops/pallas/density_mlp.py:_fwd_kernel`` (with
-``_trunk_forward`` and ``_density_row``): contract -> IPE features -> a ReLU
-trunk of bf16-in / f32-accumulate layers -> the density head as an f32 sum
-of bf16-rounded products.  At the 360 config (4 x 256 trunk, 262,144 samples
-per proposal level of a 4,096-ray chunk) that is 172 GFLOP for 52 bytes of
-device-memory traffic per sample, so the tensor cores bound it; the design
-notes (weights streamed through L2, activations ping-ponged in shared
-memory) are in ``csrc/density_mlp.cu``.
+Forward (K1) replaces ``multinerf_tpu/ops/pallas/density_mlp.py:_fwd_kernel``
+(with ``_trunk_forward`` and ``_density_row``): contract -> IPE features ->
+a ReLU trunk of bf16-in / f32-accumulate layers -> the density head as an
+f32 sum of bf16-rounded products.  At the 360 config (4 x 256 trunk, 262,144
+samples per proposal level of a 4,096-ray batch) that is 172 GFLOP for 52
+bytes of device-memory traffic per sample, so the tensor cores bound it;
+the design notes are in ``csrc/density_mlp.cu``.
 
-Forward only: rendering needs no gradient.  The backward kernel and the
-``torch.autograd.Function`` come with the training port.
+Backward (K3) replaces ``_bwd_kernel``: it recomputes the forward per tile
+and returns every trunk and head weight and bias gradient, with the
+numerics of the Pallas kernel rather than autograd's of the forward (f32
+head weight and last activation for da_L and dwd, cotangents rounded to
+bf16 before each product, ReLU masks from the recomputed activations).  The
+sample positions get no gradient.  Design notes (per-tile pass, then
+split-K partials and ordered reduces, deterministic) are in
+``csrc/density_mlp_bwd.cu``.
 
-On a CUDA tensor the wrapper launches the kernel (or raises); on a CPU
-tensor it runs ``density_mlp_plain``, the line-for-line port of
-``density_mlp_reference`` with the same bf16 roundings.
+On a CUDA tensor each wrapper launches its kernel (or raises); on a CPU
+tensor it runs the plain version, in both directions: ``density_mlp_plain``
+(the port of ``density_mlp_reference``) and ``density_mlp_bwd_plain`` (the
+line-for-line port of ``_bwd_kernel``), with the same bf16 roundings.
 """
 
 from __future__ import annotations
@@ -23,35 +29,64 @@ import ctypes
 
 import torch
 
-from multinerf_tpu_torch.ops import coord
 from multinerf_tpu_torch.ops.kernels import build
 from multinerf_tpu_torch.ops.kernels import featurize_dense as fd
 
 # launches: kernel launches; plain_calls: calls served by the plain version.
-counts = {'launches': 0, 'plain_calls': 0}
+counts = {'launches': 0, 'plain_calls': 0}  # Forward (K1).
+bwd_counts = {'launches': 0, 'plain_calls': 0}  # Backward (K3).
 
 
 def reset_counts():
-  for k in counts:
-    counts[k] = 0
+  for c in (counts, bwd_counts):
+    for k in c:
+      c[k] = 0
 
 
 def density_mlp_plain(means, covs, ws, bs, wd, bd, basis, min_deg=0,
                       max_deg=12, use_contract=True):
-  """Plain PyTorch version: [..., 3], [..., 3, 3] -> raw density [...]."""
-  if use_contract:
-    means, covs = coord.contract_gaussian(means, covs)
-  x = coord.integrated_pos_enc_lifted_recurrence(
-      means, covs, basis, min_deg, max_deg).to(torch.bfloat16)
+  """Plain PyTorch version of K1: [..., 3], [..., 3, 3] -> raw density."""
+  x = fd.plain_features(means, covs, basis, min_deg, max_deg, use_contract)
   for w, b in zip(ws, bs):
     pre = x.float() @ w.to(torch.bfloat16).float() + b
     x = torch.relu(pre).to(torch.bfloat16)
   return (x.float() @ wd.to(torch.bfloat16).float() + bd)[..., 0]
 
 
-def _launch(means, covs, ws, bs, wd, bd, basis, min_deg, max_deg,
-            use_contract):
-  fd.check_gaussians(means, covs)
+def density_mlp_bwd_plain(means, covs, ws, bs, wd, g, basis, min_deg=0,
+                          max_deg=12, use_contract=True):
+  """Plain PyTorch version of K3, line for line ``_bwd_kernel``.
+
+  Args: means [N, 3], covs [N, 3, 3], the trunk and head as in
+    ``density_mlp``, g [N] the cotangent of the raw density.
+  Returns: (dws, dbs, dwd [W, 1], dbd []) in f32.
+  """
+  feats = fd.plain_features(means, covs, basis, min_deg, max_deg,
+                            use_contract)
+  g = g.reshape(-1)
+  acts = []
+  x = feats
+  for w, b in zip(ws, bs):
+    act = torch.clamp_min(x.float() @ w.to(torch.bfloat16).float() + b, 0.0)
+    acts.append(act)
+    x = act.to(torch.bfloat16)
+  dwd = (acts[-1] * g[:, None]).sum(0)[:, None]
+  dbd = g.sum()
+  da = wd.reshape(-1).float() * g[:, None] * (acts[-1] > 0)
+  dws, dbs = [None] * len(ws), [None] * len(ws)
+  for l in range(len(ws) - 1, -1, -1):
+    x_in = feats if l == 0 else acts[l - 1].to(torch.bfloat16)
+    da_bf = da.to(torch.bfloat16).float()
+    dws[l] = x_in.float().T @ da_bf
+    dbs[l] = da.sum(0)
+    if l > 0:
+      da = (da_bf @ ws[l].to(torch.bfloat16).float().T) * (acts[l - 1] > 0)
+  return dws, dbs, dwd, dbd
+
+
+def _check_trunk(means, ws, bs, wd, bd, basis, min_deg, max_deg):
+  """(basis_t, bb_t, num_dims, num_degs, num_feats, depth, width) after the
+  checks of what the kernels take."""
   device = means.device
   basis_t, bb_t = fd.device_basis(basis, min_deg, device)
   num_dims = basis_t.shape[0]
@@ -67,20 +102,36 @@ def _launch(means, covs, ws, bs, wd, bd, basis, min_deg, max_deg,
                      f'expected {want}.')
   if [tuple(b.shape) for b in bs] != [(width,)] * depth:
     raise ValueError('each trunk bias must be [width].')
-  if tuple(wd.shape) != (width, 1) or bd.numel() != 1:
+  if tuple(wd.shape) != (width, 1) or (bd is not None and bd.numel() != 1):
     raise ValueError('density head must be [width, 1] + a scalar bias.')
-  for t in (covs, *ws, *bs, wd, bd):
+  for t in (*ws, *bs, wd) + (() if bd is None else (bd,)):
     if t.device != device:
       raise ValueError('all inputs must be on one device.')
+  return basis_t, bb_t, num_dims, num_degs, num_feats, depth, width
+
+
+def _trunk_operands(ws, bs, num_feats):
+  """(w0 [kpad, W] bf16, w_hidden [depth-1, W, W] bf16, biases [depth, W])."""
   w0 = fd.padded_bf16_rows(ws[0], -(-num_feats // 16) * 16)
-  if depth > 1:
+  if len(ws) > 1:
     w_hidden = torch.stack([w.to(torch.bfloat16) for w in ws[1:]])
   else:
-    w_hidden = torch.zeros((1,), dtype=torch.bfloat16, device=device)
-  biases = torch.stack([b.float() for b in bs]).contiguous()
+    w_hidden = torch.zeros((1,), dtype=torch.bfloat16, device=ws[0].device)
+  return w0, w_hidden, torch.stack([b.float() for b in bs]).contiguous()
+
+
+def _launch(means, covs, ws, bs, wd, bd, basis, min_deg, max_deg,
+            use_contract):
+  fd.check_gaussians(means, covs)
+  if covs.device != means.device:
+    raise ValueError('all inputs must be on one device.')
+  basis_t, bb_t, num_dims, num_degs, num_feats, depth, width = _check_trunk(
+      means, ws, bs, wd, bd, basis, min_deg, max_deg)
+  w0, w_hidden, biases = _trunk_operands(ws, bs, num_feats)
   wd_bf = wd.reshape(-1).to(torch.bfloat16).contiguous()
   bd_f = bd.reshape(1).float().contiguous()
-  out = torch.empty((means.shape[0],), dtype=torch.float32, device=device)
+  out = torch.empty((means.shape[0],), dtype=torch.float32,
+                    device=means.device)
   lib = build.load('density_mlp')
   fn = lib.density_mlp_forward
   fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
@@ -92,9 +143,113 @@ def _launch(means, covs, ws, bs, wd, bd, basis, min_deg, max_deg,
                  biases.data_ptr(), wd_bf.data_ptr(), bd_f.data_ptr(),
                  out.data_ptr(), means.shape[0], width, depth, num_dims,
                  num_degs, int(use_contract),
-                 torch.cuda.current_stream(device).cuda_stream),
+                 torch.cuda.current_stream(means.device).cuda_stream),
               'density_mlp')
   return out
+
+
+def _launch_bwd(means, covs, ws, bs, wd, g, basis, min_deg, max_deg,
+                use_contract):
+  fd.check_gaussians(means, covs)
+  device = means.device
+  basis_t, bb_t, num_dims, num_degs, num_feats, depth, width = _check_trunk(
+      means, ws, bs, wd, None, basis, min_deg, max_deg)
+  if depth < 2:
+    raise ValueError('the backward kernel needs a trunk of depth >= 2.')
+  n = means.shape[0]
+  if g.dtype != torch.float32 or g.numel() != n:
+    raise ValueError(f'g must be float32 with {n} elements.')
+  for t in (covs, g):
+    if t.device != device:
+      raise ValueError('all inputs must be on one device.')
+  g = g.reshape(-1).contiguous()
+  w0, w_hidden, biases = _trunk_operands(ws, bs, num_feats)
+  wd_f = wd.reshape(-1).float().contiguous()
+  tiles = -(-n // 64)
+  n_pad = tiles * 64
+  vstride = (depth + 1) * width + 1
+  bm0, bn0, splits0 = fd.dw_plan(w0.shape[0], width, n, device)
+  bm1, bn1, splits1 = fd.dw_plan(width, width, n, device)
+  empty = lambda shape, dtype=torch.float32: torch.empty(
+      shape, dtype=dtype, device=device)
+  acts = empty((depth - 1, n_pad, width), torch.bfloat16)
+  das = empty((depth, n_pad, width), torch.bfloat16)
+  vec_part = empty((max(tiles, 1), vstride))
+  part = empty((max(splits0 * bm0, splits1 * bm1), width))
+  dw_out = empty((num_feats * width + (depth - 1) * width * width,))
+  vec_out = empty((vstride,))
+  lib = build.load('density_mlp_bwd')
+  fn = lib.density_mlp_backward
+  fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 12 + [
+      ctypes.c_void_p]
+  fn.restype = ctypes.c_int
+  bwd_counts['launches'] += 1
+  build.check(fn(means.data_ptr(), covs.data_ptr(), basis_t.data_ptr(),
+                 bb_t.data_ptr(), w0.data_ptr(), w_hidden.data_ptr(),
+                 biases.data_ptr(), wd_f.data_ptr(), g.data_ptr(),
+                 acts.data_ptr(), das.data_ptr(), vec_part.data_ptr(),
+                 part.data_ptr(), dw_out.data_ptr(), vec_out.data_ptr(), n,
+                 width, depth, num_dims, num_degs, int(use_contract), bm0,
+                 bn0, splits0, bm1, bn1, splits1,
+                 torch.cuda.current_stream(device).cuda_stream),
+              'density_mlp_bwd')
+  dws = [dw_out[:num_feats * width].view(num_feats, width)]
+  for l in range(depth - 1):
+    off = num_feats * width + l * width * width
+    dws.append(dw_out[off:off + width * width].view(width, width))
+  dbs = [vec_out[l * width:(l + 1) * width] for l in range(depth)]
+  return (dws, dbs, vec_out[depth * width:(depth + 1) * width].view(width, 1),
+          vec_out[-1])
+
+
+def density_mlp_forward(means, covs, ws, bs, wd, bd, basis, min_deg,
+                        max_deg, use_contract):
+  """K1 on a CUDA tensor, its plain version on a CPU one: [N, 3],
+  [N, 3, 3] -> raw density [N].  No autograd."""
+  fd.check_device(means)
+  if means.device.type == 'cpu':
+    counts['plain_calls'] += 1
+    return density_mlp_plain(means, covs, ws, bs, wd, bd, basis, min_deg,
+                             max_deg, use_contract)
+  return _launch(means, covs.reshape(-1, 9), list(ws), list(bs), wd, bd,
+                 basis, int(min_deg), int(max_deg), bool(use_contract))
+
+
+def density_mlp_backward(means, covs, ws, bs, wd, g, basis, min_deg=0,
+                         max_deg=12, use_contract=True):
+  """K3 on a CUDA tensor, its plain version on a CPU one:
+  -> (dws, dbs, dwd [W, 1], dbd [])."""
+  fd.check_device(means)
+  if means.device.type == 'cpu':
+    bwd_counts['plain_calls'] += 1
+    return density_mlp_bwd_plain(means, covs, ws, bs, wd, g, basis, min_deg,
+                                 max_deg, use_contract)
+  return _launch_bwd(means, covs.reshape(-1, 9), list(ws), list(bs), wd, g,
+                     basis, int(min_deg), int(max_deg), bool(use_contract))
+
+
+class _DensityMLP(torch.autograd.Function):
+  """K1 forward, K3 backward; no gradient to the samples."""
+
+  @staticmethod
+  def forward(ctx, means, covs, static, wd, bd, *wbs):
+    depth = len(wbs) // 2
+    ctx.save_for_backward(means, covs, wd, bd, *wbs)
+    ctx.static = static
+    return density_mlp_forward(means, covs, wbs[:depth], wbs[depth:], wd, bd,
+                               *static)
+
+  @staticmethod
+  def backward(ctx, g):
+    means, covs, wd, bd, *wbs = ctx.saved_tensors
+    depth = len(wbs) // 2
+    ws, bs = wbs[:depth], wbs[depth:]
+    dws, dbs, dwd, dbd = density_mlp_backward(means, covs, ws, bs, wd, g,
+                                              *ctx.static)
+    return (None, None, None, dwd.to(wd.dtype),
+            dbd.reshape(bd.shape).to(bd.dtype),
+            *[d.to(w.dtype) for d, w in zip(dws, ws)],
+            *[d.to(b.dtype) for d, b in zip(dbs, bs)])
 
 
 def density_mlp(means, covs, ws, bs, wd, bd, basis, min_deg=0, max_deg=12,
@@ -105,15 +260,12 @@ def density_mlp(means, covs, ws, bs, wd, bd, basis, min_deg=0, max_deg=12,
     means: [..., 3]; covs: [..., 3, 3].
     ws/bs: trunk kernels [C_in, W] / biases [W] (uniform width W).
     wd/bd: density head [W, 1] kernel and scalar bias.
+
+  Gradients flow to every weight and bias, through K3.
   """
+  fd.check_device(means)
   batch_shape = means.shape[:-1]
-  if means.device.type == 'cpu':
-    counts['plain_calls'] += 1
-    return density_mlp_plain(means, covs, ws, bs, wd, bd, basis, min_deg,
-                             max_deg, use_contract)
-  if means.device.type != 'cuda':
-    raise ValueError(f'unsupported device {means.device}.')
-  out = _launch(means.reshape(-1, 3), covs.reshape(-1, 9), list(ws),
-                list(bs), wd, bd, basis, int(min_deg), int(max_deg),
-                bool(use_contract))
+  static = (basis, int(min_deg), int(max_deg), bool(use_contract))
+  out = _DensityMLP.apply(means.reshape(-1, 3), covs.reshape(-1, 3, 3),
+                          static, wd, bd, *ws, *bs)
   return out.reshape(batch_shape)

@@ -1,18 +1,24 @@
-"""Fused featurize -> Dense forward: CUDA kernel wrapper and plain version.
+"""Fused featurize -> Dense: CUDA kernel wrappers, plain versions, autograd.
 
-Replaces ``multinerf_tpu/ops/pallas/featurize_dense.py:_fwd_kernel``:
-``bf16(IPE(contract(means, covs))) @ bf16(W) + bias`` with f32 accumulation,
-the features never stored in device memory.  At the 360 config (131,072
-samples per 4,096-ray chunk, W = 1,024) it is 137 GFLOP of bf16 products
-against 0.5 GB of f32 output, so the tensor cores bound it; the design notes
-are in ``csrc/featurize_dense.cu``.
+Forward (K2) replaces ``multinerf_tpu/ops/pallas/featurize_dense.py:
+_fwd_kernel``: ``bf16(IPE(contract(means, covs))) @ bf16(W) + bias`` with
+f32 accumulation, the features never stored in device memory.  At the 360
+config (131,072 samples per 4,096-ray batch, W = 1,024) it is 137 GFLOP of
+bf16 products against 0.5 GB of f32 output, so the tensor cores bound it;
+the design notes are in ``csrc/featurize_dense.cu``.
 
-Forward only: rendering needs no gradient.  The dW kernel and the
-``torch.autograd.Function`` around both come with the training port.
+Backward (K4) replaces ``_dw_kernel``: ``dW = bf16(feats)^T @ bf16(g)``
+with f32 accumulation, the features recomputed per tile; ``db = g.sum(0)``
+in f32 (featurize_dense.py:249-254).  The design notes (split-K partials
+and an ordered reduce, deterministic) are in ``csrc/featurize_dense_dw.cu``.
+The sample positions get no gradient: means and covs are stop-gradient
+inputs, as in the JAX custom VJP.
 
-On a CUDA tensor the wrapper launches the kernel (or raises); on a CPU
-tensor it runs ``featurize_dense_plain``, the line-for-line port of
-``featurize_dense_reference`` with the same bf16 roundings.
+On a CUDA tensor each wrapper launches its kernel (or raises); on a CPU
+tensor it runs the plain version, in both directions, so that the CPU path
+has the same stop-gradient semantics: ``featurize_dense_plain`` (the port
+of ``featurize_dense_reference``) and ``featurize_dense_dw_plain`` (the
+port of ``_dw_kernel``), with the same bf16 roundings.
 """
 
 from __future__ import annotations
@@ -27,14 +33,16 @@ from multinerf_tpu_torch.ops import coord
 from multinerf_tpu_torch.ops.kernels import build
 
 # launches: kernel launches; plain_calls: calls served by the plain version.
-counts = {'launches': 0, 'plain_calls': 0}
+counts = {'launches': 0, 'plain_calls': 0}  # Forward (K2).
+bwd_counts = {'launches': 0, 'plain_calls': 0}  # dW (K4).
 
 _BASIS_CACHE = {}
 
 
 def reset_counts():
-  for k in counts:
-    counts[k] = 0
+  for c in (counts, bwd_counts):
+    for k in c:
+      c[k] = 0
 
 
 def device_basis(basis, min_deg, device):
@@ -69,30 +77,68 @@ def check_gaussians(means, covs):
     raise ValueError('too many samples for one launch.')
 
 
-def featurize_dense_plain(means, covs, kernel, bias, basis, min_deg=0,
-                          max_deg=12, use_contract=True):
-  """Plain PyTorch version: [..., 3], [..., 3, 3] -> [..., W] f32."""
+def plain_features(means, covs, basis, min_deg, max_deg, use_contract):
+  """bf16 IPE features [..., F] of (contracted) Gaussians, as in the kernels."""
   if use_contract:
     means, covs = coord.contract_gaussian(means, covs)
-  feats = coord.integrated_pos_enc_lifted_recurrence(
+  return coord.integrated_pos_enc_lifted_recurrence(
       means, covs, basis, min_deg, max_deg).to(torch.bfloat16)
+
+
+def featurize_dense_plain(means, covs, kernel, bias, basis, min_deg=0,
+                          max_deg=12, use_contract=True):
+  """Plain PyTorch version of K2: [..., 3], [..., 3, 3] -> [..., W] f32."""
+  feats = plain_features(means, covs, basis, min_deg, max_deg, use_contract)
   # bf16 x bf16 products are exact in f32, so an f32 product of the
   # bf16-rounded operands is the bf16-in / f32-accumulate dot.
   return feats.float() @ kernel.to(torch.bfloat16).float() + bias
+
+
+def featurize_dense_dw_plain(means, covs, g, basis, min_deg=0, max_deg=12,
+                             use_contract=True):
+  """Plain PyTorch version of K4 (line for line ``_dw_kernel``):
+  [N, 3], [N, 3, 3], g [N, W] -> dW [F, W] f32 = bf16(feats)^T @ bf16(g)."""
+  feats = plain_features(means, covs, basis, min_deg, max_deg, use_contract)
+  return feats.float().T @ g.to(torch.bfloat16).float()
+
+
+def dw_plan(rows, width, n, device):
+  """(bm, bn, splits) of the split-K weight-gradient pass
+  (csrc/dw_accumulate.cuh): 8 warps of 64 x 64 cover a [bm, bn] block of
+  dW with bm >= rows; `splits` sample splits fill one wave of the card."""
+  warps_m = 1
+  while 64 * warps_m < rows and warps_m < 8:
+    warps_m *= 2
+  bm, bn = 64 * warps_m, 64 * (8 // warps_m)
+  if rows > bm:
+    raise ValueError(f'{rows} rows: the dW kernel takes at most 512.')
+  if width % 16 != 0:
+    raise ValueError(f'width {width} must be a multiple of 16 for the dW '
+                     'kernel.')
+  sms = torch.cuda.get_device_properties(device).multi_processor_count
+  tiles = -(-n // 64)
+  return bm, bn, max(1, min(tiles, sms // -(-width // bn)))
+
+
+def _check_dense(means, width, basis, min_deg, max_deg, kernel_rows=None):
+  """(basis_t, bb_t, num_dims, num_degs) after the shape checks."""
+  basis_t, bb_t = device_basis(basis, min_deg, means.device)
+  num_dims = basis_t.shape[0]
+  num_degs = max_deg - min_deg
+  if kernel_rows is not None and kernel_rows != 2 * num_degs * num_dims:
+    raise ValueError(f'kernel has {kernel_rows} rows, expected '
+                     f'{2 * num_degs * num_dims} features.')
+  if width % 32 != 0:
+    raise ValueError(f'width {width} must be a multiple of 32.')
+  return basis_t, bb_t, num_dims, num_degs
 
 
 def _launch(means, covs, kernel, bias, basis, min_deg, max_deg,
             use_contract):
   check_gaussians(means, covs)
   num_feats, width = kernel.shape
-  basis_t, bb_t = device_basis(basis, min_deg, means.device)
-  num_dims = basis_t.shape[0]
-  num_degs = max_deg - min_deg
-  if num_feats != 2 * num_degs * num_dims:
-    raise ValueError(f'kernel has {num_feats} rows, expected '
-                     f'{2 * num_degs * num_dims} features.')
-  if width % 32 != 0:
-    raise ValueError(f'width {width} must be a multiple of 32.')
+  basis_t, bb_t, num_dims, num_degs = _check_dense(
+      means, width, basis, min_deg, max_deg, kernel_rows=num_feats)
   if bias.shape != (width,) or bias.dtype != torch.float32:
     raise ValueError(f'bias must be float32 [{width}].')
   for t in (covs, kernel, bias):
@@ -116,20 +162,98 @@ def _launch(means, covs, kernel, bias, basis, min_deg, max_deg,
   return out
 
 
+def _launch_dw(means, covs, g, basis, min_deg, max_deg, use_contract):
+  check_gaussians(means, covs)
+  if g.dtype != torch.float32 or g.dim() != 2 or g.shape[0] != means.shape[0]:
+    raise ValueError(f'g must be float32 [{means.shape[0]}, W], got '
+                     f'{g.dtype} {tuple(g.shape)}.')
+  if g.device != means.device or covs.device != means.device:
+    raise ValueError('all inputs must be on one device.')
+  g = g.contiguous()
+  n, width = g.shape
+  basis_t, bb_t, num_dims, num_degs = _check_dense(
+      means, width, basis, min_deg, max_deg)
+  num_feats = 2 * num_degs * num_dims
+  bm, bn, splits = dw_plan(-(-num_feats // 16) * 16, width, n, means.device)
+  part = torch.empty((splits, bm, width), dtype=torch.float32,
+                     device=means.device)
+  out = torch.empty((num_feats, width), dtype=torch.float32,
+                    device=means.device)
+  lib = build.load('featurize_dense_dw')
+  fn = lib.featurize_dense_dw
+  fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+  fn.restype = ctypes.c_int
+  bwd_counts['launches'] += 1
+  build.check(fn(means.data_ptr(), covs.data_ptr(), basis_t.data_ptr(),
+                 bb_t.data_ptr(), g.data_ptr(), part.data_ptr(),
+                 out.data_ptr(), n, width, num_dims, num_degs,
+                 int(use_contract), bm, bn, splits,
+                 torch.cuda.current_stream(means.device).cuda_stream),
+              'featurize_dense_dw')
+  return out
+
+
+def check_device(t):
+  if t.device.type not in ('cpu', 'cuda'):
+    raise ValueError(f'unsupported device {t.device}.')
+
+
+def featurize_dense_forward(means, covs, kernel, bias, basis, min_deg,
+                            max_deg, use_contract):
+  """K2 on a CUDA tensor, its plain version on a CPU one: [N, 3],
+  [N, 3, 3] -> [N, W].  No autograd."""
+  check_device(means)
+  if means.device.type == 'cpu':
+    counts['plain_calls'] += 1
+    return featurize_dense_plain(means, covs, kernel, bias, basis, min_deg,
+                                 max_deg, use_contract)
+  return _launch(means, covs.reshape(-1, 9), kernel, bias, basis,
+                 int(min_deg), int(max_deg), bool(use_contract))
+
+
+def featurize_dense_dw(means, covs, g, basis, min_deg=0, max_deg=12,
+                       use_contract=True):
+  """K4 on a CUDA tensor, its plain version on a CPU one: [N, 3],
+  [N, 3, 3], g [N, W] -> dW [F, W] f32."""
+  check_device(means)
+  if means.device.type == 'cpu':
+    bwd_counts['plain_calls'] += 1
+    return featurize_dense_dw_plain(means, covs, g, basis, min_deg, max_deg,
+                                    use_contract)
+  return _launch_dw(means, covs.reshape(-1, 9), g, basis, int(min_deg),
+                    int(max_deg), bool(use_contract))
+
+
+class _FeaturizeDense(torch.autograd.Function):
+  """K2 forward, K4 + ``g.sum(0)`` backward; no gradient to the samples."""
+
+  @staticmethod
+  def forward(ctx, means, covs, kernel, bias, static):
+    ctx.save_for_backward(means, covs)
+    ctx.static = static
+    return featurize_dense_forward(means, covs, kernel, bias, *static)
+
+  @staticmethod
+  def backward(ctx, g):
+    means, covs = ctx.saved_tensors
+    dw = db = None
+    if ctx.needs_input_grad[2]:
+      dw = featurize_dense_dw(means, covs, g, *ctx.static)
+    if ctx.needs_input_grad[3]:
+      db = g.sum(0)
+    return None, None, dw, db, None
+
+
 def featurize_dense(means, covs, kernel, bias, basis, min_deg=0, max_deg=12,
                     use_contract=True):
   """Fused featurize + Dense: [..., 3], [..., 3, 3] -> [..., W] f32.
 
   Equivalent (to bf16 matmul rounding) to contract -> IPE -> feats @ kernel
-  + bias.  Forward only.
+  + bias.  Gradients flow to (kernel, bias) only, through K4.
   """
+  check_device(means)
   batch_shape = means.shape[:-1]
-  if means.device.type == 'cpu':
-    counts['plain_calls'] += 1
-    return featurize_dense_plain(means, covs, kernel, bias, basis, min_deg,
-                                 max_deg, use_contract)
-  if means.device.type != 'cuda':
-    raise ValueError(f'unsupported device {means.device}.')
-  out = _launch(means.reshape(-1, 3), covs.reshape(-1, 9), kernel, bias,
-                basis, int(min_deg), int(max_deg), bool(use_contract))
+  static = (basis, int(min_deg), int(max_deg), bool(use_contract))
+  out = _FeaturizeDense.apply(means.reshape(-1, 3), covs.reshape(-1, 3, 3),
+                              kernel, bias, static)
   return out.reshape(batch_shape + (kernel.shape[-1],))

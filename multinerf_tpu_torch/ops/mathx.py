@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 # Fold trig arguments into [-100pi, 100pi) first (mathx.py:24).
@@ -33,10 +34,46 @@ def safe_cos(x):
   return torch.cos(_reduce(x))
 
 
+class _SafeExp(torch.autograd.Function):
+  """exp(min(x, 88)) whose gradient is exp(min(x, 88)), not 0, past the
+  clamp (the custom JVP of mathx.py:45-57)."""
+
+  @staticmethod
+  def forward(ctx, x):
+    y = torch.exp(torch.clamp(x, max=_EXP_CLAMP))
+    ctx.save_for_backward(y)
+    return y
+
+  @staticmethod
+  def backward(ctx, g):
+    y, = ctx.saved_tensors
+    return g * y
+
+
 def safe_exp(x):
-  """exp(x) with finite output (forward only; the straight-through
-  gradient of the JAX version comes with the training port)."""
-  return torch.exp(torch.clamp(x, max=_EXP_CLAMP))
+  """exp(x) with finite output and a nonzero gradient for large x."""
+  return _SafeExp.apply(x)
+
+
+def log_lerp(t, v0, v1):
+  """Interpolate log-linearly from v0 (t=0) to v1 (t=1); t clipped to [0,1]."""
+  if v0 <= 0 or v1 <= 0:
+    raise ValueError(f'Interpolants {v0} and {v1} must be positive.')
+  lv0, lv1 = np.log(v0), np.log(v1)
+  return np.exp(np.clip(t, 0, 1) * (lv1 - lv0) + lv0)
+
+
+def learning_rate_decay(step, lr_init, lr_final, max_steps, lr_delay_steps=0,
+                        lr_delay_mult=1):
+  """Log-linear decay from lr_init (step 0) to lr_final (max_steps), with
+  an optional sine-eased warm-up scaled by lr_delay_mult at step 0 and
+  reaching 1 at lr_delay_steps (mathx.py:68-81).  Numbers or numpy arrays."""
+  if lr_delay_steps > 0:
+    delay = lr_delay_mult + (1 - lr_delay_mult) * np.sin(
+        0.5 * np.pi * np.clip(step / lr_delay_steps, 0, 1))
+  else:
+    delay = 1.0
+  return delay * log_lerp(step / max_steps, lr_init, lr_final)
 
 
 def interp_gather(x, xp, fp):

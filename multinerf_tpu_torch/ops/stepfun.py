@@ -1,9 +1,12 @@
-"""Step-function algebra for hierarchical sampling (render subset).
+"""Step-function algebra for hierarchical sampling and its losses.
 
-Torch port of the parts of ``multinerf_tpu.ops.stepfun`` that rendering
-runs: max-dilation of the proposal histogram, the inverse-CDF sampler at
-``rng=None``, interval sampling and weighted percentiles.  Conventions as
-there: ``t`` are sorted endpoints [..., n+1], ``w`` bin weights [..., n].
+Torch port of the parts of ``multinerf_tpu.ops.stepfun`` that rendering and
+training run: max-dilation of the proposal histogram, the stratified
+inverse-CDF sampler (deterministic, or jittered from a ``torch.Generator``),
+interval sampling, weighted percentiles, the proposal (outer-measure) loss
+and the O(n) distortion loss.  The ``MULTINERF_REFERENCE_ALGOS`` variants
+of the JAX package are not ported.  Conventions as there: ``t`` are sorted
+endpoints [..., n+1], ``w`` bin weights [..., n].
 """
 
 from __future__ import annotations
@@ -69,20 +72,30 @@ def invert_cdf(u, t, w_logits, use_gpu_resampling=False):
 
 def sample(rng, t, w_logits, num_samples, single_jitter=False,
            deterministic_center=False, use_gpu_resampling=False):
-  """Stratified inverse-CDF sampling; only ``rng=None`` (rendering) here."""
-  del single_jitter  # Only shapes the jitter, which rng=None never draws.
-  if rng is not None:
-    raise NotImplementedError(
-        'Not ported yet: jittered sampling (ROADMAP.md Queue 1: training '
-        'step).')
+  """Stratified inverse-CDF sampling from a step function.
+
+  One sample per stratum of [0, 1).  With ``rng=None`` the samples sit at
+  fixed points of their strata; with a ``torch.Generator`` each stratum
+  ``[i * pitch, i * pitch + pitch - eps)`` gets a uniform jitter, shared
+  along a ray with ``single_jitter`` (stepfun.py:174-201).  The generator
+  lives on t's device; its bits are not JAX's.
+  """
   eps = _F32_EPS
   strata = torch.arange(num_samples, dtype=t.dtype, device=t.device)
-  if deterministic_center:
-    pad = 1 / (2 * num_samples)
-    u = pad + strata * ((1 - 2 * pad - eps) / (num_samples - 1))
+  if rng is None:
+    if deterministic_center:
+      pad = 1 / (2 * num_samples)
+      u = pad + strata * ((1 - 2 * pad - eps) / (num_samples - 1))
+    else:
+      u = strata * ((1 - eps) / (num_samples - 1))
+    u = torch.broadcast_to(u, t.shape[:-1] + (num_samples,))
   else:
-    u = strata * ((1 - eps) / (num_samples - 1))
-  u = torch.broadcast_to(u, t.shape[:-1] + (num_samples,))
+    u_max = eps + (1 - eps) / num_samples
+    pitch = (1 - u_max) / (num_samples - 1)
+    jitter_shape = t.shape[:-1] + ((1,) if single_jitter else (num_samples,))
+    u = strata * pitch + torch.rand(jitter_shape, generator=rng,
+                                    dtype=t.dtype, device=t.device) * (
+                                        pitch - eps)
   return invert_cdf(u, t, w_logits, use_gpu_resampling=use_gpu_resampling)
 
 
@@ -116,3 +129,31 @@ def weighted_percentile(t, w, ps):
       torch.tensor(ps, dtype=t.dtype, device=t.device) / 100,
       t.shape[:-1] + (len(ps),))
   return mathx.interp_sorted(q, cw, t)
+
+
+def outer_measure(t0, t1, y1):
+  """Upper bound on the mass of (t1, y1) touching each bin of t0:
+  outer[i] = sum_j y1[j] * 1[t1[j] <= t0[i+1] and t1[j+1] > t0[i]]."""
+  left = t1[..., :-1, None] <= t0[..., None, 1:]  # [..., m, n]
+  right = t1[..., 1:, None] > t0[..., None, :-1]
+  return torch.sum(torch.where(left & right, y1[..., None], 0), dim=-2)
+
+
+def lossfun_outer(t, w, t_env, w_env, eps=_F32_EPS):
+  """Proposal loss: the mass of (t, w) above the upper envelope of
+  (t_env, w_env), half-quadratic and scaled by 1 / w."""
+  w_outer = outer_measure(t, t_env, w_env)
+  return torch.clamp(w - w_outer, min=0)**2 / (w + eps)
+
+
+def lossfun_distortion(t, w):
+  """Distortion loss of mip-NeRF 360 (Eq 15), in the O(n) prefix-sum form:
+  sum_ij w_i w_j |m_i - m_j| = 2 sum_i w_i (m_i P_i - Q_i), P and Q the
+  exclusive prefix sums of w and w * m, plus the intra-bin w^2 width / 3."""
+  mids = 0.5 * (t[..., 1:] + t[..., :-1])
+  wm = w * mids
+  p = torch.cumsum(w, dim=-1) - w
+  q = torch.cumsum(wm, dim=-1) - wm
+  loss_inter = 2 * torch.sum(w * (mids * p - q), dim=-1)
+  loss_intra = torch.sum(w**2 * (t[..., 1:] - t[..., :-1]), dim=-1) / 3
+  return loss_inter + loss_intra

@@ -1,0 +1,110 @@
+"""Where a training step's device time goes, from torch.profiler.
+
+    python -m multinerf_tpu_torch.profile_step --gin_configs=configs/360.gin \
+        --gin_bindings="Config.dataset_loader='dummy_unbounded'" \
+        --gin_bindings='Config.batch_size=4096' [--warmup=13] [--steps=3]
+
+Sets the model up as ``python -m multinerf_tpu_torch.train`` does (same
+seeds, TF32 off), runs `warmup` steps, then `steps` more under the
+profiler, each synchronised.  Device busy time is the union of the CUDA
+kernel, copy and memset intervals of the profiled steps (the CPU ops'
+``key_averages()`` rows also carry their children's device time, so they
+are not summed); the idle share is 1 - busy / wall, wall being the host
+clock around the profiled steps.  Prints the kernels by device time per
+step and, as the last line, one JSON object with the same numbers.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import sys
+import time
+
+import numpy as np
+import torch
+
+from multinerf_tpu_torch import configs
+from multinerf_tpu_torch import train
+from multinerf_tpu_torch import train_lib
+from multinerf_tpu_torch.data import datasets
+
+
+def _union_us(intervals):
+  """Total length of the union of (start, end) intervals."""
+  total, end = 0.0, -np.inf
+  for lo, hi in sorted(intervals):
+    if hi > end:
+      total += hi - max(lo, end)
+      end = hi
+  return total
+
+
+def main(argv=None):
+  """Returns {'wall_ms', 'busy_ms', 'idle', 'kernels': [[name, ms]]}, per
+  profiled step."""
+  parser = argparse.ArgumentParser(description='Profile training steps.')
+  configs.add_common_flags(parser)
+  parser.add_argument('--warmup', type=int, default=13)
+  parser.add_argument('--steps', type=int, default=3)
+  parser.add_argument('--top', type=int, default=20)
+  args = parser.parse_args(argv)
+  if not torch.cuda.is_available():
+    raise RuntimeError('profile_step needs CUDA.')
+  device = torch.device('cuda')
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+
+  config = configs.load_config(args)
+  dataset = datasets.load_dataset('train', config.data_dir, config,
+                                  seed=train.DATA_SEED)
+  _, state, _, train_step, _ = train_lib.setup_model(config, train.SEED,
+                                                     device)
+  generator = torch.Generator(device=device).manual_seed(train.SEED)
+  total = args.warmup + args.steps
+
+  def step(i, state):
+    batch = train_lib.batch_to_device(next(dataset), device)
+    train_frac = float(np.clip((i - 1) / (config.max_steps - 1), 0, 1))
+    state, _ = train_step(generator, state, batch, train_frac, False)
+    torch.cuda.synchronize(device)
+    return state
+
+  for i in range(1, args.warmup + 1):
+    state = step(i, state)
+  activities = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+  with torch.profiler.profile(activities=activities) as prof:
+    t0 = time.perf_counter()
+    for i in range(args.warmup + 1, total + 1):
+      state = step(i, state)
+    wall_us = (time.perf_counter() - t0) * 1e6
+
+  device_events = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and
+                   not e.is_user_annotation]
+  if not device_events:
+    raise RuntimeError('The profiler recorded no device activity.')
+  busy_us = _union_us([(e.time_range.start, e.time_range.end)
+                       for e in device_events])
+  by_name = collections.Counter()
+  for e in device_events:
+    by_name[e.name] += e.time_range.end - e.time_range.start
+  kernel_us = sum(by_name.values())
+  per_step = lambda us: us / 1e3 / args.steps
+  out = {'wall_ms': per_step(wall_us), 'busy_ms': per_step(busy_us),
+         'idle': 1 - busy_us / wall_us,
+         'kernels': [[name, per_step(us)]
+                     for name, us in by_name.most_common(args.top)]}
+  print(f'{args.steps} steps after {args.warmup}: wall {out["wall_ms"]:.3f} '
+        f'ms, device busy {out["busy_ms"]:.3f} ms, idle {out["idle"]:.2%} '
+        'per step')
+  for name, ms in out['kernels']:
+    print(f'{ms:9.3f} ms {ms / per_step(kernel_us):6.1%}  {name[:100]}')
+  print(json.dumps(out))
+  return out
+
+
+if __name__ == '__main__':
+  main(sys.argv[1:])

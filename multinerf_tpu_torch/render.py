@@ -138,7 +138,8 @@ def main(argv=None):
 
   config = configs.load_config(args)
   dataset = datasets.load_dataset('test', config.data_dir, config)
-  model, state, render_eval_fn = train_lib.setup_model(config, SEED, device)
+  model, state, render_eval_fn, _, _ = train_lib.setup_model(config, SEED,
+                                                             device)
   renderer = models.DeviceImageRenderer(render_eval_fn, config, dataset,
                                         device)
   postprocess_fn, _ = image_ops.make_postprocess_fns(config, dataset)

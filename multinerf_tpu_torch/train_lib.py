@@ -1,17 +1,322 @@
-"""Model setup and the render function (port of parts of train_lib.py).
+"""Losses, optimizer, the training step and model setup (port of train_lib.py).
 
-Only ``create_render_fn`` (train_lib.py:447) and the model/parameter part
-of ``setup_model`` (train_lib.py:480) are ported; the optimizer and the
-train step come with the training port.
+The training step (train_lib.py:244-425 with ``jit=False``): render the
+batch through every level, the data loss (``mse`` or ``charb``), the
+proposal (interlevel) and distortion losses, backpropagation through the
+fused kernels' backward passes, per-module clipping by value then by norm,
+``nan_to_num`` of the clipped gradients, and Adam on the log-linear
+learning-rate schedule.  Statistics keep the JAX names, flattened with '/'
+(``losses/data``, ``grad_norms/NerfMLP_0``, ...).  Not ported: the RawNeRF,
+RobustNeRF and Ref-NeRF losses, weight decay, occupancy culling and the
+disparity and normal metrics (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+
+import numpy as np
 import torch
 
 from multinerf_tpu_torch import bridge
+from multinerf_tpu_torch.data import types
 from multinerf_tpu_torch.models import nerf as nerf_lib
+from multinerf_tpu_torch.ops import image_ops
+from multinerf_tpu_torch.ops import mathx
+from multinerf_tpu_torch.ops import stepfun
 from multinerf_tpu_torch.utils import checkpoints
+
+_F32_EPS = float(np.finfo(np.float32).eps)
+
+
+# --- Statistics over {flax name: tensor} dicts. -------------------------------
+
+
+def _groups(name, max_depth=3):
+  """'A/B/C/...' -> ['A', 'A/B', 'A/B/C']: the keys summarize_tree
+  (train_lib.py:63) gives the leaf under."""
+  parts = name.split('/')
+  return ['/'.join(parts[:d]) for d in range(1, min(len(parts), max_depth) + 1)]
+
+
+def _summarize(flat, leaf_fn, combine):
+  out = {}
+  for name, value in flat.items():
+    v = leaf_fn(value.detach())
+    for g in _groups(name):
+      out[g] = combine(out[g], v) if g in out else v
+  return out
+
+
+def norm_sq_stats(flat):
+  """Squared L2 norm of every module, layer and leaf."""
+  return _summarize(flat, lambda x: torch.sum(x.float()**2), torch.add)
+
+
+def norm_stats(flat):
+  return {k: torch.sqrt(v) for k, v in norm_sq_stats(flat).items()}
+
+
+def abs_max_stats(flat):
+  return _summarize(flat, lambda x: torch.max(torch.abs(x)), torch.maximum)
+
+
+# --- Loss terms. ----------------------------------------------------------------
+
+
+def compute_data_loss(batch, renderings, rays, config):
+  """Photometric loss over all levels (train_lib.py:77-135): (loss, mses)."""
+  if config.data_loss_type not in ('mse', 'charb'):
+    raise NotImplementedError(
+        f'Not ported yet: data_loss_type={config.data_loss_type!r} '
+        '(ROADMAP.md Queue 1: the rest of the model zoo).')
+  lossmult = torch.broadcast_to(rays.lossmult, batch.rgb[..., :3].shape)
+  if config.disable_multiscale_loss:
+    lossmult = torch.ones_like(lossmult)
+  denom = lossmult.sum()
+  mses, data_losses = [], []
+  for rendering in renderings:
+    resid_sq = (rendering['rgb'] - batch.rgb[..., :3])**2
+    mses.append((lossmult * resid_sq).sum() / denom)
+    if config.data_loss_type == 'mse':
+      data_loss = resid_sq
+    else:
+      data_loss = torch.sqrt(resid_sq + config.charb_padding**2)
+    data_losses.append((lossmult * data_loss).sum() / denom)
+  data_losses = torch.stack(data_losses)
+  loss = (config.data_coarse_loss_mult * torch.sum(data_losses[:-1]) +
+          config.data_loss_mult * data_losses[-1])
+  return loss, torch.stack(mses).detach()
+
+
+def interlevel_loss(ray_history, config):
+  """Proposal supervision: each proposal histogram must envelope the
+  final level's (held fixed)."""
+  last = ray_history[-1]
+  c = last['sdist'].detach()
+  w = last['weights'].detach()
+  loss = 0.0
+  for ray_results in ray_history[:-1]:
+    loss = loss + torch.mean(stepfun.lossfun_outer(
+        c, w, ray_results['sdist'], ray_results['weights']))
+  return config.interlevel_loss_mult * loss
+
+
+def distortion_loss(ray_history, config):
+  """The mip-NeRF 360 distortion regularizer on the final level."""
+  last = ray_history[-1]
+  loss = torch.mean(stepfun.lossfun_distortion(last['sdist'],
+                                               last['weights']))
+  return config.distortion_loss_mult * loss
+
+
+def clip_gradients(grads, config):
+  """Clip the gradients of each top-level module (NerfMLP_0, PropMLP_0)
+  on its own: by value, then by the module's norm (train_lib.py:192).  A
+  NaN anywhere in a module makes its norm NaN, and so every entry of it."""
+  modules = {}
+  for name in grads:
+    modules.setdefault(name.split('/')[0], []).append(name)
+  out = {}
+  for names in modules.values():
+    g = {k: grads[k] for k in names}
+    if config.grad_max_val > 0:
+      g = {k: torch.clamp(v, -config.grad_max_val, config.grad_max_val)
+           for k, v in g.items()}
+    if config.grad_max_norm > 0:
+      norm = torch.sqrt(sum(torch.sum(v**2) for v in g.values()))
+      ratio = config.grad_max_norm / (_F32_EPS + norm)
+      mult = torch.minimum(torch.ones_like(ratio), ratio)  # NaN stays NaN.
+      g = {k: mult * v for k, v in g.items()}
+    out.update(g)
+  return out
+
+
+# --- Optimizer. -------------------------------------------------------------------
+
+
+def learning_rate_fn(config):
+  """step -> learning rate, the schedule of create_optimizer."""
+  return functools.partial(
+      mathx.learning_rate_decay, lr_init=config.lr_init,
+      lr_final=config.lr_final, max_steps=config.max_steps,
+      lr_delay_steps=config.lr_delay_steps,
+      lr_delay_mult=config.lr_delay_mult)
+
+
+def create_optimizer(config, params):
+  """(Adam over `params` ({flax name: nn.Parameter}), lr_fn).  The train
+  step sets the rate to lr_fn(count) before each update, count being the
+  number of updates already applied (optax's count): the first update uses
+  lr_fn(0)."""
+  lr_fn = learning_rate_fn(config)
+  optimizer = torch.optim.Adam(
+      list(params.values()), lr=float(lr_fn(0)),
+      betas=(config.adam_beta1, config.adam_beta2), eps=config.adam_eps)
+  return optimizer, lr_fn
+
+
+def apply_gradients(state, grads, config, lr_fn):
+  """Clip `grads` ({flax name: tensor}), zero their NaNs and apply one
+  Adam update at lr_fn(state.step) to `state.params`, the parameters of
+  `state.optimizer`.  Returns the TrainState one step on."""
+  optimizer = state.optimizer
+  for name, g in clip_gradients(grads, config).items():
+    state.params[name].grad = torch.nan_to_num(g)
+  for group in optimizer.param_groups:
+    group['lr'] = float(lr_fn(state.step))
+  optimizer.step()
+  return checkpoints.TrainState(step=state.step + 1, params=state.params,
+                                optimizer=optimizer)
+
+
+# --- Train step. ------------------------------------------------------------------
+
+
+def batch_to_device(batch, device):
+  """A host Batch -> tensors on `device`: floats as float32, the unit
+  patch axes of patch_size 1 dropped ([P, 1, 1, C] -> [P, C])."""
+
+  def move(x):
+    if x is None:
+      return None
+    x = np.asarray(x)
+    if x.ndim >= 3 and x.shape[1:3] == (1, 1):
+      x = x.reshape((x.shape[0],) + x.shape[3:])
+    if np.issubdtype(x.dtype, np.floating):
+      x = x.astype(np.float32)
+    return torch.as_tensor(np.array(x), device=device)  # A writable copy.
+
+  rays = type(batch.rays)(**{f: move(getattr(batch.rays, f))
+                             for f in batch.rays.__dataclass_fields__})
+  return types.Batch(rays=rays, rgb=move(batch.rgb))
+
+
+def loss_and_grads(model, config, batch, train_frac, generator=None):
+  """The training loss of `batch` and its gradient (the loss_fn of
+  train_lib.py:302-373 under value_and_grad): (loss, {name: loss term},
+  mses [levels], {flax name: raw gradient}).  Leaves ``.grad`` set on the
+  model's parameters."""
+  rays = batch.rays
+  renderings, ray_history = model(rays, train_frac, compute_extras=False,
+                                  generator=generator)
+  losses = {}
+  losses['data'], mses = compute_data_loss(batch, renderings, rays, config)
+  if config.interlevel_loss_mult > 0:
+    losses['interlevel'] = interlevel_loss(ray_history, config)
+  if config.distortion_loss_mult > 0:
+    losses['distortion'] = distortion_loss(ray_history, config)
+  loss = torch.sum(torch.stack(list(losses.values())))
+  loss.backward()
+  grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
+           for k, p in bridge.named_parameters(model).items()}
+  return loss.detach(), {k: v.detach() for k, v in losses.items()}, mses, grads
+
+
+def create_train_step(model, config, device):
+  """(generator, state, batch, train_frac, compute_stats) -> (state, stats).
+
+  One optimizer step of `model` on a device Batch (``batch_to_device``),
+  with ``state.optimizer`` holding Adam over the model's parameters.
+  `generator` (a torch.Generator on `device`) draws the jitter when
+  ``config.randomized``.  stats: 'loss', 'losses/{data,interlevel,
+  distortion}', 'mses', 'psnrs', 'psnr' (detached tensors), plus with
+  `compute_stats` the tree statistics 'weight_l2s/...' (before the update),
+  'grad_norms/...', 'grad_maxes/...' (raw gradients), 'opt_update_norms/...'
+  and 'opt_update_maxes/...'.
+  """
+  del device  # The batch and the model already live there.
+  later = 'ROADMAP.md Queue 1'
+  if config.weight_decay_mults:
+    raise NotImplementedError(
+        f'Not ported yet: weight_decay_mults ({later} item 2b).')
+  if config.compute_disp_metrics or config.compute_normal_metrics:
+    raise NotImplementedError(
+        f'Not ported yet: disparity and normal metrics ({later}: the rest '
+        'of the model zoo).')
+  if (config.orientation_loss_mult > 0 or
+      config.orientation_coarse_loss_mult > 0 or
+      config.predicted_normal_loss_mult > 0 or
+      config.predicted_normal_coarse_loss_mult > 0):
+    raise NotImplementedError(
+        f'Not ported yet: the Ref-NeRF losses ({later}: the rest of the '
+        'model zoo).')
+  lr_fn = learning_rate_fn(config)
+
+  def train_step(generator, state, batch, train_frac, compute_stats):
+    params = bridge.named_parameters(model)
+    state.optimizer.zero_grad(set_to_none=True)
+    loss, losses, mses, grads = loss_and_grads(
+        model, config, batch, train_frac,
+        generator if config.randomized else None)
+
+    stats = {'loss': loss, 'mses': mses}
+    stats.update({f'losses/{k}': v for k, v in losses.items()})
+    if compute_stats:
+      tree_stats = {'weight_l2s': norm_sq_stats(params),
+                    'grad_norms': norm_stats(grads),
+                    'grad_maxes': abs_max_stats(grads)}
+      before = {k: p.detach().clone() for k, p in params.items()}
+
+    state = apply_gradients(state, grads, config, lr_fn)
+
+    if compute_stats:
+      delta = {k: p.detach() - before[k] for k, p in params.items()}
+      tree_stats['opt_update_norms'] = norm_stats(delta)
+      tree_stats['opt_update_maxes'] = abs_max_stats(delta)
+      for family, values in tree_stats.items():
+        stats.update({f'{family}/{k}': v for k, v in values.items()})
+    stats['psnrs'] = image_ops.mse_to_psnr(mses)
+    stats['psnr'] = stats['psnrs'][-1]
+    return state, stats
+
+  return train_step
+
+
+# --- Holding a step against a reference step. ---------------------------------
+
+# Two steps from the same weights on the same batch (the kernels against
+# their plain versions, or the port against the JAX package) round features,
+# activations and cotangents to bf16 at the same places.  They differ where
+# an f32 value lands on the other side of a rounding boundary, and in
+# summation order, and through the ReLU masks those gaps grow toward the
+# first layers.  The reference step is that sensitive by itself: moving its
+# ray origins by a relative NUDGE moves a gradient or update leaf by a
+# relative L2 `sens`.  So each leaf's relative L2 gap to the reference is
+# bounded by GAP_BASE + 2 * sens, and never by more than a fixed cap; a wrong
+# gradient is off by O(1).
+NUDGE = 1e-6
+GAP_BASE = 5e-2
+GAP_CAP = 0.1
+
+
+def nudge_origins(batch):
+  """`batch` with its ray origins moved by a relative NUDGE."""
+  rays = dataclasses.replace(batch.rays,
+                             origins=batch.rays.origins * (1 + NUDGE))
+  return types.Batch(rays=rays, rgb=batch.rgb)
+
+
+def _rel_l2(got, want):
+  got = np.asarray(got, np.float64)
+  want = np.asarray(want, np.float64)
+  return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def leaf_gaps(got, want, want_nudged, cap=GAP_CAP):
+  """{name: (gap, sens, bound)} over the leaves of `want`, each tree a
+  {name: array or CPU tensor}: the relative L2 gap of `got` to the reference
+  `want`, the reference's own gap `sens` when its ray origins move by NUDGE
+  (`want_nudged`), and the bound min(GAP_BASE + 2 * sens, cap)."""
+  out = {}
+  for name, w in want.items():
+    sens = _rel_l2(want_nudged[name], w)
+    out[name] = (_rel_l2(got[name], w), sens, min(GAP_BASE + 2 * sens, cap))
+  return out
+
+
+# --- Rendering and setup. --------------------------------------------------------
 
 
 def create_render_fn(model):
@@ -26,11 +331,14 @@ def create_render_fn(model):
 
 
 def setup_model(config, seed, device):
-  """(model, state, render_eval_fn): the gin-configured Model with weights
-  drawn from torch.Generator(seed), its TrainState at step 0 (parameters
-  shared with the model) and its render function."""
+  """(model, state, render_eval_fn, train_step, lr_fn), as train_lib.py:480:
+  the gin-configured Model with weights drawn from torch.Generator(seed),
+  its TrainState at step 0 (the model's parameters and the Adam optimizer
+  over them), its render function and its training step."""
   generator = torch.Generator().manual_seed(seed)
   model = nerf_lib.construct_model(config, generator, device)
-  model.eval()
-  state = checkpoints.TrainState(step=0, params=bridge.named_params(model))
-  return model, state, create_render_fn(model)
+  params = bridge.named_parameters(model)
+  optimizer, lr_fn = create_optimizer(config, params)
+  state = checkpoints.TrainState(step=0, params=params, optimizer=optimizer)
+  return (model, state, create_render_fn(model),
+          create_train_step(model, config, device), lr_fn)

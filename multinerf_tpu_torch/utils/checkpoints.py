@@ -2,10 +2,13 @@
 
 Each file holds ``{'step': int, 'params': {flax name: tensor}}``, the flax
 names being the '/'-joined paths of the JAX parameter tree (see
-``multinerf_tpu_torch.bridge``).  ``restore_latest`` keeps the contract of
+``multinerf_tpu_torch.bridge``), and, for a state that carries an
+optimizer, ``'opt_state'``: its ``state_dict()`` with every tensor on the
+CPU.  ``restore_latest`` keeps the contract of
 ``multinerf_tpu.utils.checkpoints.CheckpointManager.restore_latest``: the
 state comes back unchanged when no checkpoint exists, and names present on
-only one side keep the state's value or are dropped.
+only one side keep the state's value or are dropped.  It restores the
+parameters only; resuming the optimizer is not ported yet.
 """
 
 from __future__ import annotations
@@ -14,16 +17,28 @@ import dataclasses
 import glob
 import os
 import re
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
 
 @dataclasses.dataclass
 class TrainState:
-  """What a checkpoint restores: the step and the named parameters."""
+  """The step (updates applied so far), the named parameters and, while
+  training, the optimizer that updates them."""
   step: int
   params: Dict[str, torch.Tensor]
+  optimizer: Optional[torch.optim.Optimizer] = None
+
+
+def _to_cpu(tree: Any) -> Any:
+  if isinstance(tree, torch.Tensor):
+    return tree.detach().cpu()
+  if isinstance(tree, dict):
+    return {k: _to_cpu(v) for k, v in tree.items()}
+  if isinstance(tree, (list, tuple)):
+    return type(tree)(_to_cpu(v) for v in tree)
+  return tree
 
 
 class CheckpointManager:
@@ -42,7 +57,8 @@ class CheckpointManager:
         steps.append(int(m.group(1)))
     return sorted(steps)
 
-  def _path(self, step):
+  def path(self, step):
+    """The file of the checkpoint at `step`."""
     return os.path.join(self._dir, f'checkpoint_{step}.pt')
 
   def latest_step(self) -> Optional[int]:
@@ -51,20 +67,21 @@ class CheckpointManager:
 
   def save(self, step: int, state: TrainState):
     """Write `state` at `step`, keeping the newest `keep` checkpoints."""
-    tmp = self._path(step) + '.tmp'
-    torch.save({'step': int(step),
-                'params': {k: v.detach().cpu() for k, v in
-                           state.params.items()}}, tmp)
-    os.replace(tmp, self._path(step))
+    tmp = self.path(step) + '.tmp'
+    record = {'step': int(step), 'params': _to_cpu(state.params)}
+    if state.optimizer is not None:
+      record['opt_state'] = _to_cpu(state.optimizer.state_dict())
+    torch.save(record, tmp)
+    os.replace(tmp, self.path(step))
     for old in self._steps()[:-self._keep]:
-      os.remove(self._path(old))
+      os.remove(self.path(old))
 
   def restore_latest(self, state: TrainState) -> TrainState:
     """The latest checkpoint grafted onto `state`; `state` if none."""
     step = self.latest_step()
     if step is None:
       return state
-    saved = torch.load(self._path(step), map_location='cpu',
+    saved = torch.load(self.path(step), map_location='cpu',
                        weights_only=True)
     params = {}
     for name, value in state.params.items():

@@ -27,7 +27,8 @@ def _models(bindings=(), shapes_only=False):
 def test_full_width_tree_has_the_flax_names_and_shapes():
   params, model = _models(shapes_only=True)
   want = {k: tuple(v.shape) for k, v in bridge.flatten(params).items()}
-  got = {k: tuple(v.shape) for k, v in bridge.named_params(model).items()}
+  got = {k: tuple(v.shape)
+         for k, v in bridge.named_parameters(model).items()}
   assert got == want
   # The 360 config at full width, as the JAX package names it.
   assert got['PropMLP_0/Dense_0/kernel'] == (504, 256)
@@ -44,9 +45,9 @@ def test_every_leaf_lands_bitwise_and_round_trips():
   params, model = _models(tp.SMALL_BINDINGS)
   bridge.load_jax_params(model, params)
   flat = bridge.flatten(params)
-  named = bridge.named_params(model)
+  named = bridge.named_parameters(model)
   for name, want in flat.items():
-    got, want = named[name].numpy(), np.asarray(want)
+    got, want = named[name].detach().numpy(), np.asarray(want)
     assert got.dtype == want.dtype and got.shape == want.shape, name
     np.testing.assert_array_equal(got, want, err_msg=name)
   back = bridge.flatten(bridge.jax_params(model))
@@ -58,7 +59,7 @@ def test_every_leaf_lands_bitwise_and_round_trips():
 def test_checkpoint_restore_latest_contract(tmp_path):
   params, model = _models(tp.SMALL_BINDINGS)
   state = checkpoints.TrainState(step=0,
-                                 params=bridge.named_params(model))
+                                 params=bridge.named_parameters(model))
   mngr = checkpoints.CheckpointManager(str(tmp_path), keep=2)
   # No checkpoint: the state comes back unchanged.
   assert mngr.latest_step() is None
@@ -75,4 +76,5 @@ def test_checkpoint_restore_latest_contract(tmp_path):
   bridge.load_flat(model, restored.params)
   for name, want in bridge.flatten(params).items():
     np.testing.assert_array_equal(
-        bridge.named_params(model)[name].numpy(), want, err_msg=name)
+        bridge.named_parameters(model)[name].detach().numpy(), want,
+        err_msg=name)
