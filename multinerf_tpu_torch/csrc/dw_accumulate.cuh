@@ -1,8 +1,9 @@
 // Shared device code of the backward kernels (K3 density_mlp_bwd.cu, K4
-// featurize_dense_dw.cu): a weight gradient dW[rows, width] = A^T @ B summed
-// over every sample, where per 64-sample tile A is [64, rows] bf16 (the IPE
-// features, recomputed with tile_features, or rows of a bf16 matrix in
-// device memory) and B is [64, width] rounded to bf16 (the cotangent).
+// featurize_dense_dw.cu, K6 int8_trunk_bwd.cu): a weight gradient
+// dW[rows, width] = A^T @ B summed over every sample, where per 64-sample
+// tile A is [64, rows] bf16 (the IPE features, recomputed with
+// tile_features, or rows of a bf16 or f32 matrix in device memory, rounded
+// to bf16) and B is [64, width] rounded to bf16 (the cotangent).
 //
 // The TPU kernels run their grid in order and accumulate `+=` into one
 // output that stays resident in VMEM.  Hopper's blocks run in parallel and
@@ -62,17 +63,18 @@ __host__ inline size_t dw_smem_bytes(int bm, int bn, int num_dims) {
 }
 
 // part[p][bm][width]: split p's share of A^T @ B.  kFeatures: A is the IPE
-// features of (means, covs) (columns [kpad, bm) zero); otherwise A is
-// a_rows[n][a_cols] (columns [a_cols, bm) zero).  B is b_rows[n][width].
-// Rows past n of B are zero, so padded samples add exactly nothing.
-template <bool kFeatures, typename TB>
+// features of (means, covs) (columns [kpad, bm) zero); otherwise A is the
+// first a_cols columns of a_rows[n][a_ld], rounded to bf16 (columns
+// [a_cols, bm) zero).  B is b_rows[n][width].  Rows past n of B are zero,
+// so padded samples add exactly nothing.
+template <bool kFeatures, typename TB, typename TA>
 __global__ void __launch_bounds__(kThreads, 1)
 dw_partial_kernel(const float* __restrict__ means,
                   const float* __restrict__ covs,
                   const float* __restrict__ basis_t,
                   const float* __restrict__ bb_t, int num_dims, int num_degs,
-                  int use_contract, const __nv_bfloat16* __restrict__ a_rows,
-                  int a_cols, const TB* __restrict__ b_rows, int n,
+                  int use_contract, const TA* __restrict__ a_rows,
+                  int a_cols, int a_ld, const TB* __restrict__ b_rows, int n,
                   int width, int bm, int bn, int num_splits,
                   float* __restrict__ part) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -110,7 +112,7 @@ dw_partial_kernel(const float* __restrict__ means,
         const int s = i / words;
         const int c = (i - s * words) * 8;
         *reinterpret_cast<uint4*>(a_s + s * lda + c) =
-            row0 + s < n ? load8_bf16(a_rows + (row0 + s) * a_cols + c)
+            row0 + s < n ? load8_bf16(a_rows + (row0 + s) * a_ld + c)
                          : zero;
       }
       a_filled = a_cols;
@@ -179,28 +181,38 @@ inline cudaError_t reduce_splits(const float* part, int num_splits,
   return cudaGetLastError();
 }
 
+// Keeps a template parameter out of argument deduction (C++20's
+// std::type_identity_t): a nullptr A then takes the default type.
+template <typename T>
+struct NoDeduce {
+  using type = T;
+};
+
 // dW[rows_out, width] = A^T @ bf16(B) over all n samples: the partial pass
 // into `part` ([num_splits, bm, width] floats), then the ordered reduce.
-template <bool kFeatures, typename TB>
+// A's rows are a_ld elements apart (a_cols when a_ld is 0).
+template <bool kFeatures, typename TB, typename TA = __nv_bfloat16>
 cudaError_t weight_gradient(const float* means, const float* covs,
                             const float* basis_t, const float* bb_t,
                             int num_dims, int num_degs, int use_contract,
-                            const __nv_bfloat16* a_rows, int a_cols,
+                            const typename NoDeduce<TA>::type* a_rows,
+                            int a_cols,
                             const TB* b_rows, int n, int width, int rows_out,
                             int bm, int bn, int num_splits, float* part,
-                            float* out, cudaStream_t stream) {
+                            float* out, cudaStream_t stream, int a_ld = 0) {
+  if (a_ld == 0) a_ld = a_cols;
   const int rows = kFeatures ? padded_feats(2 * num_degs * num_dims) : a_cols;
   if (!dw_plan_ok(rows, width, bm, bn) || num_splits < 1 || rows_out > bm)
     return cudaErrorInvalidValue;
   const size_t smem = dw_smem_bytes(bm, bn, num_dims);
   cudaError_t err = cudaFuncSetAttribute(
-      dw_partial_kernel<kFeatures, TB>,
+      dw_partial_kernel<kFeatures, TB, TA>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((width + bn - 1) / bn, num_splits);
-  dw_partial_kernel<kFeatures, TB><<<grid, kThreads, smem, stream>>>(
+  dw_partial_kernel<kFeatures, TB, TA><<<grid, kThreads, smem, stream>>>(
       means, covs, basis_t, bb_t, num_dims, num_degs, use_contract, a_rows,
-      a_cols, b_rows, n, width, bm, bn, num_splits, part);
+      a_cols, a_ld, b_rows, n, width, bm, bn, num_splits, part);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return reduce_splits(part, num_splits, (long long)bm * width,

@@ -49,14 +49,16 @@ __device__ __forceinline__ float reduce_trig(float x) {
 }
 
 // Shared-memory scratch of the featurizer: the [L, 3] and [L, 9] lifted
-// bases and the per-sample warped (mean, cov) rows.
-__host__ __device__ inline int featurizer_smem_floats(int num_dims) {
-  return num_dims * 12 + kTile * 12;
+// bases and the per-sample warped (mean, cov) rows of a `rows`-sample tile.
+__host__ __device__ inline int featurizer_smem_floats(int num_dims,
+                                                      int rows = kTile) {
+  return num_dims * 12 + rows * 12;
 }
 
-// Fills feats[kTile][ldf] (bf16, row = sample) with the IPE features of
-// samples row0 .. row0+kTile-1; rows past n hold the features of a zero
+// Fills feats[kRows][ldf] (bf16, row = sample) with the IPE features of
+// samples row0 .. row0+kRows-1; rows past n hold the features of a zero
 // Gaussian and are never stored by the callers.  Ends with __syncthreads.
+template <int kRows = kTile>
 __device__ void tile_features(const float* __restrict__ means,
                               const float* __restrict__ covs,
                               const float* __restrict__ basis_t,
@@ -66,12 +68,12 @@ __device__ void tile_features(const float* __restrict__ means,
                               __nv_bfloat16* feats, int ldf) {
   float* s_basis = scratch;                 // [L][3]
   float* s_bb = scratch + num_dims * 3;     // [L][9]
-  float* s_mc = scratch + num_dims * 12;    // [kTile][12]: mean, cov.
+  float* s_mc = scratch + num_dims * 12;    // [kRows][12]: mean, cov.
   const int tid = threadIdx.x;
   for (int i = tid; i < num_dims * 3; i += blockDim.x) s_basis[i] = basis_t[i];
   for (int i = tid; i < num_dims * 9; i += blockDim.x) s_bb[i] = bb_t[i];
 
-  for (int s = tid; s < kTile; s += blockDim.x) {
+  for (int s = tid; s < kRows; s += blockDim.x) {
     const long long row = row0 + s;
     float m[3] = {0.f, 0.f, 0.f};
     float c[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
@@ -109,7 +111,7 @@ __device__ void tile_features(const float* __restrict__ means,
 
   const int num_feats = 2 * num_degs * num_dims;
   const int half = num_degs * num_dims;
-  for (int p = tid; p < kTile * num_dims; p += blockDim.x) {
+  for (int p = tid; p < kRows * num_dims; p += blockDim.x) {
     const int s = p / num_dims;
     const int l = p - s * num_dims;
     const float* mc = s_mc + s * 12;
@@ -142,7 +144,7 @@ __device__ void tile_features(const float* __restrict__ means,
   // Zero the padding columns so they add nothing to the products.
   const int kpad = padded_feats(num_feats);
   const int extra = kpad - num_feats;
-  for (int i = tid; i < kTile * extra; i += blockDim.x) {
+  for (int i = tid; i < kRows * extra; i += blockDim.x) {
     const int s = i / extra;
     feats[(size_t)s * ldf + num_feats + (i - s * extra)] =
         __float2bfloat16_rn(0.0f);

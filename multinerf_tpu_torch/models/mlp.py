@@ -9,11 +9,17 @@ Only the fused path of the 360 config is ported:
 
 * a density-only MLP (PropMLP: ``disable_rgb``, no in-trunk skip) runs
   whole in the fused density kernel (mlp.py:301-331);
+* with ``trunk_dtype`` 'int8' or 'int8_hybrid' and a ReLU activation, the
+  whole NerfMLP trunk runs in the fused int8 trunk kernel, which returns a
+  bf16 activation (mlp.py:332-359);
 * otherwise (NerfMLP) layer 0 and the feature half of every skip layer run
   in the fused featurize -> Dense kernel (mlp.py:360-374); the hidden layers
-  are plain products in ``trunk_dtype`` ('float32' or 'bfloat16'), followed
-  by the density head, the bottleneck, the per-ray ``pos_enc`` view
-  encoding, the view branch and the rgb head (mlp.py:404-504).
+  are plain products in ``trunk_dtype`` ('float32' or 'bfloat16'), or
+  ``quant.quant_dense`` for the int8 modes;
+* then the density head, the bottleneck, the per-ray ``pos_enc`` view
+  encoding, the view branch (its hidden layers ``quant.quant_dense`` under
+  the int8 modes) and the rgb head (mlp.py:404-504); the heads are f32
+  products, which promote a bf16 input.
 
 ``use_fused_featurize=None`` means the fused kernels.  Unlike mlp.py:288,
 which takes the unfused f32 path on a CPU, the port runs the same call on
@@ -41,10 +47,13 @@ from multinerf_tpu_torch import ginlite
 from multinerf_tpu_torch.models import initializers
 from multinerf_tpu_torch.ops import coord
 from multinerf_tpu_torch.ops import geopoly
+from multinerf_tpu_torch.ops import quant
 from multinerf_tpu_torch.ops.kernels import density_mlp as dm
 from multinerf_tpu_torch.ops.kernels import featurize_dense as fd
+from multinerf_tpu_torch.ops.kernels import int8_trunk as i8t
 
 _DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
+_INT8 = ('int8', 'int8_hybrid')
 
 
 @dataclasses.dataclass
@@ -116,8 +125,9 @@ def _unsupported(cfg: MLPConfig):
       (cfg.use_diffuse_color, 'diffuse color', ref_nerf),
       (cfg.use_specular_tint, 'specular tint', ref_nerf),
       (cfg.use_n_dot_v, 'n.v features', ref_nerf),
-      (cfg.trunk_dtype not in _DTYPES, f'trunk_dtype={cfg.trunk_dtype!r}',
-       'ROADMAP.md Queue 1: int8 trunk surfaces'),
+      (cfg.trunk_dtype not in (*_DTYPES, *_INT8),
+       f'trunk_dtype={cfg.trunk_dtype!r}',
+       'the port takes float32, bfloat16, int8 and int8_hybrid'),
       (cfg.use_fused_featurize is False, 'the unfused featurization', unfused),
       (cfg.warp_fn not in (None, coord.contract) or
        not cfg.inputs_have_stop_gradient or
@@ -163,7 +173,9 @@ class MLP(nn.Module):
         geopoly.generate_basis(cfg.basis_shape, cfg.basis_subdivisions)).T
     self.num_feats = 2 * (cfg.max_deg_point - cfg.min_deg_point) * (
         self.pos_basis_t.shape[-1])
-    self.hidden_dtype = _DTYPES[cfg.trunk_dtype]
+    self.hidden_dtype = _DTYPES.get(cfg.trunk_dtype)
+    self.int8 = cfg.trunk_dtype in _INT8
+    self.hybrid = cfg.trunk_dtype == 'int8_hybrid'
     self.full_density_fusion = (cfg.disable_rgb and
                                 cfg.net_depth <= cfg.skip_layer)
     kernel_init = getattr(initializers, cfg.weight_init)()
@@ -205,11 +217,23 @@ class MLP(nn.Module):
     """Layer i takes [x, features] (the fused path's numbering)."""
     return i > 1 and (i - 1) % self.cfg.skip_layer == 0
 
+  def _hidden(self, layer, x):
+    """A hidden layer's product in trunk_dtype (QuantDense under int8)."""
+    if self.int8:
+      return quant.quant_dense(layer, x, self.hybrid)
+    return layer(x, self.hidden_dtype)
+
   def _trunk(self, means, covs):
     cfg = self.cfg
     kw = dict(basis=self.pos_basis_t, min_deg=cfg.min_deg_point,
               max_deg=cfg.max_deg_point,
               use_contract=cfg.warp_fn is coord.contract)
+    if self.int8 and cfg.net_activation is torch.relu:
+      return i8t.int8_trunk(
+          means, covs, [l.kernel for l in self.trunk],
+          [l.bias for l in self.trunk],
+          skip_layers=[i for i in range(cfg.net_depth) if self._is_skip(i)],
+          bwd_bf16=self.hybrid, **kw)
     first = self.trunk[0]
     x = cfg.net_activation(
         fd.featurize_dense(means, covs, first.kernel, first.bias, **kw))
@@ -222,7 +246,7 @@ class MLP(nn.Module):
             fd.featurize_dense(means, covs, layer.kernel[width_x:],
                                layer.bias, **kw))
       else:
-        x = layer(x, self.hidden_dtype)
+        x = self._hidden(layer, x)
       x = cfg.net_activation(x)
     return x
 
@@ -281,7 +305,7 @@ class MLP(nn.Module):
         x = torch.cat(parts, dim=-1)
         inputs = x
         for i, layer in enumerate(self.view_branch):
-          x = cfg.net_activation(layer(x, self.hidden_dtype))
+          x = cfg.net_activation(self._hidden(layer, x))
           if i % cfg.skip_layer_dir == 0 and i > 0:
             x = torch.cat([x.to(inputs.dtype), inputs], dim=-1)
       rgb = cfg.rgb_activation(

@@ -120,7 +120,7 @@ def dw_plan(rows, width, n, device):
   return bm, bn, max(1, min(tiles, sms // -(-width // bn)))
 
 
-def _check_dense(means, width, basis, min_deg, max_deg, kernel_rows=None):
+def check_dense(means, width, basis, min_deg, max_deg, kernel_rows=None):
   """(basis_t, bb_t, num_dims, num_degs) after the shape checks."""
   basis_t, bb_t = device_basis(basis, min_deg, means.device)
   num_dims = basis_t.shape[0]
@@ -137,7 +137,7 @@ def _launch(means, covs, kernel, bias, basis, min_deg, max_deg,
             use_contract):
   check_gaussians(means, covs)
   num_feats, width = kernel.shape
-  basis_t, bb_t, num_dims, num_degs = _check_dense(
+  basis_t, bb_t, num_dims, num_degs = check_dense(
       means, width, basis, min_deg, max_deg, kernel_rows=num_feats)
   if bias.shape != (width,) or bias.dtype != torch.float32:
     raise ValueError(f'bias must be float32 [{width}].')
@@ -171,7 +171,7 @@ def _launch_dw(means, covs, g, basis, min_deg, max_deg, use_contract):
     raise ValueError('all inputs must be on one device.')
   g = g.contiguous()
   n, width = g.shape
-  basis_t, bb_t, num_dims, num_degs = _check_dense(
+  basis_t, bb_t, num_dims, num_degs = check_dense(
       means, width, basis, min_deg, max_deg)
   num_feats = 2 * num_degs * num_dims
   bm, bn, splits = dw_plan(-(-num_feats // 16) * 16, width, n, means.device)

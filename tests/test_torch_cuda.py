@@ -42,6 +42,7 @@ from multinerf_tpu_torch.models import nerf  # noqa: E402
 from multinerf_tpu_torch.ops import geopoly  # noqa: E402
 from multinerf_tpu_torch.ops.kernels import density_mlp as dm  # noqa: E402
 from multinerf_tpu_torch.ops.kernels import featurize_dense as fd  # noqa: E402
+from multinerf_tpu_torch.ops.kernels import int8_trunk as i8t  # noqa: E402
 
 BASIS = np.array(geopoly.generate_basis('icosahedron', 2)).T  # [3, 21]
 NUM_FEATS = 504
@@ -247,3 +248,65 @@ def test_model_forward_on_the_gpu_matches_the_cpu(cuda):
   for key in ('distance_mean', 'distance_median'):
     tp.assert_close(0.2 / got[key].cpu().numpy(), 0.2 / want[key].numpy(),
                     atol=2e-3, what=f'near / {key}')
+
+
+# The int8 trunk (K5, K6) against its plain versions: relative L2 < 2e-2
+# for the output (tests/test_pallas_int8_trunk.py:74) and for each gradient
+# leaf.  Both sides quantize the same f32 values and differ where a
+# summation order moves one across an int8 or bf16 rounding step; through
+# eight layers such flips compound, and with a random-signed cotangent the
+# plain version's own leaves move by up to 0.15 when the means move by a
+# relative 1e-6.  So K6 is held with a cotangent >= 0, whose sums do not
+# cancel (chip_smoke.py: I8_TOL).  K6 sums in a fixed order: two launches
+# agree bit for bit.
+def _nerf_trunk(rng, device, depth=8, width=1024, skip=(5,)):
+  ws = [_uniform(rng, (NUM_FEATS if l == 0 else
+                       width + (NUM_FEATS if l in skip else 0), width),
+                 NUM_FEATS if l == 0 else width, device)
+        for l in range(depth)]
+  bs = [torch.as_tensor(rng.randn(width).astype(np.float32) * 0.1,
+                        device=device) for _ in ws]
+  return ws, bs
+
+
+def _rel_l2(got, want):
+  return float(torch.linalg.vector_norm((got - want).double()) /
+               torch.linalg.vector_norm(want.double()))
+
+
+def test_int8_trunk_kernel_matches_plain(cuda):
+  rng = np.random.RandomState(3)
+  means, covs = _gaussians(K2_N, 6, cuda)
+  ws, bs = _nerf_trunk(rng, cuda)
+  args = (means, covs, ws, bs, BASIS)
+  i8t.reset_counts()
+  got = i8t.int8_trunk(*args, skip_layers=(5,))
+  assert i8t.counts == {'launches': 1, 'plain_calls': 0}
+  want = i8t.int8_trunk_plain(*args, skip_layers=(5,))
+  torch.cuda.synchronize()
+  assert got.dtype == want.dtype == torch.bfloat16
+  assert got.shape == want.shape == (K2_N, 1024)
+  assert bool(torch.isfinite(got.float()).all())
+  assert _rel_l2(got.float(), want.float()) < 2e-2
+
+
+@pytest.mark.parametrize('bwd_bf16', [False, True])
+def test_int8_trunk_backward_kernel_matches_plain(cuda, bwd_bf16):
+  rng = np.random.RandomState(4)
+  means, covs = _gaussians(K2_N, 7, cuda)
+  ws, bs = _nerf_trunk(rng, cuda)
+  g = torch.as_tensor(np.abs(rng.randn(K2_N, 1024)).astype(np.float32),
+                      device=cuda).to(torch.bfloat16)
+  args = (means, covs, ws, bs, g, BASIS)
+  kw = dict(skip_layers=(5,), bwd_bf16=bwd_bf16)
+  flat = lambda out: [*out[0], *out[1]]
+  i8t.reset_counts()
+  got = flat(i8t.int8_trunk_backward(*args, **kw))
+  again = flat(i8t.int8_trunk_backward(*args, **kw))
+  assert i8t.bwd_counts == {'launches': 2, 'plain_calls': 0}
+  want = flat(i8t.int8_trunk_bwd_plain(*args, **kw))
+  torch.cuda.synchronize()
+  for i, (a, b, w) in enumerate(zip(got, again, want)):
+    assert a.shape == w.shape, i
+    assert torch.equal(a, b), f'leaf {i}: two launches differ'
+    assert _rel_l2(a, w) < 2e-2, (i, _rel_l2(a, w))

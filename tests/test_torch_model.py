@@ -222,7 +222,7 @@ def test_cast_ray_batch_matches_jax(xnp):
 
 @pytest.mark.parametrize('bindings,match', [
     (['NerfMLP.disable_density_normals = False'], 'Ref-NeRF'),
-    (["NerfMLP.trunk_dtype = 'int8'"], 'int8'),
+    (["NerfMLP.trunk_dtype = 'float16'"], 'float16'),
     (['NerfMLP.use_fused_featurize = False'], 'unfused'),
     (['NerfMLP.net_depth = 5'], 'unfused'),
     (['Model.num_glo_features = 4'], 'GLO'),
