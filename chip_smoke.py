@@ -17,6 +17,7 @@ is ``{"ok": true, "device": {...}}`` and the line before it the per-kernel
 JSON summary.
 """
 
+import ctypes
 import json
 import os
 import statistics
@@ -73,9 +74,9 @@ def phase_build():
   for name in KERNEL_LIBS:
     info = build.BUILD_INFO[name]
     log(f'build {name}: {info["seconds"]:.2f} s')
-    for line in info['log'].splitlines():
-      if 'registers' in line or 'spill' in line or 'smem' in line:
-        log(f'  ptxas: {line.strip()}')
+    for func, r in build.kernel_resources(info['log']).items():
+      log(f'  {func}: {r["registers"]} registers, spills '
+          f'{r["spill_stores"]} B stored / {r["spill_loads"]} B loaded')
 
 
 def _gaussians(n, seed):
@@ -222,6 +223,35 @@ def _compare_leaves(name, run_kernel, run_plain, n_full):
   return _summary(name, run_kernel, run_plain, n_full, worst)
 
 
+def log_backward_plans(num_feats, num_dims):
+  """K3's and K4's launch plans at the kernel phases' shapes: dynamic
+  shared memory per CTA (the C entry points, held against plans.py) and
+  grids."""
+  from multinerf_tpu_torch.ops.kernels import build
+  from multinerf_tpu_torch.ops.kernels import plans
+  sms = torch.cuda.get_device_properties(0).multi_processor_count
+  k3 = plans.density_mlp_bwd_plan(num_feats, 256, 4, num_dims, K1_SAMPLES,
+                                  sms)
+  k4 = plans.featurize_dense_dw_plan(num_feats, 1024, num_dims, K2_SAMPLES,
+                                     sms)
+  k3_smem = build.load('density_mlp_bwd').density_mlp_bwd_smem
+  k4_smem = build.load('featurize_dense_dw').featurize_dense_dw_smem
+  for fn, args in ((k3_smem, 4), (k4_smem, 3)):
+    fn.argtypes = [ctypes.c_int] * args
+    fn.restype = ctypes.c_int
+  smem = (k3_smem(256, 4, num_feats, num_dims),
+          k4_smem(num_feats, num_dims, k4.gemm.bn))
+  if smem != (k3.smem, k4.smem):
+    raise SystemExit(f'FAIL plans: shared memory {smem} in the sources, '
+                     f'{(k3.smem, k4.smem)} in plans.py')
+  log(f'density_mlp_bwd: tile pass {k3.smem:,} bytes of dynamic shared '
+      f'memory per CTA, {k3.grid} persistent CTAs over {k3.tiles} tiles of '
+      f'128 samples; dW GEMMs {k3.dw0.smem:,} bytes, grids {k3.dw0.grid} '
+      f'(dW_0) and {k3.dw1.grid} (dW_1..3)')
+  log(f'featurize_dense_dw: {k4.smem:,} bytes per CTA, GEMM grid '
+      f'{k4.gemm.grid}')
+
+
 def phase_backward_kernels():
   """K3 and K4 against their plain versions at the training shapes."""
   from multinerf_tpu_torch.ops import geopoly
@@ -229,6 +259,7 @@ def phase_backward_kernels():
   from multinerf_tpu_torch.ops.kernels import featurize_dense as fd
   basis = np.array(geopoly.generate_basis('icosahedron', 2)).T  # [3, 21]
   num_feats = 2 * 12 * basis.shape[-1]
+  log_backward_plans(num_feats, basis.shape[-1])
   rng = np.random.RandomState(3)
   results = {}
 
@@ -391,7 +422,16 @@ def _bound(nbytes, ops):
   mem = nbytes / HBM_BYTES_PER_S
   compute = sum(n / PEAK_OPS_PER_S[t] for t, n in ops.items())
   return {'bound_ms': 1e3 * max(mem, compute),
-          'bound_by': 'bytes' if mem > compute else 'operations'}
+          'bound_by': 'bytes' if mem > compute else 'operations',
+          'ops': sum(ops.values())}
+
+
+def _achieved(summary, bound, suffix=''):
+  """Achieved tensor-core TFLOP/s (bf16 and int8 products together) and
+  the share of the bound: bound_ms / ms."""
+  ms = summary[f'ms{suffix}']
+  return {f'achieved_tflops{suffix}': bound['ops'] / (ms * 1e-3) / 1e12,
+          f'bound_share{suffix}': bound['bound_ms'] / ms}
 
 
 def kernel_bounds():
@@ -785,19 +825,24 @@ def main():
   phase_train_reference('train reference int8', int8_bindings('int8'),
                         INT8_TRAIN_GAP_CAP, INT8_LOSS_TOL)
   bounds = kernel_bounds()
+  hybrid = bounds.pop('int8_trunk_bwd_hybrid')
+  results['int8_trunk_bwd'].update(_achieved(results['int8_trunk_bwd'],
+                                             hybrid, '_hybrid'))
   results['int8_trunk_bwd'].update(
-      {f'{k}_hybrid': v for k, v in bounds.pop('int8_trunk_bwd_hybrid')
-       .items()})
+      {f'{k}_hybrid': v for k, v in hybrid.items() if k != 'ops'})
   kernels = []
   for name, (source, replaces) in SOURCES.items():
     # Each path's launches, counted from 0 around that path's run.
     by_path = {path: counts.get(name, 0) for path, counts in paths.items()}
+    bound = bounds[name]
     # No single PyTorch call computes any of these functions: each fuses
     # the featurization with its products.
     kernels.append(dict(name=name, route='cuda', source=source,
                         replaces=replaces, launches=sum(by_path.values()),
                         launches_by_path=by_path, **results[name],
-                        **bounds[name], library_ms=None))
+                        bound_ms=bound['bound_ms'],
+                        bound_by=bound['bound_by'],
+                        **_achieved(results[name], bound), library_ms=None))
   log(f'total {time.perf_counter() - t0:.1f} s')
   print(json.dumps({'kernels': kernels}))
   print(json.dumps({'ok': True, 'device': {

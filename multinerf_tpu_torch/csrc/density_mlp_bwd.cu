@@ -11,320 +11,476 @@
 //   * da_L = wd * g * (act_L > 0) with the f32 head weight wd;
 //   * dW_l += bf16(x_in)^T @ bf16(da_l), x_in the bf16 features at l = 0
 //     and the bf16 activation of layer l-1 otherwise; db_l += sum da_l (f32);
-//   * da_{l-1} = (bf16(da_l) @ bf16(W_l)^T) * (act_{l-1} > 0).
-// The ReLU masks of the hidden layers are read from the bf16 activations
-// kept in shared memory: a positive f32 activation rounds to a positive
-// bf16 unless it is below ~1e-40, where the two masks could differ.
+//   * da_{l-1} = (bf16(da_l) @ bf16(W_l)^T) * (act_{l-1} > 0), the masks
+//     taken from the f32 recomputed activations.
 //
 // What bounds it: at the 360 config (4 x 256 trunk, N = 262,144 samples per
 // proposal level) the recomputed forward is 172 GFLOP, the three dX
 // products 103 GFLOP and the four dW products 172 GFLOP, so the tensor
-// cores bound it.  Design, in two passes:
-//   1. one block per 64-sample tile recomputes the features and the trunk
-//      with the activations ping-ponged in shared memory (as K1 does), then
-//      walks the trunk backwards, writing every bf16 da_l and every bf16
-//      hidden activation to device memory (3.5 KB per sample), and its
-//      tile's f32 column sums (db_l, dwd, dbd) to a per-tile slot;
-//   2. the four dW products run as the split-K partials + ordered reduce
-//      of dw_accumulate.cuh (dW_0 recomputes the features), and the
-//      per-tile slots are summed in tile order.
-// The Pallas grid instead accumulated into one resident output in order; a
-// parallel grid doing that would race, and atomics would make the sums
-// depend on the schedule.  Here every sum has a fixed order, so the result
-// is bitwise-deterministic.  No TMA/wgmma pipeline yet.
+// cores bound it (0.45 ms at the bf16 peak).  Design, in two passes:
+//   1. the tile pass: a persistent CTA per SM walks 128-sample tiles.  Two
+//      consumer warpgroups own 64 samples each; one producer warp streams
+//      the trunk with TMA, in 32-deep k slabs of 16 KB, through a 4-stage
+//      mbarrier ring that both warpgroups read (W_l's rows for the forward,
+//      its columns, i.e. W_l^T as a K-major operand, for the backward), so
+//      each slab serves 128 samples and three slabs are in flight while one
+//      is multiplied.  Products are wgmma m64n256k16 with the
+//      activations (K-major, 128-byte swizzled) in shared memory.  The
+//      epilogues work on the accumulators in registers: bias, ReLU, the
+//      bf16 rounding, the ReLU masks (kept as bits, 32 bytes per sample and
+//      hidden layer), and the column sums (db_l, dwd) by shuffles and a
+//      fixed-order warp sum into a per-tile, per-warpgroup slot.  Every bf16
+//      tile a dW product needs (features, activations, cotangents: 4.6 KB
+//      a sample) goes to device memory by TMA stores from the swizzled
+//      tiles, overlapping the next product;
+//   2. the four dW products run on the TMA + wgmma GEMM of wgmma_dw.cuh,
+//      reading those bf16 rows; the per-slot column sums are reduced in
+//      slot order.
+// Every sum has a fixed order (no atomics), so the result is bitwise
+// deterministic.
 
 #include <cuda_runtime.h>
 
-#include "dw_accumulate.cuh"
+#include "wgmma_dw.cuh"
 
 namespace mnt {
 
-// One warp's 64 x 32 block at column col0 of act[kTile][k_dim] @ w^T, where
-// w is row-major with row stride ldw: output column j reads w's row j.
-__device__ __forceinline__ void warp_tile_product_wt(
-    const __nv_bfloat16* act, int lda, const __nv_bfloat16* __restrict__ w,
-    int ldw, int k_dim, int col0, FragC (&acc)[kTile / 16][2]) {
-  for (int r = 0; r < kTile / 16; ++r)
-    for (int c = 0; c < 2; ++c) wmma::fill_fragment(acc[r][c], 0.0f);
-  FragA a;
-  FragBCol b0, b1;
-  for (int k = 0; k < k_dim; k += 16) {
-    wmma::load_matrix_sync(b0, w + (size_t)col0 * ldw + k, ldw);
-    wmma::load_matrix_sync(b1, w + (size_t)(col0 + 16) * ldw + k, ldw);
-    for (int r = 0; r < kTile / 16; ++r) {
-      wmma::load_matrix_sync(a, act + (size_t)(r * 16) * lda + k, lda);
-      wmma::mma_sync(acc[r][0], a, b0, acc[r][0]);
-      wmma::mma_sync(acc[r][1], a, b1, acc[r][1]);
-    }
-  }
-}
+constexpr int kBwdRows = 128;  // Samples per tile: two warpgroups of 64.
+constexpr int kRing = 4;       // Stages of the weight ring.
+constexpr int kSlabK = 32;     // k depth of one ring slab.
 
-// Lanes 0..15 return the sum of column `lane` of a 16 x 16 stage tile,
-// rows in order.
-__device__ __forceinline__ float stage_column_sum(const float* stage,
-                                                  int lane) {
-  float sum = 0.0f;
-  if (lane < 16)
-    for (int r = 0; r < 16; ++r) sum += stage[r * 16 + lane];
-  return sum;
-}
+struct DensityMlpBwd;  // Names this kernel's dW GEMMs in a profile.
 
-// Stores 8 bf16 values as one 16-byte word (dst 16-byte aligned).
-__device__ __forceinline__ void store8_bf16(__nv_bfloat16* dst,
-                                            const float (&v)[8]) {
-  uint4 word;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&word);
-  for (int j = 0; j < 4; ++j)
-    h[j] = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
-  *reinterpret_cast<uint4*>(dst) = word;
-}
-
-struct BwdSmem {
-  int act_bytes;  // One [kTile][width + 8] bf16 tile.
-  int x_bytes;    // The features, later the two da tiles.
-  size_t total;
+// Shared memory of the tile pass (byte offsets from a 1,024-aligned base).
+struct BwdLayout {
+  int x_bytes;     // One warpgroup's operand tile: features, later 2 buffers.
+  int slab_bytes;  // One ring stage: a 32-deep k slab of a trunk layer.
+  int ring, masks, aux, aux_bytes, g, bars;
+  int total;  // Bytes to request, with the alignment slack.
 };
 
-__host__ __device__ inline BwdSmem bwd_smem(int width, int depth, int kpad,
-                                            int num_dims) {
-  BwdSmem s;
-  s.act_bytes = round_up(kTile * tile_stride(width) * 2, 128);
-  const int feat_bytes = round_up(kTile * tile_stride(kpad) * 2, 128);
-  s.x_bytes = feat_bytes > 2 * s.act_bytes ? feat_bytes : 2 * s.act_bytes;
-  s.total = (size_t)s.x_bytes + (size_t)(depth - 1) * s.act_bytes +
-            (kWarps * 256 + kTile + width + featurizer_smem_floats(num_dims)) *
-                sizeof(float);
-  return s;
+__host__ __device__ inline BwdLayout bwd_layout(int width, int depth,
+                                                int kpad64, int num_dims) {
+  BwdLayout l;
+  l.x_bytes = (kpad64 > 2 * width ? kpad64 : 2 * width) * 128;
+  l.slab_bytes = width * kSlabK * 2;
+  l.ring = 2 * l.x_bytes;
+  l.masks = l.ring + kRing * l.slab_bytes;
+  // Two column-sum buffers of [4 warps][width] floats per warpgroup, which
+  // also hold the featurizer's scratch at the start of a tile.
+  const int colsum = 2 * 4 * width * 4;
+  const int feat = featurizer_smem_floats(num_dims, 64) * 4;
+  l.aux_bytes = round_up(colsum > feat ? colsum : feat, 16);
+  l.aux = l.masks + (depth - 1) * kConsumerThreads * (width / 64) * 4;
+  l.g = l.aux + 2 * l.aux_bytes;
+  l.bars = l.g + kBwdRows * 4;
+  l.total = l.bars + 2 * kRing * 8 + 1024;
+  return l;
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
-density_mlp_bwd_tile_kernel(const float* __restrict__ means,
-                            const float* __restrict__ covs,
-                            const float* __restrict__ basis_t,
-                            const float* __restrict__ bb_t,
-                            const __nv_bfloat16* __restrict__ w0,
-                            const __nv_bfloat16* __restrict__ w_hidden,
-                            const float* __restrict__ biases,
-                            const float* __restrict__ wd,
-                            const float* __restrict__ g,
-                            __nv_bfloat16* __restrict__ acts_out,
-                            __nv_bfloat16* __restrict__ das_out,
-                            float* __restrict__ vec_part, int n, int n_pad,
-                            int width, int depth, int num_dims, int num_degs,
-                            int use_contract) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int kpad = padded_feats(2 * num_degs * num_dims);
-  const int ldf = tile_stride(kpad);
-  const int ldw = tile_stride(width);
-  const BwdSmem lay = bwd_smem(width, depth, kpad, num_dims);
-  const int act_elems = lay.act_bytes / 2;
-  __nv_bfloat16* feats = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* da_buf[2] = {
-      reinterpret_cast<__nv_bfloat16*>(smem),
-      reinterpret_cast<__nv_bfloat16*>(smem + lay.act_bytes)};
-  __nv_bfloat16* acts =
-      reinterpret_cast<__nv_bfloat16*>(smem + lay.x_bytes);  // depth - 1
-  float* stage = reinterpret_cast<float*>(
-      smem + lay.x_bytes + (size_t)(depth - 1) * lay.act_bytes);
-  float* g_s = stage + kWarps * 256;
-  float* wd_s = g_s + kTile;
-  float* scratch = wd_s + width;
+// acc = A @ B over k_slabs ring slabs: A [64][32 * k_slabs] K-major in `a`
+// (128-byte swizzled 64-column blocks), B the next k_slabs slabs of the
+// ring: MN-major (a layer's rows, [32][64] boxes, 128-byte swizzle) or
+// K-major (a layer's columns, one [W][32] box, 64-byte swizzle).  `it` is
+// the ring position, as the producer's.
+template <int W, bool kBMnMajor>
+__device__ __forceinline__ void tile_product(float (&acc)[W / 2],
+                                             const unsigned char* a,
+                                             int k_slabs,
+                                             const unsigned char* ring,
+                                             int slab_bytes, uint64_t* full,
+                                             uint64_t* empty, int& it,
+                                             int lane) {
+  for (int kb = 0; kb < k_slabs; ++kb) {
+    const int s = it % kRing;
+    mbar_wait(&full[s], (it / kRing) & 1);
+    const unsigned char* b = ring + s * slab_bytes;
+    const unsigned char* a_kb = a + (kb >> 1) * kBoxBytes + (kb & 1) * 64;
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < kSlabK / 16; ++k) {
+      const uint64_t da = smem_desc(a_kb + k * 32, 16, 1024);
+      const int scale_d = (kb | k) != 0;
+      if constexpr (kBMnMajor)
+        wgmma<W, 0, 1>(acc, da,
+                       smem_desc(b + k * 2048, kSlabK * 128, 1024), scale_d);
+      else
+        wgmma<W, 0, 0>(acc, da, smem_desc(b + k * 32, 16, 512, kSwizzle64),
+                       scale_d);
+    }
+    wgmma_commit();
+    fence_acc(acc);
+    wgmma_wait<1>();
+    fence_acc(acc);
+    if (kb > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % kRing]);
+    ++it;
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+  if (lane == 0) mbar_arrive(&empty[(it - 1) % kRing]);
+}
 
-  const long long row0 = (long long)blockIdx.x * kTile;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  float* my_stage = stage + warp * 256;
-  float* vec = vec_part + (size_t)blockIdx.x * ((depth + 1) * width + 1);
-  const int rr = lane / 2;        // Epilogue: this lane's row in a 16 x 16
-  const int cc = (lane % 2) * 8;  // tile, and its first of 8 columns.
+// Sum over the 8 lanes that share lane % 4 (the warp's 16 rows, given the
+// thread's two rows already added): lanes 0..3 hold the column sums.
+__device__ __forceinline__ float rows_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  v += __shfl_xor_sync(0xffffffffu, v, 16);
+  return v;
+}
 
-  // Samples past n get g = 0, so every cotangent they produce is 0.
-  for (int s = tid; s < kTile; s += blockDim.x)
-    g_s[s] = row0 + s < n ? g[row0 + s] : 0.0f;
-  for (int c = tid; c < width; c += blockDim.x) wd_s[c] = wd[c];
-  tile_features(means, covs, basis_t, bb_t, row0, n, num_dims, num_degs,
-                use_contract != 0, scratch, feats, ldf);
+template <int W>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+density_mlp_bwd_tile_kernel(
+    const __grid_constant__ CUtensorMap w0_map,    // w0 [kpad64][W]
+    const __grid_constant__ CUtensorMap wh_map,    // w_hidden [(L-1)W][W]
+    const __grid_constant__ CUtensorMap wh_t_map,  // the same, [W][32] boxes
+    const __grid_constant__ CUtensorMap feats_map,  // feats [n_pad][kpad64]
+    const __grid_constant__ CUtensorMap acts_map,   // acts [(L-1)n_pad][W]
+    const __grid_constant__ CUtensorMap das_map,    // das [L n_pad][W]
+    const float* __restrict__ means, const float* __restrict__ covs,
+    const float* __restrict__ basis_t, const float* __restrict__ bb_t,
+    const float* __restrict__ biases, const float* __restrict__ wd,
+    const float* __restrict__ g, float* __restrict__ vec_part, int n,
+    int n_pad, int depth, int num_dims, int num_degs, int use_contract,
+    int kpad64) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  const BwdLayout lay = bwd_layout(W, depth, kpad64, num_dims);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.bars);
+  uint64_t* empty = full + kRing;
+  const int tiles = n_pad / kBwdRows;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kRing; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerThreads / 32);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-  // Forward: layer l reads `in` and writes act_l, except the last layer,
-  // whose epilogue starts the backward pass (da_L, dwd, db_L).
-  FragC acc[kTile / 16][2];
-  const __nv_bfloat16* in = feats;
-  int ldi = ldf;
-  int k_dim = kpad;
-  for (int l = 0; l < depth; ++l) {
-    const __nv_bfloat16* w =
-        l == 0 ? w0 : w_hidden + (size_t)(l - 1) * width * width;
-    const float* bias = biases + (size_t)l * width;
-    const bool last = l == depth - 1;
-    __nv_bfloat16* act = acts + (size_t)l * act_elems;
-    __nv_bfloat16* act_g = acts_out + ((size_t)l * n_pad + row0) * width;
-    __nv_bfloat16* da = da_buf[0];
-    __nv_bfloat16* da_g =
-        das_out + ((size_t)(depth - 1) * n_pad + row0) * width;
-    for (int col0 = warp * 32; col0 < width; col0 += kWarps * 32) {
-      warp_tile_product(in, ldi, w, width, k_dim, col0, acc);
-      float cs_db[2] = {0.0f, 0.0f};
-      float cs_dwd[2] = {0.0f, 0.0f};
-      for (int r = 0; r < kTile / 16; ++r) {
-        for (int c = 0; c < 2; ++c) {
-          wmma::store_matrix_sync(my_stage, acc[r][c], 16,
-                                  wmma::mem_row_major);
-          __syncwarp();
-          const int s = r * 16 + rr;
-          const int col = col0 + c * 16 + cc;
-          float* src = my_stage + rr * 16 + cc;
-          if (!last) {
-            float v[8];
-            for (int j = 0; j < 8; ++j)
-              v[j] = fmaxf(src[j] + bias[col + j], 0.0f);
-            store8_bf16(act + s * ldw + col, v);
-            store8_bf16(act_g + (size_t)s * width + col, v);
-            __syncwarp();
-            continue;
-          }
-          const float gs = g_s[s];
-          float dav[8];
-          for (int j = 0; j < 8; ++j) {
-            const float a = fmaxf(src[j] + bias[col + j], 0.0f);
-            dav[j] = a > 0.0f ? wd_s[col + j] * gs : 0.0f;
-            src[j] = a * gs;
-          }
-          __syncwarp();
-          cs_dwd[c] += stage_column_sum(my_stage, lane);
-          __syncwarp();
-          for (int j = 0; j < 8; ++j) src[j] = dav[j];
-          store8_bf16(da + s * ldw + col, dav);
-          store8_bf16(da_g + (size_t)s * width + col, dav);
-          __syncwarp();
-          cs_db[c] += stage_column_sum(my_stage, lane);
-          __syncwarp();
+  if (warp == kProducerWarp) {
+    // The slab sequence of one tile, repeated per tile: W_0's rows, then
+    // each hidden layer's rows, then their columns from the last layer down.
+    if (lane == 0) {
+      int it = 0;
+      auto stage = [&](uint64_t*& bar) {
+        const int s = it % kRing;
+        mbar_wait(&empty[s], ((it / kRing) & 1) ^ 1);
+        bar = &full[s];
+        mbar_expect_tx(bar, lay.slab_bytes);
+        ++it;
+        return smem + lay.ring + s * lay.slab_bytes;
+      };
+      uint64_t* bar;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        constexpr int kBox = kSlabK * 128;  // One [32][64] box.
+        for (int kb = 0; kb < kpad64 / kSlabK; ++kb) {
+          unsigned char* dst = stage(bar);
+          for (int j = 0; j < W / 64; ++j)
+            tma_load(dst + j * kBox, &w0_map, bar, j * 64, kb * kSlabK);
         }
-      }
-      if (last && lane < 16) {
-        for (int c = 0; c < 2; ++c) {
-          const int col = col0 + c * 16 + lane;
-          vec[(size_t)(depth - 1) * width + col] = cs_db[c];
-          vec[(size_t)depth * width + col] = cs_dwd[c];
-        }
+        for (int l = 1; l < depth; ++l)
+          for (int kb = 0; kb < W / kSlabK; ++kb) {
+            unsigned char* dst = stage(bar);
+            for (int j = 0; j < W / 64; ++j)
+              tma_load(dst + j * kBox, &wh_map, bar, j * 64,
+                       (l - 1) * W + kb * kSlabK);
+          }
+        for (int l = depth - 1; l >= 1; --l)
+          for (int kb = 0; kb < W / kSlabK; ++kb) {
+            unsigned char* dst = stage(bar);
+            tma_load(dst, &wh_t_map, bar, kb * kSlabK, (l - 1) * W);
+          }
       }
     }
-    __syncthreads();
-    in = act;
-    ldi = ldw;
-    k_dim = width;
+    return;
   }
 
-  // Backward through the hidden layers: da_{l-1} from da_l.
-  int cur = 0;
-  for (int l = depth - 1; l >= 1; --l) {
-    const __nv_bfloat16* w = w_hidden + (size_t)(l - 1) * width * width;
-    const __nv_bfloat16* mask = acts + (size_t)(l - 1) * act_elems;
-    const __nv_bfloat16* da_in = da_buf[cur];
-    __nv_bfloat16* da = da_buf[1 - cur];
-    __nv_bfloat16* da_g = das_out + ((size_t)(l - 1) * n_pad + row0) * width;
-    for (int col0 = warp * 32; col0 < width; col0 += kWarps * 32) {
-      warp_tile_product_wt(da_in, ldw, w, width, width, col0, acc);
-      float cs_db[2] = {0.0f, 0.0f};
-      for (int r = 0; r < kTile / 16; ++r) {
-        for (int c = 0; c < 2; ++c) {
-          wmma::store_matrix_sync(my_stage, acc[r][c], 16,
-                                  wmma::mem_row_major);
-          __syncwarp();
-          const int s = r * 16 + rr;
-          const int col = col0 + c * 16 + cc;
-          float* src = my_stage + rr * 16 + cc;
-          const uint4 mword =
-              *reinterpret_cast<const uint4*>(mask + s * ldw + col);
-          const __nv_bfloat16* m8 =
-              reinterpret_cast<const __nv_bfloat16*>(&mword);
-          float v[8];
-          for (int j = 0; j < 8; ++j) {
-            v[j] = __bfloat162float(m8[j]) > 0.0f ? src[j] : 0.0f;
-            src[j] = v[j];
+  const int wg = warp / 4;            // Consumer warpgroup: 0 or 1.
+  const int wq = warp % 4;            // Warp in the warpgroup.
+  const int wtid = threadIdx.x % 128;  // Thread in the warpgroup.
+  const int bar_id = 1 + wg;
+  unsigned char* x = smem + wg * lay.x_bytes;
+  unsigned char* buf[2] = {x, x + W * 128};
+  const unsigned char* ring = smem + lay.ring;
+  uint32_t* masks =
+      reinterpret_cast<uint32_t*>(smem + lay.masks) + threadIdx.x;
+  float* aux = reinterpret_cast<float*>(smem + lay.aux + wg * lay.aux_bytes);
+  float* g_s = reinterpret_cast<float*>(smem + lay.g) + wg * 64;
+  const int vstride = (depth + 1) * W + 1;
+  const int r_lo = wq * 16 + lane / 4;  // This thread's rows: r_lo, r_lo + 8.
+  const int c_lo = 2 * (lane % 4);      // Its first column in each 8.
+  int it = 0;
+  float acc[W / 2];
+#pragma unroll
+  for (int i = 0; i < W / 2; ++i) acc[i] = 0.0f;
+
+  // bf16 (v0, v1) to row r_lo + 8h, columns 8q + c_lo + {0, 1} of dst.
+  auto put = [&](unsigned char* dst, int q, int h, float v0, float v1) {
+    *reinterpret_cast<__nv_bfloat162*>(
+        dst + swizzled_offset(r_lo + 8 * h, q * 8 + c_lo)) =
+        __floats2bfloat162_rn(v0, v1);
+  };
+  // Lanes 0..3 of each warp leave its 16 rows' sum of columns 8q + c_lo
+  // + {0, 1} in column-sum buffer b.
+  auto col_sums = [&](int b, int q, float s0, float s1) {
+    s0 = rows_sum(s0);
+    s1 = rows_sum(s1);
+    if (lane < 4) {
+      float* dst = aux + (b * 4 + wq) * W + q * 8 + c_lo;
+      dst[0] = s0;
+      dst[1] = s1;
+    }
+  };
+  // Before writing an operand buffer: the TMA stores have read it.
+  auto begin_write = [&] {
+    if (wtid == 0) bulk_wait_read();
+    named_sync(bar_id, 128);
+  };
+  // After writing one: publish it to the async proxy, store it by TMA.
+  auto end_write = [&](const unsigned char* src, const CUtensorMap* map,
+                       int row, int cols) {
+    fence_proxy_async();
+    named_sync(bar_id, 128);
+    if (wtid == 0) {
+      for (int kb = 0; kb < cols / 64; ++kb)
+        tma_store(map, src + kb * kBoxBytes, kb * 64, row);
+      bulk_commit();
+    }
+  };
+  // Column-sum buffer b, warps in order, to vec[off ..].
+  auto flush = [&](float* vec, int b, int off) {
+    for (int col = wtid; col < W; col += 128) {
+      const float* s = aux + b * 4 * W + col;
+      vec[off + col] = ((s[0] + s[W]) + s[2 * W]) + s[3 * W];
+    }
+  };
+
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int row0 = tile * kBwdRows + wg * 64;
+    float* vec = vec_part + (size_t)(2 * tile + wg) * vstride;
+    begin_write();  // The last tile's stores, and its column sums, are done.
+    // Samples past n get g = 0, so every cotangent they produce is 0.
+    if (wtid < 64) g_s[wtid] = row0 + wtid < n ? g[row0 + wtid] : 0.0f;
+    featurize_rows<64>(
+        means, covs, basis_t, bb_t, row0, n, num_dims, num_degs,
+        use_contract != 0, aux, wtid, 128, kpad64,
+        [=](int s, int f, __nv_bfloat16 v) {
+          *reinterpret_cast<__nv_bfloat16*>(x + swizzled_offset(s, f)) = v;
+        },
+        [=] { named_sync(bar_id, 128); });
+    end_write(x, &feats_map, row0, kpad64);
+
+    // Forward.  Layer l reads `in` and writes buf[cur]; the last layer's
+    // epilogue starts the backward pass (da_L, dwd, db_L).
+    const unsigned char* in = x;
+    int k_slabs = kpad64 / kSlabK;
+    int cur = 0;
+    for (int l = 0; l < depth; ++l) {
+      tile_product<W, true>(acc, in, k_slabs, ring, lay.slab_bytes, full,
+                            empty, it, lane);
+      const float* bias = biases + (size_t)l * W;
+      unsigned char* dst = buf[cur];
+      begin_write();
+      if (l < depth - 1) {
+        uint32_t bits[W / 64];
+#pragma unroll
+        for (int w = 0; w < W / 64; ++w) bits[w] = 0u;
+#pragma unroll
+        for (int q = 0; q < W / 8; ++q) {
+          const int col = q * 8 + c_lo;
+          const float b0 = __ldg(bias + col), b1 = __ldg(bias + col + 1);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = 4 * q + 2 * h;
+            const float v0 = fmaxf(acc[i] + b0, 0.0f);
+            const float v1 = fmaxf(acc[i + 1] + b1, 0.0f);
+            bits[i >> 5] |= (v0 > 0.0f ? 1u : 0u) << (i & 31);
+            bits[i >> 5] |= (v1 > 0.0f ? 1u : 0u) << ((i + 1) & 31);
+            put(dst, q, h, v0, v1);
           }
-          store8_bf16(da + s * ldw + col, v);
-          store8_bf16(da_g + (size_t)s * width + col, v);
-          __syncwarp();
-          cs_db[c] += stage_column_sum(my_stage, lane);
-          __syncwarp();
+        }
+#pragma unroll
+        for (int w = 0; w < W / 64; ++w)
+          masks[(l * (W / 64) + w) * kConsumerThreads] = bits[w];
+        end_write(dst, &acts_map, l * n_pad + row0, W);
+      } else {
+        const float g0 = g_s[r_lo], g1 = g_s[r_lo + 8];
+#pragma unroll
+        for (int q = 0; q < W / 8; ++q) {
+          const int col = q * 8 + c_lo;
+          const float b0 = __ldg(bias + col), b1 = __ldg(bias + col + 1);
+          const float wd0 = __ldg(wd + col), wd1 = __ldg(wd + col + 1);
+          float a[4], da[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            a[e] = fmaxf(acc[4 * q + e] + (e & 1 ? b1 : b0), 0.0f);
+            const float gs = e < 2 ? g0 : g1;
+            da[e] = a[e] > 0.0f ? (e & 1 ? wd1 : wd0) * gs : 0.0f;
+          }
+          put(dst, q, 0, da[0], da[1]);
+          put(dst, q, 1, da[2], da[3]);
+          col_sums(0, q, da[0] + da[2], da[1] + da[3]);
+          col_sums(1, q, a[0] * g0 + a[2] * g1, a[1] * g0 + a[3] * g1);
+        }
+        end_write(dst, &das_map, l * n_pad + row0, W);
+        flush(vec, 0, l * W);      // db_L
+        flush(vec, 1, depth * W);  // dwd
+        if (wtid == 0) {
+          float sum = 0.0f;
+          for (int s = 0; s < 64; ++s) sum += g_s[s];
+          vec[(size_t)(depth + 1) * W] = sum;  // dbd
         }
       }
-      if (lane < 16) {
-        for (int c = 0; c < 2; ++c)
-          vec[(size_t)(l - 1) * width + col0 + c * 16 + lane] = cs_db[c];
-      }
+      in = dst;
+      k_slabs = W / kSlabK;
+      cur ^= 1;
     }
-    __syncthreads();
-    cur = 1 - cur;
-  }
 
-  if (tid == 0) {
-    float sum = 0.0f;
-    for (int s = 0; s < kTile; ++s) sum += g_s[s];
-    vec[(size_t)(depth + 1) * width] = sum;
+    // Backward through the hidden layers: da_{l-1} from da_l (in `in`).
+    for (int l = depth - 1; l >= 1; --l) {
+      tile_product<W, false>(acc, in, W / kSlabK, ring, lay.slab_bytes,
+                             full, empty, it, lane);
+      unsigned char* dst = buf[cur];
+      begin_write();
+      uint32_t bits[W / 64];
+#pragma unroll
+      for (int w = 0; w < W / 64; ++w)
+        bits[w] = masks[((l - 1) * (W / 64) + w) * kConsumerThreads];
+#pragma unroll
+      for (int q = 0; q < W / 8; ++q) {
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * q + e;
+          v[e] = (bits[i >> 5] >> (i & 31)) & 1u ? acc[i] : 0.0f;
+        }
+        put(dst, q, 0, v[0], v[1]);
+        put(dst, q, 1, v[2], v[3]);
+        col_sums(0, q, v[0] + v[2], v[1] + v[3]);
+      }
+      end_write(dst, &das_map, (l - 1) * n_pad + row0, W);
+      flush(vec, 0, (l - 1) * W);  // db_{l-1}
+      in = dst;
+      cur ^= 1;
+    }
   }
+  if (wtid == 0) bulk_wait();
+}
+
+template <int W>
+cudaError_t tile_pass(const CUtensorMap* maps, const void* means,
+                      const void* covs, const void* basis_t,
+                      const void* bb_t, const void* biases, const void* wd,
+                      const void* g, void* vec_part, int n, int n_pad,
+                      int depth, int num_dims, int num_degs,
+                      int use_contract, int kpad64, int grid, int smem,
+                      cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(
+      density_mlp_bwd_tile_kernel<W>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  auto f32 = [](const void* p) { return static_cast<const float*>(p); };
+  density_mlp_bwd_tile_kernel<W><<<grid, kHopperThreads, smem, st>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], f32(means),
+      f32(covs), f32(basis_t), f32(bb_t), f32(biases), f32(wd), f32(g),
+      static_cast<float*>(vec_part), n, n_pad, depth, num_dims, num_degs,
+      use_contract, kpad64);
+  return cudaGetLastError();
 }
 
 }  // namespace mnt
 
-// Scratch (allocated by the caller): acts [depth-1][n_pad][width] bf16,
-// das [depth][n_pad][width] bf16, vec_part [tiles][(depth+1)*width + 1] f32
-// and part, the dW partials (the larger of splits0 * bm0 and splits1 * bm1
-// rows of width floats).  Outputs: dw_out, dW_0 [F][width] then dW_1..
-// [width][width] back to back; vec_out, db_0.., dwd [width] and dbd.
+// Inputs: w0 bf16 [kpad64][width] (rows past F zero), w_hidden bf16
+// [depth-1][width][width], biases f32 [depth][width], wd f32 [width], g f32
+// [n]; width is 64, 128 or 256 (the caller pads narrower trunks with zeros)
+// and kpad64 is F rounded up to 64.  Scratch (allocated by the caller):
+// feats bf16 [n_pad][kpad64], acts bf16 [depth-1][n_pad][width], das bf16
+// [depth][n_pad][width], vec_part f32 [2 * tiles][(depth+1)*width + 1], part
+// f32 for the dW partials (the larger of splits0 * kpad64 and splits1 *
+// width rows of width floats); n_pad = tiles * 128.  Outputs: dw_out, dW_0
+// [F][width] then dW_1.. [width][width] back to back; vec_out, db_0.., dwd
+// [width] and dbd.  grid: CTAs of the tile pass; (bn, splits, per) the plans
+// of the dW_0 and dW_1.. GEMMs (plans.py).
 extern "C" int density_mlp_backward(
     const void* means, const void* covs, const void* basis_t,
     const void* bb_t, const void* w0, const void* w_hidden,
-    const void* biases, const void* wd, const void* g, void* acts,
-    void* das, void* vec_part, void* part, void* dw_out, void* vec_out,
-    int n, int width, int depth, int num_dims, int num_degs,
-    int use_contract, int bm0, int bn0, int splits0, int bm1, int bn1,
-    int splits1, void* stream) {
+    const void* biases, const void* wd, const void* g, void* feats,
+    void* acts, void* das, void* vec_part, void* part, void* dw_out,
+    void* vec_out, int n, int width, int depth, int num_dims, int num_degs,
+    int use_contract, int grid, int bn0, int splits0, int per0, int bn1,
+    int splits1, int per1, void* stream) {
   using namespace mnt;
-  if (depth < 2 || width % 32 != 0) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int kpad = padded_feats(2 * num_degs * num_dims);
-  const size_t smem = bwd_smem(width, depth, kpad, num_dims).total;
-  cudaError_t err = cudaFuncSetAttribute(
-      density_mlp_bwd_tile_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int tiles = (n + kTile - 1) / kTile;
-  const int n_pad = tiles * kTile;
-  auto f32 = [](const void* p) { return static_cast<const float*>(p); };
-  __nv_bfloat16* acts_b = static_cast<__nv_bfloat16*>(acts);
-  __nv_bfloat16* das_b = static_cast<__nv_bfloat16*>(das);
-  if (tiles > 0) {
-    density_mlp_bwd_tile_kernel<<<tiles, kThreads, smem, st>>>(
-        f32(means), f32(covs), f32(basis_t), f32(bb_t),
-        static_cast<const __nv_bfloat16*>(w0),
-        static_cast<const __nv_bfloat16*>(w_hidden), f32(biases), f32(wd),
-        f32(g), acts_b, das_b, static_cast<float*>(vec_part), n, n_pad,
-        width, depth, num_dims, num_degs, use_contract);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
   const int num_feats = 2 * num_degs * num_dims;
+  const int kpad64 = round_up(num_feats, 64);
+  const int tiles = (n + kBwdRows - 1) / kBwdRows;
+  const long long n_pad = (long long)tiles * kBwdRows;
+  if (depth < 2 || n < 1 || grid < 1 || depth * n_pad >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  const int smem = bwd_layout(width, depth, kpad64, num_dims).total;
+  if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  CUtensorMap maps[6];
+  const long long hidden_rows = (long long)(depth - 1) * width;
+  cudaError_t err = bf16_tile_map(&maps[0], w0, kpad64, width, kSlabK);
+  if (err == cudaSuccess)
+    err = bf16_tile_map(&maps[1], w_hidden, hidden_rows, width, kSlabK);
+  if (err == cudaSuccess)
+    err = bf16_tile_map(&maps[2], w_hidden, hidden_rows, width, width,
+                        kSlabK);
+  if (err == cudaSuccess)
+    err = bf16_tile_map(&maps[3], feats, n_pad, kpad64, 64);
+  if (err == cudaSuccess)
+    err = bf16_tile_map(&maps[4], acts, (depth - 1) * n_pad, width, 64);
+  if (err == cudaSuccess)
+    err = bf16_tile_map(&maps[5], das, depth * n_pad, width, 64);
+  if (err != cudaSuccess) return (int)err;
+  const int np = (int)n_pad;
+  if (width == 256)
+    err = tile_pass<256>(maps, means, covs, basis_t, bb_t, biases, wd, g,
+                         vec_part, n, np, depth, num_dims, num_degs,
+                         use_contract, kpad64, grid, smem, st);
+  else if (width == 128)
+    err = tile_pass<128>(maps, means, covs, basis_t, bb_t, biases, wd, g,
+                         vec_part, n, np, depth, num_dims, num_degs,
+                         use_contract, kpad64, grid, smem, st);
+  else if (width == 64)
+    err = tile_pass<64>(maps, means, covs, basis_t, bb_t, biases, wd, g,
+                        vec_part, n, np, depth, num_dims, num_degs,
+                        use_contract, kpad64, grid, smem, st);
+  else
+    err = cudaErrorInvalidValue;
+  if (err != cudaSuccess) return (int)err;
+
   float* dw = static_cast<float*>(dw_out);
   float* part_f = static_cast<float*>(part);
-  err = weight_gradient<true, __nv_bfloat16>(
-      f32(means), f32(covs), f32(basis_t), f32(bb_t), num_dims, num_degs,
-      use_contract, nullptr, 0, das_b, n, width, num_feats, bm0, bn0, splits0,
-      part_f, dw, st);
+  const __nv_bfloat16* acts_b = static_cast<const __nv_bfloat16*>(acts);
+  const __nv_bfloat16* das_b = static_cast<const __nv_bfloat16*>(das);
+  err = dw_gemm<DensityMlpBwd>(feats, das_b, n_pad, kpad64, width,
+                               num_feats, bn0, splits0, per0, part_f, dw, st);
   if (err != cudaSuccess) return (int)err;
   dw += (size_t)num_feats * width;
   for (int l = 1; l < depth; ++l) {
-    err = weight_gradient<false, __nv_bfloat16>(
-        nullptr, nullptr, nullptr, nullptr, num_dims, num_degs, use_contract,
-        acts_b + (size_t)(l - 1) * n_pad * width, width,
-        das_b + (size_t)l * n_pad * width, n, width, width, bm1, bn1, splits1,
-        part_f, dw, st);
+    err = dw_gemm<DensityMlpBwd>(acts_b + (size_t)(l - 1) * n_pad * width,
+                                 das_b + (size_t)l * n_pad * width, n_pad,
+                                 width, width, width, bn1, splits1, per1,
+                                 part_f, dw, st);
     if (err != cudaSuccess) return (int)err;
     dw += (size_t)width * width;
   }
   const long long vstride = (long long)(depth + 1) * width + 1;
-  return (int)reduce_splits(static_cast<const float*>(vec_part), tiles,
+  return (int)reduce_splits(static_cast<const float*>(vec_part), 2 * tiles,
                             vstride, vstride, static_cast<float*>(vec_out),
                             st);
+}
+
+// Dynamic shared memory of the tile pass, for the launch plans' checks.
+extern "C" int density_mlp_bwd_smem(int width, int depth, int num_feats,
+                                    int num_dims) {
+  using namespace mnt;
+  return bwd_layout(width, depth, round_up(num_feats, 64), num_dims).total;
 }

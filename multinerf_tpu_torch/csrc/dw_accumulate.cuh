@@ -1,5 +1,5 @@
-// Shared device code of the backward kernels (K3 density_mlp_bwd.cu, K4
-// featurize_dense_dw.cu, K6 int8_trunk_bwd.cu): a weight gradient
+// Device code of the int8 trunk's backward (K6 int8_trunk_bwd.cu; K3 and
+// K4 use only reduce_splits, under wgmma_dw.cuh's GEMM): a weight gradient
 // dW[rows, width] = A^T @ B summed over every sample, where per 64-sample
 // tile A is [64, rows] bf16 (the IPE features, recomputed with
 // tile_features, or rows of a bf16 or f32 matrix in device memory, rounded
@@ -23,8 +23,6 @@ namespace mnt {
 constexpr int kDwWarpDim = 64;  // Each warp owns a 64 x 64 block of dW.
 
 using FragACol = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                                wmma::col_major>;
-using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
                                 wmma::col_major>;
 
 // 8 consecutive values, rounded to bf16, as one 16-byte word (p is

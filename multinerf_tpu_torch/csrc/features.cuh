@@ -55,25 +55,27 @@ __host__ __device__ inline int featurizer_smem_floats(int num_dims,
   return num_dims * 12 + rows * 12;
 }
 
-// Fills feats[kRows][ldf] (bf16, row = sample) with the IPE features of
-// samples row0 .. row0+kRows-1; rows past n hold the features of a zero
-// Gaussian and are never stored by the callers.  Ends with __syncthreads.
-template <int kRows = kTile>
-__device__ void tile_features(const float* __restrict__ means,
-                              const float* __restrict__ covs,
-                              const float* __restrict__ basis_t,
-                              const float* __restrict__ bb_t, long long row0,
-                              int n, int num_dims, int num_degs,
-                              bool use_contract, float* scratch,
-                              __nv_bfloat16* feats, int ldf) {
+// The IPE features of samples row0 .. row0+kRows-1, computed by threads
+// tid = 0 .. nthreads-1: store(s, f, value) receives feature f of sample s
+// for f < kpad (the columns from 2 * num_degs * num_dims on are zero), and
+// sync() is the barrier of those threads.  Rows past n hold the features of
+// a zero Gaussian and are never stored by the callers.  Ends with sync().
+template <int kRows, typename Store, typename Sync>
+__device__ void featurize_rows(const float* __restrict__ means,
+                               const float* __restrict__ covs,
+                               const float* __restrict__ basis_t,
+                               const float* __restrict__ bb_t, long long row0,
+                               int n, int num_dims, int num_degs,
+                               bool use_contract, float* scratch, int tid,
+                               int nthreads, int kpad, Store store,
+                               Sync sync) {
   float* s_basis = scratch;                 // [L][3]
   float* s_bb = scratch + num_dims * 3;     // [L][9]
   float* s_mc = scratch + num_dims * 12;    // [kRows][12]: mean, cov.
-  const int tid = threadIdx.x;
-  for (int i = tid; i < num_dims * 3; i += blockDim.x) s_basis[i] = basis_t[i];
-  for (int i = tid; i < num_dims * 9; i += blockDim.x) s_bb[i] = bb_t[i];
+  for (int i = tid; i < num_dims * 3; i += nthreads) s_basis[i] = basis_t[i];
+  for (int i = tid; i < num_dims * 9; i += nthreads) s_bb[i] = bb_t[i];
 
-  for (int s = tid; s < kRows; s += blockDim.x) {
+  for (int s = tid; s < kRows; s += nthreads) {
     const long long row = row0 + s;
     float m[3] = {0.f, 0.f, 0.f};
     float c[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
@@ -107,11 +109,11 @@ __device__ void tile_features(const float* __restrict__ means,
     for (int i = 0; i < 3; ++i) s_mc[s * 12 + i] = m[i];
     for (int i = 0; i < 9; ++i) s_mc[s * 12 + 3 + i] = c[i];
   }
-  __syncthreads();
+  sync();
 
   const int num_feats = 2 * num_degs * num_dims;
   const int half = num_degs * num_dims;
-  for (int p = tid; p < kRows * num_dims; p += blockDim.x) {
+  for (int p = tid; p < kRows * num_dims; p += nthreads) {
     const int s = p / num_dims;
     const int l = p - s * num_dims;
     const float* mc = s_mc + s * 12;
@@ -120,7 +122,6 @@ __device__ void tile_features(const float* __restrict__ means,
     const float args0 = b[0] * mc[0] + b[1] * mc[1] + b[2] * mc[2];
     float var0 = 0.0f;
     for (int k = 0; k < 9; ++k) var0 += bb[k] * mc[3 + k];
-    __nv_bfloat16* out = feats + (size_t)s * ldf + l;
     float sn = 0.f, cs = 0.f, e = 0.f;
     for (int d = 0; d < num_degs; ++d) {
       if (d % kAnchorEvery == 0) {
@@ -137,19 +138,36 @@ __device__ void tile_features(const float* __restrict__ means,
         const float e2 = e * e;
         e = e2 * e2;
       }
-      out[d * num_dims] = __float2bfloat16_rn(e * sn);
-      out[half + d * num_dims] = __float2bfloat16_rn(e * cs);
+      store(s, l + d * num_dims, __float2bfloat16_rn(e * sn));
+      store(s, half + l + d * num_dims, __float2bfloat16_rn(e * cs));
     }
   }
   // Zero the padding columns so they add nothing to the products.
-  const int kpad = padded_feats(num_feats);
   const int extra = kpad - num_feats;
-  for (int i = tid; i < kRows * extra; i += blockDim.x) {
+  for (int i = tid; i < kRows * extra; i += nthreads) {
     const int s = i / extra;
-    feats[(size_t)s * ldf + num_feats + (i - s * extra)] =
-        __float2bfloat16_rn(0.0f);
+    store(s, num_feats + (i - s * extra), __float2bfloat16_rn(0.0f));
   }
-  __syncthreads();
+  sync();
+}
+
+// Fills feats[kRows][ldf] (bf16, row = sample) with the IPE features of
+// samples row0 .. row0+kRows-1 (columns zero up to padded_feats), using
+// the whole block.  Ends with __syncthreads.
+template <int kRows = kTile>
+__device__ void tile_features(const float* __restrict__ means,
+                              const float* __restrict__ covs,
+                              const float* __restrict__ basis_t,
+                              const float* __restrict__ bb_t, long long row0,
+                              int n, int num_dims, int num_degs,
+                              bool use_contract, float* scratch,
+                              __nv_bfloat16* feats, int ldf) {
+  featurize_rows<kRows>(
+      means, covs, basis_t, bb_t, row0, n, num_dims, num_degs, use_contract,
+      scratch, threadIdx.x, blockDim.x,
+      padded_feats(2 * num_degs * num_dims),
+      [=](int s, int f, __nv_bfloat16 v) { feats[(size_t)s * ldf + f] = v; },
+      [] { __syncthreads(); });
 }
 
 using namespace nvcuda;

@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -107,6 +108,51 @@ def load_all(names):
       if job is not None and job[2].poll() is None:
         job[2].kill()
         job[2].wait()
+
+
+def short_name(mangled):
+  """'_ZN3mnt14dw_gemm_kernelILi256ENS_13DensityMlpBwdEEEv...' ->
+  'dw_gemm_kernel<256, DensityMlpBwd>' (names in namespace mnt only)."""
+  m = re.match(r'_ZN3mnt(\d+)', mangled)
+  if m is None:
+    return mangled
+  end = m.end() + int(m.group(1))
+  ident, rest = mangled[m.end():end], mangled[end:]
+  args = []
+  pos = 1 if rest.startswith('I') else len(rest)
+  while pos < len(rest) and rest[pos] != 'E':
+    lit = re.match(r'Li(-?\d+)E', rest[pos:])
+    typ = re.match(r'(?:N3mnt|NS_)(\d+)', rest[pos:])
+    if lit:
+      args.append(lit.group(1))
+      pos += lit.end()
+    elif typ:
+      start = pos + typ.end()
+      args.append(rest[start:start + int(typ.group(1))])
+      pos = start + int(typ.group(1)) + 1  # The name's closing E.
+    else:
+      break
+  return ident + (f'<{", ".join(args)}>' if args else '')
+
+
+def kernel_resources(log):
+  """{kernel: {'registers', 'spill_stores', 'spill_loads'}} from a ptxas -v
+  log (BUILD_INFO[name]['log']), kernels by short_name."""
+  out, func, spills = {}, None, (0, 0)
+  for line in log.splitlines():
+    m = re.search(r'Function properties for (\S+)', line)
+    if m:
+      func, spills = short_name(m.group(1)), (0, 0)
+      continue
+    m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads', line)
+    if m:
+      spills = (int(m.group(1)), int(m.group(2)))
+    m = re.search(r'Used (\d+) registers', line)
+    if m and func is not None:
+      out[func] = {'registers': int(m.group(1)), 'spill_stores': spills[0],
+                   'spill_loads': spills[1]}
+      func = None
+  return out
 
 
 def check(status, what):

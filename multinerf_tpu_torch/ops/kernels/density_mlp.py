@@ -13,9 +13,11 @@ and returns every trunk and head weight and bias gradient, with the
 numerics of the Pallas kernel rather than autograd's of the forward (f32
 head weight and last activation for da_L and dwd, cotangents rounded to
 bf16 before each product, ReLU masks from the recomputed activations).  The
-sample positions get no gradient.  Design notes (per-tile pass, then
-split-K partials and ordered reduces, deterministic) are in
-``csrc/density_mlp_bwd.cu``.
+sample positions get no gradient.  Design notes (a wgmma tile pass fed by
+TMA, then the four dW products on the split-K TMA + wgmma GEMM of
+``csrc/wgmma_dw.cuh`` and ordered reduces, deterministic) are in
+``csrc/density_mlp_bwd.cu``; the launch plans in ``plans.py``.  A trunk
+narrower than 64, 128 or 256 runs zero-padded to that width.
 
 On a CUDA tensor each wrapper launches its kernel (or raises); on a CPU
 tensor it runs the plain version, in both directions: ``density_mlp_plain``
@@ -28,9 +30,11 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from multinerf_tpu_torch.ops.kernels import build
 from multinerf_tpu_torch.ops.kernels import featurize_dense as fd
+from multinerf_tpu_torch.ops.kernels import plans
 
 # launches: kernel launches; plain_calls: calls served by the plain version.
 counts = {'launches': 0, 'plain_calls': 0}  # Forward (K1).
@@ -110,9 +114,9 @@ def _check_trunk(means, ws, bs, wd, bd, basis, min_deg, max_deg):
   return basis_t, bb_t, num_dims, num_degs, num_feats, depth, width
 
 
-def _trunk_operands(ws, bs, num_feats):
+def _trunk_operands(ws, bs, kpad):
   """(w0 [kpad, W] bf16, w_hidden [depth-1, W, W] bf16, biases [depth, W])."""
-  w0 = fd.padded_bf16_rows(ws[0], -(-num_feats // 16) * 16)
+  w0 = fd.padded_bf16_rows(ws[0], kpad)
   if len(ws) > 1:
     w_hidden = torch.stack([w.to(torch.bfloat16) for w in ws[1:]])
   else:
@@ -127,7 +131,7 @@ def _launch(means, covs, ws, bs, wd, bd, basis, min_deg, max_deg,
     raise ValueError('all inputs must be on one device.')
   basis_t, bb_t, num_dims, num_degs, num_feats, depth, width = _check_trunk(
       means, ws, bs, wd, bd, basis, min_deg, max_deg)
-  w0, w_hidden, biases = _trunk_operands(ws, bs, num_feats)
+  w0, w_hidden, biases = _trunk_operands(ws, bs, -(-num_feats // 16) * 16)
   wd_bf = wd.reshape(-1).to(torch.bfloat16).contiguous()
   bd_f = bd.reshape(1).float().contiguous()
   out = torch.empty((means.shape[0],), dtype=torch.float32,
@@ -163,43 +167,67 @@ def _launch_bwd(means, covs, ws, bs, wd, g, basis, min_deg, max_deg,
     if t.device != device:
       raise ValueError('all inputs must be on one device.')
   g = g.reshape(-1).contiguous()
-  w0, w_hidden, biases = _trunk_operands(ws, bs, num_feats)
+  if n == 0:
+    return ([torch.zeros_like(w, dtype=torch.float32) for w in ws],
+            [torch.zeros((width,), device=device) for _ in bs],
+            torch.zeros((width, 1), device=device),
+            torch.zeros((), device=device))
+  plan = plans.density_mlp_bwd_plan(num_feats, width, depth, num_dims, n,
+                                    fd.num_sms(device))
+  wp = plan.width  # The kernel's width: the trunk zero-padded to it.
+  ws, bs, wd = _pad_trunk(ws, bs, wd, wp)
+  w0, w_hidden, biases = _trunk_operands(ws, bs, plan.kpad)
   wd_f = wd.reshape(-1).float().contiguous()
-  tiles = -(-n // 64)
-  n_pad = tiles * 64
-  vstride = (depth + 1) * width + 1
-  bm0, bn0, splits0 = fd.dw_plan(w0.shape[0], width, n, device)
-  bm1, bn1, splits1 = fd.dw_plan(width, width, n, device)
+  vstride = (depth + 1) * wp + 1
   empty = lambda shape, dtype=torch.float32: torch.empty(
       shape, dtype=dtype, device=device)
-  acts = empty((depth - 1, n_pad, width), torch.bfloat16)
-  das = empty((depth, n_pad, width), torch.bfloat16)
-  vec_part = empty((max(tiles, 1), vstride))
-  part = empty((max(splits0 * bm0, splits1 * bm1), width))
-  dw_out = empty((num_feats * width + (depth - 1) * width * width,))
+  feats = empty((plan.n_pad, plan.kpad), torch.bfloat16)
+  acts = empty((depth - 1, plan.n_pad, wp), torch.bfloat16)
+  das = empty((depth, plan.n_pad, wp), torch.bfloat16)
+  vec_part = empty((2 * plan.tiles, vstride))
+  part = empty((max(plan.dw0.splits * plan.kpad, plan.dw1.splits * wp), wp))
+  dw_out = empty((num_feats * wp + (depth - 1) * wp * wp,))
   vec_out = empty((vstride,))
   lib = build.load('density_mlp_bwd')
   fn = lib.density_mlp_backward
-  fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 12 + [
+  fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 13 + [
       ctypes.c_void_p]
   fn.restype = ctypes.c_int
   bwd_counts['launches'] += 1
   build.check(fn(means.data_ptr(), covs.data_ptr(), basis_t.data_ptr(),
                  bb_t.data_ptr(), w0.data_ptr(), w_hidden.data_ptr(),
                  biases.data_ptr(), wd_f.data_ptr(), g.data_ptr(),
-                 acts.data_ptr(), das.data_ptr(), vec_part.data_ptr(),
-                 part.data_ptr(), dw_out.data_ptr(), vec_out.data_ptr(), n,
-                 width, depth, num_dims, num_degs, int(use_contract), bm0,
-                 bn0, splits0, bm1, bn1, splits1,
+                 feats.data_ptr(), acts.data_ptr(), das.data_ptr(),
+                 vec_part.data_ptr(), part.data_ptr(), dw_out.data_ptr(),
+                 vec_out.data_ptr(), n, wp, depth, num_dims, num_degs,
+                 int(use_contract), plan.grid, plan.dw0.bn, plan.dw0.splits,
+                 plan.dw0.per, plan.dw1.bn, plan.dw1.splits, plan.dw1.per,
                  torch.cuda.current_stream(device).cuda_stream),
               'density_mlp_bwd')
-  dws = [dw_out[:num_feats * width].view(num_feats, width)]
+  dws = [dw_out[:num_feats * wp].view(num_feats, wp)]
   for l in range(depth - 1):
-    off = num_feats * width + l * width * width
-    dws.append(dw_out[off:off + width * width].view(width, width))
-  dbs = [vec_out[l * width:(l + 1) * width] for l in range(depth)]
-  return (dws, dbs, vec_out[depth * width:(depth + 1) * width].view(width, 1),
-          vec_out[-1])
+    off = num_feats * wp + l * wp * wp
+    dws.append(dw_out[off:off + wp * wp].view(wp, wp))
+  dbs = [vec_out[l * wp:(l + 1) * wp] for l in range(depth)]
+  dwd = vec_out[depth * wp:(depth + 1) * wp].view(wp, 1)
+  if wp != width:
+    dws = [dws[0][:, :width].contiguous()] + [
+        d[:width, :width].contiguous() for d in dws[1:]]
+    dbs = [d[:width].contiguous() for d in dbs]
+    dwd = dwd[:width].contiguous()
+  return dws, dbs, dwd, vec_out[-1]
+
+
+def _pad_trunk(ws, bs, wd, wp):
+  """The trunk and head zero-padded from width W to wp: the padded units
+  are 0 forward (ReLU of 0) and get cotangent 0, so every real gradient is
+  unchanged."""
+  pad = wp - ws[-1].shape[-1]
+  if pad == 0:
+    return ws, bs, wd
+  return ([F.pad(ws[0], (0, pad))] +
+          [F.pad(w, (0, pad, 0, pad)) for w in ws[1:]],
+          [F.pad(b, (0, pad)) for b in bs], F.pad(wd, (0, 0, 0, pad)))
 
 
 def density_mlp_forward(means, covs, ws, bs, wd, bd, basis, min_deg,

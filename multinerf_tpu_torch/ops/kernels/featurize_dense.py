@@ -8,9 +8,11 @@ bf16 products against 0.5 GB of f32 output, so the tensor cores bound it;
 the design notes are in ``csrc/featurize_dense.cu``.
 
 Backward (K4) replaces ``_dw_kernel``: ``dW = bf16(feats)^T @ bf16(g)``
-with f32 accumulation, the features recomputed per tile; ``db = g.sum(0)``
-in f32 (featurize_dense.py:249-254).  The design notes (split-K partials
-and an ordered reduce, deterministic) are in ``csrc/featurize_dense_dw.cu``.
+with f32 accumulation, the features computed once per sample per call;
+``db = g.sum(0)`` in f32 (featurize_dense.py:249-254).  The design notes (a
+featurize stage, then the split-K TMA + wgmma GEMM of ``csrc/wgmma_dw.cuh``
+and an ordered reduce, deterministic) are in ``csrc/featurize_dense_dw.cu``;
+the launch plan in ``plans.py``.
 The sample positions get no gradient: means and covs are stop-gradient
 inputs, as in the JAX custom VJP.
 
@@ -31,6 +33,7 @@ import torch.nn.functional as F
 
 from multinerf_tpu_torch.ops import coord
 from multinerf_tpu_torch.ops.kernels import build
+from multinerf_tpu_torch.ops.kernels import plans
 
 # launches: kernel launches; plain_calls: calls served by the plain version.
 counts = {'launches': 0, 'plain_calls': 0}  # Forward (K2).
@@ -174,23 +177,34 @@ def _launch_dw(means, covs, g, basis, min_deg, max_deg, use_contract):
   basis_t, bb_t, num_dims, num_degs = check_dense(
       means, width, basis, min_deg, max_deg)
   num_feats = 2 * num_degs * num_dims
-  bm, bn, splits = dw_plan(-(-num_feats // 16) * 16, width, n, means.device)
-  part = torch.empty((splits, bm, width), dtype=torch.float32,
-                     device=means.device)
-  out = torch.empty((num_feats, width), dtype=torch.float32,
-                    device=means.device)
+  device = means.device
+  if n == 0:
+    return torch.zeros((num_feats, width), device=device)
+  plan = plans.featurize_dense_dw_plan(num_feats, width, num_dims, n,
+                                       num_sms(device))
+  gemm = plan.gemm
+  empty = lambda shape, dtype=torch.float32: torch.empty(
+      shape, dtype=dtype, device=device)
+  feats = empty((n, plan.kpad), torch.bfloat16)
+  g16 = empty((n, width), torch.bfloat16)
+  part = empty((gemm.splits, plan.kpad, width))
+  out = empty((num_feats, width))
   lib = build.load('featurize_dense_dw')
   fn = lib.featurize_dense_dw
-  fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+  fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
   fn.restype = ctypes.c_int
   bwd_counts['launches'] += 1
   build.check(fn(means.data_ptr(), covs.data_ptr(), basis_t.data_ptr(),
-                 bb_t.data_ptr(), g.data_ptr(), part.data_ptr(),
-                 out.data_ptr(), n, width, num_dims, num_degs,
-                 int(use_contract), bm, bn, splits,
-                 torch.cuda.current_stream(means.device).cuda_stream),
+                 bb_t.data_ptr(), g.data_ptr(), feats.data_ptr(),
+                 g16.data_ptr(), part.data_ptr(), out.data_ptr(), n, width,
+                 num_dims, num_degs, int(use_contract), gemm.bn, gemm.splits,
+                 gemm.per, torch.cuda.current_stream(device).cuda_stream),
               'featurize_dense_dw')
   return out
+
+
+def num_sms(device):
+  return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check_device(t):

@@ -168,9 +168,65 @@ def test_featurize_dense_dw_kernel_matches_plain(cuda, use_contract):
                 f'featurize_dense_dw contract={use_contract}', KERNEL_TOL)
 
 
+# The edges of the tiles: one sample, fewer than one tile (K3's tile pass
+# takes 128 samples, the dW GEMM's stage 64), one tile + 1.  Two launches
+# bitwise equal, as at the full shapes above.  K3 at these N by the rule of
+# train_lib.leaf_gaps (relative L2 per leaf <= 5e-2 + twice the plain
+# version's own move when the means move by a relative 1e-6): over a few
+# samples one ReLU mask that flips between two summation orders moves a
+# whole column of dW_l (0.35 of 2.5 at N = 100, "NVIDIA H100 80GB HBM3,
+# 700.00 W"), which a bound on the largest entry cannot tell from a fault.
+@pytest.mark.parametrize('use_contract', [True, False])
+@pytest.mark.parametrize('n', [1, 100, 129])
+def test_density_mlp_backward_kernel_matches_plain_at_tile_edges(
+    cuda, n, use_contract):
+  rng = np.random.RandomState(n)
+  means, covs = _gaussians(n, 6, cuda, 0.1 if use_contract else 0.0)
+  ws, bs, wd = _trunk(rng, cuda)
+  g = torch.as_tensor(rng.randn(n).astype(np.float32), device=cuda)
+  args = (covs, ws, bs, wd, g, BASIS)
+  leaves = lambda out: {f'leaf {i}': t.cpu() for i, t in enumerate(
+      [*out[0], *out[1], out[2], out[3]])}
+  dm.reset_counts()
+  got = leaves(dm.density_mlp_backward(means, *args,
+                                       use_contract=use_contract))
+  again = leaves(dm.density_mlp_backward(means, *args,
+                                         use_contract=use_contract))
+  assert dm.bwd_counts == {'launches': 2, 'plain_calls': 0}
+  want = leaves(dm.density_mlp_bwd_plain(means, *args,
+                                         use_contract=use_contract))
+  nudged = leaves(dm.density_mlp_bwd_plain(
+      means * (1 + train_lib.NUDGE), *args, use_contract=use_contract))
+  for k, w in list(want.items()):
+    assert torch.equal(got[k], again[k]), f'{k}: two launches differ'
+    assert bool(torch.isfinite(got[k]).all()), k
+    if not bool(w.any()):  # No relative gap to a zero leaf: match it.
+      assert not bool(got[k].any()), k
+      del want[k], nudged[k]
+  for k, (gap, _, bound) in train_lib.leaf_gaps(got, want, nudged).items():
+    assert gap <= bound, f'N={n} {k}: {gap:.3e} > {bound:.3e}'
+
+
+@pytest.mark.parametrize('use_contract', [True, False])
+@pytest.mark.parametrize('n', [1, 50, 65])
+def test_featurize_dense_dw_kernel_matches_plain_at_tile_edges(
+    cuda, n, use_contract):
+  rng = np.random.RandomState(n)
+  means, covs = _gaussians(n, 7, cuda, 0.1 if use_contract else 0.0)
+  g = torch.as_tensor(rng.randn(n, 1024).astype(np.float32), device=cuda)
+  args = (means, covs, g, BASIS)
+  fd.reset_counts()
+  got = fd.featurize_dense_dw(*args, use_contract=use_contract)
+  again = fd.featurize_dense_dw(*args, use_contract=use_contract)
+  assert fd.bwd_counts == {'launches': 2, 'plain_calls': 0}
+  want = fd.featurize_dense_dw_plain(*args, use_contract=use_contract)
+  _check_leaves([got], [again], [want], f'featurize_dense_dw N={n}',
+                KERNEL_TOL)
+
+
 def test_train_step_on_the_gpu_matches_the_cpu(cuda):
-  # One train step at the test widths (PropMLP width 32, NerfMLP 64: the
-  # backward kernels' masked-column path), randomized=False, the same
+  # One train step at the test widths (PropMLP width 32, which K3 runs
+  # zero-padded to 64; NerfMLP 64, K4's narrowest), randomized=False, the same
   # seeded weights: kernels on the GPU, plain versions on the CPU.  Bounds
   # as tests/test_torch_train_step.py: loss terms 1e-3 relative, each
   # gradient leaf by train_lib.leaf_gaps, with the CPU step as the

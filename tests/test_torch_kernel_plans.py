@@ -1,0 +1,169 @@
+"""Launch plans of the backward kernels K3 and K4 (pure Python, no GPU):
+the split-K sample ranges, grids, tile shapes and shared-memory sizes that
+``ops/kernels/plans.py`` hands to ``csrc/density_mlp_bwd.cu`` and
+``csrc/featurize_dense_dw.cu``, and the zero-padding of narrow trunks."""
+
+import numpy as np
+import pytest
+import torch
+
+from multinerf_tpu_torch.ops import geopoly
+from multinerf_tpu_torch.ops.kernels import build
+from multinerf_tpu_torch.ops.kernels import density_mlp as dm
+from multinerf_tpu_torch.ops.kernels import plans
+
+SMS = 132  # H100 SXM.
+F360 = 504  # 360.gin's features: 2 x 12 degrees x 21 basis directions.
+N_PROP = 4096 * 64  # Samples of one proposal level of a 4,096-ray batch.
+N_NERF = 4096 * 32  # Samples of the NerfMLP level.
+
+
+def _gemms(n):
+  """The dW products of K3 (dW_0 and dW_1..) and K4 at the 360 shapes."""
+  k3 = plans.density_mlp_bwd_plan(F360, 256, 4, 21, n, SMS)
+  k4 = plans.featurize_dense_dw_plan(F360, 1024, 21, n, SMS)
+  return {'k3_dw0': k3.dw0, 'k3_dw1': k3.dw1, 'k4': k4.gemm}
+
+
+@pytest.mark.parametrize('n', [N_PROP, N_NERF, N_PROP - 37, N_NERF - 37, 1,
+                               63, 65, 129])
+@pytest.mark.parametrize('which', ['k3_dw0', 'k3_dw1', 'k4'])
+def test_dw_splits_cover_every_sample_once(n, which):
+  plan = _gemms(n)[which]
+  ranges = plan.sample_ranges()
+  assert len(ranges) == plan.splits == plan.grid[2]
+  assert ranges[0][0] == 0 and ranges[-1][1] == plan.n
+  for (start, stop), (nxt, _) in zip(ranges, ranges[1:] + [(plan.n, 0)]):
+    assert start < stop == nxt  # Non-empty, contiguous, no overlap.
+  assert plan.n >= n  # K3's GEMMs run over the padded tile rows.
+
+
+@pytest.mark.parametrize('which', ['k3_dw0', 'k3_dw1', 'k4'])
+def test_dw_grid_fills_one_wave_at_the_360_shapes(which):
+  plan = _gemms(N_PROP if which != 'k4' else N_NERF)[which]
+  ctas = np.prod(plan.grid)
+  assert SMS - plan.grid[0] * plan.grid[1] < ctas <= SMS
+  assert plan.grid[0] * plans.DW_TILE_ROWS >= plan.rows
+  assert plan.grid[1] * plan.bn == plan.width
+  # The widest block: one CTA covers a 256-wide layer, so A is read once.
+  assert plan.bn == 256
+
+
+@pytest.mark.parametrize('num_feats,width,depth', [
+    (F360, 256, 4), (F360, 32, 2), (F360, 64, 6), (F360, 128, 4),
+    (F360, 200, 3), (96, 256, 2)])
+def test_bwd_plan_tiles_and_shared_memory(num_feats, width, depth):
+  plan = plans.density_mlp_bwd_plan(num_feats, width, depth, 21, N_PROP - 37,
+                                    SMS)
+  assert plan.smem <= plans.SMEM_LIMIT
+  assert max(plan.dw0.smem, plan.dw1.smem) <= plans.SMEM_LIMIT
+  assert plan.width in plans.WIDTHS and plan.width >= width
+  assert plan.kpad % plans.WGMMA_M == 0 and plan.kpad >= num_feats
+  assert plan.n_pad == plan.tiles * plans.BWD_TILE
+  assert 0 <= plan.n_pad - (N_PROP - 37) < plans.BWD_TILE
+  assert plan.grid == min(plan.tiles, SMS)
+  assert (plan.dw0.rows, plan.dw0.width) == (plan.kpad, plan.width)
+  assert (plan.dw1.rows, plan.dw1.width) == (plan.width, plan.width)
+
+
+def test_tiles_are_whole_wgmma_shapes():
+  assert plans.BWD_TILE % plans.WGMMA_M == 0
+  assert plans.DW_TILE_ROWS % plans.WGMMA_M == 0
+  assert plans.SLAB % plans.WGMMA_K == 0
+  for width in plans.WIDTHS:
+    assert width % 64 == 0 and width <= 256  # wgmma n: up to 256.
+  for width in (64, 192, 320, 1024):
+    plan = plans.dw_gemm_plan(512, width, N_NERF, SMS)
+    assert plan.bn in (64, 128, 256) and width % plan.bn == 0
+    assert plan.smem <= plans.SMEM_LIMIT
+
+
+def test_360_shared_memory_matches_the_layout():
+  # The tile pass at 360.gin: two 64 KB operand tiles, a 4 x 16 KB ring,
+  # 12 KB of mask bits, 16 KB of column sums, g, barriers, alignment.
+  assert plans.bwd_smem(256, 4, 512, 21) == (
+      2 * 65536 + 4 * 16384 + 12288 + 2 * 8192 + 512 + 64 + 1024)
+  assert plans.dw_gemm_smem(256) == 4 * 64 * (128 + 256) * 2 + 64 + 1024
+
+
+@pytest.mark.parametrize('call,match', [
+    (lambda: plans.density_mlp_bwd_plan(F360, 512, 4, 21, 100, SMS),
+     'at most 256'),
+    (lambda: plans.density_mlp_bwd_plan(F360, 256, 1, 21, 100, SMS),
+     'depth >= 2'),
+    (lambda: plans.density_mlp_bwd_plan(F360, 256, 40, 21, 100, SMS),
+     'shared memory'),
+    (lambda: plans.density_mlp_bwd_plan(2000, 256, 4, 21, 100, SMS),
+     'shared memory'),
+    (lambda: plans.density_mlp_bwd_plan(F360, 256, 4, 21, 0, SMS),
+     'samples'),
+    (lambda: plans.featurize_dense_dw_plan(F360, 96, 21, 100, SMS),
+     'multiple of 64'),
+    (lambda: plans.featurize_dense_dw_plan(F360, 32, 21, 100, SMS),
+     'multiple of 64'),
+    (lambda: plans.featurize_dense_dw_plan(4000, 1024, 21, 100, SMS),
+     'shared memory'),
+    (lambda: plans.dw_gemm_plan(100, 256, 100, SMS), 'multiple of 64'),
+    (lambda: plans.dw_gemm_plan(512, 256, 2**31, SMS), 'samples'),
+])
+def test_plans_reject_what_the_kernels_do_not_take(call, match):
+  with pytest.raises(ValueError, match=match):
+    call()
+
+
+@pytest.mark.parametrize('width,depth', [(32, 2), (48, 3), (100, 2)])
+def test_padded_trunk_gives_the_same_gradients(width, depth):
+  # The K3 wrapper runs a narrow trunk zero-padded to the kernel's width:
+  # the padded units are 0 forward and get cotangent 0, so the real
+  # gradients do not change.  Checked on the plain version.
+  rng = np.random.RandomState(width)
+  basis = np.array(geopoly.generate_basis('icosahedron', 2)).T
+  n = 40
+  means = torch.tensor(rng.randn(n, 3).astype(np.float32))
+  a = rng.randn(n, 3, 3).astype(np.float32) * 0.05
+  covs = torch.tensor(a @ np.swapaxes(a, -1, -2))
+  shapes = [(F360, width)] + [(width, width)] * (depth - 1)
+  ws = [torch.tensor(rng.uniform(-0.1, 0.1, s).astype(np.float32))
+        for s in shapes]
+  bs = [torch.tensor(rng.randn(width).astype(np.float32) * 0.1) for _ in ws]
+  wd = torch.tensor(rng.uniform(-0.2, 0.2, (width, 1)).astype(np.float32))
+  g = torch.tensor(rng.randn(n).astype(np.float32))
+  wp = plans.padded_width(width)
+  pws, pbs, pwd = dm._pad_trunk(ws, bs, wd, wp)
+  assert [tuple(w.shape) for w in pws] == (
+      [(F360, wp)] + [(wp, wp)] * (depth - 1))
+  want = dm.density_mlp_bwd_plain(means, covs, ws, bs, wd, g, basis)
+  got = dm.density_mlp_bwd_plain(means, covs, pws, pbs, pwd, g, basis)
+  pairs = list(zip(got[0], want[0])) + list(zip(got[1], want[1])) + [
+      (got[2], want[2]), (got[3], want[3])]
+  for i, (p, w) in enumerate(pairs):
+    if p.dim() == 2:
+      p = p[:w.shape[0], :w.shape[1]]
+    elif p.dim() == 1:
+      p = p[:w.numel()]
+    np.testing.assert_allclose(p.numpy(), w.numpy(), rtol=1e-5, atol=1e-6,
+                               err_msg=f'leaf {i}')
+
+
+def test_ptxas_log_gives_each_kernels_registers_and_spills():
+  log = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN3mnt27density_mlp_bwd_tile_kernelILi256EEEv14CUtensorMap_stPKfi' for 'sm_90a'
+ptxas info    : Function properties for _ZN3mnt27density_mlp_bwd_tile_kernelILi256EEEv14CUtensorMap_stPKfi
+    112 bytes stack frame, 88 bytes spill stores, 120 bytes spill loads
+ptxas info    : Used 168 registers, used 16 barriers, 112 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN3mnt14dw_gemm_kernelILi64ENS_13DensityMlpBwdEEEv14CUtensorMap_stS2_iiiiPf' for 'sm_90a'
+ptxas info    : Function properties for _ZN3mnt14dw_gemm_kernelILi64ENS_13DensityMlpBwdEEEv14CUtensorMap_stS2_iiiiPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 58 registers, used 1 barriers
+ptxas info    : Function properties for _ZN3mnt20reduce_splits_kernelEPKfixxPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 32 registers, used 0 barriers
+"""
+  assert build.kernel_resources(log) == {
+      'density_mlp_bwd_tile_kernel<256>': {
+          'registers': 168, 'spill_stores': 88, 'spill_loads': 120},
+      'dw_gemm_kernel<64, DensityMlpBwd>': {
+          'registers': 58, 'spill_stores': 0, 'spill_loads': 0},
+      'reduce_splits_kernel': {
+          'registers': 32, 'spill_stores': 0, 'spill_loads': 0}}
+  assert build.short_name('cudaMemcpy') == 'cudaMemcpy'
