@@ -1,12 +1,15 @@
 """Smoke test of the PyTorch port on one NVIDIA GPU (H100): builds the CUDA
 kernels from ``multinerf_tpu_torch/csrc``, holds each against its plain
-PyTorch version at the render and training shapes, renders
-``configs/360.gin`` at full model width through ``python -m
+PyTorch version at the render and training shapes (the forward kernels
+also at the edges of their tiles and at narrow widths, K2 at 672 features
+too), renders ``configs/360.gin`` at full model width through ``python -m
 multinerf_tpu_torch.render``'s entry point, trains it for 100 steps of
 4,096 rays through ``python -m multinerf_tpu_torch.train``'s, holds one
 train step on the GPU against the CPU, and checks that both paths went
-through the kernels; then the same under ``trunk_dtype='int8'`` and
-``'int8_hybrid'`` (the int8 trunk kernels K5 and K6).
+through the kernels; then renders and trains it under
+``trunk_dtype='bfloat16'`` (the same kernels K1-K4), and under
+``trunk_dtype='int8'`` and ``'int8_hybrid'`` (the int8 trunk kernels K5 and
+K6).
 
 Run from the repository root, with no arguments:
 
@@ -128,26 +131,80 @@ def _time_ms(fn, reps=10, warmup=3):
   return statistics.median(times)
 
 
+def _hold(name, got, again, want, what):
+  """One forward kernel's output against its plain version: same shape,
+  finite, max |kernel - plain| <= TOL * max(1, max |plain|), and a second
+  launch bitwise equal.  Returns max |kernel - plain|."""
+  torch.cuda.synchronize()
+  if got.shape != want.shape:
+    raise SystemExit(f'FAIL {name} {what}: shape {tuple(got.shape)} vs '
+                     f'{tuple(want.shape)}')
+  if not bool(torch.isfinite(got).all()):
+    raise SystemExit(f'FAIL {name} {what}: non-finite kernel output')
+  if not torch.equal(got, again):
+    raise SystemExit(f'FAIL {name} {what}: two launches differ.')
+  err = float((got - want).abs().max())
+  bound = TOL * max(1.0, float(want.abs().max()))
+  log(f'{name} {what}: max|kernel - plain| = {err:.3e} (bound {bound:.3e}, '
+      f'max|plain| {float(want.abs().max()):.3e}); two launches bitwise '
+      'equal')
+  if not err <= bound:
+    raise SystemExit(f'FAIL {name} {what}: disagrees with its plain version.')
+  return err
+
+
 def _compare(name, run_kernel, run_plain, n_full):
   """Kernel vs plain at n_full and n_full - RAGGED; returns the summary."""
   worst = 0.0
   for n in (n_full, n_full - RAGGED):
-    got = run_kernel(n)
-    want = run_plain(n)
-    torch.cuda.synchronize()
-    if got.shape != want.shape:
-      raise SystemExit(f'FAIL {name}: shape {tuple(got.shape)} vs '
-                       f'{tuple(want.shape)}')
-    if not bool(torch.isfinite(got).all()):
-      raise SystemExit(f'FAIL {name}: non-finite kernel output at N={n}')
-    err = float((got - want).abs().max())
-    bound = TOL * max(1.0, float(want.abs().max()))
-    log(f'{name} N={n}: max|kernel - plain| = {err:.3e} '
-        f'(bound {bound:.3e}, max|plain| {float(want.abs().max()):.3e})')
-    if not err <= bound:
-      raise SystemExit(f'FAIL {name}: disagrees with its plain version.')
-    worst = max(worst, err)
+    got, again = run_kernel(n), run_kernel(n)
+    worst = max(worst, _hold(name, got, again, run_plain(n), f'N={n}'))
   return _summary(name, run_kernel, run_plain, n_full, worst)
+
+
+# The forward kernels at the edges of their 128-sample tiles, and at widths
+# narrower than the main path's (K1's trunk zero-padded by the wrapper, K2's
+# output columns masked in the kernel): (N, width) pairs.
+EDGE_N = (1, 129, 300)
+K1_NARROW = (32, 64, 128)
+K2_NARROW = (64, 96)
+
+
+def _hold_edges(name, run_kernel, run_plain, cases):
+  """Kernel vs plain at each (n, width) of `cases`, before any timing."""
+  for n, width in cases:
+    got, again = run_kernel(n, width), run_kernel(n, width)
+    _hold(name, got, again, run_plain(n, width), f'N={n} width {width}')
+
+
+def log_forward_plans(num_feats, num_dims):
+  """K1's and K2's launch plans at the kernel phase's shapes: dynamic
+  shared memory per CTA (the C entry points, held against plans.py), ring
+  depth and grid."""
+  from multinerf_tpu_torch.ops.kernels import build
+  from multinerf_tpu_torch.ops.kernels import featurize_dense as fd
+  from multinerf_tpu_torch.ops.kernels import plans
+  k1 = fd.fwd_plan(plans.density_mlp_fwd_plan, 'density_mlp', num_feats, 256,
+                   num_dims, K1_SAMPLES)
+  k2 = fd.fwd_plan(plans.featurize_dense_fwd_plan, 'featurize_dense',
+                   num_feats, 1024, num_dims, K2_SAMPLES)
+  k1_smem = build.load('density_mlp').density_mlp_smem
+  k2_smem = build.load('featurize_dense').featurize_dense_smem
+  for fn, args in ((k1_smem, 4), (k2_smem, 5)):
+    fn.argtypes = [ctypes.c_int] * args
+    fn.restype = ctypes.c_int
+  smem = (k1_smem(k1.width, num_feats, num_dims, k1.stages),
+          k2_smem(num_feats, num_dims, k2.width, k2.stages, int(k2.staged)))
+  if smem != (k1.smem, k2.smem):
+    raise SystemExit(f'FAIL plans: shared memory {smem} in the sources, '
+                     f'{(k1.smem, k2.smem)} in plans.py')
+  log(f'density_mlp: {k1.smem:,} bytes of dynamic shared memory per CTA, '
+      f'a {k1.stages}-stage weight ring, {k1.clusters} persistent clusters '
+      f'of 2 CTAs ({k1.grid} CTAs) over {k1.tiles} tiles of 128 samples')
+  log(f'featurize_dense: {k2.smem:,} bytes per CTA, a {k2.stages}-stage '
+      f'ring, {k2.col_slabs} column slabs of {k2.width}, stores '
+      f'{"by TMA from shared memory" if k2.staged else "from registers"}, '
+      f'{k2.clusters} clusters ({k2.grid} CTAs) over {k2.tiles} tiles')
 
 
 def _summary(name, run_kernel, run_plain, n_full, worst):
@@ -165,6 +222,7 @@ def phase_kernels():
   from multinerf_tpu_torch.ops.kernels import featurize_dense as fd
   basis = np.array(geopoly.generate_basis('icosahedron', 2)).T  # [3, 21]
   num_feats = 2 * 12 * basis.shape[-1]
+  log_forward_plans(num_feats, basis.shape[-1])
   rng = np.random.RandomState(0)
   results = {}
 
@@ -172,6 +230,18 @@ def phase_kernels():
   means, covs = _gaussians(K1_SAMPLES, seed=1)
   ws, bs, wd = _prop_trunk(rng, num_feats)
   bd = torch.tensor(np.float32(-0.3), device='cuda')
+  trunks = {256: (ws, bs, wd)}
+  for width in K1_NARROW:
+    trunks[width] = ([_he_uniform(rng, num_feats, width)] + [
+        _he_uniform(rng, width, width) for _ in range(3)],
+                     [torch.tensor(rng.randn(width).astype(np.float32) * 0.1,
+                                   device='cuda') for _ in range(4)],
+                     _he_uniform(rng, width, 1))
+  edge = lambda n, width: (means[:n], covs[:n], *trunks[width], bd, basis)
+  _hold_edges('density_mlp',
+              lambda *a: dm.density_mlp(*edge(*a), use_contract=True),
+              lambda *a: dm.density_mlp_plain(*edge(*a), use_contract=True),
+              [(n, 256) for n in EDGE_N] + [(300, w) for w in K1_NARROW])
   args = lambda n: (means[:n], covs[:n], ws, bs, wd, bd, basis)
   results['density_mlp'] = _compare(
       'density_mlp',
@@ -183,6 +253,20 @@ def phase_kernels():
   means, covs = _gaussians(K2_SAMPLES, seed=2)
   w = _he_uniform(rng, num_feats, 1024)
   b = torch.tensor(rng.randn(1024).astype(np.float32) * 0.1, device='cuda')
+  edge = lambda n, width: (means[:n], covs[:n], w[:, :width], b[:width],
+                           basis)
+  _hold_edges('featurize_dense',
+              lambda *a: fd.featurize_dense(*edge(*a), use_contract=True),
+              lambda *a: fd.featurize_dense_plain(*edge(*a),
+                                                  use_contract=True),
+              [(n, 1024) for n in EDGE_N] + [(300, w) for w in K2_NARROW])
+  # 672 features (16 degrees): no room for the output staging, so the
+  # kernel stores from registers.
+  wide = (means[:300], covs[:300],
+          _he_uniform(rng, 2 * 16 * basis.shape[-1], 1024), b, basis, 0, 16)
+  _hold('featurize_dense', fd.featurize_dense(*wide),
+        fd.featurize_dense(*wide), fd.featurize_dense_plain(*wide),
+        'N=300 width 1024, 672 features')
   args = lambda n: (means[:n], covs[:n], w, b, basis)
   results['featurize_dense'] = _compare(
       'featurize_dense',
@@ -495,6 +579,12 @@ def _check_frames(tag, summary, shape):
   for idx, sec in zip(summary['frames'], summary['seconds']):
     log(f'{tag} frame {idx}: {sec:.3f} s, {num_rays / sec:,.0f} rays/s')
 
+
+# The bf16 trunk, the JAX package's shipping configuration (bench.py:459-464):
+# the same kernels as the f32 trunk (K1-K4), the hidden products in bf16.
+BF16_BINDINGS = ("NerfMLP.trunk_dtype = 'bfloat16'",
+                 "PropMLP.trunk_dtype = 'bfloat16'")
+BF16_STEPS = 40
 
 # The bindings of the int8 trunk (scripts/render_bench.py:52-54): the
 # PropMLPs keep K1/K3 (full density fusion comes first), the NerfMLP's trunk
@@ -813,6 +903,10 @@ def main():
   phase_reference()
   paths['train'] = phase_train()
   phase_train_reference()
+  paths['render_bfloat16'] = phase_main_path('render bfloat16', BF16_BINDINGS,
+                                             F32_RENDER)
+  paths['train_bfloat16'] = phase_train('train bfloat16', BF16_BINDINGS,
+                                        BF16_STEPS, F32_TRAIN)
   for mode in INT8_MODES:
     paths[f'render_{mode}'] = phase_main_path(
         f'render {mode}', int8_bindings(mode), INT8_RENDER)

@@ -36,18 +36,17 @@
 //   2. the four dW products run on the TMA + wgmma GEMM of wgmma_dw.cuh,
 //      reading those bf16 rows; the per-slot column sums are reduced in
 //      slot order.
+// The ring, the producer's forward slabs, the tile product, the featurizer
+// into the swizzled tile and the bias + ReLU + bf16 epilogue are K1's too
+// (tile_pass.cuh).
 // Every sum has a fixed order (no atomics), so the result is bitwise
 // deterministic.
 
 #include <cuda_runtime.h>
 
-#include "wgmma_dw.cuh"
+#include "tile_pass.cuh"
 
 namespace mnt {
-
-constexpr int kBwdRows = 128;  // Samples per tile: two warpgroups of 64.
-constexpr int kRing = 4;       // Stages of the weight ring.
-constexpr int kSlabK = 32;     // k depth of one ring slab.
 
 struct DensityMlpBwd;  // Names this kernel's dW GEMMs in a profile.
 
@@ -73,52 +72,9 @@ __host__ __device__ inline BwdLayout bwd_layout(int width, int depth,
   l.aux_bytes = round_up(colsum > feat ? colsum : feat, 16);
   l.aux = l.masks + (depth - 1) * kConsumerThreads * (width / 64) * 4;
   l.g = l.aux + 2 * l.aux_bytes;
-  l.bars = l.g + kBwdRows * 4;
+  l.bars = l.g + kTileRows * 4;
   l.total = l.bars + 2 * kRing * 8 + 1024;
   return l;
-}
-
-// acc = A @ B over k_slabs ring slabs: A [64][32 * k_slabs] K-major in `a`
-// (128-byte swizzled 64-column blocks), B the next k_slabs slabs of the
-// ring: MN-major (a layer's rows, [32][64] boxes, 128-byte swizzle) or
-// K-major (a layer's columns, one [W][32] box, 64-byte swizzle).  `it` is
-// the ring position, as the producer's.
-template <int W, bool kBMnMajor>
-__device__ __forceinline__ void tile_product(float (&acc)[W / 2],
-                                             const unsigned char* a,
-                                             int k_slabs,
-                                             const unsigned char* ring,
-                                             int slab_bytes, uint64_t* full,
-                                             uint64_t* empty, int& it,
-                                             int lane) {
-  for (int kb = 0; kb < k_slabs; ++kb) {
-    const int s = it % kRing;
-    mbar_wait(&full[s], (it / kRing) & 1);
-    const unsigned char* b = ring + s * slab_bytes;
-    const unsigned char* a_kb = a + (kb >> 1) * kBoxBytes + (kb & 1) * 64;
-    fence_acc(acc);
-    wgmma_fence();
-#pragma unroll
-    for (int k = 0; k < kSlabK / 16; ++k) {
-      const uint64_t da = smem_desc(a_kb + k * 32, 16, 1024);
-      const int scale_d = (kb | k) != 0;
-      if constexpr (kBMnMajor)
-        wgmma<W, 0, 1>(acc, da,
-                       smem_desc(b + k * 2048, kSlabK * 128, 1024), scale_d);
-      else
-        wgmma<W, 0, 0>(acc, da, smem_desc(b + k * 32, 16, 512, kSwizzle64),
-                       scale_d);
-    }
-    wgmma_commit();
-    fence_acc(acc);
-    wgmma_wait<1>();
-    fence_acc(acc);
-    if (kb > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % kRing]);
-    ++it;
-  }
-  wgmma_wait<0>();
-  fence_acc(acc);
-  if (lane == 0) mbar_arrive(&empty[(it - 1) % kRing]);
 }
 
 // Sum over the 8 lanes that share lane % 4 (the warp's 16 rows, given the
@@ -149,50 +105,25 @@ density_mlp_bwd_tile_kernel(
   unsigned char* smem = align_1024(smem_raw);
   const BwdLayout lay = bwd_layout(W, depth, kpad64, num_dims);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.bars);
-  uint64_t* empty = full + kRing;
-  const int tiles = n_pad / kBwdRows;
+  const SlabRing ring{smem + lay.ring, full, full + kRing, lay.slab_bytes,
+                      kRing};
+  const int tiles = n_pad / kTileRows;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kRing; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kConsumerThreads / 32);
-    }
-    mbar_fence_init();
-  }
+  if (threadIdx.x == 0) ring_init(ring);
   __syncthreads();
 
   if (warp == kProducerWarp) {
     // The slab sequence of one tile, repeated per tile: W_0's rows, then
     // each hidden layer's rows, then their columns from the last layer down.
     if (lane == 0) {
-      int it = 0;
-      auto stage = [&](uint64_t*& bar) {
-        const int s = it % kRing;
-        mbar_wait(&empty[s], ((it / kRing) & 1) ^ 1);
-        bar = &full[s];
-        mbar_expect_tx(bar, lay.slab_bytes);
-        ++it;
-        return smem + lay.ring + s * lay.slab_bytes;
-      };
-      uint64_t* bar;
+      RingPos it;
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        constexpr int kBox = kSlabK * 128;  // One [32][64] box.
-        for (int kb = 0; kb < kpad64 / kSlabK; ++kb) {
-          unsigned char* dst = stage(bar);
-          for (int j = 0; j < W / 64; ++j)
-            tma_load(dst + j * kBox, &w0_map, bar, j * 64, kb * kSlabK);
-        }
-        for (int l = 1; l < depth; ++l)
-          for (int kb = 0; kb < W / kSlabK; ++kb) {
-            unsigned char* dst = stage(bar);
-            for (int j = 0; j < W / 64; ++j)
-              tma_load(dst + j * kBox, &wh_map, bar, j * 64,
-                       (l - 1) * W + kb * kSlabK);
-          }
+        produce_trunk_forward<W>(ring, it, &w0_map, &wh_map, kpad64, depth);
         for (int l = depth - 1; l >= 1; --l)
           for (int kb = 0; kb < W / kSlabK; ++kb) {
-            unsigned char* dst = stage(bar);
+            uint64_t* bar;
+            unsigned char* dst = ring_acquire(ring, it, bar);
             tma_load(dst, &wh_t_map, bar, kb * kSlabK, (l - 1) * W);
           }
       }
@@ -206,24 +137,22 @@ density_mlp_bwd_tile_kernel(
   const int bar_id = 1 + wg;
   unsigned char* x = smem + wg * lay.x_bytes;
   unsigned char* buf[2] = {x, x + W * 128};
-  const unsigned char* ring = smem + lay.ring;
   uint32_t* masks =
       reinterpret_cast<uint32_t*>(smem + lay.masks) + threadIdx.x;
   float* aux = reinterpret_cast<float*>(smem + lay.aux + wg * lay.aux_bytes);
   float* g_s = reinterpret_cast<float*>(smem + lay.g) + wg * 64;
   const int vstride = (depth + 1) * W + 1;
-  const int r_lo = wq * 16 + lane / 4;  // This thread's rows: r_lo, r_lo + 8.
-  const int c_lo = 2 * (lane % 4);      // Its first column in each 8.
-  int it = 0;
+  const AccPos pos(wtid);
+  const int r_lo = pos.r_lo;  // This thread's rows: r_lo, r_lo + 8.
+  const int c_lo = pos.c_lo;  // Its first column in each 8.
+  RingPos it;
   float acc[W / 2];
 #pragma unroll
   for (int i = 0; i < W / 2; ++i) acc[i] = 0.0f;
 
   // bf16 (v0, v1) to row r_lo + 8h, columns 8q + c_lo + {0, 1} of dst.
   auto put = [&](unsigned char* dst, int q, int h, float v0, float v1) {
-    *reinterpret_cast<__nv_bfloat162*>(
-        dst + swizzled_offset(r_lo + 8 * h, q * 8 + c_lo)) =
-        __floats2bfloat162_rn(v0, v1);
+    put_bf16x2(dst, r_lo + 8 * h, q * 8 + c_lo, v0, v1);
   };
   // Lanes 0..3 of each warp leave its 16 rows' sum of columns 8q + c_lo
   // + {0, 1} in column-sum buffer b.
@@ -261,18 +190,13 @@ density_mlp_bwd_tile_kernel(
   };
 
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int row0 = tile * kBwdRows + wg * 64;
+    const int row0 = tile * kTileRows + wg * 64;
     float* vec = vec_part + (size_t)(2 * tile + wg) * vstride;
     begin_write();  // The last tile's stores, and its column sums, are done.
     // Samples past n get g = 0, so every cotangent they produce is 0.
     if (wtid < 64) g_s[wtid] = row0 + wtid < n ? g[row0 + wtid] : 0.0f;
-    featurize_rows<64>(
-        means, covs, basis_t, bb_t, row0, n, num_dims, num_degs,
-        use_contract != 0, aux, wtid, 128, kpad64,
-        [=](int s, int f, __nv_bfloat16 v) {
-          *reinterpret_cast<__nv_bfloat16*>(x + swizzled_offset(s, f)) = v;
-        },
-        [=] { named_sync(bar_id, 128); });
+    featurize_tile(means, covs, basis_t, bb_t, row0, n, num_dims, num_degs,
+                   use_contract != 0, kpad64, x, aux, wtid, bar_id);
     end_write(x, &feats_map, row0, kpad64);
 
     // Forward.  Layer l reads `in` and writes buf[cur]; the last layer's
@@ -281,8 +205,7 @@ density_mlp_bwd_tile_kernel(
     int k_slabs = kpad64 / kSlabK;
     int cur = 0;
     for (int l = 0; l < depth; ++l) {
-      tile_product<W, true>(acc, in, k_slabs, ring, lay.slab_bytes, full,
-                            empty, it, lane);
+      tile_product<W, true>(acc, in, k_slabs, ring, it, lane);
       const float* bias = biases + (size_t)l * W;
       unsigned char* dst = buf[cur];
       begin_write();
@@ -290,20 +213,11 @@ density_mlp_bwd_tile_kernel(
         uint32_t bits[W / 64];
 #pragma unroll
         for (int w = 0; w < W / 64; ++w) bits[w] = 0u;
-#pragma unroll
-        for (int q = 0; q < W / 8; ++q) {
-          const int col = q * 8 + c_lo;
-          const float b0 = __ldg(bias + col), b1 = __ldg(bias + col + 1);
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int i = 4 * q + 2 * h;
-            const float v0 = fmaxf(acc[i] + b0, 0.0f);
-            const float v1 = fmaxf(acc[i + 1] + b1, 0.0f);
-            bits[i >> 5] |= (v0 > 0.0f ? 1u : 0u) << (i & 31);
-            bits[i >> 5] |= (v1 > 0.0f ? 1u : 0u) << ((i + 1) & 31);
-            put(dst, q, h, v0, v1);
-          }
-        }
+        bias_relu_bf16<W>(acc, bias, dst, pos, [&](int i, float v0,
+                                                   float v1) {
+          bits[i >> 5] |= (v0 > 0.0f ? 1u : 0u) << (i & 31);
+          bits[i >> 5] |= (v1 > 0.0f ? 1u : 0u) << ((i + 1) & 31);
+        });
 #pragma unroll
         for (int w = 0; w < W / 64; ++w)
           masks[(l * (W / 64) + w) * kConsumerThreads] = bits[w];
@@ -343,8 +257,7 @@ density_mlp_bwd_tile_kernel(
 
     // Backward through the hidden layers: da_{l-1} from da_l (in `in`).
     for (int l = depth - 1; l >= 1; --l) {
-      tile_product<W, false>(acc, in, W / kSlabK, ring, lay.slab_bytes,
-                             full, empty, it, lane);
+      tile_product<W, false>(acc, in, W / kSlabK, ring, it, lane);
       unsigned char* dst = buf[cur];
       begin_write();
       uint32_t bits[W / 64];
@@ -417,8 +330,8 @@ extern "C" int density_mlp_backward(
   using namespace mnt;
   const int num_feats = 2 * num_degs * num_dims;
   const int kpad64 = round_up(num_feats, 64);
-  const int tiles = (n + kBwdRows - 1) / kBwdRows;
-  const long long n_pad = (long long)tiles * kBwdRows;
+  const int tiles = (n + kTileRows - 1) / kTileRows;
+  const long long n_pad = (long long)tiles * kTileRows;
   if (depth < 2 || n < 1 || grid < 1 || depth * n_pad >= (1ll << 31))
     return (int)cudaErrorInvalidValue;
   const int smem = bwd_layout(width, depth, kpad64, num_dims).total;

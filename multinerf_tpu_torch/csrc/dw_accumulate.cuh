@@ -16,12 +16,18 @@
 // P is chosen by the caller so that the grid is one wave of the card.
 #pragma once
 
+#include <mma.h>
+
 #include "features.cuh"
 
 namespace mnt {
 
 constexpr int kDwWarpDim = 64;  // Each warp owns a 64 x 64 block of dW.
 
+using namespace nvcuda;
+using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                             wmma::row_major>;
+using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 using FragACol = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
                                 wmma::col_major>;
 

@@ -1,6 +1,6 @@
 // Shared device code of the fused kernels: per-sample contraction, lifting
 // onto the basis and the recurrence IPE, written as bf16 rows into shared
-// memory, plus a bf16 tensor-core tile product with f32 accumulation.
+// memory.
 //
 // The numerics follow multinerf_tpu/ops/pallas/featurize_dense.py:53-114
 // (_safe_sin/_safe_cos and _tile_features_t) term for term:
@@ -16,7 +16,6 @@
 #pragma once
 
 #include <cuda_bf16.h>
-#include <mma.h>
 
 namespace mnt {
 
@@ -168,35 +167,6 @@ __device__ void tile_features(const float* __restrict__ means,
       padded_feats(2 * num_degs * num_dims),
       [=](int s, int f, __nv_bfloat16 v) { feats[(size_t)s * ldf + f] = v; },
       [] { __syncthreads(); });
-}
-
-using namespace nvcuda;
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                             wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                             wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// One warp's share of act[kTile][k_dim] @ w[k_dim][ldw]: the 64 x 32
-// output block at column col0, accumulated in f32 over the whole depth.
-// `act` lives in shared memory (row stride lda), `w` in global memory
-// (row-major, row stride ldw; read through L2).
-__device__ __forceinline__ void warp_tile_product(
-    const __nv_bfloat16* act, int lda, const __nv_bfloat16* __restrict__ w,
-    int ldw, int k_dim, int col0, FragC (&acc)[kTile / 16][2]) {
-  for (int r = 0; r < kTile / 16; ++r)
-    for (int c = 0; c < 2; ++c) wmma::fill_fragment(acc[r][c], 0.0f);
-  FragA a;
-  FragB b0, b1;
-  for (int k = 0; k < k_dim; k += 16) {
-    wmma::load_matrix_sync(b0, w + (size_t)k * ldw + col0, ldw);
-    wmma::load_matrix_sync(b1, w + (size_t)k * ldw + col0 + 16, ldw);
-    for (int r = 0; r < kTile / 16; ++r) {
-      wmma::load_matrix_sync(a, act + (size_t)(r * 16) * lda + k, lda);
-      wmma::mma_sync(acc[r][0], a, b0, acc[r][0]);
-      wmma::mma_sync(acc[r][1], a, b1, acc[r][1]);
-    }
-  }
 }
 
 }  // namespace mnt

@@ -129,13 +129,62 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map,
       : "memory");
 }
 
+// TMA multicast: the box at (col, row) of `map` into shared memory at dst
+// in each CTA of the cluster named by `mask` (bit i: rank i), completing on
+// the mbarrier at bar's offset in each of them.
+__device__ __forceinline__ void tma_load_multicast(void* dst,
+                                                   const CUtensorMap* map,
+                                                   uint64_t* bar, int col,
+                                                   int row, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(col),
+      "r"(row), "h"(mask)
+      : "memory");
+}
+
+// This CTA's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t rank;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(rank));
+  return rank;
+}
+
+// Every thread of every CTA of the cluster: a barrier that orders their
+// shared-memory operations (mbarrier initialisation before remote use;
+// remote arrivals and multicast writes before a CTA exits).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n\t"
+      "barrier.cluster.wait.acquire;" ::
+          : "memory");
+}
+
+// Arrives on the mbarrier at bar's offset in cluster CTA `rank`.
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
+                                                    uint32_t rank) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(rank)
+      : "memory");
+}
+
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;" ::: "memory");
 }
 
-// This thread's committed TMA stores have read their shared memory.
+// All but the newest kPending of this thread's committed TMA store groups
+// have read their shared memory.
+template <int kPending = 0>
 __device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(kPending)
+               : "memory");
 }
 
 // This thread's committed TMA stores are complete.
@@ -285,13 +334,14 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
                                   CUtensorMapSwizzle, CUtensorMapL2promotion,
                                   CUtensorMapFloatOOBfill);
 
-// The TMA map of a row-major bf16 [rows][cols] matrix moved in boxes of
-// [box_rows][box_cols], swizzled in shared memory: 128-byte rows (box_cols
-// 64) or 64-byte rows (box_cols 32).  Rows past the end read as zeros and
-// are not written.
-inline cudaError_t bf16_tile_map(CUtensorMap* map, const void* base,
-                                 long long rows, int cols, int box_rows,
-                                 int box_cols = 64) {
+// The TMA map of a row-major [rows][cols] matrix of `elem_bytes`-byte
+// elements moved in boxes of [box_rows][box_cols] (box_cols * elem_bytes
+// bytes a row, the swizzle's span).  Rows and columns past the end read as
+// zeros and are not written.
+inline cudaError_t tile_map(CUtensorMap* map, CUtensorMapDataType type,
+                            int elem_bytes, const void* base, long long rows,
+                            int cols, int box_rows, int box_cols,
+                            CUtensorMapSwizzle swizzle) {
   static EncodeTiledFn encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -303,19 +353,32 @@ inline cudaError_t bf16_tile_map(CUtensorMap* map, const void* base,
       return cudaErrorSymbolNotFound;
     encode = reinterpret_cast<EncodeTiledFn>(fn);
   }
-  if (rows < 1 || cols % 64 != 0 || box_rows < 1 || box_rows > 256 ||
-      (box_cols != 64 && box_cols != 32))
+  if (rows < 1 || box_rows < 1 || box_rows > 256)
     return cudaErrorInvalidValue;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The TMA map of a row-major bf16 [rows][cols] matrix moved in boxes of
+// [box_rows][box_cols], swizzled in shared memory: 128-byte rows (box_cols
+// 64) or 64-byte rows (box_cols 32).  Rows past the end read as zeros and
+// are not written.
+inline cudaError_t bf16_tile_map(CUtensorMap* map, const void* base,
+                                 long long rows, int cols, int box_rows,
+                                 int box_cols = 64) {
+  if (cols % 64 != 0 || (box_cols != 64 && box_cols != 32))
+    return cudaErrorInvalidValue;
+  return tile_map(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, rows, cols, box_rows,
+      box_cols,
+      box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B);
 }
 
 // --------------------------------------------------------------- GEMM ---

@@ -5,8 +5,11 @@ Forward (K1) replaces ``multinerf_tpu/ops/pallas/density_mlp.py:_fwd_kernel``
 a ReLU trunk of bf16-in / f32-accumulate layers -> the density head as an
 f32 sum of bf16-rounded products.  At the 360 config (4 x 256 trunk, 262,144
 samples per proposal level of a 4,096-ray batch) that is 172 GFLOP for 52
-bytes of device-memory traffic per sample, so the tensor cores bound it;
-the design notes are in ``csrc/density_mlp.cu``.
+bytes of device-memory traffic per sample, so the tensor cores bound it.
+The design notes (the forward half of K3's persistent wgmma tile pass, fed
+by a TMA weight ring) are in ``csrc/density_mlp.cu``; the launch plan in
+``plans.py``.  A trunk narrower than 64, 128 or 256 runs zero-padded to
+that width; wider trunks are refused, as K3 refuses them.
 
 Backward (K3) replaces ``_bwd_kernel``: it recomputes the forward per tile
 and returns every trunk and head weight and bias gradient, with the
@@ -131,22 +134,27 @@ def _launch(means, covs, ws, bs, wd, bd, basis, min_deg, max_deg,
     raise ValueError('all inputs must be on one device.')
   basis_t, bb_t, num_dims, num_degs, num_feats, depth, width = _check_trunk(
       means, ws, bs, wd, bd, basis, min_deg, max_deg)
-  w0, w_hidden, biases = _trunk_operands(ws, bs, -(-num_feats // 16) * 16)
+  n = means.shape[0]
+  out = torch.empty((n,), dtype=torch.float32, device=means.device)
+  if n == 0:
+    return out
+  plan = fd.fwd_plan(plans.density_mlp_fwd_plan, 'density_mlp', num_feats,
+                     width, num_dims, n)
+  ws, bs, wd = _pad_trunk(ws, bs, wd, plan.width)
+  w0, w_hidden, biases = _trunk_operands(ws, bs, plan.kpad)
   wd_bf = wd.reshape(-1).to(torch.bfloat16).contiguous()
   bd_f = bd.reshape(1).float().contiguous()
-  out = torch.empty((means.shape[0],), dtype=torch.float32,
-                    device=means.device)
   lib = build.load('density_mlp')
   fn = lib.density_mlp_forward
-  fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
+  fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
       ctypes.c_void_p]
   fn.restype = ctypes.c_int
   counts['launches'] += 1
   build.check(fn(means.data_ptr(), covs.data_ptr(), basis_t.data_ptr(),
                  bb_t.data_ptr(), w0.data_ptr(), w_hidden.data_ptr(),
                  biases.data_ptr(), wd_bf.data_ptr(), bd_f.data_ptr(),
-                 out.data_ptr(), means.shape[0], width, depth, num_dims,
-                 num_degs, int(use_contract),
+                 out.data_ptr(), n, plan.width, depth, num_dims, num_degs,
+                 int(use_contract), plan.grid, plan.stages,
                  torch.cuda.current_stream(means.device).cuda_stream),
               'density_mlp')
   return out
@@ -220,8 +228,8 @@ def _launch_bwd(means, covs, ws, bs, wd, g, basis, min_deg, max_deg,
 
 def _pad_trunk(ws, bs, wd, wp):
   """The trunk and head zero-padded from width W to wp: the padded units
-  are 0 forward (ReLU of 0) and get cotangent 0, so every real gradient is
-  unchanged."""
+  are 0 forward (ReLU of 0) and get cotangent 0, so the density and every
+  real gradient are unchanged."""
   pad = wp - ws[-1].shape[-1]
   if pad == 0:
     return ws, bs, wd

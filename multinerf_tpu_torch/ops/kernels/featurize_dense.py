@@ -4,8 +4,10 @@ Forward (K2) replaces ``multinerf_tpu/ops/pallas/featurize_dense.py:
 _fwd_kernel``: ``bf16(IPE(contract(means, covs))) @ bf16(W) + bias`` with
 f32 accumulation, the features never stored in device memory.  At the 360
 config (131,072 samples per 4,096-ray batch, W = 1,024) it is 137 GFLOP of
-bf16 products against 0.5 GB of f32 output, so the tensor cores bound it;
-the design notes are in ``csrc/featurize_dense.cu``.
+bf16 products against 0.54 GB of f32 output, two bounds that are close (0.14
+and 0.16 ms).  The design notes (a persistent wgmma tile pass fed by a TMA
+weight ring, the output stored by TMA from shared memory) are in
+``csrc/featurize_dense.cu``; the launch plan in ``plans.py``.
 
 Backward (K4) replaces ``_dw_kernel``: ``dW = bf16(feats)^T @ bf16(g)``
 with f32 accumulation, the features computed once per sample per call;
@@ -59,10 +61,12 @@ def device_basis(basis, min_deg, device):
   return _BASIS_CACHE[key]
 
 
-def padded_bf16_rows(kernel, rows):
-  """kernel [F, W] -> bf16 [rows, W], zero rows appended (K padding)."""
+def padded_bf16_rows(kernel, rows, cols=None):
+  """kernel [F, W] -> bf16 [rows, cols or W], zero rows (K padding) and
+  columns appended."""
   w = kernel.to(torch.bfloat16)
-  return F.pad(w, (0, 0, 0, rows - w.shape[0])).contiguous()
+  pad_cols = 0 if cols is None else cols - w.shape[1]
+  return F.pad(w, (0, pad_cols, 0, rows - w.shape[0])).contiguous()
 
 
 def check_gaussians(means, covs):
@@ -147,19 +151,24 @@ def _launch(means, covs, kernel, bias, basis, min_deg, max_deg,
   for t in (covs, kernel, bias):
     if t.device != means.device:
       raise ValueError('all inputs must be on one device.')
-  w_bf = padded_bf16_rows(kernel, -(-num_feats // 16) * 16)
+  n = means.shape[0]
+  out = torch.empty((n, width), dtype=torch.float32, device=means.device)
+  if n == 0:
+    return out
+  plan = fwd_plan(plans.featurize_dense_fwd_plan, 'featurize_dense',
+                  num_feats, width, num_dims, n)
+  w_bf = padded_bf16_rows(kernel, plan.kpad, plan.padded_cols)
   bias = bias.contiguous()
-  out = torch.empty((means.shape[0], width), dtype=torch.float32,
-                    device=means.device)
   lib = build.load('featurize_dense')
   fn = lib.featurize_dense_forward
-  fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+  fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
   fn.restype = ctypes.c_int
   counts['launches'] += 1
   build.check(fn(means.data_ptr(), covs.data_ptr(), basis_t.data_ptr(),
                  bb_t.data_ptr(), w_bf.data_ptr(), bias.data_ptr(),
-                 out.data_ptr(), means.shape[0], width, num_dims, num_degs,
-                 int(use_contract),
+                 out.data_ptr(), n, width, num_dims, num_degs,
+                 int(use_contract), plan.width, plan.grid, plan.stages,
+                 int(plan.staged),
                  torch.cuda.current_stream(means.device).cuda_stream),
               'featurize_dense')
   return out
@@ -205,6 +214,32 @@ def _launch_dw(means, covs, g, basis, min_deg, max_deg, use_contract):
 
 def num_sms(device):
   return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+_MAX_CLUSTERS = {}
+
+
+def max_clusters(name, width, smem):
+  """The most clusters of csrc/<name>.cu's width-`width` forward kernel
+  with `smem` bytes per CTA that the card holds at once."""
+  key = (name, width, smem)
+  if key not in _MAX_CLUSTERS:
+    fn = getattr(build.load(name), f'{name}_max_clusters')
+    fn.argtypes = [ctypes.c_int] * 2
+    fn.restype = ctypes.c_int
+    count = fn(width, smem)
+    if count < 1:
+      raise RuntimeError(f'{name}: the card holds no cluster of the kernel '
+                         f'(CUDA error {-count}).')
+    _MAX_CLUSTERS[key] = count
+  return _MAX_CLUSTERS[key]
+
+
+def fwd_plan(plan_fn, name, *args):
+  """plan_fn's launch plan (K1's or K2's) with as many clusters as the
+  card holds at once."""
+  layout = plan_fn(*args, 1)
+  return plan_fn(*args, max_clusters(name, layout.width, layout.smem))
 
 
 def check_device(t):

@@ -1,17 +1,24 @@
-"""Launch plans of the Hopper backward kernels K3 and K4, in pure Python.
+"""Launch plans of the Hopper kernels K1-K4, in pure Python.
 
-The CUDA sources (``csrc/wgmma_dw.cuh``, ``density_mlp_bwd.cu``,
+The CUDA sources (``csrc/tile_pass.cuh``, ``wgmma_dw.cuh``,
+``density_mlp.cu``, ``featurize_dense.cu``, ``density_mlp_bwd.cu``,
 ``featurize_dense_dw.cu``) take these numbers as launch arguments and check
 them; the shared-memory sizes here mirror the sources' layouts (the C entry
-points ``density_mlp_bwd_smem`` and ``featurize_dense_dw_smem`` report
-theirs, and ``chip_smoke.py`` holds the two against each other).
+points ``density_mlp_smem``, ``featurize_dense_smem``,
+``density_mlp_bwd_smem`` and ``featurize_dense_dw_smem`` report theirs, and
+``chip_smoke.py`` holds the two against each other).
 
 * The weight-gradient GEMM (``wgmma_dw.cuh``): dW[R, W] = A^T @ B over the
   samples.  A CTA owns 128 rows (two wgmma warpgroups of 64) and BN columns
   of dW and a contiguous range of ``per`` 64-sample slabs; ``splits`` ranges
   cover the samples once and fill one wave of the SMs.
-* K3's tile pass (``density_mlp_bwd.cu``): 128-sample tiles, one persistent
-  CTA per SM, the trunk padded to a width of 64, 128 or 256.
+* The tile passes of K1, K2 and K3 (``tile_pass.cuh``): 128-sample tiles,
+  one persistent CTA per SM; K3's CTAs walk tiles blockIdx, blockIdx + grid,
+  ...; K1's and K2's come in clusters of two that walk pairs of tiles and
+  share one multicast weight stream.  K1's and K3's trunk is padded to a
+  width of 64, 128 or 256; K2's output columns are walked in slabs of 64,
+  128 or 256 and stored by TMA from two shared-memory boxes per warpgroup,
+  or from registers where a wide feature tile leaves no room for the boxes.
 """
 
 from __future__ import annotations
@@ -24,8 +31,10 @@ WGMMA_M = 64  # Rows of one wgmma; a consumer warpgroup's share.
 WGMMA_K = 16  # Depth of one bf16 wgmma.
 DW_TILE_ROWS = 2 * WGMMA_M  # dW rows per GEMM CTA.
 DW_STAGES = 4
-BWD_TILE = 2 * WGMMA_M  # Samples per K3 tile.
+TILE = 2 * WGMMA_M  # Samples per tile of K1, K2 and K3.
 BWD_RING, BWD_SLAB_K = 4, 32  # K3's weight ring: stages, k depth of each.
+FWD_STAGES = (4, 3, 2)  # K1's and K2's ring depths, deepest that fits first.
+FWD_CLUSTER = 2  # CTAs of K1's and K2's clusters, sharing a weight stream.
 WIDTHS = (64, 128, 256)  # wgmma widths the kernels are built for.
 CONSUMER_THREADS = 256
 
@@ -84,7 +93,7 @@ def padded_width(width):
   for w in WIDTHS:
     if width <= w:
       return w
-  raise ValueError(f'width {width}: the backward kernel takes at most '
+  raise ValueError(f'width {width}: the density MLP kernels take at most '
                    f'{WIDTHS[-1]}.')
 
 
@@ -102,7 +111,7 @@ def bwd_smem(width, depth, kpad64, num_dims):
   masks = (depth - 1) * CONSUMER_THREADS * (width // 64) * 4
   aux = max(2 * 4 * width * 4, featurizer_floats(num_dims, 64) * 4)
   aux = _ceil(aux, 16) * 16
-  return (2 * x + BWD_RING * slab + masks + 2 * aux + BWD_TILE * 4 +
+  return (2 * x + BWD_RING * slab + masks + 2 * aux + TILE * 4 +
           2 * BWD_RING * 8 + 1024)
 
 
@@ -132,8 +141,8 @@ def density_mlp_bwd_plan(num_feats, width, depth, num_dims, n, sms):
   if smem > SMEM_LIMIT:
     raise ValueError(f'{num_feats} features, width {width}, depth {depth}: '
                      f'{smem} bytes of shared memory, over {SMEM_LIMIT}.')
-  tiles = _ceil(n, BWD_TILE)
-  n_pad = tiles * BWD_TILE
+  tiles = _ceil(n, TILE)
+  n_pad = tiles * TILE
   if depth * n_pad >= 2**31:
     raise ValueError(f'{n} samples: too many for one launch.')
   return BwdPlan(wp, kpad, tiles, n_pad, min(tiles, sms), smem,
@@ -165,3 +174,106 @@ def featurize_dense_dw_plan(num_feats, width, num_dims, n, sms):
     raise ValueError(f'{num_feats} features: {smem} bytes of shared '
                      f'memory, over {SMEM_LIMIT}.')
   return DwPlan(kpad, smem, gemm)
+
+
+OUT_BOX = 64 * 32 * 4  # K2: one [64][32] f32 TMA store box.
+
+
+def fwd_smem(x_cols, slab_bytes, stages, num_dims, out_bytes):
+  """Dynamic shared memory of K1's and K2's tile pass (csrc/tile_pass.cuh,
+  fwd_layout): two warpgroups' operand tiles of x_cols bf16 columns, the
+  weight ring, two warpgroups' `out_bytes` of output staging, two
+  featurizer scratch areas, the barriers and the alignment slack."""
+  scratch = _ceil(featurizer_floats(num_dims, 64) * 4, 16) * 16
+  return (2 * x_cols * 128 + stages * slab_bytes + 2 * out_bytes +
+          2 * scratch + 2 * stages * 8 + 1024)
+
+
+@dataclasses.dataclass(frozen=True)
+class FwdPlan:
+  """A forward tile pass: clusters of FWD_CLUSTER CTAs, each cluster
+  walking pairs of 128-sample tiles and sharing one weight stream."""
+  width: int  # K1: the padded trunk width; K2: the column slab (BN).
+  kpad: int  # Features rounded up to 64.
+  stages: int  # Depth of the weight ring.
+  tiles: int  # 128-sample tiles.
+  clusters: int  # Persistent clusters.
+  smem: int
+  col_slabs: int = 1  # K2: column slabs of `width` over the output.
+  staged: bool = False  # K2: TMA stores through shared-memory boxes.
+
+  @property
+  def grid(self):
+    return FWD_CLUSTER * self.clusters
+
+  @property
+  def padded_cols(self):
+    """K2: the weight columns the kernel reads (the rest zero-padded)."""
+    return self.col_slabs * self.width
+
+  def cta_tiles(self, cta):
+    """The tiles CTA `cta` walks, in order, as csrc/tile_pass.cuh's
+    FwdTiles: rank r of cluster c takes tile 2 * pair + r of the pairs c,
+    c + clusters, ...  A pair past the last tile runs with no rows."""
+    c, r = divmod(cta, FWD_CLUSTER)
+    pairs = _ceil(self.tiles, FWD_CLUSTER)
+    return [FWD_CLUSTER * p + r for p in range(c, pairs, self.clusters)
+            if FWD_CLUSTER * p + r < self.tiles]
+
+
+def _fwd_plan(x_cols, slab_cols, num_dims, n, max_clusters, what,
+              out_options=(0,)):
+  """(stages, out_bytes, tiles, clusters, smem): the first of `out_options`
+  (output staging bytes per warpgroup) with which a ring fits, the deepest
+  such ring, and one cluster per tile pair up to what the card holds at
+  once."""
+  if n < 1 or n >= 2**31:
+    raise ValueError(f'{n} samples: the kernel takes 1 .. 2**31 - 1.')
+  if max_clusters < 1:
+    raise ValueError(f'{max_clusters} clusters: the card holds none.')
+  for out_bytes in out_options:
+    for stages in FWD_STAGES:
+      smem = fwd_smem(x_cols, slab_cols * BWD_SLAB_K * 2, stages, num_dims,
+                      out_bytes)
+      if smem <= SMEM_LIMIT:
+        tiles = _ceil(n, TILE)
+        return (stages, out_bytes, tiles,
+                min(_ceil(tiles, FWD_CLUSTER), max_clusters), smem)
+  raise ValueError(f'{what}: {smem} bytes of shared memory, over '
+                   f'{SMEM_LIMIT}.')
+
+
+def density_mlp_fwd_plan(num_feats, width, num_dims, n, max_clusters):
+  """K1's plan: the trunk padded to a wgmma width, the ring that fits, and
+  up to `max_clusters` clusters (what the card holds at once)."""
+  if num_feats < 1 or width < 1:
+    raise ValueError(f'{num_feats} features, width {width}.')
+  wp = padded_width(width)
+  kpad = _ceil(num_feats, 64) * 64
+  stages, _, tiles, clusters, smem = _fwd_plan(
+      max(kpad, wp), wp, num_dims, n, max_clusters,
+      f'{num_feats} features, width {width}')
+  return FwdPlan(wp, kpad, stages, tiles, clusters, smem)
+
+
+def dense_slab(width):
+  """K2's column slab for an output of `width` columns."""
+  return next(b for b in WIDTHS if width <= b or b == WIDTHS[-1])
+
+
+def featurize_dense_fwd_plan(num_feats, width, num_dims, n, max_clusters):
+  """K2's plan: column slabs over the output, two output boxes per
+  warpgroup for its TMA stores where they fit beside a ring (else stores
+  from registers), the deepest ring that fits, and up to `max_clusters`
+  clusters."""
+  if num_feats < 1:
+    raise ValueError(f'{num_feats} features.')
+  if width < 32 or width % 32:
+    raise ValueError(f'width {width} must be a multiple of 32.')
+  bn = dense_slab(width)
+  kpad = _ceil(num_feats, 64) * 64
+  stages, out_bytes, tiles, clusters, smem = _fwd_plan(
+      kpad, bn, num_dims, n, max_clusters, f'{num_feats} features',
+      (2 * OUT_BOX, 0))
+  return FwdPlan(bn, kpad, stages, tiles, clusters, smem, _ceil(width, bn),
+                 out_bytes > 0)

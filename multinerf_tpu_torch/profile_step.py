@@ -1,4 +1,5 @@
-"""Where a training step's device time goes, from torch.profiler.
+"""Where a training step's (or a rendered frame's) device time goes, from
+torch.profiler.
 
     python -m multinerf_tpu_torch.profile_step --gin_configs=configs/360.gin \
         --gin_bindings="Config.dataset_loader='dummy_unbounded'" \
@@ -6,7 +7,12 @@
 
 Sets the model up as ``python -m multinerf_tpu_torch.train`` does (same
 seeds, TF32 off), runs `warmup` steps, then `steps` more under the
-profiler, each synchronised.  Device busy time is the union of the CUDA
+profiler, each synchronised.  With ``--frame`` it sets the model up as
+``python -m multinerf_tpu_torch.render`` does with no checkpoint (the same
+seed) and renders test frame 0 instead of taking a step, `warmup` times and
+then `steps` times under the profiler (``Config.render_path`` and
+``Config.render_resolution`` choose the frame); a frame ends in its copy to
+the host.  Device busy time is the union of the CUDA
 kernel, copy and memset intervals of the profiled steps (the CPU ops'
 ``key_averages()`` rows also carry their children's device time, so they
 are not summed); the idle share is 1 - busy / wall, wall being the host
@@ -26,9 +32,11 @@ import numpy as np
 import torch
 
 from multinerf_tpu_torch import configs
+from multinerf_tpu_torch import render
 from multinerf_tpu_torch import train
 from multinerf_tpu_torch import train_lib
 from multinerf_tpu_torch.data import datasets
+from multinerf_tpu_torch.models import nerf
 
 
 def _union_us(intervals):
@@ -43,12 +51,15 @@ def _union_us(intervals):
 
 def main(argv=None):
   """Returns {'wall_ms', 'busy_ms', 'idle', 'kernels': [[name, ms]]}, per
-  profiled step."""
-  parser = argparse.ArgumentParser(description='Profile training steps.')
+  profiled step (or frame)."""
+  parser = argparse.ArgumentParser(
+      description='Profile training steps or rendered frames.')
   configs.add_common_flags(parser)
   parser.add_argument('--warmup', type=int, default=13)
   parser.add_argument('--steps', type=int, default=3)
   parser.add_argument('--top', type=int, default=20)
+  parser.add_argument('--frame', action='store_true',
+                      help='profile rendering test frame 0, not steps.')
   args = parser.parse_args(argv)
   if not torch.cuda.is_available():
     raise RuntimeError('profile_step needs CUDA.')
@@ -57,19 +68,30 @@ def main(argv=None):
   torch.backends.cudnn.allow_tf32 = False
 
   config = configs.load_config(args)
-  dataset = datasets.load_dataset('train', config.data_dir, config,
-                                  seed=train.DATA_SEED)
-  _, state, _, train_step, _ = train_lib.setup_model(config, train.SEED,
-                                                     device)
-  generator = torch.Generator(device=device).manual_seed(train.SEED)
   total = args.warmup + args.steps
+  if args.frame:
+    dataset = datasets.load_dataset('test', config.data_dir, config)
+    _, state, render_fn, _, _ = train_lib.setup_model(config, render.SEED,
+                                                      device)
+    renderer = nerf.DeviceImageRenderer(render_fn, config, dataset, device)
 
-  def step(i, state):
-    batch = train_lib.batch_to_device(next(dataset), device)
-    train_frac = float(np.clip((i - 1) / (config.max_steps - 1), 0, 1))
-    state, _ = train_step(generator, state, batch, train_frac, False)
-    torch.cuda.synchronize(device)
-    return state
+    def step(i, state):
+      del i
+      renderer(1.0, 0)  # Ends in the rendering's copy to the host.
+      return state
+  else:
+    dataset = datasets.load_dataset('train', config.data_dir, config,
+                                    seed=train.DATA_SEED)
+    _, state, _, train_step, _ = train_lib.setup_model(config, train.SEED,
+                                                       device)
+    generator = torch.Generator(device=device).manual_seed(train.SEED)
+
+    def step(i, state):
+      batch = train_lib.batch_to_device(next(dataset), device)
+      train_frac = float(np.clip((i - 1) / (config.max_steps - 1), 0, 1))
+      state, _ = train_step(generator, state, batch, train_frac, False)
+      torch.cuda.synchronize(device)
+      return state
 
   for i in range(1, args.warmup + 1):
     state = step(i, state)
@@ -97,9 +119,10 @@ def main(argv=None):
          'idle': 1 - busy_us / wall_us,
          'kernels': [[name, per_step(us)]
                      for name, us in by_name.most_common(args.top)]}
-  print(f'{args.steps} steps after {args.warmup}: wall {out["wall_ms"]:.3f} '
+  what = 'frames' if args.frame else 'steps'
+  print(f'{args.steps} {what} after {args.warmup}: wall {out["wall_ms"]:.3f} '
         f'ms, device busy {out["busy_ms"]:.3f} ms, idle {out["idle"]:.2%} '
-        'per step')
+        f'per {what[:-1]}')
   for name, ms in out['kernels']:
     print(f'{ms:9.3f} ms {ms / per_step(kernel_us):6.1%}  {name[:100]}')
   print(json.dumps(out))

@@ -6,7 +6,7 @@
 The host-batch path of train.py:117-440, reduced to what this slice needs:
 the same seeds (weights from 20200823, ray draws from 20201473),
 ``train_frac = clip((step - 1) / (max_steps - 1), 0, 1)``, the tree
-statistics on every ``print_every``-th step, the console line of
+statistics on the first step and every ``print_every``-th, the console line of
 train.py:411-415 at step 1 and every ``print_every`` steps, and the final
 state saved at ``max_steps``.  Each step is synchronised with the device, so
 the step times it reports are device-complete.  Not ported yet (ROADMAP.md
@@ -80,12 +80,16 @@ def main(argv=None):
   out = {'losses': [], 'data_losses': [], 'step_seconds': []}
   buffer = []
   window_start = time.perf_counter()
-  for step in range(state.step + 1, num_steps + 1):
+  init_step = state.step + 1
+  for step in range(init_step, num_steps + 1):
     t0 = time.perf_counter()
     batch = train_lib.batch_to_device(next(dataset), device)
     train_frac = float(np.clip((step - 1) / (config.max_steps - 1), 0, 1))
-    state, stats = train_step(generator, state, batch, train_frac,
-                              step % config.print_every == 0)
+    # train.py:265: the tree statistics on the first step and every
+    # print_every-th.
+    state, stats = train_step(
+        generator, state, batch, train_frac,
+        step == init_step or step % config.print_every == 0)
     if device.type == 'cuda':
       torch.cuda.synchronize(device)
     out['step_seconds'].append(time.perf_counter() - t0)

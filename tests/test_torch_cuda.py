@@ -126,6 +126,93 @@ def _trunk(rng, device, depth=4, width=256):
   return ws, bs, _uniform(rng, (width, 1), width, device)
 
 
+# The forward kernels at the edges of their 128-sample tiles (one sample,
+# half a tile +- 1, one tile + 1, a ragged third tile) and at narrow widths:
+# K1's trunk of 64 and 128 (and narrower ones, zero-padded by the wrapper),
+# K2's output of 64 and 1,024 columns (and widths that end inside a column
+# slab, masked in the kernel).  Two launches bitwise equal.
+def _check_twice(got, again, want, what):
+  assert torch.equal(got, again), f'{what}: two launches differ'
+  _check(got, want, what)
+
+
+def _density_mlp_twice(cuda, n, width, depth):
+  rng = np.random.RandomState(n + width)
+  means, covs = _gaussians(n, 8, cuda)
+  ws, bs, wd = _trunk(rng, cuda, depth=depth, width=width)
+  args = (means, covs, ws, bs, wd, torch.tensor(-0.3, device=cuda), BASIS)
+  dm.reset_counts()
+  got, again = dm.density_mlp(*args), dm.density_mlp(*args)
+  assert dm.counts == {'launches': 2, 'plain_calls': 0}
+  _check_twice(got, again, dm.density_mlp_plain(*args),
+               f'density_mlp N={n} width {width} depth {depth}')
+
+
+def _featurize_dense_twice(cuda, n, width, max_deg=12):
+  rng = np.random.RandomState(n + width)
+  means, covs = _gaussians(n, 9, cuda)
+  feats = 2 * max_deg * BASIS.shape[-1]
+  kernel = _uniform(rng, (feats, width), feats, cuda)
+  bias = torch.as_tensor(rng.randn(width).astype(np.float32) * 0.1,
+                         device=cuda)
+  args = (means, covs, kernel, bias, BASIS, 0, max_deg)
+  fd.reset_counts()
+  got, again = fd.featurize_dense(*args), fd.featurize_dense(*args)
+  assert fd.counts == {'launches': 2, 'plain_calls': 0}
+  _check_twice(got, again, fd.featurize_dense_plain(*args),
+               f'featurize_dense N={n} width {width} max_deg {max_deg}')
+
+
+@pytest.mark.parametrize('width', [64, 128])
+@pytest.mark.parametrize('n', [1, 63, 65, 129, 300])
+def test_density_mlp_kernel_matches_plain_at_tile_edges(cuda, n, width):
+  _density_mlp_twice(cuda, n, width, depth=4)
+
+
+@pytest.mark.parametrize('width,depth', [(32, 2), (96, 1), (160, 3)])
+def test_density_mlp_kernel_pads_narrow_trunks(cuda, width, depth):
+  _density_mlp_twice(cuda, 300, width, depth)
+
+
+@pytest.mark.parametrize('width', [64, 1024])
+@pytest.mark.parametrize('n', [1, 63, 65, 129, 300])
+def test_featurize_dense_kernel_matches_plain_at_tile_edges(cuda, n, width):
+  _featurize_dense_twice(cuda, n, width)
+
+
+@pytest.mark.parametrize('width', [32, 96, 288])
+def test_featurize_dense_kernel_masks_the_column_edge(cuda, width):
+  _featurize_dense_twice(cuda, 300, width)
+
+
+# 672 features (16 degrees, the blender and llff configs): the feature tile
+# leaves no room for the output staging, so K2 stores from registers.
+@pytest.mark.parametrize('n,width', [(1, 1024), (129, 288), (300, 1024)])
+def test_featurize_dense_kernel_with_wide_features(cuda, n, width):
+  _featurize_dense_twice(cuda, n, width, max_deg=16)
+
+
+def test_forward_kernels_shared_memory_matches_the_plans(cuda):
+  import ctypes
+  from multinerf_tpu_torch.ops.kernels import build
+  from multinerf_tpu_torch.ops.kernels import plans
+  k1 = build.load('density_mlp').density_mlp_smem
+  k2 = build.load('featurize_dense').featurize_dense_smem
+  for fn, args in ((k1, 4), (k2, 5)):
+    fn.argtypes = [ctypes.c_int] * args
+    fn.restype = ctypes.c_int
+  for feats, width in ((NUM_FEATS, 256), (NUM_FEATS, 64), (672, 256)):
+    plan = fd.fwd_plan(plans.density_mlp_fwd_plan, 'density_mlp', feats,
+                       width, 21, 1000)
+    assert k1(plan.width, feats, 21, plan.stages) == plan.smem
+    assert 1 <= plan.clusters <= fd.num_sms(cuda) // 2
+  for feats, width in ((NUM_FEATS, 1024), (NUM_FEATS, 64), (672, 512)):
+    plan = fd.fwd_plan(plans.featurize_dense_fwd_plan, 'featurize_dense',
+                       feats, width, 21, 1000)
+    assert k2(feats, 21, plan.width, plan.stages, plan.staged) == plan.smem
+    assert 1 <= plan.clusters <= fd.num_sms(cuda) // 2
+
+
 def _check_leaves(got, again, want, what, tol):
   torch.cuda.synchronize()
   for i, (a, b, w) in enumerate(zip(got, again, want)):
@@ -274,6 +361,11 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
   with pytest.raises(ValueError, match='trunk shapes'):
     dm.density_mlp(means, covs, [kernel, kernel], [bias, bias],
                    torch.zeros((64, 1), device=cuda),
+                   torch.zeros((), device=cuda), BASIS)
+  wide = torch.zeros((NUM_FEATS, 512), device=cuda)
+  with pytest.raises(ValueError, match='at most 256'):
+    dm.density_mlp(means, covs, [wide], [torch.zeros((512,), device=cuda)],
+                   torch.zeros((512, 1), device=cuda),
                    torch.zeros((), device=cuda), BASIS)
 
 

@@ -1,7 +1,9 @@
-"""Launch plans of the backward kernels K3 and K4 (pure Python, no GPU):
-the split-K sample ranges, grids, tile shapes and shared-memory sizes that
-``ops/kernels/plans.py`` hands to ``csrc/density_mlp_bwd.cu`` and
-``csrc/featurize_dense_dw.cu``, and the zero-padding of narrow trunks."""
+"""Launch plans of the kernels K1-K4 (pure Python, no GPU): the persistent
+tile walks, split-K sample ranges, grids, tile shapes and shared-memory
+sizes that ``ops/kernels/plans.py`` hands to ``csrc/density_mlp.cu``,
+``featurize_dense.cu``, ``density_mlp_bwd.cu`` and
+``featurize_dense_dw.cu``, and the zero-padding of narrow trunks and
+weight columns."""
 
 import numpy as np
 import pytest
@@ -10,9 +12,11 @@ import torch
 from multinerf_tpu_torch.ops import geopoly
 from multinerf_tpu_torch.ops.kernels import build
 from multinerf_tpu_torch.ops.kernels import density_mlp as dm
+from multinerf_tpu_torch.ops.kernels import featurize_dense as fd
 from multinerf_tpu_torch.ops.kernels import plans
 
 SMS = 132  # H100 SXM.
+CLUSTERS = SMS // 2  # Clusters of two CTAs, one CTA per SM.
 F360 = 504  # 360.gin's features: 2 x 12 degrees x 21 basis directions.
 N_PROP = 4096 * 64  # Samples of one proposal level of a 4,096-ray batch.
 N_NERF = 4096 * 32  # Samples of the NerfMLP level.
@@ -59,15 +63,15 @@ def test_bwd_plan_tiles_and_shared_memory(num_feats, width, depth):
   assert max(plan.dw0.smem, plan.dw1.smem) <= plans.SMEM_LIMIT
   assert plan.width in plans.WIDTHS and plan.width >= width
   assert plan.kpad % plans.WGMMA_M == 0 and plan.kpad >= num_feats
-  assert plan.n_pad == plan.tiles * plans.BWD_TILE
-  assert 0 <= plan.n_pad - (N_PROP - 37) < plans.BWD_TILE
+  assert plan.n_pad == plan.tiles * plans.TILE
+  assert 0 <= plan.n_pad - (N_PROP - 37) < plans.TILE
   assert plan.grid == min(plan.tiles, SMS)
   assert (plan.dw0.rows, plan.dw0.width) == (plan.kpad, plan.width)
   assert (plan.dw1.rows, plan.dw1.width) == (plan.width, plan.width)
 
 
 def test_tiles_are_whole_wgmma_shapes():
-  assert plans.BWD_TILE % plans.WGMMA_M == 0
+  assert plans.TILE % plans.WGMMA_M == 0
   assert plans.DW_TILE_ROWS % plans.WGMMA_M == 0
   assert plans.SLAB % plans.WGMMA_K == 0
   for width in plans.WIDTHS:
@@ -105,6 +109,17 @@ def test_360_shared_memory_matches_the_layout():
      'shared memory'),
     (lambda: plans.dw_gemm_plan(100, 256, 100, SMS), 'multiple of 64'),
     (lambda: plans.dw_gemm_plan(512, 256, 2**31, SMS), 'samples'),
+    (lambda: plans.density_mlp_fwd_plan(F360, 512, 21, 100, CLUSTERS),
+     'at most 256'),
+    (lambda: plans.density_mlp_fwd_plan(F360, 256, 21, 0, CLUSTERS), 'samples'),
+    (lambda: plans.density_mlp_fwd_plan(3000, 256, 21, 100, CLUSTERS),
+     'shared memory'),
+    (lambda: plans.featurize_dense_fwd_plan(F360, 48, 21, 100, CLUSTERS),
+     'multiple of 32'),
+    (lambda: plans.featurize_dense_fwd_plan(3000, 1024, 21, 100, CLUSTERS),
+     'shared memory'),
+    (lambda: plans.featurize_dense_fwd_plan(F360, 1024, 21, 100, 0),
+     'clusters'),
 ])
 def test_plans_reject_what_the_kernels_do_not_take(call, match):
   with pytest.raises(ValueError, match=match):
@@ -143,6 +158,121 @@ def test_padded_trunk_gives_the_same_gradients(width, depth):
       p = p[:w.numel()]
     np.testing.assert_allclose(p.numpy(), w.numpy(), rtol=1e-5, atol=1e-6,
                                err_msg=f'leaf {i}')
+
+
+def _fwd_plans(n, num_feats=F360, num_dims=21, k1_width=256,
+               k2_width=1024):
+  return {'k1': plans.density_mlp_fwd_plan(num_feats, k1_width, num_dims, n,
+                                           CLUSTERS),
+          'k2': plans.featurize_dense_fwd_plan(num_feats, k2_width, num_dims,
+                                               n, CLUSTERS)}
+
+
+@pytest.mark.parametrize('n', [1, 127, 128, 129, N_NERF - 37, N_PROP])
+@pytest.mark.parametrize('which', ['k1', 'k2'])
+def test_fwd_persistent_ctas_cover_every_tile_once(n, which):
+  plan = _fwd_plans(n)[which]
+  assert 2 <= plan.grid <= SMS and plan.grid % plans.FWD_CLUSTER == 0
+  assert plan.tiles == -(-n // plans.TILE)
+  assert (plan.tiles - 1) * plans.TILE < n <= plan.tiles * plans.TILE
+  walked = [t for cta in range(plan.grid) for t in plan.cta_tiles(cta)]
+  assert sorted(walked) == list(range(plan.tiles))  # Each tile once.
+  # No idle cluster; the two CTAs of a cluster walk the same number of
+  # tile pairs, so the same weight slabs.
+  pairs = -(-plan.tiles // plans.FWD_CLUSTER)
+  assert plan.clusters == min(pairs, CLUSTERS)
+  for c in range(plan.clusters):
+    assert plan.cta_tiles(2 * c)
+    assert len(plan.cta_tiles(2 * c)) - len(plan.cta_tiles(2 * c + 1)) in (
+        0, 1)
+
+
+def test_fwd_plan_takes_the_clusters_the_card_holds():
+  plan = plans.density_mlp_fwd_plan(F360, 256, 21, N_PROP, 60)
+  assert (plan.clusters, plan.grid) == (60, 120)
+  walked = [t for cta in range(plan.grid) for t in plan.cta_tiles(cta)]
+  assert sorted(walked) == list(range(plan.tiles))
+
+
+@pytest.mark.parametrize('k1_width,k2_width', [(256, 1024), (64, 64),
+                                                 (128, 128)])
+def test_fwd_shared_memory_fits_at_the_360_shapes_and_narrow_widths(
+    k1_width, k2_width):
+  for which, plan in _fwd_plans(N_PROP, k1_width=k1_width,
+                                k2_width=k2_width).items():
+    assert plan.smem <= plans.SMEM_LIMIT, which
+    assert plan.stages in plans.FWD_STAGES
+    assert plan.kpad == 512
+  # 360.gin: two 64 KB feature tiles, a 4 x 16 KB ring (K1) or a 3 x 16 KB
+  # ring and two 2 x 8 KB output staging areas (K2), two 4,080-byte
+  # featurizer scratch areas (rounded to 16), the barriers, alignment.
+  if k1_width == 256:
+    k1, k2 = _fwd_plans(N_PROP)['k1'], _fwd_plans(N_PROP)['k2']
+    assert k1.smem == 2 * 65536 + 4 * 16384 + 2 * 4080 + 64 + 1024
+    assert k2.smem == 2 * 65536 + 3 * 16384 + 4 * 8192 + 2 * 4080 + 48 + 1024
+    assert (k1.stages, k2.stages, k1.staged, k2.staged) == (4, 3, False, True)
+
+
+def test_fwd_ring_shrinks_to_fit_a_wide_feature_tile():
+  # blender_512.gin: 2 x 16 degrees x 21 directions = 672 features, a
+  # [64][704] tile per warpgroup: K1 keeps 2 stages of its 16 KB ring, and
+  # K2 too, with no room left for its output staging (stores from
+  # registers).
+  k1 = plans.density_mlp_fwd_plan(672, 256, 21, N_PROP, CLUSTERS)
+  assert (k1.kpad, k1.stages) == (704, 2) and k1.smem <= plans.SMEM_LIMIT
+  k2 = plans.featurize_dense_fwd_plan(672, 512, 21, N_NERF, CLUSTERS)
+  assert (k2.width, k2.col_slabs, k2.stages) == (256, 2, 2)
+  assert not k2.staged and k2.smem <= plans.SMEM_LIMIT
+
+
+@pytest.mark.parametrize('width,slab,slabs', [
+    (32, 64, 1), (64, 64, 1), (96, 128, 1), (128, 128, 1), (160, 256, 1),
+    (256, 256, 1), (288, 256, 2), (1024, 256, 4)])
+def test_fwd_dense_column_slabs_cover_the_width(width, slab, slabs):
+  plan = plans.featurize_dense_fwd_plan(F360, width, 21, 1000, CLUSTERS)
+  assert (plan.width, plan.col_slabs) == (slab, slabs)
+  assert plan.padded_cols >= width > plan.padded_cols - slab
+  # The wrapper pads the weights' rows to kpad and columns to whole slabs
+  # with zeros, and keeps the values.
+  kernel = torch.randn(F360, width)
+  w = fd.padded_bf16_rows(kernel, plan.kpad, plan.padded_cols)
+  assert tuple(w.shape) == (plan.kpad, plan.padded_cols)
+  assert w.dtype == torch.bfloat16 and w.is_contiguous()
+  assert torch.equal(w[:F360, :width], kernel.to(torch.bfloat16))
+  assert not w[F360:].any() and not w[:, width:].any()
+
+
+@pytest.mark.parametrize('width,wp', [(32, 64), (48, 64), (64, 64),
+                                      (100, 128), (200, 256), (256, 256)])
+def test_density_mlp_forward_plan_pads_narrow_trunks(width, wp):
+  plan = plans.density_mlp_fwd_plan(F360, width, 21, 300, CLUSTERS)
+  assert plan.width == wp and plan.kpad == 512
+  assert (plan.tiles, plan.clusters, plan.grid) == (3, 2, 4)
+
+
+@pytest.mark.parametrize('width,depth', [(32, 2), (48, 3), (100, 1)])
+def test_padded_trunk_gives_the_same_density(width, depth):
+  # The K1 wrapper runs a narrow trunk zero-padded to the kernel's width:
+  # the padded units are ReLU(0) = 0 and the head's padded weights 0, so
+  # the density is the same, up to the order of the CPU matmul's sums.
+  # Checked on the plain version.
+  rng = np.random.RandomState(width)
+  basis = np.array(geopoly.generate_basis('icosahedron', 2)).T
+  n = 40
+  means = torch.tensor(rng.randn(n, 3).astype(np.float32))
+  a = rng.randn(n, 3, 3).astype(np.float32) * 0.05
+  covs = torch.tensor(a @ np.swapaxes(a, -1, -2))
+  shapes = [(F360, width)] + [(width, width)] * (depth - 1)
+  ws = [torch.tensor(rng.uniform(-0.1, 0.1, s).astype(np.float32))
+        for s in shapes]
+  bs = [torch.tensor(rng.randn(width).astype(np.float32) * 0.1) for _ in ws]
+  wd = torch.tensor(rng.uniform(-0.2, 0.2, (width, 1)).astype(np.float32))
+  bd = torch.tensor(0.1)
+  pws, pbs, pwd = dm._pad_trunk(ws, bs, wd, plans.padded_width(width))
+  want = dm.density_mlp_plain(means, covs, ws, bs, wd, bd, basis)
+  got = dm.density_mlp_plain(means, covs, pws, pbs, pwd, bd, basis)
+  np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                             atol=1e-6)
 
 
 def test_ptxas_log_gives_each_kernels_registers_and_spills():

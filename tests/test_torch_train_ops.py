@@ -328,6 +328,24 @@ def test_train_cli_runs_steps_prints_and_saves(tmp_path):
   assert saved['opt_state']['state'], 'the optimizer state was not saved'
 
 
+def test_train_first_step_computes_the_tree_statistics(tmp_path):
+  # train.py:265: the tree statistics on the first step of a run, whatever
+  # print_every says.  One step: max_steps = 1 divides by zero in train_frac,
+  # in JAX's train.py as in the port, so the run exits early instead.
+  argv = ['--device=cpu', f'--gin_configs={tp.CONFIG_360}'] + [
+      f'--gin_bindings={b}' for b in tp.SMALL_BINDINGS + (
+          "Config.dataset_loader = 'dummy_unbounded'",
+          'Config.batch_size = 32', 'Config.max_steps = 100',
+          'Config.early_exit_steps = 1', 'Config.print_every = 100',
+          f"Config.checkpoint_dir = '{tmp_path}/ckpt'")]
+  stats = train.main(argv)['stats']
+  for prefix in ('weight_l2s/', 'grad_norms/', 'grad_maxes/',
+                 'opt_update_norms/', 'opt_update_maxes/'):
+    keys = [k for k in stats if k.startswith(prefix)]
+    assert keys, f'no {prefix} statistics on the first step'
+    assert all(np.isfinite(stats[k]).all() for k in keys), prefix
+
+
 def test_train_refuses_cuda_without_a_gpu(tmp_path):
   if torch.cuda.is_available():
     pytest.skip('a GPU is present: nothing to refuse.')
