@@ -27,27 +27,37 @@
 // about 3.5 ms.  In hybrid mode dW and dx run in bf16 (2 x 1,924 GFLOP,
 // 3.9 ms): about 5.4 ms.  Design, in two passes, as K3:
 //   1. one block of 16 warps per 32 samples recomputes the features and
-//      the trunk, writing each hidden layer's f32 activation to device
-//      memory, then walks back through the layers with da in shared memory,
-//      writing every f32 da_l and the tile's column sums of da_l; in int8
-//      mode it also folds the tile's per-channel absmax of every activation
-//      and da_l into its group's scale slot with atomicMax on the f32 bit
-//      pattern (non-negative floats order as their bits, and a maximum does
-//      not depend on the order, so this stays deterministic);
-//   2. the dW products as split-K partials and ordered reduces: the bf16
-//      ones through dw_accumulate.cuh (dW_0 and the skip tails recompute
-//      the features); for the int8 ones, group_quantize_kernel quantizes
-//      x_in and da_l with their groups' scales into int8, channel-major per
-//      group, and int8_dw_partial_kernel sums each group in int32,
-//      dequantizes it and adds it into f32 registers.
+//      the trunk, writing each hidden layer's activation to device memory,
+//      then walks back through the layers with da in shared memory,
+//      writing every da_l and the tile's column sums of da_l.  'int8'
+//      keeps the activations and da_1.. in f32 (the group quantizer needs
+//      them) and writes bf16 copies of da_0 and of each skip layer's da
+//      for the feature dW; 'int8_hybrid' writes activations and every da_l
+//      in bf16 only, rounded once where the dW products round them.  In
+//      int8 mode it also folds the tile's per-channel absmax of every
+//      activation and da_l into its group's scale slot with atomicMax on
+//      the f32 bit pattern (non-negative floats order as their bits, and a
+//      maximum does not depend on the order, so this stays deterministic);
+//   2. the dW products, split over samples and summed in order
+//      (reduce_splits), on Hopper's asynchronous pipeline: the bf16 ones
+//      (dW_0 and each skip tail from the features, computed once per call
+//      by K4's featurize_cast.cuh; the hybrid hidden dW from the bf16
+//      scratch) on wgmma_dw.cuh's TMA + wgmma GEMM; the int8 hidden dW
+//      from group_quantize_kernel's int8 operands (x_in and da_l quantized
+//      with their groups' scales, channel-major per group, samples
+//      contiguous: the K-major layout 8-bit wgmma needs, having no
+//      transpose) on int8_dw_gemm_kernel, a TMA ring of [64 channels][64
+//      samples] boxes (64-byte swizzle) into wgmma m64nBNk32 s8 products,
+//      whose int32 sum over a group is folded into f32 registers with the
+//      group's scales, group by group.
 // The TPU kept every dW (34 MB) resident in VMEM and accumulated over an
 // ordered grid; here every sum has a fixed order, so two launches agree bit
-// for bit.  The f32 scratch (acts and da) is 8 KB per sample per layer
-// pair, 8.1 GB at N = 131,072.  No TMA/wgmma pipeline yet.
+// for bit.  The scratch (acts and da) is 8 KB per sample per layer pair in
+// f32 ('int8', 8.1 GB at N = 131,072) and half that in bf16 (hybrid).
 
 #include <cuda_runtime.h>
 
-#include "dw_accumulate.cuh"
+#include "featurize_cast.cuh"
 #include "int8_trunk.cuh"
 
 namespace mnt {
@@ -71,7 +81,8 @@ __device__ void column_sum(const float* y, int ldy, int width, float* slot) {
   }
 }
 
-// 32 f32 rows of shared memory to device memory, 4 floats per store.
+// 32 f32 rows of shared memory to device memory, 4 values per store: f32,
+// or rounded to bf16.
 __device__ void store_rows(const float* y, int ldy, int width, float* dst) {
   const int words = width / 4;
   for (int i = threadIdx.x; i < kI8Rows * words; i += kI8Threads) {
@@ -81,6 +92,30 @@ __device__ void store_rows(const float* y, int ldy, int width, float* dst) {
   }
 }
 
+__device__ void store_rows(const float* y, int ldy, int width,
+                           __nv_bfloat16* dst) {
+  const int words = width / 4;
+  for (int i = threadIdx.x; i < kI8Rows * words; i += kI8Threads) {
+    const int r = i / words, c = (i - r * words) * 4;
+    const float4 v = *reinterpret_cast<const float4*>(y + r * ldy + c);
+    __nv_bfloat162 h[2] = {__floats2bfloat162_rn(v.x, v.y),
+                           __floats2bfloat162_rn(v.z, v.w)};
+    *reinterpret_cast<uint2*>(dst + (size_t)r * width + c) =
+        *reinterpret_cast<const uint2*>(h);
+  }
+}
+
+// The scratch planes ([n_pad][W] each) that the tile pass writes: the
+// activations of layers 0 .. depth-2 and da_l, f32 ('int8': da_1 .. at
+// plane l - 1) or bf16 (hybrid: da_l at plane l); in int8 mode also d16,
+// the bf16 da of layer 0 and of each skip layer, the B operands of the
+// feature dW, at plane feature_slot(l).
+__host__ __device__ inline int feature_slot(unsigned skip_mask, int l) {
+  int slot = 0;
+  for (int k = 1; k <= l; ++k) slot += (skip_mask >> k) & 1u;
+  return slot;  // 0 for layer 0, 1 + the skips below l for a skip layer.
+}
+
 __global__ void __launch_bounds__(kI8Threads, 1)
 int8_trunk_bwd_tile_kernel(const float* __restrict__ means,
                            const float* __restrict__ covs,
@@ -88,8 +123,8 @@ int8_trunk_bwd_tile_kernel(const float* __restrict__ means,
                            const float* __restrict__ bb_t, I8Trunk tr,
                            const void* __restrict__ wdx,
                            const float* __restrict__ swdx,
-                           const __nv_bfloat16* __restrict__ g,
-                           float* __restrict__ acts, float* __restrict__ das,
+                           const __nv_bfloat16* __restrict__ g, void* acts,
+                           void* das, __nv_bfloat16* __restrict__ d16,
                            unsigned* __restrict__ x_max,
                            unsigned* __restrict__ d_max,
                            float* __restrict__ vec_part, int n, int n_pad,
@@ -112,14 +147,23 @@ int8_trunk_bwd_tile_kernel(const float* __restrict__ means,
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   float* vec = vec_part + (size_t)blockIdx.x * depth * width;
+  // Row row0 of scratch plane p.
+  const auto at = [&](auto* base, int p) {
+    return base + ((size_t)p * n_pad + row0) * width;
+  };
+  float* acts_f = static_cast<float*>(acts);
+  __nv_bfloat16* acts_h = static_cast<__nv_bfloat16*>(acts);
 
   i8_tile_features(means, covs, basis_t, bb_t, row0, n, num_dims, num_degs,
                    use_contract != 0, tr.kpad, scratch, feats, lay.ldf);
   tile_trunk_forward(tr, feats, lay.ldf, y, ldy, xq, lay.ldq, sx, [&](int l) {
     if (l + 1 == depth) return;
-    store_rows(y, ldy, width, acts + ((size_t)l * n_pad + row0) * width);
-    if (!bwd_bf16)
+    if (bwd_bf16) {
+      store_rows(y, ldy, width, at(acts_h, l));
+    } else {
+      store_rows(y, ldy, width, at(acts_f, l));
       column_max(y, ldy, width, x_max + ((size_t)l * groups + gi) * width);
+    }
   });
 
   // da of the last layer: g through its ReLU mask; samples past n get 0.
@@ -133,17 +177,29 @@ int8_trunk_bwd_tile_kernel(const float* __restrict__ means,
 
   for (int l = depth - 1; l >= 0; --l) {
     if (l + 1 < depth) {
-      const float* act = acts + ((size_t)l * n_pad + row0) * width;
+      // The mask of layer l's ReLU from its stored activation.  In hybrid
+      // mode that is bf16, which keeps the sign of every f32 activation
+      // above 1e-40 (a bf16 rounds to zero only below its least subnormal).
       for (int i = tid; i < kI8Rows * width; i += kI8Threads) {
         const int r = i / width, c = i - r * width;
-        if (!(act[(size_t)r * width + c] > 0.0f)) y[r * ldy + c] = 0.0f;
+        const size_t k = (size_t)r * width + c;
+        const bool on = bwd_bf16 ? __bfloat162float(at(acts_h, l)[k]) > 0.0f
+                                 : at(acts_f, l)[k] > 0.0f;
+        if (!on) y[r * ldy + c] = 0.0f;
       }
       __syncthreads();
     }
-    store_rows(y, ldy, width, das + ((size_t)l * n_pad + row0) * width);
+    if (bwd_bf16) {
+      store_rows(y, ldy, width, at(static_cast<__nv_bfloat16*>(das), l));
+    } else {
+      if (l > 0) {
+        store_rows(y, ldy, width, at(static_cast<float*>(das), l - 1));
+        column_max(y, ldy, width, d_max + ((size_t)l * groups + gi) * width);
+      }
+      if (l == 0 || ((tr.skip_mask >> l) & 1u))
+        store_rows(y, ldy, width, at(d16, feature_slot(tr.skip_mask, l)));
+    }
     column_sum(y, ldy, width, vec + (size_t)l * width);
-    if (!bwd_bf16 && l > 0)
-      column_max(y, ldy, width, d_max + ((size_t)l * groups + gi) * width);
     if (l == 0) break;
     // dx: da of layer l-1's output, before its ReLU mask.
     if (!bwd_bf16) {
@@ -192,8 +248,7 @@ int8_trunk_bwd_tile_kernel(const float* __restrict__ means,
   }
 }
 
-constexpr int kDw8 = 128;          // dW rows and columns per block.
-constexpr int kDw8Threads = 256;
+constexpr int kQuantThreads = 256;
 constexpr int kQuantRows = 64;     // Samples per quantize block (| group).
 constexpr int kQuantCols = 32;     // Channels per quantize block.
 
@@ -204,7 +259,7 @@ __device__ __forceinline__ float group_scale(unsigned max_bits) {
 // q[g][c][s] = rint(x[g * group + s][c] / scale_g[c]): one hidden layer's f32
 // input or cotangent quantized per channel over each group of samples, in
 // a channel-major layout per group (the dW product's k axis contiguous).
-__global__ void __launch_bounds__(kDw8Threads)
+__global__ void __launch_bounds__(kQuantThreads)
 group_quantize_kernel(const float* __restrict__ x,
                       const unsigned* __restrict__ maxes, int group,
                       int width, int8_t* __restrict__ q) {
@@ -213,7 +268,7 @@ group_quantize_kernel(const float* __restrict__ x,
   const int c0 = blockIdx.x * kQuantCols;
   const long long s0 = (long long)blockIdx.y * kQuantRows;
   const int gi = (int)(s0 / group);
-  for (int i = tid; i < kQuantRows * kQuantCols; i += kDw8Threads) {
+  for (int i = tid; i < kQuantRows * kQuantCols; i += kQuantThreads) {
     const int s = i / kQuantCols, c = i - s * kQuantCols;
     const float scale = group_scale(maxes[(size_t)gi * width + c0 + c]);
     tile[c][s] = (int8_t)__float2int_rn(x[(s0 + s) * width + c0 + c] / scale);
@@ -222,134 +277,228 @@ group_quantize_kernel(const float* __restrict__ x,
   const int words = kQuantRows / 4;
   int8_t* dst =
       q + ((size_t)gi * width + c0) * group + (s0 - (long long)gi * group);
-  for (int i = tid; i < kQuantCols * words; i += kDw8Threads) {
+  for (int i = tid; i < kQuantCols * words; i += kQuantThreads) {
     const int c = i / words, w = i - c * words;
     *reinterpret_cast<unsigned*>(dst + (size_t)c * group + 4 * w) =
         ld_u32(&tile[c][4 * w]);
   }
 }
 
-__device__ __forceinline__ uint4 ldg_u128_or_0(const int8_t* p, bool ok) {
-  return ok ? __ldg(reinterpret_cast<const uint4*>(p))
-            : make_uint4(0, 0, 0, 0);
+// The int8 hidden dW on wgmma.  int8_dw_gemm_kernel<BN>: a CTA owns a
+// 128 x BN block of dW_l (two consumer warpgroups of 64 rows) and the
+// groups [z * per, z * per + per) of split z.  The producer warp streams
+// each 64-sample slab of a group, qx's [128 rows][64] and qd's [BN][64]
+// int8 boxes of group_quantize_kernel's layout (K-major, 64-byte swizzle),
+// by TMA through an 8-stage ring; the consumers run two wgmma m64nBNk32
+// s8 products per slab into int32 accumulators, and at the end of each
+// group fold them into f32: acc_f += float(acc) * (sx_g[i] * sd_g[o]),
+// group after group, as the plain version sums its exact int32 group
+// products.  BN = 128 keeps both accumulator sets (64 + 64 registers) in
+// registers.  Each split stores its [W][W] partial; reduce_splits sums the
+// splits in order.
+constexpr int kS8Stages = 8;
+constexpr int kS8Box = 64 * 64;  // One [64][64] int8 box: 4 KB.
+
+__host__ __device__ constexpr int s8_stage_bytes(int bn) {
+  return kSlab * (kDwTileRows + bn);
 }
 
-// part[p][W][W]: split p's share of the int8 dW of one hidden layer, over
-// the groups p, p + P, ...: per group, the int32 sum over its samples of
-// qx[g][i][s] * qd[g][o][s] (group_quantize_kernel's layout), times
-// (sx_g[i] * sd_g[o]), added to the f32 sum in group order.  8 warps of
-// 32 x 64 cover a 128 x 128 block of dW; the operands are read from L2,
-// 16 bytes per thread and load (mma_block).
-__global__ void __launch_bounds__(kDw8Threads, 1)
-int8_dw_partial_kernel(const int8_t* __restrict__ qx,
-                       const int8_t* __restrict__ qd,
-                       const unsigned* __restrict__ x_max,
-                       const unsigned* __restrict__ d_max, int n_pad,
-                       int group, int width, int num_splits,
-                       float* __restrict__ part) {
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int i0 = blockIdx.y * kDw8 + (warp % 4) * 32;  // The warp's rows,
-  const int o0 = blockIdx.x * kDw8 + (warp / 4) * 64;  // and columns.
-  const int groups = n_pad / group;
-  float accf[2][8][4];
-  #pragma unroll
-  for (int m = 0; m < 2; ++m)
-    #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      #pragma unroll
-      for (int e = 0; e < 4; ++e) accf[m][j][e] = 0.0f;
+__host__ __device__ constexpr int s8_dw_smem(int bn) {
+  return kS8Stages * s8_stage_bytes(bn) + 2 * kS8Stages * 8 + 1024;
+}
 
-  for (int gi = blockIdx.z; gi < groups; gi += num_splits) {
-    const int8_t* xa = qx + (size_t)gi * width * group + t * 16;
-    const int8_t* xb = qd + (size_t)gi * width * group + t * 16;
-    int acc[2][8][4];
-    #pragma unroll
-    for (int m = 0; m < 2; ++m)
-      #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[m][j][e] = 0;
-    for (int k = 0; k < group; k += kKBlock) {
-      uint4 av[2][2], bv[8];
-      #pragma unroll
-      for (int m = 0; m < 2; ++m)
-        #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = i0 + m * 16 + h * 8 + g;
-          av[m][h] = ldg_u128_or_0(xa + (size_t)r * group + k, r < width);
-        }
-      #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = o0 + j * 8 + g;
-        bv[j] = ldg_u128_or_0(xb + (size_t)c * group + k, c < width);
-      }
-      mma_block(acc, av, bv);
+template <int BN>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+int8_dw_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
+                    const __grid_constant__ CUtensorMap d_map,
+                    const unsigned* __restrict__ x_max,
+                    const unsigned* __restrict__ d_max, int width, int group,
+                    int groups, int per, float* __restrict__ part) {
+  constexpr int kStage = s8_stage_bytes(BN);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kS8Stages * kStage);
+  uint64_t* empty = full + kS8Stages;
+  const int m0 = blockIdx.x * kDwTileRows;
+  const int n0 = blockIdx.y * BN;
+  const int g0 = blockIdx.z * per;
+  const int slabs = group / kSlab;  // Slabs per group.
+  const int count = min(per, groups - g0) * slabs;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kS8Stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerThreads / 32);
     }
-    float sa[2][2], sd[8][2];
-    #pragma unroll
-    for (int m = 0; m < 2; ++m)
-      #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = i0 + acc_row(m, 2 * h);
-        sa[m][h] =
-            r < width ? group_scale(x_max[(size_t)gi * width + r]) : 0.0f;
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == kProducerWarp) {
+    // A block of fewer than 128 rows loads only the first warpgroup's A
+    // box; the second warpgroup then multiplies stale shared memory into
+    // rows that are never stored.
+    const bool two = m0 + 64 < width;
+    if (lane == 0) {
+      for (int it = 0; it < count; ++it) {
+        const int s = it % kS8Stages;
+        mbar_wait(&empty[s], ((it / kS8Stages) & 1) ^ 1);
+        unsigned char* a = smem + s * kStage;
+        unsigned char* b = a + 2 * kS8Box;
+        const int row = (g0 + it / slabs) * width;
+        const int col = (it % slabs) * kSlab;
+        mbar_expect_tx(&full[s], kStage - (two ? 0 : kS8Box));
+        tma_load(a, &x_map, &full[s], col, row + m0);
+        if (two) tma_load(a + kS8Box, &x_map, &full[s], col, row + m0 + 64);
+        for (int j = 0; j < BN / 64; ++j)
+          tma_load(b + j * kS8Box, &d_map, &full[s], col, row + n0 + j * 64);
       }
-    #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      #pragma unroll
+    }
+    return;
+  }
+
+  const int wg = warp / 4;
+  const int r0 = m0 + wg * 64 + (warp % 4) * 16 + lane / 4;
+  int acc[BN / 2];
+  float accf[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) {
+    acc[i] = 0;
+    accf[i] = 0.0f;
+  }
+  for (int it = 0; it < count; ++it) {
+    const int s = it % kS8Stages;
+    const int k_slab = it % slabs;  // The slab's place in its group.
+    mbar_wait(&full[s], (it / kS8Stages) & 1);
+    const unsigned char* a = smem + s * kStage + wg * kS8Box;
+    const unsigned char* b = smem + s * kStage + 2 * kS8Box;
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < kSlab / 32; ++k)
+      wgmma_s8<BN>(acc, smem_desc(a + k * 32, 16, 512, kSwizzle64),
+                   smem_desc(b + k * 32, 16, 512, kSwizzle64),
+                   (k_slab | k) != 0);
+    wgmma_commit();
+    fence_acc(acc);
+    // The products of the previous slab are done: release its stage.
+    wgmma_wait<1>();
+    fence_acc(acc);
+    if (it > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % kS8Stages]);
+    if (k_slab == slabs - 1) {
+      // The group's int32 sums are complete: fold them with its scales.
+      wgmma_wait<0>();
+      fence_acc(acc);
+      const size_t gw = (size_t)(g0 + it / slabs) * width;
+      float sx[2];
+#pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int c = o0 + acc_col(j, h);
-        sd[j][h] =
-            c < width ? group_scale(d_max[(size_t)gi * width + c]) : 0.0f;
+        const int r = r0 + 8 * h;
+        sx[h] = r < width ? group_scale(__ldg(x_max + gw + r)) : 0.0f;
       }
-    #pragma unroll
-    for (int m = 0; m < 2; ++m)
-      #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        #pragma unroll
+#pragma unroll
+      for (int q = 0; q < BN / 8; ++q) {
+        const int col = n0 + q * 8 + 2 * (lane % 4);
+        const float sd[2] = {group_scale(__ldg(d_max + gw + col)),
+                             group_scale(__ldg(d_max + gw + col + 1))};
+#pragma unroll
         for (int e = 0; e < 4; ++e)
-          accf[m][j][e] +=
-              (float)acc[m][j][e] * (sa[m][e / 2] * sd[j][e % 2]);
+          accf[4 * q + e] +=
+              (float)acc[4 * q + e] * (sx[e / 2] * sd[e % 2]);
+      }
+    }
   }
 
   float* out = part + (size_t)blockIdx.z * width * width;
-  #pragma unroll
-  for (int m = 0; m < 2; ++m)
-    #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = i0 + acc_row(m, e), o = o0 + acc_col(j, e);
-        if (i < width && o < width)
-          out[(size_t)i * width + o] = accf[m][j][e];
-      }
+#pragma unroll
+  for (int q = 0; q < BN / 8; ++q) {
+    const int col = n0 + q * 8 + 2 * (lane % 4);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + 8 * h;
+      if (row < width)
+        *reinterpret_cast<float2*>(out + (size_t)row * width + col) =
+            make_float2(accf[4 * q + 2 * h], accf[4 * q + 2 * h + 1]);
+    }
+  }
 }
+
+// dw[W][W] = the int8 dW of one hidden layer from its quantized operands
+// qx, qd [groups][W][group] and their group absmaxes [groups][W]: the
+// split partials into part ([splits][W][W]), then the ordered reduce.
+inline cudaError_t int8_dw(const int8_t* qx, const int8_t* qd,
+                           const unsigned* x_max, const unsigned* d_max,
+                           int width, int group, int groups, int bn,
+                           int splits, int per, float* part, float* dw,
+                           cudaStream_t st) {
+  if (width % bn != 0 || group % kSlab != 0 || splits < 1 || per < 1 ||
+      (splits - 1) * per >= groups || splits * per < groups)
+    return cudaErrorInvalidValue;
+  CUtensorMap x_map, d_map;
+  const long long rows = (long long)groups * width;
+  cudaError_t err = tile_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, qx,
+                             rows, group, 64, 64, CU_TENSOR_MAP_SWIZZLE_64B);
+  if (err != cudaSuccess) return err;
+  err = tile_map(&d_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, qd, rows, group,
+                 64, 64, CU_TENSOR_MAP_SWIZZLE_64B);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((width + kDwTileRows - 1) / kDwTileRows, width / bn,
+                  splits);
+  if (bn == 128) {
+    err = cudaFuncSetAttribute(int8_dw_gemm_kernel<128>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               s8_dw_smem(128));
+    if (err != cudaSuccess) return err;
+    int8_dw_gemm_kernel<128><<<grid, kHopperThreads, s8_dw_smem(128), st>>>(
+        x_map, d_map, x_max, d_max, width, group, groups, per, part);
+  } else if (bn == 64) {
+    err = cudaFuncSetAttribute(int8_dw_gemm_kernel<64>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               s8_dw_smem(64));
+    if (err != cudaSuccess) return err;
+    int8_dw_gemm_kernel<64><<<grid, kHopperThreads, s8_dw_smem(64), st>>>(
+        x_map, d_map, x_max, d_max, width, group, groups, per, part);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return reduce_splits(part, splits, (long long)width * width,
+                       (long long)width * width, dw, st);
+}
+
+struct Int8TrunkBwd;  // Names this kernel's bf16 dW GEMMs in a profile.
 
 }  // namespace mnt
 
-// Scratch (allocated by the caller): acts [depth-1][n_pad][W] f32, das
-// [depth][n_pad][W] f32, x_max [depth-1][groups][W] and d_max
-// [depth][groups][W] (zeroed), vec_part [n_pad/32][depth*W] f32, part, the
-// dW partials, and qbuf, 2 * n_pad * W bytes for the int8 mode's quantized
-// operands.  Weights: tr's operands (int8_trunk.cuh) plus wdx
-// [depth-1][W][W] (int8 wq2 per input channel, or bf16 w_q * sw in hybrid
-// mode, both [in][out]) and swdx [depth-1][W] (sw2).  Outputs: dw_out,
-// every layer's dW back to back (dW_0 [F][W], then [W (+ F)][W]); db_out
-// [depth][W].
+// Scratch (allocated by the caller, I8 planes of [n_pad][W]): acts
+// [depth-1] planes and das [depth-1] (int8, f32) or [depth] (hybrid, bf16)
+// planes; d16 (int8 only) [1 + skips] bf16 planes; x_max [depth-1][groups]
+// [W] and d_max [depth][groups][W] (zeroed; int8 only); vec_part
+// [n_pad/32][depth*W] f32; feats bf16 [n][kpad64] (kpad64: the features
+// rounded up to 64); part, the dW partials; qbuf, 2 * n_pad * W bytes for
+// the int8 mode's quantized operands.  Weights: tr's operands
+// (int8_trunk.cuh) plus wdx [depth-1][W][W] (int8 wq2 per input channel, or
+// bf16 w_q * sw in hybrid mode, both [in][out]) and swdx [depth-1][W]
+// (sw2).  Outputs: dw_out, every layer's dW back to back (dW_0 [F][W],
+// then [W (+ F)][W]); db_out [depth][W].  Plans (plans.int8_bwd_plan):
+// (f_bn, f_splits, f_per) the feature dW GEMMs over n samples,
+// (h_bn, h_splits, h_per) the hybrid hidden dW GEMMs, (s8_bn, s8_splits,
+// s8_per) the int8 hidden dW over groups.
 extern "C" int int8_trunk_backward(
     const void* means, const void* covs, const void* basis_t,
     const void* bb_t, const void* w0t, const void* wqt, const void* sw,
     const void* tailt, const void* biases, const void* wdx, const void* swdx,
-    const void* g, void* acts, void* das, void* x_max, void* d_max,
-    void* vec_part, void* part, void* qbuf, void* dw_out, void* db_out,
-    int n, int n_pad,
-    int group, int width, int depth, int num_dims, int num_degs,
-    int use_contract, int skip_mask, int bwd_bf16, int bm0, int bn0,
-    int splits0, int bm1, int bn1, int splits1, int splits8, void* stream) {
+    const void* g, void* acts, void* das, void* d16, void* x_max,
+    void* d_max, void* vec_part, void* feats, void* part, void* qbuf,
+    void* dw_out, void* db_out, int n, int n_pad, int group, int width,
+    int depth, int num_dims, int num_degs, int use_contract, int skip_mask,
+    int bwd_bf16, int f_bn, int f_splits, int f_per, int h_bn, int h_splits,
+    int h_per, int s8_bn, int s8_splits, int s8_per, void* stream) {
   using namespace mnt;
-  if (width % kKBlock != 0 || depth < 1 || n_pad % kI8Rows != 0 ||
-      group % kQuantRows != 0 || n_pad % group != 0)
+  if (width % 64 != 0 || depth < 1 || n_pad % kI8Rows != 0 ||
+      group % kQuantRows != 0 || n_pad % group != 0 || n < 1 || n > n_pad)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int kpad = i8_kpad(2 * num_degs * num_dims);
@@ -358,7 +507,6 @@ extern "C" int int8_trunk_backward(
       int8_trunk_bwd_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  if (n == 0) return (int)cudaErrorInvalidValue;
   const I8Trunk tr{static_cast<const __nv_bfloat16*>(w0t),
                    static_cast<const int8_t*>(wqt),
                    static_cast<const float*>(sw),
@@ -366,70 +514,74 @@ extern "C" int int8_trunk_backward(
                    static_cast<const float*>(biases), width, depth, kpad,
                    (unsigned)skip_mask};
   auto f32 = [](const void* p) { return static_cast<const float*>(p); };
-  float* acts_f = static_cast<float*>(acts);
-  float* das_f = static_cast<float*>(das);
+  __nv_bfloat16* d16_h = static_cast<__nv_bfloat16*>(d16);
   unsigned* x_max_u = static_cast<unsigned*>(x_max);
   unsigned* d_max_u = static_cast<unsigned*>(d_max);
   const int tiles = n_pad / kI8Rows;
   const int groups = n_pad / group;
   int8_trunk_bwd_tile_kernel<<<tiles, kI8Threads, smem, st>>>(
       f32(means), f32(covs), f32(basis_t), f32(bb_t), tr, wdx, f32(swdx),
-      static_cast<const __nv_bfloat16*>(g), acts_f, das_f, x_max_u, d_max_u,
-      static_cast<float*>(vec_part), n, n_pad, group, num_dims, num_degs,
-      use_contract, bwd_bf16);
+      static_cast<const __nv_bfloat16*>(g), acts, das, d16_h, x_max_u,
+      d_max_u, static_cast<float*>(vec_part), n, n_pad, group, num_dims,
+      num_degs, use_contract, bwd_bf16);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
+  // The bf16 features of the n samples, once, for dW_0 and the skip tails.
   const int num_feats = 2 * num_degs * num_dims;
+  const int kpad64 = round_up(num_feats, 64);
+  __nv_bfloat16* feats_h = static_cast<__nv_bfloat16*>(feats);
+  err = featurize_cast(f32(means), f32(covs), f32(basis_t), f32(bb_t),
+                       nullptr, n, width, num_dims, num_degs, use_contract,
+                       kpad64, feats_h, nullptr, st);
+  if (err != cudaSuccess) return (int)err;
+
   float* dw = static_cast<float*>(dw_out);
   float* part_f = static_cast<float*>(part);
   const size_t plane = (size_t)n_pad * width;
-  // Layer 0 and each skip layer's feature rows: bf16(features)^T @ bf16(da).
-  auto feature_rows = [&](int l) {
-    err = weight_gradient<true, float>(
-        f32(means), f32(covs), f32(basis_t), f32(bb_t), num_dims, num_degs,
-        use_contract, nullptr, 0, das_f + l * plane, n, width, num_feats, bm0,
-        bn0, splits0, part_f, dw, st);
-    dw += (size_t)num_feats * width;
-    return err;
+  // Layer l's bf16 da, the B operand of its feature dW (and, in hybrid
+  // mode, of its hidden dW).
+  auto da16 = [&](int l) {
+    return bwd_bf16 ? static_cast<const __nv_bfloat16*>(das) + l * plane
+                    : d16_h + feature_slot((unsigned)skip_mask, l) * plane;
   };
-  if (feature_rows(0) != cudaSuccess) return (int)err;
-  const int row_block = width < 512 ? width : 512;
-  if (bwd_bf16 && width % row_block != 0) return (int)cudaErrorInvalidValue;
+  // Layer l's feature rows: bf16(features)^T @ bf16(da_l), at dw.
+  auto feature_rows = [&](int l) {
+    return dw_gemm<Int8TrunkBwd>(feats_h, da16(l), n, kpad64, width,
+                                 num_feats, f_bn, f_splits, f_per, part_f,
+                                 dw, st);
+  };
+  err = feature_rows(0);
+  if (err != cudaSuccess) return (int)err;
+  dw += (size_t)num_feats * width;
   for (int l = 1; l < depth; ++l) {
-    const float* x_in = acts_f + (l - 1) * plane;
-    const float* d = das_f + l * plane;
     if (bwd_bf16) {
-      for (int r0 = 0; r0 < width; r0 += row_block) {
-        err = weight_gradient<false, float, float>(
-            nullptr, nullptr, nullptr, nullptr, num_dims, num_degs,
-            use_contract, x_in + r0, row_block, d, n, width, row_block, bm1,
-            bn1, splits1, part_f, dw + (size_t)r0 * width, st, width);
-        if (err != cudaSuccess) return (int)err;
-      }
+      err = dw_gemm<Int8TrunkBwd>(
+          static_cast<const __nv_bfloat16*>(acts) + (l - 1) * plane, da16(l),
+          n, width, width, width, h_bn, h_splits, h_per, part_f, dw, st);
     } else {
+      const float* x_in = static_cast<const float*>(acts) + (l - 1) * plane;
+      const float* d = static_cast<const float*>(das) + (l - 1) * plane;
       const unsigned* xm = x_max_u + (size_t)(l - 1) * groups * width;
       const unsigned* dm = d_max_u + (size_t)l * groups * width;
       int8_t* qx = static_cast<int8_t*>(qbuf);
       int8_t* qd = qx + plane;
       const dim3 qgrid(width / kQuantCols, n_pad / kQuantRows);
-      group_quantize_kernel<<<qgrid, kDw8Threads, 0, st>>>(x_in, xm, group,
-                                                           width, qx);
-      group_quantize_kernel<<<qgrid, kDw8Threads, 0, st>>>(d, dm, group,
-                                                           width, qd);
-      const int blocks = (width + kDw8 - 1) / kDw8;
-      int8_dw_partial_kernel<<<dim3(blocks, blocks, splits8), kDw8Threads, 0,
-                               st>>>(qx, qd, xm, dm, n_pad, group, width,
-                                     splits8, part_f);
+      group_quantize_kernel<<<qgrid, kQuantThreads, 0, st>>>(x_in, xm, group,
+                                                             width, qx);
+      group_quantize_kernel<<<qgrid, kQuantThreads, 0, st>>>(d, dm, group,
+                                                             width, qd);
       err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
-      err = reduce_splits(part_f, splits8, (long long)width * width,
-                          (long long)width * width, dw, st);
-      if (err != cudaSuccess) return (int)err;
+      err = int8_dw(qx, qd, xm, dm, width, group, groups, s8_bn, s8_splits,
+                    s8_per, part_f, dw, st);
     }
+    if (err != cudaSuccess) return (int)err;
     dw += (size_t)width * width;
     if (((unsigned)skip_mask >> l) & 1u) {
-      if (feature_rows(l) != cudaSuccess) return (int)err;
+      err = feature_rows(l);
+      if (err != cudaSuccess) return (int)err;
+      dw += (size_t)num_feats * width;
     }
   }
   return (int)reduce_splits(static_cast<const float*>(vec_part), tiles,
@@ -437,3 +589,6 @@ extern "C" int int8_trunk_backward(
                             (long long)depth * width,
                             static_cast<float*>(db_out), st);
 }
+
+// Dynamic shared memory of the s8 dW GEMM, for the launch plans' checks.
+extern "C" int int8_dw_gemm_smem(int bn) { return mnt::s8_dw_smem(bn); }

@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks of the backward kernels K3
-// (density_mlp_bwd.cu) and K4 (featurize_dense_dw.cu): mbarriers, TMA
-// copies, wgmma.mma_async, and the weight-gradient GEMM the two share,
+// (density_mlp_bwd.cu), K4 (featurize_dense_dw.cu) and K6
+// (int8_trunk_bwd.cu): mbarriers, TMA copies, wgmma.mma_async (bf16 and
+// s8), the ordered reduce of split partials, and the weight-gradient GEMM
+// the three share,
 //   dW[R, W] = A^T @ B summed over all samples,
 // with A bf16 [N, R] and B bf16 [N, W] in device memory (row = sample) and
 // f32 accumulation.
@@ -16,8 +18,8 @@
 // sample axis is the product's K and both operands are stored sample-major,
 // so wgmma reads both MN-major (transposed, tnspA = tnspB = 1): nothing is
 // transposed in memory.  Each split stores its [R, W] partial and
-// reduce_splits (dw_accumulate.cuh) sums the splits in order.  No atomics:
-// the result is bitwise deterministic.
+// reduce_splits sums the splits in order.  No atomics: the result is
+// bitwise deterministic.
 #pragma once
 
 // cuda.h for CUtensorMap and its enums only: the encoder comes from the
@@ -26,7 +28,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "dw_accumulate.cuh"
+#include "features.cuh"
 
 namespace mnt {
 
@@ -38,6 +40,48 @@ constexpr int kConsumerThreads = 256;  // Two consumer warpgroups.
 constexpr int kProducerWarp = kConsumerThreads / 32;
 constexpr int kHopperThreads = kConsumerThreads + 32;  // + the producer warp.
 constexpr int kSmemLimit = 232448;  // Dynamic shared memory a block may use.
+
+// 8 consecutive values, rounded to bf16, as one 16-byte word (p is
+// 16-byte aligned for bf16 and 32-byte aligned for f32).
+__device__ __forceinline__ uint4 load8_bf16(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+__device__ __forceinline__ uint4 load8_bf16(const float* p) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  uint4 out;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&out);
+  h[0] = __floats2bfloat162_rn(a.x, a.y);
+  h[1] = __floats2bfloat162_rn(a.z, a.w);
+  h[2] = __floats2bfloat162_rn(b.x, b.y);
+  h[3] = __floats2bfloat162_rn(b.z, b.w);
+  return out;
+}
+
+// out[i] = sum_p part[p * stride + i] for i < count, p = 0, 1, ... in order:
+// the fixed-order sum of split partials that keeps the backward kernels
+// deterministic (the TPU kernels accumulated over an ordered grid).
+__global__ void reduce_splits_kernel(const float* __restrict__ part,
+                                     int num_splits, long long stride,
+                                     long long count,
+                                     float* __restrict__ out) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= count) return;
+  float sum = 0.0f;
+  for (int p = 0; p < num_splits; ++p) sum += part[p * stride + i];
+  out[i] = sum;
+}
+
+inline cudaError_t reduce_splits(const float* part, int num_splits,
+                                 long long stride, long long count,
+                                 float* out, cudaStream_t stream) {
+  if (count == 0) return cudaSuccess;
+  const int threads = 256;
+  const long long blocks = (count + threads - 1) / threads;
+  reduce_splits_kernel<<<(unsigned)blocks, threads, 0, stream>>>(
+      part, num_splits, stride, count, out);
+  return cudaGetLastError();
+}
 
 // ---------------------------------------------------------------- PTX ---
 
@@ -213,6 +257,11 @@ __device__ __forceinline__ void fence_acc(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+template <int R>
+__device__ __forceinline__ void fence_acc(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
 
 // Shared-memory matrix descriptor of a swizzled operand (the swizzle atom
 // aligned to 8 rows).  kSwizzle128: 128-byte rows; K-major: rows of 64 k
@@ -238,78 +287,94 @@ __device__ __forceinline__ int swizzled_offset(int row, int col) {
          ((((col & 63) >> 3) ^ (row & 7)) << 4) + (col & 7) * 2;
 }
 
-// wgmma.mma_async m64nNk16, bf16 inputs from shared memory, f32
-// accumulators d (the register layout of PTX's "wgmma .m64nNk16 D"
-// fragment: d[i] is row 16 * warp + lane / 4 + 8 * ((i / 2) % 2), column
-// 8 * (i / 4) + 2 * (lane % 4) + i % 2).  d = A @ B + (scale_d ? d : 0).
-#define MNT_ACC4(d, i) \
-  "+f"(d[i]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3])
-#define MNT_ACC16_AT(d, i)                                      \
-  MNT_ACC4(d, i), MNT_ACC4(d, (i) + 4), MNT_ACC4(d, (i) + 8), \
-      MNT_ACC4(d, (i) + 12)
-#define MNT_ACC32_AT(d, i) MNT_ACC16_AT(d, i), MNT_ACC16_AT(d, (i) + 16)
-#define MNT_ACC64_AT(d, i) MNT_ACC32_AT(d, i), MNT_ACC32_AT(d, (i) + 32)
-#define MNT_ACC32(d) MNT_ACC32_AT(d, 0)
-#define MNT_ACC64(d) MNT_ACC64_AT(d, 0)
-#define MNT_ACC128(d) MNT_ACC64_AT(d, 0), MNT_ACC64_AT(d, 64)
+// wgmma.mma_async m64nNk16 (bf16 inputs, f32 accumulators) and m64nNk32
+// (s8 inputs, s32 accumulators), A and B from shared memory.  Both keep d
+// in the register layout of PTX's "wgmma D" fragment: d[i] is row 16 *
+// warp + lane / 4 + 8 * ((i / 2) % 2), column 8 * (i / 4) + 2 * (lane % 4)
+// + i % 2.  d = A @ B + (scale_d ? d : 0).  8-bit wgmma has no transpose:
+// both s8 operands are K-major.
+#define MNT_R4(c, d, i) c(d[i]), c(d[(i) + 1]), c(d[(i) + 2]), c(d[(i) + 3])
+#define MNT_R16(c, d, i)                                         \
+  MNT_R4(c, d, i), MNT_R4(c, d, (i) + 4), MNT_R4(c, d, (i) + 8), \
+      MNT_R4(c, d, (i) + 12)
+#define MNT_R32(c, d, i) MNT_R16(c, d, i), MNT_R16(c, d, (i) + 16)
+#define MNT_R64(c, d, i) MNT_R32(c, d, i), MNT_R32(c, d, (i) + 32)
+#define MNT_R128(c, d, i) MNT_R64(c, d, i), MNT_R64(c, d, (i) + 64)
+#define MNT_REGS32 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define MNT_REGS64 \
+  MNT_REGS32 ", " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define MNT_REGS128 \
+  MNT_REGS64 ", " \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
 
 template <int kTnspA, int kTnspB>
 __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t desc_a,
                                           uint64_t desc_b, int scale_d) {
   asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, %35, %36;\n"
-      "}\n"
-      : MNT_ACC32(d)
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTnspA),
-        "n"(kTnspB));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" MNT_REGS32
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : MNT_R32("+f", d, 0)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTnspA), "n"(kTnspB));
 }
 
 template <int kTnspA, int kTnspB>
 __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t desc_a,
-                                          uint64_t desc_b, int scale_d) {
+                                           uint64_t desc_b, int scale_d) {
   asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, %67, %68;\n"
-      "}\n"
-      : MNT_ACC64(d)
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTnspA),
-        "n"(kTnspB));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" MNT_REGS64
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : MNT_R64("+f", d, 0)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTnspA), "n"(kTnspB));
 }
 
 template <int kTnspA, int kTnspB>
 __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t desc_a,
-                                          uint64_t desc_b, int scale_d) {
+                                           uint64_t desc_b, int scale_d) {
   asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, %131, %132;\n"
-      "}\n"
-      : MNT_ACC128(d)
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTnspA),
-        "n"(kTnspB));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {" MNT_REGS128
+      "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
+      : MNT_R128("+f", d, 0)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTnspA), "n"(kTnspB));
+}
+
+__device__ __forceinline__ void wgmma_s8_n64(int (&d)[32], uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {" MNT_REGS32
+      "}, %32, %33, p;\n}\n"
+      : MNT_R32("+r", d, 0)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t desc_a,
+                                              uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {" MNT_REGS64
+      "}, %64, %65, p;\n}\n"
+      : MNT_R64("+r", d, 0)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_s8_n256(int (&d)[128], uint64_t desc_a,
+                                              uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {" MNT_REGS128
+      "}, %128, %129, p;\n}\n"
+      : MNT_R128("+r", d, 0)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
 template <int N, int kTnspA, int kTnspB>
@@ -322,6 +387,19 @@ __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t desc_a,
   } else {
     static_assert(N == 256, "wgmma width must be 64, 128 or 256");
     wgmma_n256<kTnspA, kTnspB>(d, desc_a, desc_b, scale_d);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_s8(int (&d)[N / 2], uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d) {
+  if constexpr (N == 64) {
+    wgmma_s8_n64(d, desc_a, desc_b, scale_d);
+  } else if constexpr (N == 128) {
+    wgmma_s8_n128(d, desc_a, desc_b, scale_d);
+  } else {
+    static_assert(N == 256, "wgmma width must be 64, 128 or 256");
+    wgmma_s8_n256(d, desc_a, desc_b, scale_d);
   }
 }
 

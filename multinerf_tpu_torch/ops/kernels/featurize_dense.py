@@ -109,24 +109,6 @@ def featurize_dense_dw_plain(means, covs, g, basis, min_deg=0, max_deg=12,
   return feats.float().T @ g.to(torch.bfloat16).float()
 
 
-def dw_plan(rows, width, n, device):
-  """(bm, bn, splits) of the split-K weight-gradient pass
-  (csrc/dw_accumulate.cuh): 8 warps of 64 x 64 cover a [bm, bn] block of
-  dW with bm >= rows; `splits` sample splits fill one wave of the card."""
-  warps_m = 1
-  while 64 * warps_m < rows and warps_m < 8:
-    warps_m *= 2
-  bm, bn = 64 * warps_m, 64 * (8 // warps_m)
-  if rows > bm:
-    raise ValueError(f'{rows} rows: the dW kernel takes at most 512.')
-  if width % 16 != 0:
-    raise ValueError(f'width {width} must be a multiple of 16 for the dW '
-                     'kernel.')
-  sms = torch.cuda.get_device_properties(device).multi_processor_count
-  tiles = -(-n // 64)
-  return bm, bn, max(1, min(tiles, sms // -(-width // bn)))
-
-
 def check_dense(means, width, basis, min_deg, max_deg, kernel_rows=None):
   """(basis_t, bb_t, num_dims, num_degs) after the shape checks."""
   basis_t, bb_t = device_basis(basis, min_deg, means.device)

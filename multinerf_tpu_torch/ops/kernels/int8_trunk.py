@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from multinerf_tpu_torch.ops import quant
 from multinerf_tpu_torch.ops.kernels import build
 from multinerf_tpu_torch.ops.kernels import featurize_dense as fd
+from multinerf_tpu_torch.ops.kernels import plans
 
 # launches: kernel launches; plain_calls: calls served by the plain version.
 counts = {'launches': 0, 'plain_calls': 0}  # Forward (K5).
@@ -259,10 +260,6 @@ def _launch(means, covs, ws, bs, basis, min_deg, max_deg, use_contract,
   return out
 
 
-# K6's int8 dW blocks are 128 x 128 (csrc/int8_trunk_bwd.cu).
-_I8_DW_BLOCK = 128
-
-
 def _launch_bwd(means, covs, ws, bs, g, basis, min_deg, max_deg,
                 use_contract, skip_layers, bwd_bf16):
   fd.check_gaussians(means, covs)
@@ -277,10 +274,8 @@ def _launch_bwd(means, covs, ws, bs, g, basis, min_deg, max_deg,
   for t in (covs, g):
     if t.device != device:
       raise ValueError('all inputs must be on one device.')
-  row_block = min(width, 512)
-  if bwd_bf16 and width % row_block:
-    raise ValueError(f'width {width}: the bf16 dW takes at most 512 or a '
-                     'multiple of 512.')
+  if n == 0:
+    raise ValueError('the backward kernel needs at least one sample.')
   g = g.contiguous()
   ops, q = _operands(ws, bs, width, num_feats, skip_layers)
   # dx weights, [in][out]: wq2 and sw2 (int8), or bf16(w_q * sw) (hybrid).
@@ -292,33 +287,40 @@ def _launch_bwd(means, covs, ws, bs, g, basis, min_deg, max_deg,
     wdx = _stack([t[2] for t in q[1:]], torch.int8, device)
     swdx = _stack([t[3].reshape(-1) for t in q[1:]], torch.float32, device)
   n_pad, group = jax_groups(n)
+  plan = plans.int8_bwd_plan(num_feats, width, depth, len(skip_layers), n,
+                             n_pad, group, fd.num_sms(device), bwd_bf16)
   groups = n_pad // group
   tiles = n_pad // 32
-  bm0, bn0, splits0 = fd.dw_plan(-(-num_feats // 16) * 16, width, n, device)
-  bm1, bn1, splits1 = fd.dw_plan(row_block, width, n, device)
-  sms = torch.cuda.get_device_properties(device).multi_processor_count
-  out_tiles = (-(-width // _I8_DW_BLOCK))**2
-  splits8 = max(1, min(groups, sms // out_tiles))
   empty = lambda shape, dtype=torch.float32: torch.empty(
       shape, dtype=dtype, device=device)
-  acts = empty((max(depth - 1, 1), n_pad, width))
-  das = empty((depth, n_pad, width))
+  scratch = torch.bfloat16 if bwd_bf16 else torch.float32
+  acts = empty((plan.acts_planes, n_pad, width), scratch)
+  das = empty((plan.das_planes, n_pad, width), scratch)
+  d16 = empty((plan.d16_planes, n_pad, width) if plan.d16_planes else (1,),
+              torch.bfloat16)
   # Group absmaxes as f32 bit patterns (atomicMax), zero = +0.0.
-  x_max = torch.zeros((max(depth - 1, 1), groups, width), dtype=torch.int32,
-                      device=device)
-  d_max = torch.zeros((depth, groups, width), dtype=torch.int32,
-                      device=device)
+  x_max, d_max = [
+      torch.zeros((max(planes, 1), groups, width) if not bwd_bf16 else (1,),
+                  dtype=torch.int32, device=device)
+      for planes in (depth - 1, depth)]
   vec_part = empty((tiles, depth * width))
+  feats = empty((n, plan.kpad), torch.bfloat16)
   qbuf = empty((1,) if bwd_bf16 else (2, n_pad, width), torch.int8)
-  part = empty((max(splits0 * bm0 * width, splits1 * bm1 * width,
-                    splits8 * width * width),))
+  gemms = [plan.features] + ([plan.hidden] if bwd_bf16 else [])
+  part = empty((max([m.splits * m.rows * width for m in gemms] +
+                    ([] if bwd_bf16 else [plan.s8.splits * width * width])),))
   rows = [num_feats] + [width + (num_feats if l in skip_layers else 0)
                         for l in range(1, depth)]
   dw_out = empty((sum(r * width for r in rows),))
   db_out = empty((depth * width,))
+  # (bn, splits, per) of the hybrid hidden dW and of the int8 one; the
+  # other mode's are not read.
+  hidden = ((plan.hidden.bn, plan.hidden.splits, plan.hidden.per)
+            if plan.hidden else (0, 0, 0))
+  s8 = (plan.s8.bn, plan.s8.splits, plan.s8.per) if plan.s8 else (0, 0, 0)
   lib = build.load('int8_trunk_bwd')
   fn = lib.int8_trunk_backward
-  fn.argtypes = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 17 + [
+  fn.argtypes = [ctypes.c_void_p] * 23 + [ctypes.c_int] * 19 + [
       ctypes.c_void_p]
   fn.restype = ctypes.c_int
   bwd_counts['launches'] += 1
@@ -327,12 +329,14 @@ def _launch_bwd(means, covs, ws, bs, g, basis, min_deg, max_deg,
                  ops['wqt'].data_ptr(), ops['sw'].data_ptr(),
                  ops['tailt'].data_ptr(), ops['biases'].data_ptr(),
                  wdx.data_ptr(), swdx.data_ptr(), g.data_ptr(),
-                 acts.data_ptr(), das.data_ptr(), x_max.data_ptr(),
-                 d_max.data_ptr(), vec_part.data_ptr(), part.data_ptr(),
-                 qbuf.data_ptr(), dw_out.data_ptr(), db_out.data_ptr(), n,
-                 n_pad, group, width, depth, num_dims, num_degs,
-                 int(use_contract), skip_mask, int(bwd_bf16), bm0, bn0,
-                 splits0, bm1, bn1, splits1, splits8, _stream(device)),
+                 acts.data_ptr(), das.data_ptr(), d16.data_ptr(),
+                 x_max.data_ptr(), d_max.data_ptr(), vec_part.data_ptr(),
+                 feats.data_ptr(), part.data_ptr(), qbuf.data_ptr(),
+                 dw_out.data_ptr(), db_out.data_ptr(), n, n_pad, group,
+                 width, depth, num_dims, num_degs, int(use_contract),
+                 skip_mask, int(bwd_bf16), plan.features.bn,
+                 plan.features.splits, plan.features.per, *hidden, *s8,
+                 _stream(device)),
               'int8_trunk_bwd')
   dws, off = [], 0
   for r in rows:

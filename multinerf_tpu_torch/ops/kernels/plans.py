@@ -1,17 +1,24 @@
-"""Launch plans of the Hopper kernels K1-K4, in pure Python.
+"""Launch plans of the Hopper kernels K1-K4 and K6's dW half, in pure
+Python.
 
 The CUDA sources (``csrc/tile_pass.cuh``, ``wgmma_dw.cuh``,
 ``density_mlp.cu``, ``featurize_dense.cu``, ``density_mlp_bwd.cu``,
-``featurize_dense_dw.cu``) take these numbers as launch arguments and check
-them; the shared-memory sizes here mirror the sources' layouts (the C entry
-points ``density_mlp_smem``, ``featurize_dense_smem``,
-``density_mlp_bwd_smem`` and ``featurize_dense_dw_smem`` report theirs, and
+``featurize_dense_dw.cu``, ``int8_trunk_bwd.cu``) take these numbers as
+launch arguments and check them; the shared-memory sizes here mirror the
+sources' layouts (the C entry points ``density_mlp_smem``,
+``featurize_dense_smem``, ``density_mlp_bwd_smem``,
+``featurize_dense_dw_smem`` and ``int8_dw_gemm_smem`` report theirs, and
 ``chip_smoke.py`` holds the two against each other).
 
 * The weight-gradient GEMM (``wgmma_dw.cuh``): dW[R, W] = A^T @ B over the
   samples.  A CTA owns 128 rows (two wgmma warpgroups of 64) and BN columns
   of dW and a contiguous range of ``per`` 64-sample slabs; ``splits`` ranges
   cover the samples once and fill one wave of the SMs.
+* K6's dW products (``int8_trunk_bwd.cu``): the bf16 ones (dW_0 and each
+  skip layer's feature rows; the hidden dW under 'int8_hybrid') on that
+  GEMM, the int8 hidden dW on an s8 wgmma GEMM whose CTAs own 128 x BN
+  blocks of dW and a contiguous range of ``per`` sample groups (the JAX
+  kernel's tiles, each a whole number of 64-sample slabs).
 * The tile passes of K1, K2 and K3 (``tile_pass.cuh``): 128-sample tiles,
   one persistent CTA per SM; K3's CTAs walk tiles blockIdx, blockIdx + grid,
   ...; K1's and K2's come in clusters of two that walk pairs of tiles and
@@ -277,3 +284,90 @@ def featurize_dense_fwd_plan(num_feats, width, num_dims, n, max_clusters):
       (2 * OUT_BOX, 0))
   return FwdPlan(bn, kpad, stages, tiles, clusters, smem, _ceil(width, bn),
                  out_bytes > 0)
+
+
+S8_STAGES = 8  # The s8 dW GEMM's ring: [128 + BN][64] int8 per stage.
+
+
+def s8_dw_smem(bn):
+  """Dynamic shared memory of K6's s8 dW GEMM (int8_trunk_bwd.cu,
+  s8_dw_smem): the ring, its barriers, the alignment slack."""
+  return S8_STAGES * SLAB * (DW_TILE_ROWS + bn) + 2 * S8_STAGES * 8 + 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class S8DwPlan:
+  width: int  # W: dW is [W, W].
+  group: int  # Samples per group (a whole number of slabs).
+  groups: int
+  bn: int  # dW columns per CTA.
+  splits: int  # Group ranges (grid z).
+  per: int  # Groups per range.
+  smem: int
+
+  @property
+  def grid(self):
+    return (_ceil(self.width, DW_TILE_ROWS), self.width // self.bn,
+            self.splits)
+
+  def group_ranges(self):
+    """[start, stop) of each split's groups, as the kernel walks them."""
+    return [(z * self.per, min(self.groups, (z + 1) * self.per))
+            for z in range(self.splits)]
+
+
+def s8_dw_plan(width, n_pad, group, sms):
+  """K6's int8 hidden dW over n_pad samples in groups of `group`: BN = 128
+  where it divides W (int32 and f32 accumulators both in registers), and
+  enough group ranges to fill one wave of the SMs."""
+  if width < 64 or width % 64:
+    raise ValueError(f'width {width}: the s8 GEMM takes a multiple of 64.')
+  if group < SLAB or group % SLAB:
+    raise ValueError(f'group {group}: the s8 GEMM takes whole slabs of '
+                     f'{SLAB} samples.')
+  if n_pad < group or n_pad % group:
+    raise ValueError(f'{n_pad} samples are not whole groups of {group}.')
+  bn = 128 if width % 128 == 0 else 64
+  groups = n_pad // group
+  ctas = _ceil(width, DW_TILE_ROWS) * (width // bn)
+  splits = max(1, min(groups, sms // ctas))
+  per = _ceil(groups, splits)
+  return S8DwPlan(width, group, groups, bn, _ceil(groups, per), per,
+                  s8_dw_smem(bn))
+
+
+@dataclasses.dataclass(frozen=True)
+class Int8BwdPlan:
+  """K6: its scratch and its dW products."""
+  n_pad: int  # Samples padded as the JAX kernel pads them.
+  group: int  # The int8 dW's scale groups (the JAX kernel's tile).
+  kpad: int  # Features rounded up to 64: the feature dW's rows.
+  hybrid: bool
+  acts_planes: int  # [n_pad][W] planes of each scratch array.
+  das_planes: int
+  d16_planes: int  # int8 mode: bf16 da of layer 0 and the skip layers.
+  scratch_bytes: int  # acts and das: 4-byte (int8) or 2-byte (hybrid).
+  features: DwGemmPlan  # dW_0 and the skip tails: [kpad, W] over n.
+  hidden: DwGemmPlan | None  # Hybrid: the hidden dW, [W, W] over n.
+  s8: S8DwPlan | None  # int8: the hidden dW over the groups.
+
+
+def int8_bwd_plan(num_feats, width, depth, num_skips, n, n_pad, group, sms,
+                  hybrid):
+  """K6's plan: n samples padded to n_pad (JAX's padding), hidden dW scale
+  groups of `group` samples, the 'int8' or 'int8_hybrid' backward."""
+  if num_feats < 1 or depth < 1:
+    raise ValueError(f'{num_feats} features, depth {depth}.')
+  if n < 1 or n > n_pad:
+    raise ValueError(f'{n} samples, padded to {n_pad}.')
+  kpad = _ceil(num_feats, 64) * 64
+  hidden = max(depth - 1, 1)
+  s8 = None if hybrid else s8_dw_plan(width, n_pad, group, sms)
+  das = depth if hybrid else hidden
+  elem = 2 if hybrid else 4
+  return Int8BwdPlan(
+      n_pad, group, kpad, hybrid, hidden, das,
+      0 if hybrid else 1 + num_skips,
+      elem * (hidden + das) * n_pad * width,
+      dw_gemm_plan(kpad, width, n, sms),
+      dw_gemm_plan(width, width, n, sms) if hybrid else None, s8)

@@ -297,3 +297,102 @@ ptxas info    : Used 32 registers, used 0 barriers
       'reduce_splits_kernel': {
           'registers': 32, 'spill_stores': 0, 'spill_loads': 0}}
   assert build.short_name('cudaMemcpy') == 'cudaMemcpy'
+
+
+# K6's dW half (csrc/int8_trunk_bwd.cu): the s8 GEMM over the JAX kernel's
+# scale groups and the bf16 GEMMs of the feature rows and the hybrid hidden
+# dW.  n_pad and the group come from int8_trunk.jax_groups, as the wrapper
+# takes them.
+def _k6_plan(n, width=1024, depth=8, skips=1, hybrid=False, sms=SMS):
+  from multinerf_tpu_torch.ops.kernels import int8_trunk as i8t
+  n_pad, group = i8t.jax_groups(n)
+  return plans.int8_bwd_plan(F360, width, depth, skips, n, n_pad, group,
+                             sms, hybrid)
+
+
+@pytest.mark.parametrize('n', [1, 63, 300, 1100, N_NERF - 37, N_NERF])
+@pytest.mark.parametrize('width', [64, 1024])
+def test_s8_dw_groups_cover_every_padded_sample_once(n, width):
+  plan = _k6_plan(n, width)
+  s8 = plan.s8
+  # A slab divides a group, a group divides the padded samples.
+  assert s8.group % plans.SLAB == 0 and plan.n_pad % s8.group == 0
+  assert s8.group in (128, 256, 512) and plan.n_pad >= n
+  assert s8.groups * s8.group == plan.n_pad
+  ranges = s8.group_ranges()
+  assert len(ranges) == s8.splits == s8.grid[2]
+  assert ranges[0][0] == 0 and ranges[-1][1] == s8.groups
+  for (start, stop), (nxt, _) in zip(ranges, ranges[1:] + [(s8.groups, 0)]):
+    assert start < stop == nxt
+  assert s8.grid[0] * plans.DW_TILE_ROWS >= width
+  assert s8.grid[1] * s8.bn == width
+
+
+def test_s8_dw_plan_at_the_360_shapes():
+  s8 = _k6_plan(N_NERF).s8
+  # 256 groups of 512 samples (16 k32 steps each), 128 x 128 blocks of dW,
+  # two group ranges: 128 CTAs, one wave.
+  assert (s8.group, s8.groups, s8.bn, s8.splits, s8.per) == (
+      512, 256, 128, 2, 128)
+  assert s8.grid == (8, 8, 2)
+  # An 8-stage ring of [128 + 128][64] int8 slabs, barriers, alignment.
+  assert s8.smem == 8 * 64 * 256 + 128 + 1024 <= plans.SMEM_LIMIT
+  assert plans.s8_dw_smem(64) == 8 * 64 * 192 + 128 + 1024
+
+
+@pytest.mark.parametrize('width,bn', [(64, 64), (192, 64), (256, 128),
+                                      (1024, 128)])
+def test_s8_dw_bn_and_splits(width, bn):
+  s8 = plans.s8_dw_plan(width, N_NERF, 512, SMS)
+  assert s8.bn == bn and width % s8.bn == 0
+  ctas = s8.grid[0] * s8.grid[1]
+  # As many group ranges as one wave holds, each of `per` whole groups.
+  assert s8.per == -(-s8.groups // min(s8.groups, SMS // ctas))
+  assert s8.splits == -(-s8.groups // s8.per)
+  assert ctas * s8.splits <= SMS
+
+
+@pytest.mark.parametrize('hybrid', [False, True])
+def test_k6_feature_and_hidden_gemms_at_the_360_shapes(hybrid):
+  plan = _k6_plan(N_NERF, hybrid=hybrid)
+  assert plan.kpad == 512
+  f = plan.features
+  assert (f.rows, f.width, f.n, f.bn) == (512, 1024, N_NERF, 256)
+  assert SMS - f.grid[0] * f.grid[1] < np.prod(f.grid) <= SMS
+  if hybrid:
+    h = plan.hidden
+    assert (h.rows, h.width, h.n, h.bn) == (1024, 1024, N_NERF, 256)
+    assert SMS - h.grid[0] * h.grid[1] < np.prod(h.grid) <= SMS
+    assert plan.s8 is None
+  else:
+    assert plan.hidden is None and plan.s8 is not None
+  for gemm in (plan.features, plan.hidden):
+    if gemm is not None:
+      assert gemm.smem <= plans.SMEM_LIMIT
+
+
+def test_k6_scratch_is_bf16_under_hybrid():
+  n, w = N_NERF, 1024
+  i8, hy = _k6_plan(n), _k6_plan(n, hybrid=True)
+  # 'int8': f32 activations of layers 0-6 and da_1..7, + bf16 da_0 and the
+  # skip layer's da for the feature dW (7.5 GB + 0.5 GB); hybrid: bf16
+  # activations and da_0..7 (4.0 GB).
+  assert (i8.acts_planes, i8.das_planes, i8.d16_planes) == (7, 7, 2)
+  assert (hy.acts_planes, hy.das_planes, hy.d16_planes) == (7, 8, 0)
+  assert i8.scratch_bytes == 4 * 14 * n * w
+  assert hy.scratch_bytes == 2 * 15 * n * w
+  assert hy.scratch_bytes < 0.55 * i8.scratch_bytes
+
+
+@pytest.mark.parametrize('call,match', [
+    (lambda: plans.s8_dw_plan(96, 512, 512, SMS), 'multiple of 64'),
+    (lambda: plans.s8_dw_plan(1024, 512, 96, SMS), 'whole slabs'),
+    (lambda: plans.s8_dw_plan(1024, 700, 256, SMS), 'whole groups'),
+    (lambda: plans.int8_bwd_plan(F360, 1024, 8, 1, 0, 256, 256, SMS,
+                                 False), 'samples'),
+    (lambda: plans.int8_bwd_plan(F360, 1024, 8, 1, 300, 256, 256, SMS,
+                                 False), 'samples'),
+])
+def test_k6_plans_reject_what_the_kernels_do_not_take(call, match):
+  with pytest.raises(ValueError, match=match):
+    call()
