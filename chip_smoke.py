@@ -436,6 +436,62 @@ def _compare_rel(name, run_kernel, run_plain, n_full, tol):
   return _summary(name, run_kernel, run_plain, n_full, worst)
 
 
+def log_int8_bwd_plans(num_feats, num_dims):
+  """K6's launch plans at the kernel phase's shapes, its tile pass's and s8
+  dW GEMM's shared memory held against the sources (int8_bwd_tile_smem,
+  int8_dw_gemm_smem), and its kernels' registers and spills."""
+  from multinerf_tpu_torch.ops.kernels import build
+  from multinerf_tpu_torch.ops.kernels import int8_trunk as i8t
+  from multinerf_tpu_torch.ops.kernels import plans
+  sms = torch.cuda.get_device_properties(0).multi_processor_count
+  n_pad, group = i8t.jax_groups(K2_SAMPLES)
+  k6 = plans.int8_bwd_plan(num_feats, 1024, 8, len(NERF_SKIP), K2_SAMPLES,
+                           n_pad, group, num_dims, sms, False)
+  lib = build.load('int8_trunk_bwd')
+  tile_smem, s8_smem = lib.int8_bwd_tile_smem, lib.int8_dw_gemm_smem
+  tile_smem.argtypes = [ctypes.c_int] * 5
+  s8_smem.argtypes = [ctypes.c_int]
+  tile_smem.restype = s8_smem.restype = ctypes.c_int
+  smem = (tile_smem(1024, num_feats, num_dims, k6.tile.bn, k6.tile.stages),
+          s8_smem(k6.s8.bn))
+  if smem != (k6.tile.smem, k6.s8.smem):
+    raise SystemExit(f'FAIL plans: K6 shared memory {smem} in the sources, '
+                     f'{(k6.tile.smem, k6.s8.smem)} in plans.py')
+  log(f'int8_trunk_bwd: tile pass {k6.tile.smem:,} bytes of dynamic shared '
+      f'memory per CTA, two {k6.tile.stages}-stage rings of {k6.tile.bn}-'
+      f'column slabs, {k6.tile.grid} persistent CTAs over {k6.tile.tiles} '
+      f'tiles of {plans.I8_TILE} samples; s8 dW GEMM {k6.s8.smem:,} bytes, '
+      f'grid {k6.s8.grid} over {k6.s8.groups} groups of {k6.s8.group}; '
+      f'feature dW grid {k6.features.grid}')
+  for func, r in build.kernel_resources(
+      build.BUILD_INFO['int8_trunk_bwd']['log']).items():
+    log(f'  int8_trunk_bwd {func}: {r["registers"]} registers, spills '
+        f'{r["spill_stores"]} B stored / {r["spill_loads"]} B loaded')
+
+
+def _device_ms_by_kernel(fn, calls=3):
+  """{kernel name: device ms per call} of the CUDA kernels that fn()
+  launches, from torch.profiler over `calls` calls after one warm-up."""
+  import collections
+  import re
+  fn()
+  torch.cuda.synchronize()
+  with torch.profiler.profile(
+      activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    for _ in range(calls):
+      fn()
+    torch.cuda.synchronize()
+  by_name = collections.Counter()
+  for e in prof.events():
+    if e.device_type == torch.autograd.DeviceType.CUDA:
+      name = re.sub(r'\(.*', '', e.name).replace('void ', '')
+      name = name.replace('mnt::', '')
+      if name.startswith('at::'):
+        name = 'PyTorch ops of the wrapper'
+      by_name[name] += (e.time_range.end - e.time_range.start) / 1e3 / calls
+  return dict(by_name.most_common())
+
+
 def phase_int8_kernels():
   """K5 and K6 (both modes) against their plain versions at the NerfMLP's
   training shapes."""
@@ -443,6 +499,7 @@ def phase_int8_kernels():
   from multinerf_tpu_torch.ops.kernels import int8_trunk as i8t
   basis = np.array(geopoly.generate_basis('icosahedron', 2)).T  # [3, 21]
   num_feats = 2 * 12 * basis.shape[-1]
+  log_int8_bwd_plans(num_feats, basis.shape[-1])
   rng = np.random.RandomState(6)
   means, covs = _gaussians(K2_SAMPLES, seed=7)
   ws, bs = _nerf_trunk(rng, num_feats)
@@ -468,6 +525,11 @@ def phase_int8_kernels():
     results[tag] = _compare_rel(tag, k6(i8t.int8_trunk_backward),
                                 k6(i8t.int8_trunk_bwd_plain), K2_SAMPLES,
                                 I8_TOL)
+    pieces = _device_ms_by_kernel(lambda: k6(i8t.int8_trunk_backward)(
+        K2_SAMPLES))
+    log(f'{tag} N={K2_SAMPLES}: device ms per call by kernel (torch.profiler,'
+        ' 3 calls): ' + '; '.join(f'{name} {ms:.3f}'
+                                  for name, ms in pieces.items()))
   hybrid = results.pop('int8_trunk_bwd_hybrid')
   results['int8_trunk_bwd'].update(
       {f'{k}_hybrid': v for k, v in hybrid.items()})

@@ -6,8 +6,9 @@
 // Replaces the TPU kernel multinerf_tpu/ops/pallas/int8_trunk.py
 // (_bwd_kernel with _qrows and _qcols, reached through pallas_call in _grad)
 // and follows its numerics:
-//   * the forward is recomputed (int8_trunk.cuh) and da = g * (act > 0) at
-//     each layer, from the f32 activations;
+//   * the forward is recomputed (per-sample int8 activation scales, as in
+//     K5, int8_trunk.cuh) and da = g * (act > 0) at each layer, from the
+//     f32 activations;
 //   * db_l = sum da_l; dW_0 and the skip layers' feature rows are
 //     bf16(features)^T @ bf16(da_l);
 //   * bwd_bf16 = 0 ('int8'): the hidden dW_l is an int8 product with x_in
@@ -26,225 +27,584 @@
 // TOPS) and the bf16 dW of layer 0 and the skip tail 271 GFLOP (0.27 ms):
 // about 3.5 ms.  In hybrid mode dW and dx run in bf16 (2 x 1,924 GFLOP,
 // 3.9 ms): about 5.4 ms.  Design, in two passes, as K3:
-//   1. one block of 16 warps per 32 samples recomputes the features and
-//      the trunk, writing each hidden layer's activation to device memory,
-//      then walks back through the layers with da in shared memory,
-//      writing every da_l and the tile's column sums of da_l.  'int8'
-//      keeps the activations and da_1.. in f32 (the group quantizer needs
-//      them) and writes bf16 copies of da_0 and of each skip layer's da
-//      for the feature dW; 'int8_hybrid' writes activations and every da_l
-//      in bf16 only, rounded once where the dW products round them.  In
-//      int8 mode it also folds the tile's per-channel absmax of every
-//      activation and da_l into its group's scale slot with atomicMax on
-//      the f32 bit pattern (non-negative floats order as their bits, and a
-//      maximum does not depend on the order, so this stays deterministic);
+//   1. the tile pass (below): persistent CTAs walk 64-sample tiles on
+//      wgmma, fed by TMA weight rings, recompute the features and the
+//      trunk, writing each hidden layer's activation to device memory,
+//      then walk back through the layers, writing every da_l and the
+//      tile's column sums of da_l.  'int8' keeps the activations and da_1..
+//      in f32 (the group quantizer needs them) and writes bf16 copies of
+//      da_0 and of each skip layer's da for the feature dW; 'int8_hybrid'
+//      writes activations and every da_l in bf16 only, rounded once where
+//      the dW products round them.  In int8 mode it also folds the tile's
+//      per-channel absmax of every activation and da_l into its group's
+//      scale slot with atomicMax on the f32 bit pattern (non-negative
+//      floats order as their bits, and a maximum does not depend on the
+//      order, so this stays deterministic);
 //   2. the dW products, split over samples and summed in order
-//      (reduce_splits), on Hopper's asynchronous pipeline: the bf16 ones
-//      (dW_0 and each skip tail from the features, computed once per call
-//      by K4's featurize_cast.cuh; the hybrid hidden dW from the bf16
-//      scratch) on wgmma_dw.cuh's TMA + wgmma GEMM; the int8 hidden dW
-//      from group_quantize_kernel's int8 operands (x_in and da_l quantized
-//      with their groups' scales, channel-major per group, samples
-//      contiguous: the K-major layout 8-bit wgmma needs, having no
-//      transpose) on int8_dw_gemm_kernel, a TMA ring of [64 channels][64
-//      samples] boxes (64-byte swizzle) into wgmma m64nBNk32 s8 products,
-//      whose int32 sum over a group is folded into f32 registers with the
-//      group's scales, group by group.
+//      (reduce_splits): the bf16 ones (dW_0 and each skip tail from the
+//      features, computed once per call by K4's featurize_cast.cuh; the
+//      hybrid hidden dW from the bf16 scratch) on wgmma_dw.cuh's TMA +
+//      wgmma GEMM; the int8 hidden dW from group_quantize_kernel's int8
+//      operands (x_in and da_l quantized with their groups' scales,
+//      channel-major per group, samples contiguous: the K-major layout
+//      8-bit wgmma needs, having no transpose) on int8_dw_gemm_kernel.
 // The TPU kept every dW (34 MB) resident in VMEM and accumulated over an
 // ordered grid; here every sum has a fixed order, so two launches agree bit
 // for bit.  The scratch (acts and da) is 8 KB per sample per layer pair in
-// f32 ('int8', 8.1 GB at N = 131,072) and half that in bf16 (hybrid).
+// f32 ('int8', 7.5 GB at N = 131,072) and half that in bf16 (hybrid).
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "featurize_cast.cuh"
 #include "int8_trunk.cuh"
+#include "tile_pass.cuh"
 
 namespace mnt {
 
-// Column c of the 32 f32 rows: max |x| folded into slot[c] (atomicMax on
-// the bit pattern), or the sum in row order stored to slot[c].
-__device__ void column_max(const float* y, int ldy, int width,
-                           unsigned* slot) {
-  for (int c = threadIdx.x; c < width; c += kI8Threads) {
-    float m = 0.0f;
-    for (int r = 0; r < kI8Rows; ++r) m = fmaxf(m, fabsf(y[r * ldy + c]));
-    atomicMax(slot + c, __float_as_uint(m));
+// ------------------------------------------------------------ tile pass ---
+//
+// One persistent CTA per SM walks the 64-sample tiles blockIdx.x,
+// blockIdx.x + gridDim.x, ...  Both consumer warpgroups multiply the whole
+// tile (wgmma's 64 rows); they split each layer's output columns, warpgroup
+// w taking the BN-column blocks cb = w, w + 2, ...  Each warpgroup has its
+// own ring of [BN][64-byte] weight slabs (K-major, 64-byte swizzle), fed by
+// its own producer warp in the order it multiplies them (two lanes of one
+// warp spinning on two rings' barriers would take turns; the producers
+// make up a third warpgroup, so that setmaxnreg can hand their registers to
+// the consumers): per
+// tile, layer 0's W_0 (bf16), each hidden layer's w_q (int8) and, at a
+// skip layer, its feature rows (bf16), then the dx weights of layers
+// depth-1 .. 1 (int8 wq2, or bf16 w_q * sw in hybrid mode).  The operands
+// of the tile stay in shared memory as K-major 128-byte-swizzled tiles: the
+// bf16 features F [64][kpad64], computed once per tile, and the int8 input
+// A [64][W] of the layer being multiplied (hybrid dx: a bf16 [64][W] that
+// spans A and F, the features being dead by then).
+//
+// A per-sample scale needs the sample's whole output row, [64][W] f32 =
+// 256 KB at W = 1,024, more than shared memory holds.  So a layer runs in
+// two passes: pass 1 multiplies column block by column block, and its
+// epilogue stores each block to the layer's scratch plane in device memory
+// (the activations or da that the dW products read anyway) and folds the
+// rows' running absmax; pass 2, once both warpgroups are done with A,
+// reads the tile's rows back (from L2, just written) and quantizes them
+// per sample into A in place.  In hybrid mode the activations are stored
+// in bf16, so pass 2 reads the f32 rows from a per-CTA staging block.
+constexpr int kI8Tile = 64;  // Samples per tile: wgmma's M.
+constexpr int kI8Consumers = 256;
+// Two consumer warpgroups, then a producer warpgroup whose first two warps
+// feed one warpgroup's ring each.  setmaxnreg moves registers from the
+// producers (40 each) to the consumers (232 each: 64 accumulators, the
+// converted block and the epilogue's addresses).
+constexpr int kI8TileThreads = kI8Consumers + 128;
+constexpr int kI8ProducerRegs = 40, kI8ConsumerRegs = 232;
+constexpr int kI8Bar = 1;        // Named barrier of both consumer warpgroups.
+constexpr int kI8WgBar = 2;      // + wg: a warpgroup's own barrier.
+
+// Byte b of row `row` of a K-major [64][bytes] tile of 128-byte-swizzled
+// [64][128-byte] blocks (int8 A; for bf16, byte 2 * col: swizzled_offset).
+__device__ __forceinline__ int swizzled_byte(int row, int b) {
+  return (b >> 7) * kBoxBytes + row * 128 +
+         ((((b & 127) >> 4) ^ (row & 7)) << 4) + (b & 15);
+}
+
+// Shared memory of the tile pass (byte offsets from a 1,024-aligned base).
+struct I8TileLayout {
+  int f, region, ring, slab, colred, rowmax, scale, bars, total;
+};
+
+__host__ __device__ inline I8TileLayout i8_tile_layout(int width, int kpad64,
+                                                       int num_dims, int bn,
+                                                       int stages) {
+  I8TileLayout l;
+  // A [64][W] int8 at 0, in whole [64][128-byte] blocks (also the
+  // featurizer's scratch while F is computed), F [64][kpad64] bf16 after
+  // it; hybrid dx: [64][W] bf16 at 0.
+  const int scratch = featurizer_smem_floats(num_dims, kI8Tile) * 4;
+  const int a_bytes = kI8Tile * round_up(width, 128);
+  l.f = round_up(a_bytes > scratch ? a_bytes : scratch, 1024);
+  const int fwd = l.f + kI8Tile * kpad64 * 2;
+  const int hyb = kI8Tile * width * 2;
+  l.region = round_up(fwd > hyb ? fwd : hyb, 1024);
+  l.slab = bn * 64;
+  l.ring = l.region;  // Ring w at ring + w * stages * slab.
+  l.colred = l.ring + 2 * stages * l.slab;  // [2 wg][2][4 warps][BN] f32.
+  l.rowmax = l.colred + 2 * 2 * 4 * bn * 4;  // [2 wg][64] f32.
+  l.scale = l.rowmax + 2 * kI8Tile * 4;      // [64] f32.
+  l.bars = l.scale + kI8Tile * 4;            // Full, empty of both rings.
+  l.total = l.bars + 2 * 2 * stages * 8 + 1024;
+  return l;
+}
+
+struct I8TileArgs {
+  const float* means;
+  const float* covs;
+  const float* basis_t;
+  const float* bb_t;
+  const float* sw;      // [depth-1][W]: w_q's per-output-channel scales.
+  const float* swdx;    // [depth-1][W]: sw2 ('int8').
+  const float* biases;  // [depth][W].
+  const __nv_bfloat16* g;
+  void* acts;  // [depth-1] planes: f32 ('int8') or bf16 (hybrid).
+  void* das;   // 'int8': f32 da_1.. at plane l - 1; hybrid: bf16, plane l.
+  __nv_bfloat16* d16;  // 'int8': bf16 da_0 and the skip layers' da.
+  float* stage;        // Hybrid: [gridDim.x][64][W] f32 rows for pass 2.
+  unsigned* x_max;     // [depth-1][groups][W], 'int8'.
+  unsigned* d_max;     // [depth][groups][W], 'int8'.
+  float* vec_part;     // [tiles][depth * W]: the tiles' column sums of da.
+  int n, n_pad, group, width, depth, kpad32, kpad64, num_dims, num_degs;
+  int use_contract, hybrid, stages, tiles;
+  unsigned skip_mask;
+};
+
+// acc (+)= A @ B over k_slabs slabs of ring r: A a K-major tile at `a`
+// (each slab 64 bytes of its k: 32 bf16 or 64 int8 values), B the ring's
+// next slabs, [BN][64 bytes] K-major (64-byte swizzle).  T = float: bf16
+// products (wgmma k16), T = int: s8 products (wgmma k32).  Each warp
+// releases a slab once its products have read it.
+template <int BN, typename T>
+__device__ __forceinline__ void slab_product(T (&acc)[BN / 2],
+                                             const unsigned char* a,
+                                             int k_slabs, const SlabRing& r,
+                                             RingPos& it, int lane,
+                                             bool accumulate) {
+  constexpr int kSteps = 2;  // wgmma k steps of 32 bytes per slab.
+  // Zeroed here rather than by scale_d = 0: ptxas serializes wgmma when it
+  // cannot tell which products read their accumulators.
+  if (!accumulate) {
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = T(0);
+  }
+  int prev = 0;
+  for (int kb = 0; kb < k_slabs; ++kb) {
+    const int s = it.stage;
+    mbar_wait(&r.full[s], it.phase);
+    const unsigned char* b = r.base + s * r.slab_bytes;
+    const unsigned char* a_kb = a + (kb >> 1) * kBoxBytes + (kb & 1) * 64;
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < kSteps; ++k) {
+      const uint64_t da = smem_desc(a_kb + k * 32, 16, 1024);
+      const uint64_t db = smem_desc(b + k * 32, 16, 512, kSwizzle64);
+      if constexpr (std::is_same_v<T, int>)
+        wgmma_s8<BN>(acc, da, db, 1);
+      else
+        wgmma<BN, 0, 0>(acc, da, db, 1);
+    }
+    wgmma_commit();
+    fence_acc(acc);
+    wgmma_wait<1>();
+    fence_acc(acc);
+    if (kb > 0 && lane == 0) mbar_arrive(&r.empty[prev]);
+    prev = s;
+    it.advance(r.stages);
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+  if (lane == 0) mbar_arrive(&r.empty[prev]);
+}
+
+// Producer: k_slabs slabs of rows row .. row + BN - 1 of `map`, `cols`
+// elements (64 bytes) each, from column 0.
+__device__ __forceinline__ void produce_slabs(const SlabRing& r, RingPos& it,
+                                              const CUtensorMap* map, int row,
+                                              int k_slabs, int cols) {
+  for (int kb = 0; kb < k_slabs; ++kb) {
+    uint64_t* bar;
+    unsigned char* dst = ring_acquire(r, it, bar);
+    tma_load(dst, map, bar, kb * cols, row);
   }
 }
 
-__device__ void column_sum(const float* y, int ldy, int width, float* slot) {
-  for (int c = threadIdx.x; c < width; c += kI8Threads) {
-    float s = 0.0f;
-    for (int r = 0; r < kI8Rows; ++r) s += y[r * ldy + c];
-    slot[c] = s;
+// Per column of the thread's accumulator block, the warpgroup's 64 rows
+// reduced (kMax: max |v|, else the sum in a fixed order: the thread's two
+// rows, a shuffle tree over the warp's 8 row groups, then the four warps in
+// order), handed to out(col, value) by threads wtid < BN.
+template <int BN, bool kMax, typename Out>
+__device__ __forceinline__ void column_reduce(const float (&v)[BN / 2],
+                                              float* red, int wtid, int bar,
+                                              Out out) {
+  const int lane = wtid % 32, warp = wtid / 32;
+#pragma unroll
+  for (int q = 0; q < BN / 8; ++q)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float lo = v[4 * q + e], hi = v[4 * q + 2 + e];
+      float x = kMax ? fmaxf(fabsf(lo), fabsf(hi)) : lo + hi;
+#pragma unroll
+      for (int off = 4; off < 32; off *= 2) {
+        const float y = __shfl_xor_sync(0xffffffffu, x, off);
+        x = kMax ? fmaxf(x, y) : x + y;
+      }
+      if (lane < 4) red[warp * BN + q * 8 + 2 * lane + e] = x;
+    }
+  named_sync(bar, 128);
+  if (wtid < BN) {
+    float x = red[wtid];
+    for (int w = 1; w < 4; ++w)
+      x = kMax ? fmaxf(x, red[w * BN + wtid]) : x + red[w * BN + wtid];
+    out(wtid, x);
   }
+  named_sync(bar, 128);
 }
 
-// 32 f32 rows of shared memory to device memory, 4 values per store: f32,
-// or rounded to bf16.
-__device__ void store_rows(const float* y, int ldy, int width, float* dst) {
-  const int words = width / 4;
-  for (int i = threadIdx.x; i < kI8Rows * words; i += kI8Threads) {
-    const int r = i / words, c = (i - r * words) * 4;
-    *reinterpret_cast<float4*>(dst + (size_t)r * width + c) =
-        *reinterpret_cast<const float4*>(y + r * ldy + c);
-  }
+// Stores the thread's accumulator block, v[4q + 2h + e] at row r_lo + 8h,
+// column col0 + 8q + c_lo + e, of the [64][W] rows at dst (f32 or bf16).
+template <int BN>
+__device__ __forceinline__ void store_block(const float (&v)[BN / 2],
+                                            float* dst, int width, AccPos p,
+                                            int col0) {
+#pragma unroll
+  for (int q = 0; q < BN / 8; ++q)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(dst + (size_t)(p.r_lo + 8 * h) * width +
+                                 col0 + 8 * q + p.c_lo) =
+          make_float2(v[4 * q + 2 * h], v[4 * q + 2 * h + 1]);
 }
 
-__device__ void store_rows(const float* y, int ldy, int width,
-                           __nv_bfloat16* dst) {
-  const int words = width / 4;
-  for (int i = threadIdx.x; i < kI8Rows * words; i += kI8Threads) {
-    const int r = i / words, c = (i - r * words) * 4;
-    const float4 v = *reinterpret_cast<const float4*>(y + r * ldy + c);
-    __nv_bfloat162 h[2] = {__floats2bfloat162_rn(v.x, v.y),
-                           __floats2bfloat162_rn(v.z, v.w)};
-    *reinterpret_cast<uint2*>(dst + (size_t)r * width + c) =
-        *reinterpret_cast<const uint2*>(h);
-  }
+template <int BN>
+__device__ __forceinline__ void store_block(const float (&v)[BN / 2],
+                                            __nv_bfloat16* dst, int width,
+                                            AccPos p, int col0) {
+#pragma unroll
+  for (int q = 0; q < BN / 8; ++q)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<__nv_bfloat162*>(
+          dst + (size_t)(p.r_lo + 8 * h) * width + col0 + 8 * q + p.c_lo) =
+          __floats2bfloat162_rn(v[4 * q + 2 * h], v[4 * q + 2 * h + 1]);
 }
 
-// The scratch planes ([n_pad][W] each) that the tile pass writes: the
-// activations of layers 0 .. depth-2 and da_l, f32 ('int8': da_1 .. at
-// plane l - 1) or bf16 (hybrid: da_l at plane l); in int8 mode also d16,
-// the bf16 da of layer 0 and of each skip layer, the B operands of the
-// feature dW, at plane feature_slot(l).
+// The scratch planes ([n_pad][W] each) in 'int8' mode: d16 holds the bf16
+// da of layer 0 at plane 0 and of each skip layer at plane 1 + its index
+// among the skip layers (the B operands of the feature dW).
 __host__ __device__ inline int feature_slot(unsigned skip_mask, int l) {
   int slot = 0;
   for (int k = 1; k <= l; ++k) slot += (skip_mask >> k) & 1u;
-  return slot;  // 0 for layer 0, 1 + the skips below l for a skip layer.
+  return slot;
 }
 
-__global__ void __launch_bounds__(kI8Threads, 1)
-int8_trunk_bwd_tile_kernel(const float* __restrict__ means,
-                           const float* __restrict__ covs,
-                           const float* __restrict__ basis_t,
-                           const float* __restrict__ bb_t, I8Trunk tr,
-                           const void* __restrict__ wdx,
-                           const float* __restrict__ swdx,
-                           const __nv_bfloat16* __restrict__ g, void* acts,
-                           void* das, __nv_bfloat16* __restrict__ d16,
-                           unsigned* __restrict__ x_max,
-                           unsigned* __restrict__ d_max,
-                           float* __restrict__ vec_part, int n, int n_pad,
-                           int group, int num_dims, int num_degs,
-                           int use_contract, int bwd_bf16) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int width = tr.width;
-  const int depth = tr.depth;
-  const I8Layout lay = i8_layout(width, tr.kpad, num_dims);
-  float* y = reinterpret_cast<float*>(smem);
-  __nv_bfloat16* feats = reinterpret_cast<__nv_bfloat16*>(smem + lay.y_bytes);
-  int8_t* xq = reinterpret_cast<int8_t*>(smem + lay.y_bytes + lay.feat_bytes);
-  __nv_bfloat16* da16 = feats;  // The hybrid backward's bf16 copy of da.
-  float* sx = reinterpret_cast<float*>(smem + lay.y_bytes + lay.region_bytes);
-  float* scratch = sx + kI8Rows;
-  const long long row0 = (long long)blockIdx.x * kI8Rows;
-  const int groups = n_pad / group;
-  const int gi = (int)(row0 / group);
-  const int ldy = lay.ldy;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  float* vec = vec_part + (size_t)blockIdx.x * depth * width;
-  // Row row0 of scratch plane p.
-  const auto at = [&](auto* base, int p) {
-    return base + ((size_t)p * n_pad + row0) * width;
-  };
-  float* acts_f = static_cast<float*>(acts);
-  __nv_bfloat16* acts_h = static_cast<__nv_bfloat16*>(acts);
+// What a consumer thread of the tile pass needs for its epilogues.
+struct I8TileCtx {
+  AccPos pos;
+  int wtid, wg_bar;
+  float* red;    // The warpgroup's column-reduction buffers.
+  size_t rows;   // Offset of the tile's rows in a scratch plane.
+  size_t plane;  // n_pad * W.
+  int gi, groups;
+  float* vec;    // The tile's column sums of da, [depth][W].
+};
 
-  i8_tile_features(means, covs, basis_t, bb_t, row0, n, num_dims, num_degs,
-                   use_contract != 0, tr.kpad, scratch, feats, lay.ldf);
-  tile_trunk_forward(tr, feats, lay.ldf, y, ldy, xq, lay.ldq, sx, [&](int l) {
-    if (l + 1 == depth) return;
-    if (bwd_bf16) {
-      store_rows(y, ldy, width, at(acts_h, l));
-    } else {
-      store_rows(y, ldy, width, at(acts_f, l));
-      column_max(y, ldy, width, x_max + ((size_t)l * groups + gi) * width);
+// da_m's epilogue (m: its layer), v its [64][BN] block at column col0:
+// stores (f32 da_m, m >= 1, and bf16 copies for the feature dW, 'int8'; bf16
+// da_m, hybrid), the group absmax ('int8'), the column sums (db) and the
+// rows' running absmax.
+template <int BN>
+__device__ __forceinline__ void da_epilogue(const I8TileArgs& p,
+                                            const I8TileCtx& c, int m,
+                                            const float (&v)[BN / 2],
+                                            int col0, float (&rmax)[2]) {
+  if (p.hybrid) {
+    store_block<BN>(v, static_cast<__nv_bfloat16*>(p.das) + m * c.plane +
+                           c.rows,
+                    p.width, c.pos, col0);
+  } else {
+    if (m > 0) {
+      store_block<BN>(v, static_cast<float*>(p.das) + (m - 1) * c.plane +
+                             c.rows,
+                      p.width, c.pos, col0);
+      unsigned* slot =
+          p.d_max + ((size_t)m * c.groups + c.gi) * p.width + col0;
+      column_reduce<BN, true>(v, c.red + 4 * BN, c.wtid, c.wg_bar,
+                              [=](int col, float x) {
+                                atomicMax(slot + col, __float_as_uint(x));
+                              });
     }
-  });
+    if (m == 0 || ((p.skip_mask >> m) & 1u))
+      store_block<BN>(
+          v, p.d16 + feature_slot(p.skip_mask, m) * c.plane + c.rows,
+          p.width, c.pos, col0);
+  }
+  float* sums = c.vec + (size_t)m * p.width + col0;
+  column_reduce<BN, false>(v, c.red, c.wtid, c.wg_bar,
+                           [=](int col, float x) { sums[col] = x; });
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i)
+    rmax[(i / 2) % 2] = fmaxf(rmax[(i / 2) % 2], fabsf(v[i]));
+}
 
-  // da of the last layer: g through its ReLU mask; samples past n get 0.
-  for (int i = tid; i < kI8Rows * width; i += kI8Threads) {
-    const int r = i / width, c = i - r * width;
-    const float gv =
-        row0 + r < n ? __bfloat162float(g[(row0 + r) * width + c]) : 0.0f;
-    y[r * ldy + c] = y[r * ldy + c] > 0.0f ? gv : 0.0f;
+template <int BN>
+__global__ void __launch_bounds__(kI8TileThreads, 1)
+int8_bwd_tile_kernel(const __grid_constant__ CUtensorMap w0_map,
+                     const __grid_constant__ CUtensorMap wq_map,
+                     const __grid_constant__ CUtensorMap tail_map,
+                     const __grid_constant__ CUtensorMap wdx_map,
+                     const __grid_constant__ I8TileArgs p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  const int width = p.width, depth = p.depth, stages = p.stages;
+  const I8TileLayout lay =
+      i8_tile_layout(width, p.kpad64, p.num_dims, BN, stages);
+  unsigned char* a_tile = smem;
+  unsigned char* f_tile = smem + lay.f;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + lay.bars);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int blocks = width / BN;  // Column blocks of a layer.
+  const size_t plane = (size_t)p.n_pad * width;
+  const int kq = width / 64;       // Slabs of an int8 product over W.
+  const int kb16 = p.kpad32 / 32;  // Slabs of a bf16 product over F.
+  const int kdx = p.hybrid ? width / 32 : width / 64;
+  auto ring = [&](int w) {
+    return SlabRing{smem + lay.ring + w * stages * lay.slab,
+                    bars + 2 * w * stages, bars + 2 * w * stages + stages,
+                    lay.slab, stages};
+  };
+  if (tid < 2) {
+    const SlabRing r = ring(tid);
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&r.full[s], 1);
+      mbar_init(&r.empty[s], 4);  // The four warps of one warpgroup.
+    }
+    mbar_fence_init();
   }
   __syncthreads();
 
-  for (int l = depth - 1; l >= 0; --l) {
-    if (l + 1 < depth) {
-      // The mask of layer l's ReLU from its stored activation.  In hybrid
-      // mode that is bf16, which keeps the sign of every f32 activation
-      // above 1e-40 (a bf16 rounds to zero only below its least subnormal).
-      for (int i = tid; i < kI8Rows * width; i += kI8Threads) {
-        const int r = i / width, c = i - r * width;
-        const size_t k = (size_t)r * width + c;
-        const bool on = bwd_bf16 ? __bfloat162float(at(acts_h, l)[k]) > 0.0f
-                                 : at(acts_f, l)[k] > 0.0f;
-        if (!on) y[r * ldy + c] = 0.0f;
+  if (tid >= kI8Consumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kI8ProducerRegs));
+    // Producer warp w feeds warpgroup w's ring, in the order it multiplies.
+    const int w = warp - kI8Consumers / 32;
+    if (lane == 0 && w < 2 && w < blocks) {
+      const SlabRing r = ring(w);
+      RingPos it;
+      for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+        for (int cb = w; cb < blocks; cb += 2)
+          produce_slabs(r, it, &w0_map, cb * BN, kb16, 32);
+        for (int l = 1; l < depth; ++l)
+          for (int cb = w; cb < blocks; cb += 2) {
+            produce_slabs(r, it, &wq_map, (l - 1) * width + cb * BN, kq, 64);
+            if ((p.skip_mask >> l) & 1u)
+              produce_slabs(r, it, &tail_map,
+                            (feature_slot(p.skip_mask, l) - 1) * width +
+                                cb * BN,
+                            kb16, 32);
+          }
+        for (int l = depth - 1; l >= 1; --l)
+          for (int cb = w; cb < blocks; cb += 2)
+            produce_slabs(r, it, &wdx_map, (l - 1) * width + cb * BN, kdx,
+                          p.hybrid ? 32 : 64);
       }
-      __syncthreads();
     }
-    if (bwd_bf16) {
-      store_rows(y, ldy, width, at(static_cast<__nv_bfloat16*>(das), l));
-    } else {
-      if (l > 0) {
-        store_rows(y, ldy, width, at(static_cast<float*>(das), l - 1));
-        column_max(y, ldy, width, d_max + ((size_t)l * groups + gi) * width);
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kI8ConsumerRegs));
+  const int wg = warp / 4, wtid = tid % 128;
+  const AccPos pos(wtid);
+  const SlabRing r = ring(wg);
+  RingPos it;
+  float* red = reinterpret_cast<float*>(smem + lay.colred) + wg * 2 * 4 * BN;
+  float* rowmax = reinterpret_cast<float*>(smem + lay.rowmax);
+  float* scale = reinterpret_cast<float*>(smem + lay.scale);
+  float* acts_f = static_cast<float*>(p.acts);
+  __nv_bfloat16* acts_h = static_cast<__nv_bfloat16*>(p.acts);
+  float* das_f = static_cast<float*>(p.das);
+  __nv_bfloat16* das_h = static_cast<__nv_bfloat16*>(p.das);
+  float* stage = p.stage + (size_t)blockIdx.x * kI8Tile * width;
+  const int groups = p.n_pad / p.group;
+  const int wg_bar = kI8WgBar + wg;
+
+  for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+    const long long row0 = (long long)t * kI8Tile;
+    const int gi = (int)(row0 / p.group);
+    const size_t rows = (size_t)row0 * width;  // Offset of the tile's rows.
+    float* vec = p.vec_part + (size_t)t * depth * width;
+    float rmax[2];
+    const I8TileCtx cx{pos, wtid, wg_bar, red, rows, plane, gi, groups, vec};
+
+    // The tile's bf16 features into F (the featurizer's scratch in A),
+    // once the previous tile is done with A and F.
+    named_sync(kI8Bar, kI8Consumers);
+    featurize_rows<kI8Tile>(
+        p.means, p.covs, p.basis_t, p.bb_t, row0, p.n, p.num_dims,
+        p.num_degs, p.use_contract != 0, reinterpret_cast<float*>(a_tile),
+        tid, kI8Consumers, p.kpad64,
+        [=](int s, int f, __nv_bfloat16 v) {
+          *reinterpret_cast<__nv_bfloat16*>(f_tile + swizzled_offset(s, f)) =
+              v;
+        },
+        [] { named_sync(kI8Bar, kI8Consumers); });
+    fence_proxy_async();
+    named_sync(kI8Bar, kI8Consumers);
+
+    // Both warpgroups' row maxima into rowmax[wg][64]; then all threads.
+    auto publish_rowmax = [&] {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float x = rmax[h];
+        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+        if (lane % 4 == 0) rowmax[wg * kI8Tile + pos.r_lo + 8 * h] = x;
       }
-      if (l == 0 || ((tr.skip_mask >> l) & 1u))
-        store_rows(y, ldy, width, at(d16, feature_slot(tr.skip_mask, l)));
-    }
-    column_sum(y, ldy, width, vec + (size_t)l * width);
-    if (l == 0) break;
-    // dx: da of layer l-1's output, before its ReLU mask.
-    if (!bwd_bf16) {
-      const int8_t* wq2 =
-          static_cast<const int8_t*>(wdx) + (size_t)(l - 1) * width * width;
-      const float* sw2 = swdx + (size_t)(l - 1) * width;
-      quantize_rows(y, ldy, width, xq, lay.ldq, sx);
-      for (int col0 = warp * kI8Cols; col0 < width;
-           col0 += kI8Warps * kI8Cols) {
-        int acc[2][4][4];
-        warp_product(xq, lay.ldq, wq2, width, width, col0, acc);
-        #pragma unroll
-        for (int m = 0; m < 2; ++m)
-          #pragma unroll
-          for (int j = 0; j < 4; ++j)
-            #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int r = acc_row(m, e), c = col0 + acc_col(j, e);
-              y[r * ldy + c] = (float)acc[m][j][e] * (sw2[c] * sx[r]);
-            }
+      named_sync(kI8Bar, kI8Consumers);
+    };
+    // Pass 2: the tile's f32 rows at src quantized per sample into A
+    // (scale[r] kept for the next epilogue), visible to wgmma after.
+    auto quantize_into_a = [&](const float* src) {
+      const int words = width / 4;
+      for (int i = tid; i < kI8Tile * words; i += kI8Consumers) {
+        const int row = i / words, c = (i - row * words) * 4;
+        const float s =
+            fmaxf(fmaxf(rowmax[row], rowmax[kI8Tile + row]), kScaleFloor) /
+            127.0f;
+        if (c == 0) scale[row] = s;
+        const float4 x = *reinterpret_cast<const float4*>(
+            src + (size_t)row * width + c);
+        const unsigned b0 = (unsigned)(__float2int_rn(x.x / s) & 0xff);
+        const unsigned b1 = (unsigned)(__float2int_rn(x.y / s) & 0xff);
+        const unsigned b2 = (unsigned)(__float2int_rn(x.z / s) & 0xff);
+        const unsigned b3 = (unsigned)(__float2int_rn(x.w / s) & 0xff);
+        *reinterpret_cast<unsigned*>(a_tile + swizzled_byte(row, c)) =
+            b0 | (b1 << 8) | (b2 << 16) | (b3 << 24);
       }
-    } else {
-      const __nv_bfloat16* wdeq = static_cast<const __nv_bfloat16*>(wdx) +
-                                  (size_t)(l - 1) * width * width;
-      __syncthreads();
-      for (int i = tid; i < kI8Rows * width; i += kI8Threads) {
-        const int r = i / width, c = i - r * width;
-        da16[r * lay.ldh + c] = __float2bfloat16_rn(y[r * ldy + c]);
-      }
-      __syncthreads();
-      for (int col0 = warp * kI8Cols; col0 < width;
-           col0 += kI8Warps * kI8Cols) {
-        float acc[2][4][4];
-        warp_product(da16, 2 * lay.ldh, wdeq, 2 * width, 2 * width, col0,
-                     acc);
-        #pragma unroll
-        for (int m = 0; m < 2; ++m)
-          #pragma unroll
-          for (int j = 0; j < 4; ++j)
-            #pragma unroll
+      fence_proxy_async();
+      named_sync(kI8Bar, kI8Consumers);
+    };
+
+    // The forward, layer by layer.
+    for (int l = 0; l < depth; ++l) {
+      rmax[0] = rmax[1] = 0.0f;
+      const bool skip = l > 0 && ((p.skip_mask >> l) & 1u);
+      const float* bias = p.biases + (size_t)l * width;
+      for (int cb = wg; cb < blocks; cb += 2) {
+        const int col0 = cb * BN;
+        float y[BN / 2];
+        if (l == 0) {
+          slab_product<BN>(y, f_tile, kb16, r, it, lane, false);
+        } else {
+          int acc[BN / 2];
+          slab_product<BN>(acc, a_tile, kq, r, it, lane, false);
+          const float* swl = p.sw + (size_t)(l - 1) * width + col0;
+          const float sx[2] = {scale[pos.r_lo], scale[pos.r_lo + 8]};
+#pragma unroll
+          for (int q = 0; q < BN / 8; ++q)
+#pragma unroll
             for (int e = 0; e < 4; ++e)
-              y[acc_row(m, e) * ldy + col0 + acc_col(j, e)] = acc[m][j][e];
+              y[4 * q + e] = (float)acc[4 * q + e] *
+                             (__ldg(swl + 8 * q + pos.c_lo + e % 2) *
+                              sx[e / 2]);
+          // The skip layer's feature rows, accumulated onto y.
+          if (skip) slab_product<BN>(y, f_tile, kb16, r, it, lane, true);
+        }
+#pragma unroll
+        for (int q = 0; q < BN / 8; ++q)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            y[4 * q + e] = fmaxf(
+                y[4 * q + e] + __ldg(bias + col0 + 8 * q + pos.c_lo + e % 2),
+                0.0f);
+        if (l + 1 < depth) {
+          if (p.hybrid) {
+            store_block<BN>(y, acts_h + l * plane + rows, width, pos, col0);
+            store_block<BN>(y, stage, width, pos, col0);
+          } else {
+            store_block<BN>(y, acts_f + l * plane + rows, width, pos, col0);
+            unsigned* slot =
+                p.x_max + ((size_t)l * groups + gi) * width + col0;
+            column_reduce<BN, true>(y, red + 4 * BN, wtid, wg_bar,
+                                    [=](int c, float x) {
+                                      atomicMax(slot + c, __float_as_uint(x));
+                                    });
+          }
+#pragma unroll
+          for (int i = 0; i < BN / 2; ++i)
+            rmax[(i / 2) % 2] = fmaxf(rmax[(i / 2) % 2], y[i]);
+        } else {
+          // da of the last layer: g through its ReLU mask; 0 past n.
+#pragma unroll
+          for (int q = 0; q < BN / 8; ++q)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const long long row = row0 + pos.r_lo + 8 * h;
+              const int c = col0 + 8 * q + pos.c_lo;
+              float2 gv = make_float2(0.0f, 0.0f);
+              if (row < p.n)
+                gv = __bfloat1622float2(*reinterpret_cast<
+                                        const __nv_bfloat162*>(
+                    p.g + row * width + c));
+              const int i = 4 * q + 2 * h;
+              y[i] = y[i] > 0.0f ? gv.x : 0.0f;
+              y[i + 1] = y[i + 1] > 0.0f ? gv.y : 0.0f;
+            }
+          da_epilogue<BN>(p, cx, l, y, col0, rmax);
+        }
       }
+      publish_rowmax();
+      if (l + 1 < depth)
+        quantize_into_a(p.hybrid ? stage : acts_f + l * plane + rows);
     }
-    __syncthreads();
+
+    // The backward: da_l -> dx -> da_{l-1} through layer l-1's ReLU mask.
+    for (int l = depth - 1; l >= 1; --l) {
+      if (p.hybrid) {
+        // bf16(da_l), as stored, into A [64][W] bf16 (over F).
+        const __nv_bfloat16* src = das_h + l * plane + rows;
+        const int words = width / 8;
+        for (int i = tid; i < kI8Tile * words; i += kI8Consumers) {
+          const int row = i / words, c = (i - row * words) * 8;
+          *reinterpret_cast<uint4*>(a_tile + swizzled_offset(row, c)) =
+              *reinterpret_cast<const uint4*>(src + (size_t)row * width + c);
+        }
+        fence_proxy_async();
+        named_sync(kI8Bar, kI8Consumers);
+      } else {
+        quantize_into_a(das_f + (l - 1) * plane + rows);
+      }
+      rmax[0] = rmax[1] = 0.0f;
+      const int m = l - 1;
+      for (int cb = wg; cb < blocks; cb += 2) {
+        const int col0 = cb * BN;
+        float v[BN / 2];
+        if (p.hybrid) {
+          slab_product<BN>(v, a_tile, kdx, r, it, lane, false);
+        } else {
+          int acc[BN / 2];
+          slab_product<BN>(acc, a_tile, kdx, r, it, lane, false);
+          const float* sw2 = p.swdx + (size_t)m * width + col0;
+          const float sd[2] = {scale[pos.r_lo], scale[pos.r_lo + 8]};
+#pragma unroll
+          for (int q = 0; q < BN / 8; ++q)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              v[4 * q + e] = (float)acc[4 * q + e] *
+                             (__ldg(sw2 + 8 * q + pos.c_lo + e % 2) *
+                              sd[e / 2]);
+        }
+        // Layer m's ReLU mask, from its stored activation (hybrid: bf16,
+        // which keeps the sign of every f32 activation above 1e-40).
+#pragma unroll
+        for (int q = 0; q < BN / 8; ++q)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const size_t k = rows + (size_t)(pos.r_lo + 8 * h) * width +
+                             col0 + 8 * q + pos.c_lo;
+            float2 act;
+            if (p.hybrid)
+              act = __bfloat1622float2(
+                  *reinterpret_cast<const __nv_bfloat162*>(
+                      acts_h + m * plane + k));
+            else
+              act = *reinterpret_cast<const float2*>(acts_f + m * plane + k);
+            const int i = 4 * q + 2 * h;
+            if (!(act.x > 0.0f)) v[i] = 0.0f;
+            if (!(act.y > 0.0f)) v[i + 1] = 0.0f;
+          }
+        da_epilogue<BN>(p, cx, m, v, col0, rmax);
+      }
+      publish_rowmax();
+    }
   }
 }
 
@@ -287,24 +647,40 @@ group_quantize_kernel(const float* __restrict__ x,
 // The int8 hidden dW on wgmma.  int8_dw_gemm_kernel<BN>: a CTA owns a
 // 128 x BN block of dW_l (two consumer warpgroups of 64 rows) and the
 // groups [z * per, z * per + per) of split z.  The producer warp streams
-// each 64-sample slab of a group, qx's [128 rows][64] and qd's [BN][64]
-// int8 boxes of group_quantize_kernel's layout (K-major, 64-byte swizzle),
-// by TMA through an 8-stage ring; the consumers run two wgmma m64nBNk32
-// s8 products per slab into int32 accumulators, and at the end of each
-// group fold them into f32: acc_f += float(acc) * (sx_g[i] * sd_g[o]),
-// group after group, as the plain version sums its exact int32 group
-// products.  BN = 128 keeps both accumulator sets (64 + 64 registers) in
-// registers.  Each split stores its [W][W] partial; reduce_splits sums the
-// splits in order.
-constexpr int kS8Stages = 8;
-constexpr int kS8Box = 64 * 64;  // One [64][64] int8 box: 4 KB.
+// each 128-sample slab of a group, qx's [128 rows][128] and qd's [BN][128]
+// int8 boxes of group_quantize_kernel's layout (K-major, 128-byte swizzle),
+// by TMA through a 6-stage ring, and with a group's last slab the group's
+// absmaxes of those rows and columns (a bulk copy); the consumers run four
+// wgmma m64nBNk32 s8 products per slab into int32 accumulators, and at the
+// end of each group fold them into f32: acc_f += float(acc) * (sx_g[i] *
+// sd_g[o]), group after group, as the plain version sums its exact int32
+// group products.  BN = 128 keeps both accumulator sets (64 + 64
+// registers) in registers.  Each split stores its [W][W] partial;
+// reduce_splits sums the splits in order.
+constexpr int kS8Stages = 6;
+constexpr int kS8Slab = 128;          // Samples per stage: 128-byte rows.
+constexpr int kS8Box = 64 * kS8Slab;  // One [64][128] int8 box: 8 KB.
 
 __host__ __device__ constexpr int s8_stage_bytes(int bn) {
-  return kSlab * (kDwTileRows + bn);
+  return kS8Slab * (kDwTileRows + bn);
 }
 
+// The ring, each stage's group absmaxes ([128 + BN] u32), the barriers, the
+// alignment slack.
 __host__ __device__ constexpr int s8_dw_smem(int bn) {
-  return kS8Stages * s8_stage_bytes(bn) + 2 * kS8Stages * 8 + 1024;
+  return kS8Stages * (s8_stage_bytes(bn) + (kDwTileRows + bn) * 4) +
+         2 * kS8Stages * 8 + 1024;
+}
+
+// A bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from device memory to shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
 }
 
 template <int BN>
@@ -315,14 +691,16 @@ int8_dw_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
                     const unsigned* __restrict__ d_max, int width, int group,
                     int groups, int per, float* __restrict__ part) {
   constexpr int kStage = s8_stage_bytes(BN);
+  constexpr int kScales = kDwTileRows + BN;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kS8Stages * kStage);
+  unsigned* scales = reinterpret_cast<unsigned*>(smem + kS8Stages * kStage);
+  uint64_t* full = reinterpret_cast<uint64_t*>(scales + kS8Stages * kScales);
   uint64_t* empty = full + kS8Stages;
   const int m0 = blockIdx.x * kDwTileRows;
   const int n0 = blockIdx.y * BN;
   const int g0 = blockIdx.z * per;
-  const int slabs = group / kSlab;  // Slabs per group.
+  const int slabs = group / kS8Slab;  // Slabs per group.
   const int count = min(per, groups - g0) * slabs;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -340,26 +718,36 @@ int8_dw_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
     // box; the second warpgroup then multiplies stale shared memory into
     // rows that are never stored.
     const bool two = m0 + 64 < width;
+    const int x_rows = two ? kDwTileRows : 64;
     if (lane == 0) {
       for (int it = 0; it < count; ++it) {
         const int s = it % kS8Stages;
         mbar_wait(&empty[s], ((it / kS8Stages) & 1) ^ 1);
         unsigned char* a = smem + s * kStage;
         unsigned char* b = a + 2 * kS8Box;
-        const int row = (g0 + it / slabs) * width;
-        const int col = (it % slabs) * kSlab;
-        mbar_expect_tx(&full[s], kStage - (two ? 0 : kS8Box));
+        const int gi = g0 + it / slabs;
+        const int row = gi * width;
+        const int col = (it % slabs) * kS8Slab;
+        const bool last = it % slabs == slabs - 1;
+        mbar_expect_tx(&full[s], kStage - (two ? 0 : kS8Box) +
+                                     (last ? (x_rows + BN) * 4 : 0));
         tma_load(a, &x_map, &full[s], col, row + m0);
         if (two) tma_load(a + kS8Box, &x_map, &full[s], col, row + m0 + 64);
         for (int j = 0; j < BN / 64; ++j)
           tma_load(b + j * kS8Box, &d_map, &full[s], col, row + n0 + j * 64);
+        if (last) {
+          unsigned* sc = scales + s * kScales;
+          bulk_load(sc, x_max + (size_t)row + m0, x_rows * 4, &full[s]);
+          bulk_load(sc + kDwTileRows, d_max + (size_t)row + n0, BN * 4,
+                    &full[s]);
+        }
       }
     }
     return;
   }
 
   const int wg = warp / 4;
-  const int r0 = m0 + wg * 64 + (warp % 4) * 16 + lane / 4;
+  const int r0 = wg * 64 + (warp % 4) * 16 + lane / 4;  // Rows in the block.
   int acc[BN / 2];
   float accf[BN / 2];
 #pragma unroll
@@ -367,46 +755,45 @@ int8_dw_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
     acc[i] = 0;
     accf[i] = 0.0f;
   }
-  for (int it = 0; it < count; ++it) {
-    const int s = it % kS8Stages;
-    const int k_slab = it % slabs;  // The slab's place in its group.
-    mbar_wait(&full[s], (it / kS8Stages) & 1);
-    const unsigned char* a = smem + s * kStage + wg * kS8Box;
-    const unsigned char* b = smem + s * kStage + 2 * kS8Box;
-    fence_acc(acc);
-    wgmma_fence();
-#pragma unroll
-    for (int k = 0; k < kSlab / 32; ++k)
-      wgmma_s8<BN>(acc, smem_desc(a + k * 32, 16, 512, kSwizzle64),
-                   smem_desc(b + k * 32, 16, 512, kSwizzle64),
-                   (k_slab | k) != 0);
-    wgmma_commit();
-    fence_acc(acc);
-    // The products of the previous slab are done: release its stage.
-    wgmma_wait<1>();
-    fence_acc(acc);
-    if (it > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % kS8Stages]);
-    if (k_slab == slabs - 1) {
-      // The group's int32 sums are complete: fold them with its scales.
-      wgmma_wait<0>();
+  int it = 0;  // Slabs consumed.
+  for (int gi = 0; gi < count / slabs; ++gi) {
+    for (int k_slab = 0; k_slab < slabs; ++k_slab, ++it) {
+      const int s = it % kS8Stages;
+      mbar_wait(&full[s], (it / kS8Stages) & 1);
+      const unsigned char* a = smem + s * kStage + wg * kS8Box;
+      const unsigned char* b = smem + s * kStage + 2 * kS8Box;
       fence_acc(acc);
-      const size_t gw = (size_t)(g0 + it / slabs) * width;
-      float sx[2];
+      wgmma_fence();
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = r0 + 8 * h;
-        sx[h] = r < width ? group_scale(__ldg(x_max + gw + r)) : 0.0f;
-      }
+      for (int k = 0; k < kS8Slab / 32; ++k)
+        wgmma_s8<BN>(acc, smem_desc(a + k * 32, 16, 1024),
+                     smem_desc(b + k * 32, 16, 1024), (k_slab | k) != 0);
+      wgmma_commit();
+      fence_acc(acc);
+      // The products of the previous slab are done: release its stage.
+      wgmma_wait<1>();
+      fence_acc(acc);
+      if (it > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % kS8Stages]);
+    }
+    // The group's int32 sums are complete: fold them with its scales,
+    // which came with its last slab, whose stage is still held.
+    wgmma_wait<0>();
+    fence_acc(acc);
+    const unsigned* sc = scales + ((it - 1) % kS8Stages) * kScales;
+    float sx[2];
 #pragma unroll
-      for (int q = 0; q < BN / 8; ++q) {
-        const int col = n0 + q * 8 + 2 * (lane % 4);
-        const float sd[2] = {group_scale(__ldg(d_max + gw + col)),
-                             group_scale(__ldg(d_max + gw + col + 1))};
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      sx[h] = m0 + r < width ? group_scale(sc[r]) : 0.0f;
+    }
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          accf[4 * q + e] +=
-              (float)acc[4 * q + e] * (sx[e / 2] * sd[e % 2]);
-      }
+    for (int q = 0; q < BN / 8; ++q) {
+      const int col = q * 8 + 2 * (lane % 4);
+      const float sd[2] = {group_scale(sc[kDwTileRows + col]),
+                           group_scale(sc[kDwTileRows + col + 1])};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        accf[4 * q + e] += (float)acc[4 * q + e] * (sx[e / 2] * sd[e % 2]);
     }
   }
 
@@ -416,7 +803,7 @@ int8_dw_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
     const int col = n0 + q * 8 + 2 * (lane % 4);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int row = r0 + 8 * h;
+      const int row = m0 + r0 + 8 * h;
       if (row < width)
         *reinterpret_cast<float2*>(out + (size_t)row * width + col) =
             make_float2(accf[4 * q + 2 * h], accf[4 * q + 2 * h + 1]);
@@ -432,16 +819,17 @@ inline cudaError_t int8_dw(const int8_t* qx, const int8_t* qd,
                            int width, int group, int groups, int bn,
                            int splits, int per, float* part, float* dw,
                            cudaStream_t st) {
-  if (width % bn != 0 || group % kSlab != 0 || splits < 1 || per < 1 ||
+  if (width % bn != 0 || group % kS8Slab != 0 || splits < 1 || per < 1 ||
       (splits - 1) * per >= groups || splits * per < groups)
     return cudaErrorInvalidValue;
   CUtensorMap x_map, d_map;
   const long long rows = (long long)groups * width;
-  cudaError_t err = tile_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, qx,
-                             rows, group, 64, 64, CU_TENSOR_MAP_SWIZZLE_64B);
+  cudaError_t err =
+      tile_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, qx, rows, group, 64,
+               kS8Slab, CU_TENSOR_MAP_SWIZZLE_128B);
   if (err != cudaSuccess) return err;
   err = tile_map(&d_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, qd, rows, group,
-                 64, 64, CU_TENSOR_MAP_SWIZZLE_64B);
+                 64, kS8Slab, CU_TENSOR_MAP_SWIZZLE_128B);
   if (err != cudaSuccess) return err;
   const dim3 grid((width + kDwTileRows - 1) / kDwTileRows, width / bn,
                   splits);
@@ -470,66 +858,105 @@ inline cudaError_t int8_dw(const int8_t* qx, const int8_t* qd,
 
 struct Int8TrunkBwd;  // Names this kernel's bf16 dW GEMMs in a profile.
 
+template <int BN>
+cudaError_t launch_tile_pass(const CUtensorMap (&maps)[4],
+                             const I8TileArgs& args, int grid, int smem,
+                             cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(
+      int8_bwd_tile_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  int8_bwd_tile_kernel<BN><<<grid, kI8TileThreads, smem, st>>>(
+      maps[0], maps[1], maps[2], maps[3], args);
+  return cudaGetLastError();
+}
+
 }  // namespace mnt
 
-// Scratch (allocated by the caller, I8 planes of [n_pad][W]): acts
-// [depth-1] planes and das [depth-1] (int8, f32) or [depth] (hybrid, bf16)
-// planes; d16 (int8 only) [1 + skips] bf16 planes; x_max [depth-1][groups]
-// [W] and d_max [depth][groups][W] (zeroed; int8 only); vec_part
-// [n_pad/32][depth*W] f32; feats bf16 [n][kpad64] (kpad64: the features
-// rounded up to 64); part, the dW partials; qbuf, 2 * n_pad * W bytes for
-// the int8 mode's quantized operands.  Weights: tr's operands
-// (int8_trunk.cuh) plus wdx [depth-1][W][W] (int8 wq2 per input channel, or
-// bf16 w_q * sw in hybrid mode, both [in][out]) and swdx [depth-1][W]
-// (sw2).  Outputs: dw_out, every layer's dW back to back (dW_0 [F][W],
-// then [W (+ F)][W]); db_out [depth][W].  Plans (plans.int8_bwd_plan):
-// (f_bn, f_splits, f_per) the feature dW GEMMs over n samples,
-// (h_bn, h_splits, h_per) the hybrid hidden dW GEMMs, (s8_bn, s8_splits,
-// s8_per) the int8 hidden dW over groups.
+// Scratch (allocated by the caller, planes of [n_pad][W]): acts [depth-1]
+// planes and das [depth-1] (int8, f32) or [depth] (hybrid, bf16) planes;
+// d16 (int8 only) [1 + skips] bf16 planes; stage (hybrid only) [grid][64]
+// [W] f32; x_max [depth-1][groups][W] and d_max [depth][groups][W]
+// (zeroed; int8 only); vec_part [n_pad/64][depth*W] f32; feats bf16
+// [n][kpad64] (kpad64: the features rounded up to 64); part, the dW
+// partials; qbuf, 2 * n_pad * W bytes for the int8 mode's quantized
+// operands.  Weights (ops/kernels/int8_trunk.py: _operands): w0t [W][kpad]
+// bf16, wqt [depth-1][W][W] int8 ([out][in]), sw [depth-1][W], tailt
+// [skips][W][kpad] bf16, biases [depth][W], wdx [depth-1][W][W] (int8 wq2
+// per input channel, or bf16 w_q * sw in hybrid mode, both [in][out]) and
+// swdx [depth-1][W] (sw2); kpad the features rounded up to 32.  Outputs:
+// dw_out, every layer's dW back to back (dW_0 [F][W], then [W (+ F)][W]);
+// db_out [depth][W].  Plans (plans.int8_bwd_plan): the tile pass's (bn,
+// stages, grid), (f_bn, f_splits, f_per) the feature dW GEMMs over n
+// samples, (h_bn, h_splits, h_per) the hybrid hidden dW GEMMs, (s8_bn,
+// s8_splits, s8_per) the int8 hidden dW over groups.
 extern "C" int int8_trunk_backward(
     const void* means, const void* covs, const void* basis_t,
     const void* bb_t, const void* w0t, const void* wqt, const void* sw,
     const void* tailt, const void* biases, const void* wdx, const void* swdx,
-    const void* g, void* acts, void* das, void* d16, void* x_max,
-    void* d_max, void* vec_part, void* feats, void* part, void* qbuf,
-    void* dw_out, void* db_out, int n, int n_pad, int group, int width,
-    int depth, int num_dims, int num_degs, int use_contract, int skip_mask,
-    int bwd_bf16, int f_bn, int f_splits, int f_per, int h_bn, int h_splits,
-    int h_per, int s8_bn, int s8_splits, int s8_per, void* stream) {
+    const void* g, void* acts, void* das, void* d16, void* stage,
+    void* x_max, void* d_max, void* vec_part, void* feats, void* part,
+    void* qbuf, void* dw_out, void* db_out, int n, int n_pad, int group,
+    int width, int depth, int num_dims, int num_degs, int use_contract,
+    int skip_mask, int bwd_bf16, int bn, int stages, int grid, int f_bn,
+    int f_splits, int f_per, int h_bn, int h_splits, int h_per, int s8_bn,
+    int s8_splits, int s8_per, void* stream) {
   using namespace mnt;
-  if (width % 64 != 0 || depth < 1 || n_pad % kI8Rows != 0 ||
-      group % kQuantRows != 0 || n_pad % group != 0 || n < 1 || n > n_pad)
+  const int num_feats = 2 * num_degs * num_dims;
+  const int kpad32 = i8_kpad(num_feats);
+  const int kpad64 = round_up(num_feats, 64);
+  const int tiles = n_pad / kI8Tile;
+  const int skips = __builtin_popcount((unsigned)skip_mask);
+  if (width % bn != 0 || (bn != 64 && bn != 128) || depth < 1 ||
+      n_pad % kI8Tile != 0 || group % kQuantRows != 0 || n_pad % group != 0 ||
+      n < 1 || n > n_pad || stages < 1 || grid < 1 || grid > tiles)
     return (int)cudaErrorInvalidValue;
+  const int smem =
+      i8_tile_layout(width, kpad64, num_dims, bn, stages).total;
+  if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int kpad = i8_kpad(2 * num_degs * num_dims);
-  const size_t smem = i8_layout(width, kpad, num_dims).total;
-  cudaError_t err = cudaFuncSetAttribute(
-      int8_trunk_bwd_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+
+  // The weight maps of the tile pass: [BN][64-byte] K-major slabs.
+  CUtensorMap maps[4];
+  auto slab_map = [&](CUtensorMap* m, const void* base, bool bf16,
+                      long long rows, int cols) {
+    return tile_map(m,
+                    bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                         : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                    bf16 ? 2 : 1, base, rows, cols, bn, bf16 ? 32 : 64,
+                    CU_TENSOR_MAP_SWIZZLE_64B);
+  };
+  cudaError_t err = slab_map(&maps[0], w0t, true, width, kpad32);
   if (err != cudaSuccess) return (int)err;
-  const I8Trunk tr{static_cast<const __nv_bfloat16*>(w0t),
-                   static_cast<const int8_t*>(wqt),
-                   static_cast<const float*>(sw),
-                   static_cast<const __nv_bfloat16*>(tailt),
-                   static_cast<const float*>(biases), width, depth, kpad,
-                   (unsigned)skip_mask};
+  maps[1] = maps[2] = maps[3] = maps[0];  // Unused without hidden layers.
+  if (depth > 1) {
+    err = slab_map(&maps[1], wqt, false, (long long)(depth - 1) * width,
+                   width);
+    if (err == cudaSuccess)
+      err = slab_map(&maps[3], wdx, bwd_bf16 != 0,
+                     (long long)(depth - 1) * width, width);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (skips > 0) {
+    err = slab_map(&maps[2], tailt, true, (long long)skips * width, kpad32);
+    if (err != cudaSuccess) return (int)err;
+  }
   auto f32 = [](const void* p) { return static_cast<const float*>(p); };
   __nv_bfloat16* d16_h = static_cast<__nv_bfloat16*>(d16);
   unsigned* x_max_u = static_cast<unsigned*>(x_max);
   unsigned* d_max_u = static_cast<unsigned*>(d_max);
-  const int tiles = n_pad / kI8Rows;
-  const int groups = n_pad / group;
-  int8_trunk_bwd_tile_kernel<<<tiles, kI8Threads, smem, st>>>(
-      f32(means), f32(covs), f32(basis_t), f32(bb_t), tr, wdx, f32(swdx),
-      static_cast<const __nv_bfloat16*>(g), acts, das, d16_h, x_max_u,
-      d_max_u, static_cast<float*>(vec_part), n, n_pad, group, num_dims,
-      num_degs, use_contract, bwd_bf16);
-  err = cudaGetLastError();
+  const I8TileArgs args{
+      f32(means), f32(covs), f32(basis_t), f32(bb_t), f32(sw), f32(swdx),
+      f32(biases), static_cast<const __nv_bfloat16*>(g), acts, das, d16_h,
+      static_cast<float*>(stage), x_max_u, d_max_u,
+      static_cast<float*>(vec_part), n, n_pad, group, width, depth, kpad32,
+      kpad64, num_dims, num_degs, use_contract, bwd_bf16, stages, tiles,
+      (unsigned)skip_mask};
+  err = bn == 128 ? launch_tile_pass<128>(maps, args, grid, smem, st)
+                  : launch_tile_pass<64>(maps, args, grid, smem, st);
   if (err != cudaSuccess) return (int)err;
 
   // The bf16 features of the n samples, once, for dW_0 and the skip tails.
-  const int num_feats = 2 * num_degs * num_dims;
-  const int kpad64 = round_up(num_feats, 64);
   __nv_bfloat16* feats_h = static_cast<__nv_bfloat16*>(feats);
   err = featurize_cast(f32(means), f32(covs), f32(basis_t), f32(bb_t),
                        nullptr, n, width, num_dims, num_degs, use_contract,
@@ -539,6 +966,7 @@ extern "C" int int8_trunk_backward(
   float* dw = static_cast<float*>(dw_out);
   float* part_f = static_cast<float*>(part);
   const size_t plane = (size_t)n_pad * width;
+  const int groups = n_pad / group;
   // Layer l's bf16 da, the B operand of its feature dW (and, in hybrid
   // mode, of its hidden dW).
   auto da16 = [&](int l) {
@@ -551,6 +979,13 @@ extern "C" int int8_trunk_backward(
                                  num_feats, f_bn, f_splits, f_per, part_f,
                                  dw, st);
   };
+  // One hidden layer's f32 x_in or da quantized per channel over groups.
+  auto quantize = [&](const float* x, const unsigned* maxes, int8_t* q) {
+    const dim3 qgrid(width / kQuantCols, n_pad / kQuantRows);
+    group_quantize_kernel<<<qgrid, kQuantThreads, 0, st>>>(x, maxes, group,
+                                                           width, q);
+    return cudaGetLastError();
+  };
   err = feature_rows(0);
   if (err != cudaSuccess) return (int)err;
   dw += (size_t)num_feats * width;
@@ -560,21 +995,18 @@ extern "C" int int8_trunk_backward(
           static_cast<const __nv_bfloat16*>(acts) + (l - 1) * plane, da16(l),
           n, width, width, width, h_bn, h_splits, h_per, part_f, dw, st);
     } else {
-      const float* x_in = static_cast<const float*>(acts) + (l - 1) * plane;
-      const float* d = static_cast<const float*>(das) + (l - 1) * plane;
       const unsigned* xm = x_max_u + (size_t)(l - 1) * groups * width;
       const unsigned* dm = d_max_u + (size_t)l * groups * width;
       int8_t* qx = static_cast<int8_t*>(qbuf);
       int8_t* qd = qx + plane;
-      const dim3 qgrid(width / kQuantCols, n_pad / kQuantRows);
-      group_quantize_kernel<<<qgrid, kQuantThreads, 0, st>>>(x_in, xm, group,
-                                                             width, qx);
-      group_quantize_kernel<<<qgrid, kQuantThreads, 0, st>>>(d, dm, group,
-                                                             width, qd);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return (int)err;
-      err = int8_dw(qx, qd, xm, dm, width, group, groups, s8_bn, s8_splits,
-                    s8_per, part_f, dw, st);
+      err = quantize(static_cast<const float*>(acts) + (l - 1) * plane, xm,
+                     qx);
+      if (err == cudaSuccess)
+        err = quantize(static_cast<const float*>(das) + (l - 1) * plane, dm,
+                       qd);
+      if (err == cudaSuccess)
+        err = int8_dw(qx, qd, xm, dm, width, group, groups, s8_bn, s8_splits,
+                      s8_per, part_f, dw, st);
     }
     if (err != cudaSuccess) return (int)err;
     dw += (size_t)width * width;
@@ -590,5 +1022,13 @@ extern "C" int int8_trunk_backward(
                             static_cast<float*>(db_out), st);
 }
 
-// Dynamic shared memory of the s8 dW GEMM, for the launch plans' checks.
+// Dynamic shared memory of the tile pass and of the s8 dW GEMM, for the
+// launch plans' checks.
+extern "C" int int8_bwd_tile_smem(int width, int num_feats, int num_dims,
+                                  int bn, int stages) {
+  return mnt::i8_tile_layout(width, mnt::round_up(num_feats, 64), num_dims,
+                             bn, stages)
+      .total;
+}
+
 extern "C" int int8_dw_gemm_smem(int bn) { return mnt::s8_dw_smem(bn); }

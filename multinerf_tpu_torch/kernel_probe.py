@@ -1,16 +1,18 @@
-"""Where the time of the forward kernels K1 and K2 goes, on the GPU.
+"""Where the time of the forward kernels K1 and K2, and of the int8 trunk's
+backward K6, goes, on the GPU.
 
-Builds variants of ``csrc/density_mlp.cu`` (K1) and ``csrc/featurize_dense.cu``
-(K2) with parts of their tile pass taken out, each from a patched copy of
-``csrc/`` under ``build/``, and times every variant at the main path's shapes
-(K1: 262,144 samples through 360.gin's 504 -> 4 x 256 PropMLP; K2: 131,072
-samples, 504 -> 1,024) through the kernels' own wrappers, with CUDA events
-around 10 calls queued back to back, in rounds that take the variants in
-turn.  Each variant runs with the kernels' clusters of two CTAs and with one
-CTA per weight stream.  A variant's output is meaningless; only its time is
-read.
+Builds variants of ``csrc/density_mlp.cu`` (K1), ``csrc/featurize_dense.cu``
+(K2) and ``csrc/int8_trunk_bwd.cu`` (K6) with parts taken out, each from a
+patched copy of ``csrc/`` under ``build/``, and times every variant at the
+main path's shapes (K1: 262,144 samples through 360.gin's 504 -> 4 x 256
+PropMLP; K2: 131,072 samples, 504 -> 1,024; K6: 131,072 samples through the
+8 x 1,024 NerfMLP trunk, 'int8' and 'int8_hybrid') through the kernels' own
+wrappers, with CUDA events around 10 calls queued back to back (K6: 3), in
+rounds that take the variants in turn.  K1's and K2's variants run with the
+kernels' clusters of two CTAs and with one CTA per weight stream.  A
+variant's output is meaningless; only its time is read.
 
-    python -m multinerf_tpu_torch.kernel_probe
+    python -m multinerf_tpu_torch.kernel_probe [--kernels k1k2|k6|all]
 
 Prints the card's name and power limit, one line per variant and kernel, and
 one JSON object as the last line.
@@ -18,6 +20,7 @@ one JSON object as the last line.
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import shutil
@@ -32,6 +35,7 @@ from multinerf_tpu_torch.ops import geopoly
 from multinerf_tpu_torch.ops.kernels import build
 from multinerf_tpu_torch.ops.kernels import density_mlp as dm
 from multinerf_tpu_torch.ops.kernels import featurize_dense as fd
+from multinerf_tpu_torch.ops.kernels import int8_trunk as i8t
 from multinerf_tpu_torch.ops.kernels import plans
 
 _FEATURIZE = ('      featurize_tile(means, covs, basis_t, bb_t, row0, n, '
@@ -56,11 +60,13 @@ K2_N = 4096 * 32
 
 
 def _merge(*patches):
-  """{file: [(text, replacement), ...]} of several patch sets."""
+  """{file: [(text, replacement), ...]} of several patch sets (a set maps a
+  file to one rule or a list of rules)."""
   out = {}
   for patch in patches:
-    for name, rule in patch.items():
-      out.setdefault(name, []).append(rule)
+    for name, rules in patch.items():
+      out.setdefault(name, []).extend(
+          rules if isinstance(rules, list) else [rules])
   return out
 
 
@@ -80,6 +86,55 @@ for _cluster, _prefix in ((2, ''), (1, 'single_cta_')):
   VARIANTS[_prefix + 'full'] = (_merge(*_base), _cluster)
   for _name, _parts in _TAKEOUTS.items():
     VARIANTS[_prefix + _name] = (_merge(*_base, *_parts), _cluster)
+
+# K6 (int8_trunk_bwd.cu): its launch sequence with stages left out (the
+# tile pass, the featurize stage, the bf16 and int8 dW GEMMs, the group
+# quantizer), and its tile pass without parts (the scratch stores, the
+# column reductions, pass 2's per-sample quantization).
+_K6 = 'int8_trunk_bwd.cu'
+_K6_NO_TILE = {_K6: (
+    '  err = bn == 128 ? launch_tile_pass<128>(maps, args, grid, smem, st)\n'
+    '                  : launch_tile_pass<64>(maps, args, grid, smem, st);',
+    '  err = cudaSuccess;')}
+_K6_NO_FEATURIZE = {_K6: ('  err = featurize_cast(f32(means)',
+                          '  if (false) err = featurize_cast(f32(means)')}
+_K6_NO_FEATURE_DW = {_K6: ('    return dw_gemm<Int8TrunkBwd>(feats_h',
+                           '    if (l >= 0) return cudaSuccess;\n'
+                           '    return dw_gemm<Int8TrunkBwd>(feats_h')}
+_K6_NO_HIDDEN_BF16 = {_K6: ('      err = dw_gemm<Int8TrunkBwd>(\n',
+                            '      if (false) err = dw_gemm<Int8TrunkBwd>(\n')}
+_K6_NO_QUANTIZE = {_K6: ('    group_quantize_kernel<<<qgrid',
+                         '    if (false) group_quantize_kernel<<<qgrid')}
+_K6_NO_S8 = {_K6: ('        err = int8_dw(qx, qd,',
+                   '        err = cudaSuccess;\n'
+                   '        if (false) err = int8_dw(qx, qd,')}
+_K6_NO_STORES = {_K6: [
+    ('      *reinterpret_cast<float2*>(dst + (size_t)(p.r_lo + 8 * h)',
+     '      if (false) *reinterpret_cast<float2*>(dst + (size_t)(p.r_lo + 8 * h)'),
+    ('      *reinterpret_cast<__nv_bfloat162*>(\n',
+     '      if (false) *reinterpret_cast<__nv_bfloat162*>(\n')]}
+_K6_NO_REDUCTIONS = {_K6: ('  const int lane = wtid % 32, warp = wtid / 32;\n',
+                           '  if (wtid >= 0) return;\n'
+                           '  const int lane = wtid % 32, warp = wtid / 32;\n')}
+_K6_NO_PASS2 = {_K6: (
+    '      for (int i = tid; i < kI8Tile * words; i += kI8Consumers) {\n'
+    '        const int row = i / words, c = (i - row * words) * 4;',
+    '      for (int i = tid; i < 0; i += kI8Consumers) {\n'
+    '        const int row = i / words, c = (i - row * words) * 4;')}
+_K6_DW = (_K6_NO_FEATURIZE, _K6_NO_FEATURE_DW, _K6_NO_HIDDEN_BF16,
+          _K6_NO_QUANTIZE, _K6_NO_S8)
+K6_VARIANTS = {
+    'full': (),
+    'tile_pass_only': _K6_DW,
+    'dw_only': (_K6_NO_TILE,),
+    'group_quantize_only': (_K6_NO_TILE, _K6_NO_FEATURIZE, _K6_NO_FEATURE_DW,
+                            _K6_NO_HIDDEN_BF16, _K6_NO_S8),
+    'no_scratch_stores': (_K6_NO_STORES,),
+    'tile_no_reductions': _K6_DW + (_K6_NO_REDUCTIONS,),
+    'tile_no_pass2': _K6_DW + (_K6_NO_PASS2,),
+    'tile_products_only': _K6_DW + (_K6_NO_STORES, _K6_NO_REDUCTIONS,
+                                    _K6_NO_PASS2),
+}
 ROUNDS = 5  # Every variant timed once per round, the rounds in turn.
 
 
@@ -131,16 +186,39 @@ def _uniform(rng, fan_in, fan_out):
       np.float32), device='cuda')
 
 
-def main():
-  if not torch.cuda.is_available():
-    raise SystemExit('FAIL: the probe needs a CUDA GPU.')
-  smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                        '--format=csv,noheader'], capture_output=True,
-                       text=True, check=True).stdout.strip().splitlines()[0]
-  print(smi, flush=True)
-  basis = np.array(geopoly.generate_basis('icosahedron', 2)).T
-  num_feats = 2 * 12 * basis.shape[-1]
-  rng = np.random.RandomState(0)
+def _build(variants, names):
+  """{variant: {name: library}}: every variant's libraries of `names`, each
+  built from its patched copy of the sources, all nvcc runs at once."""
+  csrc, build_dir = build.CSRC_DIR, build.BUILD_DIR
+  dirs, started, libs = {}, {}, {}
+  try:
+    for variant, patches in variants.items():
+      root = os.path.join(os.path.dirname(build_dir), 'probe', variant)
+      dirs[variant] = (_patched_csrc(csrc, os.path.join(root, 'csrc'),
+                                     variant, patches),
+                       os.path.join(root, 'lib'))
+      build.CSRC_DIR, build.BUILD_DIR = dirs[variant]
+      build._LIBS.clear()
+      started[variant] = {name: build._start(name) for name in names}
+    for variant in variants:
+      build.CSRC_DIR, build.BUILD_DIR = dirs[variant]
+      build._LIBS.clear()
+      libs[variant] = {}
+      for name in names:
+        build.BUILD_INFO.pop(name, None)
+        libs[variant][name] = build._finish(name, started[variant][name])
+        print(f'{variant} {name}: '
+              f'{build.kernel_resources(build.BUILD_INFO[name]["log"])}',
+              flush=True)
+  finally:
+    build.CSRC_DIR, build.BUILD_DIR = csrc, build_dir
+    build._LIBS.clear()
+  return libs
+
+
+def _k1k2(basis, num_feats, rng):
+  """K1's and K2's variants: {variant: (patches, cluster size)}, and the
+  calls to time."""
   m1, c1 = _inputs(rng, K1_N)
   ws = [_uniform(rng, num_feats, 256)] + [_uniform(rng, 256, 256)
                                           for _ in range(3)]
@@ -156,43 +234,70 @@ def main():
       'featurize_dense': lambda: fd.featurize_dense_forward(
           m2, c2, w, b, basis, 0, 12, True),
   }
-  csrc, build_dir = build.CSRC_DIR, build.BUILD_DIR
+  return VARIANTS, run
+
+
+def _k6(basis, num_feats, rng):
+  """K6's variants (no clusters) and its calls in both bindings."""
+  means, covs = _inputs(rng, K2_N)
+  width, skip = 1024, (5,)
+  ws = [_uniform(rng, num_feats if l == 0 else
+                 width + (num_feats if l in skip else 0), width)
+        for l in range(8)]
+  bs = [torch.zeros(width, device='cuda') for _ in ws]
+  g = torch.as_tensor(np.abs(rng.randn(K2_N, width)).astype(np.float32),
+                      device='cuda').to(torch.bfloat16)
+  run = {
+      f'int8_trunk_bwd{tag}': (lambda hybrid=hybrid: i8t.int8_trunk_backward(
+          means, covs, ws, bs, g, basis, 0, 12, True, skip, hybrid))
+      for tag, hybrid in (('', False), ('_hybrid', True))}
+  return {v: (_merge(*parts), 1) for v, parts in K6_VARIANTS.items()}, run
+
+
+def main(argv=None):
+  parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+  parser.add_argument('--kernels', choices=('k1k2', 'k6', 'all'),
+                      default='all')
+  args = parser.parse_args(argv)
+  if not torch.cuda.is_available():
+    raise SystemExit('FAIL: the probe needs a CUDA GPU.')
+  smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                        '--format=csv,noheader'], capture_output=True,
+                       text=True, check=True).stdout.strip().splitlines()[0]
+  print(smi, flush=True)
+  basis = np.array(geopoly.generate_basis('icosahedron', 2)).T
+  num_feats = 2 * 12 * basis.shape[-1]
+  rng = np.random.RandomState(0)
+  groups = []  # (variants, calls, calls per timing).
+  if args.kernels in ('k1k2', 'all'):
+    groups.append(_k1k2(basis, num_feats, rng) + (10,))
+  if args.kernels in ('k6', 'all'):
+    groups.append(_k6(basis, num_feats, rng) + (3,))
   cluster = plans.FWD_CLUSTER
-  libs = {}
+  results = {}
   try:
-    for variant, (patches, _) in VARIANTS.items():
-      root = os.path.join(os.path.dirname(build_dir), 'probe', variant)
-      build.CSRC_DIR = _patched_csrc(csrc, os.path.join(root, 'csrc'),
-                                     variant, patches)
-      build.BUILD_DIR = os.path.join(root, 'lib')
-      build._LIBS.clear()
-      libs[variant] = build.load_all(tuple(run))
-      for name in run:
-        print(f'{variant} {name}: '
-              f'{build.kernel_resources(build.BUILD_INFO[name]["log"])}',
-              flush=True)
-    times = {v: {name: [] for name in run} for v in VARIANTS}
-    for _ in range(ROUNDS):
-      for variant, (_, cluster_size) in VARIANTS.items():
-        build._LIBS.clear()
-        build._LIBS.update(libs[variant])
-        fd._MAX_CLUSTERS.clear()
-        plans.FWD_CLUSTER = cluster_size
-        for name, fn in run.items():
-          times[variant][name].append(_time_ms(fn))
+    for variants, run, calls in groups:
+      libs = _build({v: patches for v, (patches, _) in variants.items()},
+                    tuple({name.replace('_hybrid', '') for name in run}))
+      times = {v: {name: [] for name in run} for v in variants}
+      for _ in range(ROUNDS):
+        for variant, (_, cluster_size) in variants.items():
+          build._LIBS.clear()
+          build._LIBS.update(libs[variant])
+          fd._MAX_CLUSTERS.clear()
+          plans.FWD_CLUSTER = cluster_size
+          for name, fn in run.items():
+            times[variant][name].append(_time_ms(fn, calls))
+      for variant, by_name in times.items():
+        for name, ts in by_name.items():
+          results.setdefault(variant, {})[name] = statistics.median(ts)
+          print(f'{variant} {name}: {statistics.median(ts):.3f} ms (median '
+                f'of {ROUNDS} rounds of {calls} calls back to back; range '
+                f'{min(ts):.3f}-{max(ts):.3f})', flush=True)
   finally:
-    build.CSRC_DIR, build.BUILD_DIR = csrc, build_dir
     build._LIBS.clear()
     fd._MAX_CLUSTERS.clear()
     plans.FWD_CLUSTER = cluster
-  results = {}
-  for variant, by_name in times.items():
-    results[variant] = {}
-    for name, ts in by_name.items():
-      results[variant][name] = statistics.median(ts)
-      print(f'{variant} {name}: {statistics.median(ts):.3f} ms (median of '
-            f'{ROUNDS} rounds of 10 calls back to back; range '
-            f'{min(ts):.3f}-{max(ts):.3f})', flush=True)
   print(json.dumps({'device': torch.cuda.get_device_name(0), 'smi': smi,
                     'ms': results}))
   return 0

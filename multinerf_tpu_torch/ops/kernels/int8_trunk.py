@@ -288,9 +288,9 @@ def _launch_bwd(means, covs, ws, bs, g, basis, min_deg, max_deg,
     swdx = _stack([t[3].reshape(-1) for t in q[1:]], torch.float32, device)
   n_pad, group = jax_groups(n)
   plan = plans.int8_bwd_plan(num_feats, width, depth, len(skip_layers), n,
-                             n_pad, group, fd.num_sms(device), bwd_bf16)
+                             n_pad, group, num_dims, fd.num_sms(device),
+                             bwd_bf16)
   groups = n_pad // group
-  tiles = n_pad // 32
   empty = lambda shape, dtype=torch.float32: torch.empty(
       shape, dtype=dtype, device=device)
   scratch = torch.bfloat16 if bwd_bf16 else torch.float32
@@ -298,12 +298,13 @@ def _launch_bwd(means, covs, ws, bs, g, basis, min_deg, max_deg,
   das = empty((plan.das_planes, n_pad, width), scratch)
   d16 = empty((plan.d16_planes, n_pad, width) if plan.d16_planes else (1,),
               torch.bfloat16)
+  stage = empty((max(plan.stage_floats, 1),))
   # Group absmaxes as f32 bit patterns (atomicMax), zero = +0.0.
   x_max, d_max = [
       torch.zeros((max(planes, 1), groups, width) if not bwd_bf16 else (1,),
                   dtype=torch.int32, device=device)
       for planes in (depth - 1, depth)]
-  vec_part = empty((tiles, depth * width))
+  vec_part = empty((plan.tile.tiles, depth * width))
   feats = empty((n, plan.kpad), torch.bfloat16)
   qbuf = empty((1,) if bwd_bf16 else (2, n_pad, width), torch.int8)
   gemms = [plan.features] + ([plan.hidden] if bwd_bf16 else [])
@@ -320,7 +321,7 @@ def _launch_bwd(means, covs, ws, bs, g, basis, min_deg, max_deg,
   s8 = (plan.s8.bn, plan.s8.splits, plan.s8.per) if plan.s8 else (0, 0, 0)
   lib = build.load('int8_trunk_bwd')
   fn = lib.int8_trunk_backward
-  fn.argtypes = [ctypes.c_void_p] * 23 + [ctypes.c_int] * 19 + [
+  fn.argtypes = [ctypes.c_void_p] * 24 + [ctypes.c_int] * 22 + [
       ctypes.c_void_p]
   fn.restype = ctypes.c_int
   bwd_counts['launches'] += 1
@@ -330,12 +331,13 @@ def _launch_bwd(means, covs, ws, bs, g, basis, min_deg, max_deg,
                  ops['tailt'].data_ptr(), ops['biases'].data_ptr(),
                  wdx.data_ptr(), swdx.data_ptr(), g.data_ptr(),
                  acts.data_ptr(), das.data_ptr(), d16.data_ptr(),
-                 x_max.data_ptr(), d_max.data_ptr(), vec_part.data_ptr(),
-                 feats.data_ptr(), part.data_ptr(), qbuf.data_ptr(),
+                 stage.data_ptr(), x_max.data_ptr(), d_max.data_ptr(),
+                 vec_part.data_ptr(), feats.data_ptr(), part.data_ptr(), qbuf.data_ptr(),
                  dw_out.data_ptr(), db_out.data_ptr(), n, n_pad, group,
                  width, depth, num_dims, num_degs, int(use_contract),
-                 skip_mask, int(bwd_bf16), plan.features.bn,
-                 plan.features.splits, plan.features.per, *hidden, *s8,
+                 skip_mask, int(bwd_bf16), plan.tile.bn, plan.tile.stages,
+                 plan.tile.grid, plan.features.bn, plan.features.splits,
+                 plan.features.per, *hidden, *s8,
                  _stream(device)),
               'int8_trunk_bwd')
   dws, off = [], 0

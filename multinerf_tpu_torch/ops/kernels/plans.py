@@ -286,19 +286,22 @@ def featurize_dense_fwd_plan(num_feats, width, num_dims, n, max_clusters):
                  out_bytes > 0)
 
 
-S8_STAGES = 8  # The s8 dW GEMM's ring: [128 + BN][64] int8 per stage.
+S8_STAGES = 6  # The s8 dW GEMM's ring: [128 + BN][128] int8 per stage.
+S8_SLAB = 128  # Samples per stage of the s8 GEMM (128-byte K-major rows).
 
 
 def s8_dw_smem(bn):
   """Dynamic shared memory of K6's s8 dW GEMM (int8_trunk_bwd.cu,
-  s8_dw_smem): the ring, its barriers, the alignment slack."""
-  return S8_STAGES * SLAB * (DW_TILE_ROWS + bn) + 2 * S8_STAGES * 8 + 1024
+  s8_dw_smem): the ring, each stage's group absmaxes, the barriers, the
+  alignment slack."""
+  return (S8_STAGES * (S8_SLAB + 4) * (DW_TILE_ROWS + bn) +
+          2 * S8_STAGES * 8 + 1024)
 
 
 @dataclasses.dataclass(frozen=True)
 class S8DwPlan:
   width: int  # W: dW is [W, W].
-  group: int  # Samples per group (a whole number of slabs).
+  group: int  # Samples per group (a whole number of 128-sample slabs).
   groups: int
   bn: int  # dW columns per CTA.
   splits: int  # Group ranges (grid z).
@@ -322,9 +325,9 @@ def s8_dw_plan(width, n_pad, group, sms):
   enough group ranges to fill one wave of the SMs."""
   if width < 64 or width % 64:
     raise ValueError(f'width {width}: the s8 GEMM takes a multiple of 64.')
-  if group < SLAB or group % SLAB:
+  if group < S8_SLAB or group % S8_SLAB:
     raise ValueError(f'group {group}: the s8 GEMM takes whole slabs of '
-                     f'{SLAB} samples.')
+                     f'{S8_SLAB} samples.')
   if n_pad < group or n_pad % group:
     raise ValueError(f'{n_pad} samples are not whole groups of {group}.')
   bn = 128 if width % 128 == 0 else 64
@@ -336,9 +339,62 @@ def s8_dw_plan(width, n_pad, group, sms):
                   s8_dw_smem(bn))
 
 
+I8_TILE = 64  # Samples per tile of K6's tile pass: wgmma's M.
+I8_STAGES = (6, 5, 4, 3, 2)  # Its rings' depths, deepest that fits first.
+
+
+def i8_tile_smem(width, kpad64, num_dims, bn, stages):
+  """Dynamic shared memory of K6's tile pass (int8_trunk_bwd.cu,
+  i8_tile_layout): the int8 input tile A [64][W] in whole [64][128-byte]
+  blocks (at least the featurizer's scratch), the bf16 features F [64][kpad64] (hybrid dx: a
+  bf16 [64][W] over both), two warpgroups' rings of [BN][64-byte] slabs,
+  their column-reduction buffers, the row maxima, the per-sample scales,
+  the barriers and the alignment slack."""
+  scratch = featurizer_floats(num_dims, I8_TILE) * 4
+  f = _ceil(max(I8_TILE * _ceil(width, 128) * 128, scratch), 1024) * 1024
+  region = _ceil(max(f + I8_TILE * kpad64 * 2, I8_TILE * width * 2),
+                 1024) * 1024
+  return (region + 2 * stages * bn * 64 + 2 * 2 * 4 * bn * 4 +
+          2 * I8_TILE * 4 + I8_TILE * 4 + 2 * 2 * stages * 8 + 1024)
+
+
+@dataclasses.dataclass(frozen=True)
+class I8TilePlan:
+  """K6's tile pass: persistent CTAs over 64-sample tiles, the two consumer
+  warpgroups taking the BN-column blocks of each layer in turn."""
+  bn: int  # Output columns per wgmma block.
+  stages: int  # Depth of each warpgroup's weight ring.
+  tiles: int
+  grid: int  # Persistent CTAs.
+  smem: int
+
+  def cta_tiles(self, cta):
+    """The tiles CTA `cta` walks, in order."""
+    return list(range(cta, self.tiles, self.grid))
+
+
+def i8_tile_plan(num_feats, width, num_dims, n_pad, sms):
+  """K6's tile pass over n_pad samples: BN = 128 where it divides W, the
+  deepest rings that fit, one CTA per SM."""
+  if width < 64 or width % 64:
+    raise ValueError(f'width {width}: the tile pass takes a multiple of 64.')
+  if n_pad < I8_TILE or n_pad % I8_TILE:
+    raise ValueError(f'{n_pad} samples are not whole tiles of {I8_TILE}.')
+  bn = 128 if width % 128 == 0 else 64
+  kpad64 = _ceil(num_feats, 64) * 64
+  for stages in I8_STAGES:
+    smem = i8_tile_smem(width, kpad64, num_dims, bn, stages)
+    if smem <= SMEM_LIMIT:
+      tiles = n_pad // I8_TILE
+      return I8TilePlan(bn, stages, tiles, min(tiles, sms), smem)
+  raise ValueError(f'{num_feats} features, width {width}: {smem} bytes of '
+                   f'shared memory, over {SMEM_LIMIT}.')
+
+
 @dataclasses.dataclass(frozen=True)
 class Int8BwdPlan:
-  """K6: its scratch and its dW products."""
+  """K6: its tile pass, its scratch and its dW products."""
+  tile: I8TilePlan
   n_pad: int  # Samples padded as the JAX kernel pads them.
   group: int  # The int8 dW's scale groups (the JAX kernel's tile).
   kpad: int  # Features rounded up to 64: the feature dW's rows.
@@ -347,13 +403,14 @@ class Int8BwdPlan:
   das_planes: int
   d16_planes: int  # int8 mode: bf16 da of layer 0 and the skip layers.
   scratch_bytes: int  # acts and das: 4-byte (int8) or 2-byte (hybrid).
+  stage_floats: int  # Hybrid: the tile pass's f32 rows, [grid][64][W].
   features: DwGemmPlan  # dW_0 and the skip tails: [kpad, W] over n.
   hidden: DwGemmPlan | None  # Hybrid: the hidden dW, [W, W] over n.
   s8: S8DwPlan | None  # int8: the hidden dW over the groups.
 
 
-def int8_bwd_plan(num_feats, width, depth, num_skips, n, n_pad, group, sms,
-                  hybrid):
+def int8_bwd_plan(num_feats, width, depth, num_skips, n, n_pad, group,
+                  num_dims, sms, hybrid):
   """K6's plan: n samples padded to n_pad (JAX's padding), hidden dW scale
   groups of `group` samples, the 'int8' or 'int8_hybrid' backward."""
   if num_feats < 1 or depth < 1:
@@ -365,9 +422,11 @@ def int8_bwd_plan(num_feats, width, depth, num_skips, n, n_pad, group, sms,
   s8 = None if hybrid else s8_dw_plan(width, n_pad, group, sms)
   das = depth if hybrid else hidden
   elem = 2 if hybrid else 4
+  tile = i8_tile_plan(num_feats, width, num_dims, n_pad, sms)
   return Int8BwdPlan(
-      n_pad, group, kpad, hybrid, hidden, das,
+      tile, n_pad, group, kpad, hybrid, hidden, das,
       0 if hybrid else 1 + num_skips,
       elem * (hidden + das) * n_pad * width,
+      tile.grid * I8_TILE * width if hybrid else 0,
       dw_gemm_plan(kpad, width, n, sms),
       dw_gemm_plan(width, width, n, sms) if hybrid else None, s8)

@@ -307,7 +307,7 @@ def _k6_plan(n, width=1024, depth=8, skips=1, hybrid=False, sms=SMS):
   from multinerf_tpu_torch.ops.kernels import int8_trunk as i8t
   n_pad, group = i8t.jax_groups(n)
   return plans.int8_bwd_plan(F360, width, depth, skips, n, n_pad, group,
-                             sms, hybrid)
+                             21, sms, hybrid)
 
 
 @pytest.mark.parametrize('n', [1, 63, 300, 1100, N_NERF - 37, N_NERF])
@@ -316,7 +316,7 @@ def test_s8_dw_groups_cover_every_padded_sample_once(n, width):
   plan = _k6_plan(n, width)
   s8 = plan.s8
   # A slab divides a group, a group divides the padded samples.
-  assert s8.group % plans.SLAB == 0 and plan.n_pad % s8.group == 0
+  assert s8.group % plans.S8_SLAB == 0 and plan.n_pad % s8.group == 0
   assert s8.group in (128, 256, 512) and plan.n_pad >= n
   assert s8.groups * s8.group == plan.n_pad
   ranges = s8.group_ranges()
@@ -330,14 +330,16 @@ def test_s8_dw_groups_cover_every_padded_sample_once(n, width):
 
 def test_s8_dw_plan_at_the_360_shapes():
   s8 = _k6_plan(N_NERF).s8
-  # 256 groups of 512 samples (16 k32 steps each), 128 x 128 blocks of dW,
-  # two group ranges: 128 CTAs, one wave.
+  # 256 groups of 512 samples (4 slabs, 16 k32 steps each), 128 x 128
+  # blocks of dW, two group ranges: 128 CTAs, one wave.
   assert (s8.group, s8.groups, s8.bn, s8.splits, s8.per) == (
       512, 256, 128, 2, 128)
   assert s8.grid == (8, 8, 2)
-  # An 8-stage ring of [128 + 128][64] int8 slabs, barriers, alignment.
-  assert s8.smem == 8 * 64 * 256 + 128 + 1024 <= plans.SMEM_LIMIT
-  assert plans.s8_dw_smem(64) == 8 * 64 * 192 + 128 + 1024
+  # A 6-stage ring of [128 + 128][128] int8 slabs, each stage with its
+  # group's 128 + 128 absmaxes, barriers, alignment.
+  assert s8.smem == 6 * 256 * 128 + 6 * 256 * 4 + 96 + 1024
+  assert s8.smem <= plans.SMEM_LIMIT
+  assert plans.s8_dw_smem(64) == 6 * 192 * 128 + 6 * 192 * 4 + 96 + 1024
 
 
 @pytest.mark.parametrize('width,bn', [(64, 64), (192, 64), (256, 128),
@@ -386,13 +388,52 @@ def test_k6_scratch_is_bf16_under_hybrid():
 
 @pytest.mark.parametrize('call,match', [
     (lambda: plans.s8_dw_plan(96, 512, 512, SMS), 'multiple of 64'),
-    (lambda: plans.s8_dw_plan(1024, 512, 96, SMS), 'whole slabs'),
+    (lambda: plans.s8_dw_plan(1024, 512, 64, SMS), 'whole slabs'),
     (lambda: plans.s8_dw_plan(1024, 700, 256, SMS), 'whole groups'),
-    (lambda: plans.int8_bwd_plan(F360, 1024, 8, 1, 0, 256, 256, SMS,
+    (lambda: plans.int8_bwd_plan(F360, 1024, 8, 1, 0, 256, 256, 21, SMS,
                                  False), 'samples'),
-    (lambda: plans.int8_bwd_plan(F360, 1024, 8, 1, 300, 256, 256, SMS,
+    (lambda: plans.int8_bwd_plan(F360, 1024, 8, 1, 300, 256, 256, 21, SMS,
                                  False), 'samples'),
+    (lambda: plans.i8_tile_plan(F360, 96, 21, 512, SMS), 'multiple of 64'),
+    (lambda: plans.i8_tile_plan(F360, 1024, 21, 300, SMS), 'whole tiles'),
+    (lambda: plans.i8_tile_plan(6000, 1024, 21, 512, SMS),
+     'shared memory'),
 ])
 def test_k6_plans_reject_what_the_kernels_do_not_take(call, match):
   with pytest.raises(ValueError, match=match):
     call()
+
+
+# K6's tile pass: 64-sample tiles (wgmma's M), both warpgroups on every
+# tile, splitting each layer's columns into BN-wide blocks.
+@pytest.mark.parametrize('n', [1, 63, 300, 1100, N_NERF - 37, N_NERF])
+@pytest.mark.parametrize('width', [64, 192, 1024])
+def test_k6_tile_pass_covers_every_padded_tile_once(n, width):
+  tile = _k6_plan(n, width).tile
+  assert tile.tiles * plans.I8_TILE == _k6_plan(n, width).n_pad
+  assert tile.grid == min(tile.tiles, SMS)
+  walked = [t for cta in range(tile.grid) for t in tile.cta_tiles(cta)]
+  assert sorted(walked) == list(range(tile.tiles))
+  # A tile never straddles two scale groups: they are whole tiles.
+  assert _k6_plan(n, width).group % plans.I8_TILE == 0
+  assert width % tile.bn == 0 and tile.bn in (64, 128)
+  assert tile.smem <= plans.SMEM_LIMIT
+
+
+def test_k6_tile_pass_shared_memory_at_the_360_shapes():
+  tile = _k6_plan(N_NERF).tile
+  # A [64][1024] int8 and F [64][512] bf16 (64 KB each; the hybrid dx's
+  # bf16 [64][1024] spans both), two 5-stage rings of [128][64] slabs, the
+  # column-reduction buffers, row maxima, scales, barriers, alignment.
+  assert (tile.bn, tile.stages, tile.tiles, tile.grid) == (128, 5, 2048, 132)
+  assert tile.smem == (2 * 65536 + 2 * 5 * 8192 + 8192 + 512 + 256 +
+                       2 * 2 * 5 * 8 + 1024)
+  assert tile.smem <= plans.SMEM_LIMIT < plans.i8_tile_smem(
+      1024, 512, 21, 128, 6)
+
+
+@pytest.mark.parametrize('num_feats,width,stages', [
+    (F360, 64, 6), (F360, 256, 6), (672, 1024, 4), (F360, 1024, 5)])
+def test_k6_tile_rings_shrink_to_fit(num_feats, width, stages):
+  tile = plans.i8_tile_plan(num_feats, width, 21, 4096, SMS)
+  assert tile.stages == stages and tile.smem <= plans.SMEM_LIMIT
