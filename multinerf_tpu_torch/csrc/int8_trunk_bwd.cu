@@ -100,7 +100,18 @@ constexpr int kI8Consumers = 256;
 constexpr int kI8TileThreads = kI8Consumers + 128;
 constexpr int kI8ProducerRegs = 40, kI8ConsumerRegs = 232;
 constexpr int kI8Bar = 1;        // Named barrier of both consumer warpgroups.
+constexpr int kBatch = 8;        // Pass 2's loads in flight per thread.
 constexpr int kI8WgBar = 2;      // + wg: a warpgroup's own barrier.
+
+// rint(x / s) as an int8 bit pattern: the quantizer of int8_trunk.cuh,
+// with the IEEE quotient formed from r = RN(1 / s) by one product and one
+// FMA correction (Markstein's: the correctly rounded quotient for normal
+// operands), which costs a tenth of div.rn's checks here.
+__device__ __forceinline__ unsigned quantize_byte(float x, float s, float r) {
+  const float q = __fmul_rn(x, r);
+  return (unsigned)(__float2int_rn(__fmaf_rn(__fmaf_rn(-q, s, x), r, q)) &
+                    0xff);
+}
 
 // Byte b of row `row` of a K-major [64][bytes] tile of 128-byte-swizzled
 // [64][128-byte] blocks (int8 A; for bf16, byte 2 * col: swizzled_offset).
@@ -111,7 +122,7 @@ __device__ __forceinline__ int swizzled_byte(int row, int b) {
 
 // Shared memory of the tile pass (byte offsets from a 1,024-aligned base).
 struct I8TileLayout {
-  int f, region, ring, slab, colred, rowmax, scale, bars, total;
+  int f, region, ring, slab, colred, rowmax, scale, recip, bars, total;
 };
 
 __host__ __device__ inline I8TileLayout i8_tile_layout(int width, int kpad64,
@@ -132,7 +143,8 @@ __host__ __device__ inline I8TileLayout i8_tile_layout(int width, int kpad64,
   l.colred = l.ring + 2 * stages * l.slab;  // [2 wg][2][4 warps][BN] f32.
   l.rowmax = l.colred + 2 * 2 * 4 * bn * 4;  // [2 wg][64] f32.
   l.scale = l.rowmax + 2 * kI8Tile * 4;      // [64] f32.
-  l.bars = l.scale + kI8Tile * 4;            // Full, empty of both rings.
+  l.recip = l.scale + kI8Tile * 4;           // [64] f32: 1 / scale.
+  l.bars = l.recip + kI8Tile * 4;            // Full, empty of both rings.
   l.total = l.bars + 2 * 2 * stages * 8 + 1024;
   return l;
 }
@@ -408,6 +420,7 @@ int8_bwd_tile_kernel(const __grid_constant__ CUtensorMap w0_map,
   float* red = reinterpret_cast<float*>(smem + lay.colred) + wg * 2 * 4 * BN;
   float* rowmax = reinterpret_cast<float*>(smem + lay.rowmax);
   float* scale = reinterpret_cast<float*>(smem + lay.scale);
+  float* recip = reinterpret_cast<float*>(smem + lay.recip);
   float* acts_f = static_cast<float*>(p.acts);
   __nv_bfloat16* acts_h = static_cast<__nv_bfloat16*>(p.acts);
   float* das_f = static_cast<float*>(p.das);
@@ -453,21 +466,38 @@ int8_bwd_tile_kernel(const __grid_constant__ CUtensorMap w0_map,
     // Pass 2: the tile's f32 rows at src quantized per sample into A
     // (scale[r] kept for the next epilogue), visible to wgmma after.
     auto quantize_into_a = [&](const float* src) {
-      const int words = width / 4;
-      for (int i = tid; i < kI8Tile * words; i += kI8Consumers) {
-        const int row = i / words, c = (i - row * words) * 4;
+      if (tid < kI8Tile) {
         const float s =
-            fmaxf(fmaxf(rowmax[row], rowmax[kI8Tile + row]), kScaleFloor) /
+            fmaxf(fmaxf(rowmax[tid], rowmax[kI8Tile + tid]), kScaleFloor) /
             127.0f;
-        if (c == 0) scale[row] = s;
-        const float4 x = *reinterpret_cast<const float4*>(
-            src + (size_t)row * width + c);
-        const unsigned b0 = (unsigned)(__float2int_rn(x.x / s) & 0xff);
-        const unsigned b1 = (unsigned)(__float2int_rn(x.y / s) & 0xff);
-        const unsigned b2 = (unsigned)(__float2int_rn(x.z / s) & 0xff);
-        const unsigned b3 = (unsigned)(__float2int_rn(x.w / s) & 0xff);
-        *reinterpret_cast<unsigned*>(a_tile + swizzled_byte(row, c)) =
-            b0 | (b1 << 8) | (b2 << 16) | (b3 << 24);
+        scale[tid] = s;
+        recip[tid] = __frcp_rn(s);
+      }
+      named_sync(kI8Bar, kI8Consumers);
+      const int words = width / 4;  // float4 words of a row.
+      const int total = kI8Tile * words;
+      // kBatch loads in flight per thread before any is used.
+      for (int i0 = tid; i0 < total; i0 += kBatch * kI8Consumers) {
+        float4 x[kBatch];
+#pragma unroll
+        for (int j = 0; j < kBatch; ++j) {
+          const int i = i0 + j * kI8Consumers;
+          if (i < total)
+            x[j] = *reinterpret_cast<const float4*>(src + (size_t)i * 4);
+        }
+#pragma unroll
+        for (int j = 0; j < kBatch; ++j) {
+          const int i = i0 + j * kI8Consumers;
+          if (i >= total) break;
+          const int row = i / words, c = (i - row * words) * 4;
+          const float s = scale[row], r = recip[row];
+          const unsigned b0 = quantize_byte(x[j].x, s, r);
+          const unsigned b1 = quantize_byte(x[j].y, s, r);
+          const unsigned b2 = quantize_byte(x[j].z, s, r);
+          const unsigned b3 = quantize_byte(x[j].w, s, r);
+          *reinterpret_cast<unsigned*>(a_tile + swizzled_byte(row, c)) =
+              b0 | (b1 << 8) | (b2 << 16) | (b3 << 24);
+        }
       }
       fence_proxy_async();
       named_sync(kI8Bar, kI8Consumers);
@@ -551,11 +581,23 @@ int8_bwd_tile_kernel(const __grid_constant__ CUtensorMap w0_map,
       if (p.hybrid) {
         // bf16(da_l), as stored, into A [64][W] bf16 (over F).
         const __nv_bfloat16* src = das_h + l * plane + rows;
-        const int words = width / 8;
-        for (int i = tid; i < kI8Tile * words; i += kI8Consumers) {
-          const int row = i / words, c = (i - row * words) * 8;
-          *reinterpret_cast<uint4*>(a_tile + swizzled_offset(row, c)) =
-              *reinterpret_cast<const uint4*>(src + (size_t)row * width + c);
+        const int words = width / 8;  // uint4 words of a row.
+        const int total = kI8Tile * words;
+        for (int i0 = tid; i0 < total; i0 += kBatch * kI8Consumers) {
+          uint4 x[kBatch];
+#pragma unroll
+          for (int j = 0; j < kBatch; ++j) {
+            const int i = i0 + j * kI8Consumers;
+            if (i < total)
+              x[j] = *reinterpret_cast<const uint4*>(src + (size_t)i * 8);
+          }
+#pragma unroll
+          for (int j = 0; j < kBatch; ++j) {
+            const int i = i0 + j * kI8Consumers;
+            if (i >= total) break;
+            const int row = i / words, c = (i - row * words) * 8;
+            *reinterpret_cast<uint4*>(a_tile + swizzled_offset(row, c)) = x[j];
+          }
         }
         fence_proxy_async();
         named_sync(kI8Bar, kI8Consumers);
@@ -610,7 +652,7 @@ int8_bwd_tile_kernel(const __grid_constant__ CUtensorMap w0_map,
 
 constexpr int kQuantThreads = 256;
 constexpr int kQuantRows = 64;     // Samples per quantize block (| group).
-constexpr int kQuantCols = 32;     // Channels per quantize block.
+constexpr int kQuantCols = 64;     // Channels per quantize block.
 
 __device__ __forceinline__ float group_scale(unsigned max_bits) {
   return fmaxf(__uint_as_float(max_bits), kScaleFloor) / 127.0f;
@@ -619,6 +661,9 @@ __device__ __forceinline__ float group_scale(unsigned max_bits) {
 // q[g][c][s] = rint(x[g * group + s][c] / scale_g[c]): one hidden layer's f32
 // input or cotangent quantized per channel over each group of samples, in
 // a channel-major layout per group (the dW product's k axis contiguous).
+// A block transposes [64 samples][64 channels] through shared memory: each
+// thread reads 4 channels of 4 samples as float4 and writes 16 bytes of
+// one channel.
 __global__ void __launch_bounds__(kQuantThreads)
 group_quantize_kernel(const float* __restrict__ x,
                       const unsigned* __restrict__ maxes, int group,
@@ -628,20 +673,24 @@ group_quantize_kernel(const float* __restrict__ x,
   const int c0 = blockIdx.x * kQuantCols;
   const long long s0 = (long long)blockIdx.y * kQuantRows;
   const int gi = (int)(s0 / group);
-  for (int i = tid; i < kQuantRows * kQuantCols; i += kQuantThreads) {
-    const int s = i / kQuantCols, c = i - s * kQuantCols;
-    const float scale = group_scale(maxes[(size_t)gi * width + c0 + c]);
-    tile[c][s] = (int8_t)__float2int_rn(x[(s0 + s) * width + c0 + c] / scale);
+  const int c = (tid % 16) * 4;  // This thread's four channels.
+  float scale[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    scale[j] = group_scale(maxes[(size_t)gi * width + c0 + c + j]);
+  for (int s = tid / 16; s < kQuantRows; s += kQuantThreads / 16) {
+    const float4 v =
+        *reinterpret_cast<const float4*>(x + (s0 + s) * width + c0 + c);
+    tile[c][s] = (int8_t)__float2int_rn(v.x / scale[0]);
+    tile[c + 1][s] = (int8_t)__float2int_rn(v.y / scale[1]);
+    tile[c + 2][s] = (int8_t)__float2int_rn(v.z / scale[2]);
+    tile[c + 3][s] = (int8_t)__float2int_rn(v.w / scale[3]);
   }
   __syncthreads();
-  const int words = kQuantRows / 4;
-  int8_t* dst =
-      q + ((size_t)gi * width + c0) * group + (s0 - (long long)gi * group);
-  for (int i = tid; i < kQuantCols * words; i += kQuantThreads) {
-    const int c = i / words, w = i - c * words;
-    *reinterpret_cast<unsigned*>(dst + (size_t)c * group + 4 * w) =
-        ld_u32(&tile[c][4 * w]);
-  }
+  const int cc = tid / 4, w = tid % 4;  // A channel, a 16-byte word of it.
+  *reinterpret_cast<uint4*>(q + ((size_t)gi * width + c0 + cc) * group +
+                            (s0 - (long long)gi * group) + 16 * w) =
+      *reinterpret_cast<const uint4*>(&tile[cc][16 * w]);
 }
 
 // The int8 hidden dW on wgmma.  int8_dw_gemm_kernel<BN>: a CTA owns a

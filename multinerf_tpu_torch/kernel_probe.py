@@ -117,10 +117,17 @@ _K6_NO_REDUCTIONS = {_K6: ('  const int lane = wtid % 32, warp = wtid / 32;\n',
                            '  if (wtid >= 0) return;\n'
                            '  const int lane = wtid % 32, warp = wtid / 32;\n')}
 _K6_NO_PASS2 = {_K6: (
-    '      for (int i = tid; i < kI8Tile * words; i += kI8Consumers) {\n'
-    '        const int row = i / words, c = (i - row * words) * 4;',
-    '      for (int i = tid; i < 0; i += kI8Consumers) {\n'
-    '        const int row = i / words, c = (i - row * words) * 4;')}
+    '      for (int i0 = tid; i0 < total; i0 += kBatch * kI8Consumers) {\n'
+    '        float4 x[kBatch];',
+    '      for (int i0 = tid; i0 < 0; i0 += kBatch * kI8Consumers) {\n'
+    '        float4 x[kBatch];')}
+# Pass 2 quantizing with div.rn (x / s) instead of the reciprocal and one
+# FMA correction.
+_K6_PASS2_DIVIDE = {_K6: (
+    '  const float q = __fmul_rn(x, r);\n'
+    '  return (unsigned)(__float2int_rn(__fmaf_rn(__fmaf_rn(-q, s, x), r, q)) &\n'
+    '                    0xff);',
+    '  return (unsigned)(__float2int_rn(x / s) & 0xff);')}
 _K6_DW = (_K6_NO_FEATURIZE, _K6_NO_FEATURE_DW, _K6_NO_HIDDEN_BF16,
           _K6_NO_QUANTIZE, _K6_NO_S8)
 K6_VARIANTS = {
@@ -132,6 +139,7 @@ K6_VARIANTS = {
     'no_scratch_stores': (_K6_NO_STORES,),
     'tile_no_reductions': _K6_DW + (_K6_NO_REDUCTIONS,),
     'tile_no_pass2': _K6_DW + (_K6_NO_PASS2,),
+    'pass2_divide': (_K6_PASS2_DIVIDE,),
     'tile_products_only': _K6_DW + (_K6_NO_STORES, _K6_NO_REDUCTIONS,
                                     _K6_NO_PASS2),
 }

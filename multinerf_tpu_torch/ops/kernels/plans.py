@@ -348,14 +348,14 @@ def i8_tile_smem(width, kpad64, num_dims, bn, stages):
   i8_tile_layout): the int8 input tile A [64][W] in whole [64][128-byte]
   blocks (at least the featurizer's scratch), the bf16 features F [64][kpad64] (hybrid dx: a
   bf16 [64][W] over both), two warpgroups' rings of [BN][64-byte] slabs,
-  their column-reduction buffers, the row maxima, the per-sample scales,
-  the barriers and the alignment slack."""
+  their column-reduction buffers, the row maxima, the per-sample scales
+  and their reciprocals, the barriers and the alignment slack."""
   scratch = featurizer_floats(num_dims, I8_TILE) * 4
   f = _ceil(max(I8_TILE * _ceil(width, 128) * 128, scratch), 1024) * 1024
   region = _ceil(max(f + I8_TILE * kpad64 * 2, I8_TILE * width * 2),
                  1024) * 1024
   return (region + 2 * stages * bn * 64 + 2 * 2 * 4 * bn * 4 +
-          2 * I8_TILE * 4 + I8_TILE * 4 + 2 * 2 * stages * 8 + 1024)
+          2 * I8_TILE * 4 + 2 * I8_TILE * 4 + 2 * 2 * stages * 8 + 1024)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -424,9 +424,10 @@ def test_k6_tile_pass_shared_memory_at_the_360_shapes():
   tile = _k6_plan(N_NERF).tile
   # A [64][1024] int8 and F [64][512] bf16 (64 KB each; the hybrid dx's
   # bf16 [64][1024] spans both), two 5-stage rings of [128][64] slabs, the
-  # column-reduction buffers, row maxima, scales, barriers, alignment.
+  # column-reduction buffers, row maxima, scales and their reciprocals,
+  # barriers, alignment.
   assert (tile.bn, tile.stages, tile.tiles, tile.grid) == (128, 5, 2048, 132)
-  assert tile.smem == (2 * 65536 + 2 * 5 * 8192 + 8192 + 512 + 256 +
+  assert tile.smem == (2 * 65536 + 2 * 5 * 8192 + 8192 + 512 + 256 + 256 +
                        2 * 2 * 5 * 8 + 1024)
   assert tile.smem <= plans.SMEM_LIMIT < plans.i8_tile_smem(
       1024, 512, 21, 128, 6)
