@@ -1,6 +1,7 @@
-// Shared device code of the int8 trunk kernels (K5 int8_trunk.cu, K6
-// int8_trunk_bwd.cu): warp-level tensor-core products through mma.sync, the
-// per-sample int8 quantizer and the trunk forward of one 32-sample tile.
+// Device code of the fused int8 trunk forward (K5, int8_trunk.cu): warp-level
+// tensor-core products through mma.sync, the per-sample int8 quantizer and
+// the trunk forward of one 32-sample tile.  K6 (int8_trunk_bwd.cu) takes
+// the quantizer's scale floor and the features' k extent from here.
 //
 // The numerics follow multinerf_tpu/ops/pallas/int8_trunk.py:69-147:
 //   * layer 0: bf16 features @ bf16 W_0, f32 accumulation, + b_0, ReLU;
@@ -59,11 +60,10 @@ __host__ __device__ inline int i8_stride(int cols, int bytes) {
   return (round_up(cols * bytes, 128) + 64) / bytes;
 }
 
-// Shared memory of one tile, in bytes: the f32 rows, then a region that
-// holds the bf16 features and the int8 input (forward), or one bf16 tile
-// (K6's hybrid backward), then the scales and the featurizer.
+// Shared memory of one tile, in bytes: the f32 rows, then the bf16
+// features and the int8 input, then the scales and the featurizer.
 struct I8Layout {
-  int ldy, ldf, ldq, ldh;  // Row strides: f32, features, int8, bf16 rows.
+  int ldy, ldf, ldq;  // Row strides: f32, features, int8 rows.
   size_t y_bytes, feat_bytes, region_bytes, total;
 };
 
@@ -73,20 +73,13 @@ __host__ __device__ inline I8Layout i8_layout(int width, int kpad,
   s.ldy = width + 8;
   s.ldf = i8_stride(kpad, 2);
   s.ldq = i8_stride(width, 1);
-  s.ldh = i8_stride(width, 2);
   s.y_bytes = round_up(kI8Rows * s.ldy * 4, 128);
   s.feat_bytes = round_up(kI8Rows * s.ldf * 2, 128);
-  const size_t fwd = s.feat_bytes + round_up(kI8Rows * s.ldq, 128);
-  const size_t hyb = round_up(kI8Rows * s.ldh * 2, 128);
-  s.region_bytes = fwd > hyb ? fwd : hyb;
+  s.region_bytes = s.feat_bytes + round_up(kI8Rows * s.ldq, 128);
   s.total = s.y_bytes + s.region_bytes +
             (kI8Rows + featurizer_smem_floats(num_dims, kI8Rows)) *
                 sizeof(float);
   return s;
-}
-
-__device__ __forceinline__ unsigned ld_u32(const void* p) {
-  return *reinterpret_cast<const unsigned*>(p);
 }
 
 __device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4],

@@ -70,13 +70,13 @@ namespace mnt {
 // tile (wgmma's 64 rows); they split each layer's output columns, warpgroup
 // w taking the BN-column blocks cb = w, w + 2, ...  Each warpgroup has its
 // own ring of [BN][64-byte] weight slabs (K-major, 64-byte swizzle), fed by
-// its own producer warp in the order it multiplies them (two lanes of one
-// warp spinning on two rings' barriers would take turns; the producers
-// make up a third warpgroup, so that setmaxnreg can hand their registers to
-// the consumers): per
-// tile, layer 0's W_0 (bf16), each hidden layer's w_q (int8) and, at a
-// skip layer, its feature rows (bf16), then the dx weights of layers
-// depth-1 .. 1 (int8 wq2, or bf16 w_q * sw in hybrid mode).  The operands
+// its own producer warp in the order it multiplies them: per tile, layer
+// 0's W_0 (bf16), each hidden layer's w_q (int8) and, at a skip layer, its
+// feature rows (bf16), then the dx weights of layers depth-1 .. 1 (int8
+// wq2, or bf16 w_q * sw in hybrid mode).  (Two lanes of one warp spinning
+// on two rings' barriers would take turns; the producers make up a third
+// warpgroup, so that setmaxnreg can hand their registers to the
+// consumers.)  The operands
 // of the tile stay in shared memory as K-major 128-byte-swizzled tiles: the
 // bf16 features F [64][kpad64], computed once per tile, and the int8 input
 // A [64][W] of the layer being multiplied (hybrid dx: a bf16 [64][W] that
@@ -106,7 +106,9 @@ constexpr int kI8WgBar = 2;      // + wg: a warpgroup's own barrier.
 // rint(x / s) as an int8 bit pattern: the quantizer of int8_trunk.cuh,
 // with the IEEE quotient formed from r = RN(1 / s) by one product and one
 // FMA correction (Markstein's: the correctly rounded quotient for normal
-// operands), which costs a tenth of div.rn's checks here.
+// operands).  div.rn's checks made pass 2 about 8 ms slower per call at
+// the 360 config on an H100 (kernel_probe's pass2_divide, which also
+// holds the two to the same outputs).
 __device__ __forceinline__ unsigned quantize_byte(float x, float s, float r) {
   const float q = __fmul_rn(x, r);
   return (unsigned)(__float2int_rn(__fmaf_rn(__fmaf_rn(-q, s, x), r, q)) &

@@ -367,16 +367,6 @@ __device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t desc_a,
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
-__device__ __forceinline__ void wgmma_s8_n256(int (&d)[128], uint64_t desc_a,
-                                              uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {" MNT_REGS128
-      "}, %128, %129, p;\n}\n"
-      : MNT_R128("+r", d, 0)
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
 template <int N, int kTnspA, int kTnspB>
 __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t desc_a,
                                       uint64_t desc_b, int scale_d) {
@@ -395,11 +385,9 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[N / 2], uint64_t desc_a,
                                          uint64_t desc_b, int scale_d) {
   if constexpr (N == 64) {
     wgmma_s8_n64(d, desc_a, desc_b, scale_d);
-  } else if constexpr (N == 128) {
-    wgmma_s8_n128(d, desc_a, desc_b, scale_d);
   } else {
-    static_assert(N == 256, "wgmma width must be 64, 128 or 256");
-    wgmma_s8_n256(d, desc_a, desc_b, scale_d);
+    static_assert(N == 128, "s8 wgmma width must be 64 or 128");
+    wgmma_s8_n128(d, desc_a, desc_b, scale_d);
   }
 }
 

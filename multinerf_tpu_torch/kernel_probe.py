@@ -122,7 +122,7 @@ _K6_NO_PASS2 = {_K6: (
     '      for (int i0 = tid; i0 < 0; i0 += kBatch * kI8Consumers) {\n'
     '        float4 x[kBatch];')}
 # Pass 2 quantizing with div.rn (x / s) instead of the reciprocal and one
-# FMA correction.
+# FMA correction; the probe also checks that both give the same outputs.
 _K6_PASS2_DIVIDE = {_K6: (
     '  const float q = __fmul_rn(x, r);\n'
     '  return (unsigned)(__float2int_rn(__fmaf_rn(__fmaf_rn(-q, s, x), r, q)) &\n'
@@ -282,7 +282,7 @@ def main(argv=None):
   if args.kernels in ('k6', 'all'):
     groups.append(_k6(basis, num_feats, rng) + (3,))
   cluster = plans.FWD_CLUSTER
-  results = {}
+  results, checks = {}, {}
   try:
     for variants, run, calls in groups:
       libs = _build({v: patches for v, (patches, _) in variants.items()},
@@ -296,6 +296,20 @@ def main(argv=None):
           plans.FWD_CLUSTER = cluster_size
           for name, fn in run.items():
             times[variant][name].append(_time_ms(fn, calls))
+      if 'pass2_divide' in variants:
+        # The reciprocal quantizer against div.rn: the same outputs?
+        outs = {}
+        for variant in ('full', 'pass2_divide'):
+          build._LIBS.clear()
+          build._LIBS.update(libs[variant])
+          outs[variant] = {name: fn() for name, fn in run.items()}
+        for name in run:
+          got, want = outs['full'][name], outs['pass2_divide'][name]
+          same = all(torch.equal(a, b) for a, b in
+                     zip([*got[0], *got[1]], [*want[0], *want[1]]))
+          print(f'pass2_divide {name}: outputs bitwise equal to full: '
+                f'{same}', flush=True)
+          checks[f'pass2_divide {name} bitwise equal to full'] = same
       for variant, by_name in times.items():
         for name, ts in by_name.items():
           results.setdefault(variant, {})[name] = statistics.median(ts)
@@ -307,7 +321,7 @@ def main(argv=None):
     fd._MAX_CLUSTERS.clear()
     plans.FWD_CLUSTER = cluster
   print(json.dumps({'device': torch.cuda.get_device_name(0), 'smi': smi,
-                    'ms': results}))
+                    'ms': results, 'checks': checks}))
   return 0
 
 

@@ -293,7 +293,7 @@ def _launch_bwd(means, covs, ws, bs, g, basis, min_deg, max_deg,
   groups = n_pad // group
   empty = lambda shape, dtype=torch.float32: torch.empty(
       shape, dtype=dtype, device=device)
-  scratch = torch.bfloat16 if bwd_bf16 else torch.float32
+  scratch = torch.bfloat16 if plan.hybrid else torch.float32
   acts = empty((plan.acts_planes, n_pad, width), scratch)
   das = empty((plan.das_planes, n_pad, width), scratch)
   d16 = empty((plan.d16_planes, n_pad, width) if plan.d16_planes else (1,),

@@ -395,18 +395,24 @@ def i8_tile_plan(num_feats, width, num_dims, n_pad, sms):
 class Int8BwdPlan:
   """K6: its tile pass, its scratch and its dW products."""
   tile: I8TilePlan
+  width: int
   n_pad: int  # Samples padded as the JAX kernel pads them.
   group: int  # The int8 dW's scale groups (the JAX kernel's tile).
   kpad: int  # Features rounded up to 64: the feature dW's rows.
-  hybrid: bool
+  hybrid: bool  # 'int8_hybrid': bf16 scratch and hidden dW.
   acts_planes: int  # [n_pad][W] planes of each scratch array.
   das_planes: int
   d16_planes: int  # int8 mode: bf16 da of layer 0 and the skip layers.
-  scratch_bytes: int  # acts and das: 4-byte (int8) or 2-byte (hybrid).
   stage_floats: int  # Hybrid: the tile pass's f32 rows, [grid][64][W].
   features: DwGemmPlan  # dW_0 and the skip tails: [kpad, W] over n.
   hidden: DwGemmPlan | None  # Hybrid: the hidden dW, [W, W] over n.
   s8: S8DwPlan | None  # int8: the hidden dW over the groups.
+
+  @property
+  def scratch_bytes(self):
+    """acts and das: f32 ('int8') or bf16 (hybrid) planes."""
+    return ((2 if self.hybrid else 4) * (self.acts_planes + self.das_planes)
+            * self.n_pad * self.width)
 
 
 def int8_bwd_plan(num_feats, width, depth, num_skips, n, n_pad, group,
@@ -420,13 +426,10 @@ def int8_bwd_plan(num_feats, width, depth, num_skips, n, n_pad, group,
   kpad = _ceil(num_feats, 64) * 64
   hidden = max(depth - 1, 1)
   s8 = None if hybrid else s8_dw_plan(width, n_pad, group, sms)
-  das = depth if hybrid else hidden
-  elem = 2 if hybrid else 4
   tile = i8_tile_plan(num_feats, width, num_dims, n_pad, sms)
   return Int8BwdPlan(
-      tile, n_pad, group, kpad, hybrid, hidden, das,
-      0 if hybrid else 1 + num_skips,
-      elem * (hidden + das) * n_pad * width,
+      tile, width, n_pad, group, kpad, hybrid, hidden,
+      depth if hybrid else hidden, 0 if hybrid else 1 + num_skips,
       tile.grid * I8_TILE * width if hybrid else 0,
       dw_gemm_plan(kpad, width, n, sms),
       dw_gemm_plan(width, width, n, sms) if hybrid else None, s8)
