@@ -9,7 +9,7 @@ train step on the GPU against the CPU, and checks that both paths went
 through the kernels; then renders and trains it under
 ``trunk_dtype='bfloat16'`` (the same kernels K1-K4), and under
 ``trunk_dtype='int8'`` and ``'int8_hybrid'`` (the int8 trunk kernels K5 and
-K6).
+K6; K5 is also held and timed at one render chunk of 524,288 samples).
 
 Run from the repository root, with no arguments:
 
@@ -41,6 +41,9 @@ TOL = 2e-2
 
 K1_SAMPLES = 4096 * 64  # One 4,096-ray chunk of a proposal level.
 K2_SAMPLES = 4096 * 32  # One 4,096-ray chunk of the NerfMLP level.
+# The NerfMLP level of one render chunk (16,384 rays x 32 samples): K5's
+# call on the int8 render path.
+K5_CHUNK = 16384 * 32
 RAGGED = 37  # Samples cut off the full tile count to exercise the edge mask.
 
 
@@ -436,14 +439,34 @@ def _compare_rel(name, run_kernel, run_plain, n_full, tol):
   return _summary(name, run_kernel, run_plain, n_full, worst)
 
 
-def log_int8_bwd_plans(num_feats, num_dims):
-  """K6's launch plans at the kernel phase's shapes, its tile pass's and s8
-  dW GEMM's shared memory held against the sources (int8_bwd_tile_smem,
-  int8_dw_gemm_smem), and its kernels' registers and spills."""
+def log_int8_plans(num_feats, num_dims):
+  """K5's and K6's launch plans at the kernel phase's shapes (K5 also at
+  the render chunk's), the shared memory of their tile passes and of K6's
+  s8 dW GEMM held against the sources (int8_fwd_tile_smem,
+  int8_bwd_tile_smem, int8_dw_gemm_smem), and their kernels' registers and
+  spills."""
   from multinerf_tpu_torch.ops.kernels import build
   from multinerf_tpu_torch.ops.kernels import int8_trunk as i8t
   from multinerf_tpu_torch.ops.kernels import plans
   sms = torch.cuda.get_device_properties(0).multi_processor_count
+  fwd_smem = build.load('int8_trunk').int8_fwd_tile_smem
+  fwd_smem.argtypes = [ctypes.c_int] * 5
+  fwd_smem.restype = ctypes.c_int
+  for n in (K2_SAMPLES, K5_CHUNK):
+    k5 = plans.i8_fwd_plan(num_feats, 1024, num_dims, n, sms)
+    smem = fwd_smem(1024, num_feats, num_dims, k5.bn, k5.stages)
+    if smem != k5.smem:
+      raise SystemExit(f'FAIL plans: K5 shared memory {smem} in the '
+                       f'sources, {k5.smem} in plans.py')
+    log(f'int8_trunk N={n}: tile pass {k5.smem:,} bytes of dynamic shared '
+        f'memory per CTA, two {k5.stages}-stage rings of {k5.bn}-column '
+        f'slabs, {k5.grid} persistent CTAs over {k5.tiles} tiles of '
+        f'{plans.I8_TILE} samples, a staging block of '
+        f'{4 * k5.stage_floats / 2**20:.1f} MiB')
+  for func, r in build.kernel_resources(
+      build.BUILD_INFO['int8_trunk']['log']).items():
+    log(f'  int8_trunk {func}: {r["registers"]} registers, spills '
+        f'{r["spill_stores"]} B stored / {r["spill_loads"]} B loaded')
   n_pad, group = i8t.jax_groups(K2_SAMPLES)
   k6 = plans.int8_bwd_plan(num_feats, 1024, 8, len(NERF_SKIP), K2_SAMPLES,
                            n_pad, group, num_dims, sms, False)
@@ -492,25 +515,40 @@ def _device_ms_by_kernel(fn, calls=3):
   return dict(by_name.most_common())
 
 
+def _log_device_ms(tag, n, fn):
+  pieces = _device_ms_by_kernel(fn)
+  log(f'{tag} N={n}: device ms per call by kernel (torch.profiler, 3 '
+      'calls): ' + '; '.join(f'{name} {ms:.3f}' for name, ms in pieces.items()))
+
+
 def phase_int8_kernels():
-  """K5 and K6 (both modes) against their plain versions at the NerfMLP's
-  training shapes."""
+  """K5 (also at the int8 render path's chunk) and K6 (both modes) against
+  their plain versions at the NerfMLP's training shapes."""
   from multinerf_tpu_torch.ops import geopoly
   from multinerf_tpu_torch.ops.kernels import int8_trunk as i8t
   basis = np.array(geopoly.generate_basis('icosahedron', 2)).T  # [3, 21]
   num_feats = 2 * 12 * basis.shape[-1]
-  log_int8_bwd_plans(num_feats, basis.shape[-1])
+  log_int8_plans(num_feats, basis.shape[-1])
   rng = np.random.RandomState(6)
   means, covs = _gaussians(K2_SAMPLES, seed=7)
   ws, bs = _nerf_trunk(rng, num_feats)
   kw = dict(use_contract=True, skip_layers=NERF_SKIP)
   results = {}
 
-  def k5(fn):
+  def k5(fn, means=means, covs=covs):
     return lambda n: [fn(means[:n], covs[:n], ws, bs, basis, **kw)]
   results['int8_trunk'] = _compare_rel(
       'int8_trunk', k5(i8t.int8_trunk), k5(i8t.int8_trunk_plain), K2_SAMPLES,
       I8_TOL)
+  _log_device_ms('int8_trunk', K2_SAMPLES,
+                 lambda: k5(i8t.int8_trunk)(K2_SAMPLES))
+  chunk = _gaussians(K5_CHUNK, seed=10)
+  results['int8_trunk']['render_chunk'] = dict(n=K5_CHUNK, **_compare_rel(
+      'int8_trunk', k5(i8t.int8_trunk, *chunk),
+      k5(i8t.int8_trunk_plain, *chunk), K5_CHUNK, I8_TOL))
+  _log_device_ms('int8_trunk', K5_CHUNK,
+                 lambda: k5(i8t.int8_trunk, *chunk)(K5_CHUNK))
+  del chunk
 
   g = torch.tensor(np.abs(rng.randn(K2_SAMPLES, 1024)).astype(np.float32),
                    device='cuda').to(torch.bfloat16)
@@ -525,11 +563,8 @@ def phase_int8_kernels():
     results[tag] = _compare_rel(tag, k6(i8t.int8_trunk_backward),
                                 k6(i8t.int8_trunk_bwd_plain), K2_SAMPLES,
                                 I8_TOL)
-    pieces = _device_ms_by_kernel(lambda: k6(i8t.int8_trunk_backward)(
-        K2_SAMPLES))
-    log(f'{tag} N={K2_SAMPLES}: device ms per call by kernel (torch.profiler,'
-        ' 3 calls): ' + '; '.join(f'{name} {ms:.3f}'
-                                  for name, ms in pieces.items()))
+    _log_device_ms(tag, K2_SAMPLES,
+                   lambda: k6(i8t.int8_trunk_backward)(K2_SAMPLES))
   hybrid = results.pop('int8_trunk_bwd_hybrid')
   results['int8_trunk_bwd'].update(
       {f'{k}_hybrid': v for k, v in hybrid.items()})
@@ -590,6 +625,9 @@ def kernel_bounds():
   prop = f * h + 3 * h * h  # PropMLP trunk weights.
   nerf_bf16 = 2 * f * w  # Layer 0 and the skip layer's feature rows.
   nerf_i8 = 7 * w * w  # The seven int8 hidden layers.
+  int8_trunk = lambda n: _bound(48 * n + 2 * n * w + 2 * nerf_bf16 + nerf_i8,
+                                {'bf16': 2 * n * nerf_bf16,
+                                 'int8': 2 * n * nerf_i8})
   return {
       'density_mlp': _bound(52 * n1 + 2 * (prop + h),
                             {'bf16': 2 * n1 * (prop + h)}),
@@ -601,9 +639,8 @@ def kernel_bounds():
           {'bf16': 2 * n1 * (2 * prop + 3 * h * h + h)}),
       'featurize_dense_dw': _bound(48 * n2 + 4 * n2 * w + 4 * f * w,
                                    {'bf16': 2 * n2 * f * w}),
-      'int8_trunk': _bound(48 * n2 + 2 * n2 * w + 2 * nerf_bf16 + nerf_i8,
-                           {'bf16': 2 * n2 * nerf_bf16,
-                            'int8': 2 * n2 * nerf_i8}),
+      'int8_trunk': int8_trunk(n2),
+      'int8_trunk_render_chunk': int8_trunk(K5_CHUNK),
       # int8 mode: the recomputed forward, then the int8 dW and dx of the
       # hidden layers and the bf16 dW of layer 0 and the skip tail.
       'int8_trunk_bwd': _bound(
@@ -981,6 +1018,10 @@ def main():
   phase_train_reference('train reference int8', int8_bindings('int8'),
                         INT8_TRAIN_GAP_CAP, INT8_LOSS_TOL)
   bounds = kernel_bounds()
+  chunk = bounds.pop('int8_trunk_render_chunk')
+  results['int8_trunk']['render_chunk'].update(
+      _achieved(results['int8_trunk']['render_chunk'], chunk),
+      **{k: v for k, v in chunk.items() if k != 'ops'})
   hybrid = bounds.pop('int8_trunk_bwd_hybrid')
   results['int8_trunk_bwd'].update(_achieved(results['int8_trunk_bwd'],
                                              hybrid, '_hybrid'))

@@ -30,11 +30,6 @@ __host__ __device__ inline int round_up(int x, int m) {
   return (x + m - 1) / m * m;
 }
 
-// Width of the zero-padded feature block: a multiple of the mma depth.
-__host__ __device__ inline int padded_feats(int num_feats) {
-  return round_up(num_feats, 16);
-}
-
 // Row stride (in bf16 elements) of a shared-memory activation tile of
 // `cols` columns: +8 elements staggers the rows across banks and keeps
 // every 16x16 fragment 32-byte aligned.
@@ -148,25 +143,6 @@ __device__ void featurize_rows(const float* __restrict__ means,
     store(s, num_feats + (i - s * extra), __float2bfloat16_rn(0.0f));
   }
   sync();
-}
-
-// Fills feats[kRows][ldf] (bf16, row = sample) with the IPE features of
-// samples row0 .. row0+kRows-1 (columns zero up to padded_feats), using
-// the whole block.  Ends with __syncthreads.
-template <int kRows = kTile>
-__device__ void tile_features(const float* __restrict__ means,
-                              const float* __restrict__ covs,
-                              const float* __restrict__ basis_t,
-                              const float* __restrict__ bb_t, long long row0,
-                              int n, int num_dims, int num_degs,
-                              bool use_contract, float* scratch,
-                              __nv_bfloat16* feats, int ldf) {
-  featurize_rows<kRows>(
-      means, covs, basis_t, bb_t, row0, n, num_dims, num_degs, use_contract,
-      scratch, threadIdx.x, blockDim.x,
-      padded_feats(2 * num_degs * num_dims),
-      [=](int s, int f, __nv_bfloat16 v) { feats[(size_t)s * ldf + f] = v; },
-      [] { __syncthreads(); });
 }
 
 }  // namespace mnt

@@ -7,8 +7,8 @@
 // (_bwd_kernel with _qrows and _qcols, reached through pallas_call in _grad)
 // and follows its numerics:
 //   * the forward is recomputed (per-sample int8 activation scales, as in
-//     K5, int8_trunk.cuh) and da = g * (act > 0) at each layer, from the
-//     f32 activations;
+//     K5: int8_tile_pass.cuh) and da = g * (act > 0) at each layer, from
+//     the f32 activations;
 //   * db_l = sum da_l; dW_0 and the skip layers' feature rows are
 //     bf16(features)^T @ bf16(da_l);
 //   * bwd_bf16 = 0 ('int8'): the hidden dW_l is an int8 product with x_in
@@ -27,11 +27,12 @@
 // TOPS) and the bf16 dW of layer 0 and the skip tail 271 GFLOP (0.27 ms):
 // about 3.5 ms.  In hybrid mode dW and dx run in bf16 (2 x 1,924 GFLOP,
 // 3.9 ms): about 5.4 ms.  Design, in two passes, as K3:
-//   1. the tile pass (below): persistent CTAs walk 64-sample tiles on
-//      wgmma, fed by TMA weight rings, recompute the features and the
-//      trunk, writing each hidden layer's activation to device memory,
-//      then walk back through the layers, writing every da_l and the
-//      tile's column sums of da_l.  'int8' keeps the activations and da_1..
+//   1. the tile pass (below, on int8_tile_pass.cuh, shared with K5):
+//      persistent CTAs walk 64-sample tiles on wgmma, fed by TMA weight
+//      rings, recompute the features and the trunk, writing each hidden
+//      layer's activation to device memory, then walk back through the
+//      layers, writing every da_l and the tile's column sums of da_l.
+//      'int8' keeps the activations and da_1..
 //      in f32 (the group quantizer needs them) and writes bf16 copies of
 //      da_0 and of each skip layer's da for the feature dW; 'int8_hybrid'
 //      writes activations and every da_l in bf16 only, rounded once where
@@ -55,110 +56,26 @@
 
 #include <cuda_runtime.h>
 
-#include <type_traits>
-
 #include "featurize_cast.cuh"
-#include "int8_trunk.cuh"
-#include "tile_pass.cuh"
+#include "int8_tile_pass.cuh"
 
 namespace mnt {
 
 // ------------------------------------------------------------ tile pass ---
 //
-// One persistent CTA per SM walks the 64-sample tiles blockIdx.x,
-// blockIdx.x + gridDim.x, ...  Both consumer warpgroups multiply the whole
-// tile (wgmma's 64 rows); they split each layer's output columns, warpgroup
-// w taking the BN-column blocks cb = w, w + 2, ...  Each warpgroup has its
-// own ring of [BN][64-byte] weight slabs (K-major, 64-byte swizzle), fed by
-// its own producer warp in the order it multiplies them: per tile, layer
-// 0's W_0 (bf16), each hidden layer's w_q (int8) and, at a skip layer, its
-// feature rows (bf16), then the dx weights of layers depth-1 .. 1 (int8
-// wq2, or bf16 w_q * sw in hybrid mode).  (Two lanes of one warp spinning
-// on two rings' barriers would take turns; the producers make up a third
-// warpgroup, so that setmaxnreg can hand their registers to the
-// consumers.)  The operands
-// of the tile stay in shared memory as K-major 128-byte-swizzled tiles: the
-// bf16 features F [64][kpad64], computed once per tile, and the int8 input
-// A [64][W] of the layer being multiplied (hybrid dx: a bf16 [64][W] that
-// spans A and F, the features being dead by then).
-//
-// A per-sample scale needs the sample's whole output row, [64][W] f32 =
-// 256 KB at W = 1,024, more than shared memory holds.  So a layer runs in
-// two passes: pass 1 multiplies column block by column block, and its
-// epilogue stores each block to the layer's scratch plane in device memory
-// (the activations or da that the dW products read anyway) and folds the
-// rows' running absmax; pass 2, once both warpgroups are done with A,
-// reads the tile's rows back (from L2, just written) and quantizes them
-// per sample into A in place.  In hybrid mode the activations are stored
-// in bf16, so pass 2 reads the f32 rows from a per-CTA staging block.
-constexpr int kI8Tile = 64;  // Samples per tile: wgmma's M.
-constexpr int kI8Consumers = 256;
-// Two consumer warpgroups, then a producer warpgroup whose first two warps
-// feed one warpgroup's ring each.  setmaxnreg moves registers from the
-// producers (40 each) to the consumers (232 each: 64 accumulators, the
-// converted block and the epilogue's addresses).
-constexpr int kI8TileThreads = kI8Consumers + 128;
-constexpr int kI8ProducerRegs = 40, kI8ConsumerRegs = 232;
-constexpr int kI8Bar = 1;        // Named barrier of both consumer warpgroups.
-constexpr int kBatch = 8;        // Pass 2's loads in flight per thread.
-constexpr int kI8WgBar = 2;      // + wg: a warpgroup's own barrier.
+// int8_tile_pass.cuh's machine: the forward of each tile (tile_forward),
+// then, on the same rings, the backward through the layers.  Pass 1's
+// epilogues store each block to the layer's scratch plane in device memory
+// (the activations or da that the dW products read anyway), from which
+// pass 2 reads the rows back; in hybrid mode the activations are stored in
+// bf16, so pass 2 reads the f32 rows from a per-CTA staging block.  The
+// producers stream, after each tile's forward slabs, the dx weights of
+// layers depth-1 .. 1 (int8 wq2, or bf16 w_q * sw in hybrid mode).  The
+// hybrid dx's A operand is a bf16 [64][W] that spans A and F, the features
+// being dead by then.
 
-// rint(x / s) as an int8 bit pattern: the quantizer of int8_trunk.cuh,
-// with the IEEE quotient formed from r = RN(1 / s) by one product and one
-// FMA correction (Markstein's: the correctly rounded quotient for normal
-// operands).  div.rn's checks made pass 2 about 8 ms slower per call at
-// the 360 config on an H100 (kernel_probe's pass2_divide, which also
-// holds the two to the same outputs).
-__device__ __forceinline__ unsigned quantize_byte(float x, float s, float r) {
-  const float q = __fmul_rn(x, r);
-  return (unsigned)(__float2int_rn(__fmaf_rn(__fmaf_rn(-q, s, x), r, q)) &
-                    0xff);
-}
-
-// Byte b of row `row` of a K-major [64][bytes] tile of 128-byte-swizzled
-// [64][128-byte] blocks (int8 A; for bf16, byte 2 * col: swizzled_offset).
-__device__ __forceinline__ int swizzled_byte(int row, int b) {
-  return (b >> 7) * kBoxBytes + row * 128 +
-         ((((b & 127) >> 4) ^ (row & 7)) << 4) + (b & 15);
-}
-
-// Shared memory of the tile pass (byte offsets from a 1,024-aligned base).
-struct I8TileLayout {
-  int f, region, ring, slab, colred, rowmax, scale, recip, bars, total;
-};
-
-__host__ __device__ inline I8TileLayout i8_tile_layout(int width, int kpad64,
-                                                       int num_dims, int bn,
-                                                       int stages) {
-  I8TileLayout l;
-  // A [64][W] int8 at 0, in whole [64][128-byte] blocks (also the
-  // featurizer's scratch while F is computed), F [64][kpad64] bf16 after
-  // it; hybrid dx: [64][W] bf16 at 0.
-  const int scratch = featurizer_smem_floats(num_dims, kI8Tile) * 4;
-  const int a_bytes = kI8Tile * round_up(width, 128);
-  l.f = round_up(a_bytes > scratch ? a_bytes : scratch, 1024);
-  const int fwd = l.f + kI8Tile * kpad64 * 2;
-  const int hyb = kI8Tile * width * 2;
-  l.region = round_up(fwd > hyb ? fwd : hyb, 1024);
-  l.slab = bn * 64;
-  l.ring = l.region;  // Ring w at ring + w * stages * slab.
-  l.colred = l.ring + 2 * stages * l.slab;  // [2 wg][2][4 warps][BN] f32.
-  l.rowmax = l.colred + 2 * 2 * 4 * bn * 4;  // [2 wg][64] f32.
-  l.scale = l.rowmax + 2 * kI8Tile * 4;      // [64] f32.
-  l.recip = l.scale + kI8Tile * 4;           // [64] f32: 1 / scale.
-  l.bars = l.recip + kI8Tile * 4;            // Full, empty of both rings.
-  l.total = l.bars + 2 * 2 * stages * 8 + 1024;
-  return l;
-}
-
-struct I8TileArgs {
-  const float* means;
-  const float* covs;
-  const float* basis_t;
-  const float* bb_t;
-  const float* sw;      // [depth-1][W]: w_q's per-output-channel scales.
+struct I8TileArgs : I8TrunkArgs {
   const float* swdx;    // [depth-1][W]: sw2 ('int8').
-  const float* biases;  // [depth][W].
   const __nv_bfloat16* g;
   void* acts;  // [depth-1] planes: f32 ('int8') or bf16 (hybrid).
   void* das;   // 'int8': f32 da_1.. at plane l - 1; hybrid: bf16, plane l.
@@ -167,70 +84,8 @@ struct I8TileArgs {
   unsigned* x_max;     // [depth-1][groups][W], 'int8'.
   unsigned* d_max;     // [depth][groups][W], 'int8'.
   float* vec_part;     // [tiles][depth * W]: the tiles' column sums of da.
-  int n, n_pad, group, width, depth, kpad32, kpad64, num_dims, num_degs;
-  int use_contract, hybrid, stages, tiles;
-  unsigned skip_mask;
+  int n_pad, group, hybrid;
 };
-
-// acc (+)= A @ B over k_slabs slabs of ring r: A a K-major tile at `a`
-// (each slab 64 bytes of its k: 32 bf16 or 64 int8 values), B the ring's
-// next slabs, [BN][64 bytes] K-major (64-byte swizzle).  T = float: bf16
-// products (wgmma k16), T = int: s8 products (wgmma k32).  Each warp
-// releases a slab once its products have read it.
-template <int BN, typename T>
-__device__ __forceinline__ void slab_product(T (&acc)[BN / 2],
-                                             const unsigned char* a,
-                                             int k_slabs, const SlabRing& r,
-                                             RingPos& it, int lane,
-                                             bool accumulate) {
-  constexpr int kSteps = 2;  // wgmma k steps of 32 bytes per slab.
-  // Zeroed here rather than by scale_d = 0: ptxas serializes wgmma when it
-  // cannot tell which products read their accumulators.
-  if (!accumulate) {
-#pragma unroll
-    for (int i = 0; i < BN / 2; ++i) acc[i] = T(0);
-  }
-  int prev = 0;
-  for (int kb = 0; kb < k_slabs; ++kb) {
-    const int s = it.stage;
-    mbar_wait(&r.full[s], it.phase);
-    const unsigned char* b = r.base + s * r.slab_bytes;
-    const unsigned char* a_kb = a + (kb >> 1) * kBoxBytes + (kb & 1) * 64;
-    fence_acc(acc);
-    wgmma_fence();
-#pragma unroll
-    for (int k = 0; k < kSteps; ++k) {
-      const uint64_t da = smem_desc(a_kb + k * 32, 16, 1024);
-      const uint64_t db = smem_desc(b + k * 32, 16, 512, kSwizzle64);
-      if constexpr (std::is_same_v<T, int>)
-        wgmma_s8<BN>(acc, da, db, 1);
-      else
-        wgmma<BN, 0, 0>(acc, da, db, 1);
-    }
-    wgmma_commit();
-    fence_acc(acc);
-    wgmma_wait<1>();
-    fence_acc(acc);
-    if (kb > 0 && lane == 0) mbar_arrive(&r.empty[prev]);
-    prev = s;
-    it.advance(r.stages);
-  }
-  wgmma_wait<0>();
-  fence_acc(acc);
-  if (lane == 0) mbar_arrive(&r.empty[prev]);
-}
-
-// Producer: k_slabs slabs of rows row .. row + BN - 1 of `map`, `cols`
-// elements (64 bytes) each, from column 0.
-__device__ __forceinline__ void produce_slabs(const SlabRing& r, RingPos& it,
-                                              const CUtensorMap* map, int row,
-                                              int k_slabs, int cols) {
-  for (int kb = 0; kb < k_slabs; ++kb) {
-    uint64_t* bar;
-    unsigned char* dst = ring_acquire(r, it, bar);
-    tma_load(dst, map, bar, kb * cols, row);
-  }
-}
 
 // Per column of the thread's accumulator block, the warpgroup's 64 rows
 // reduced (kMax: max |v|, else the sum in a fixed order: the thread's two
@@ -262,43 +117,6 @@ __device__ __forceinline__ void column_reduce(const float (&v)[BN / 2],
     out(wtid, x);
   }
   named_sync(bar, 128);
-}
-
-// Stores the thread's accumulator block, v[4q + 2h + e] at row r_lo + 8h,
-// column col0 + 8q + c_lo + e, of the [64][W] rows at dst (f32 or bf16).
-template <int BN>
-__device__ __forceinline__ void store_block(const float (&v)[BN / 2],
-                                            float* dst, int width, AccPos p,
-                                            int col0) {
-#pragma unroll
-  for (int q = 0; q < BN / 8; ++q)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      *reinterpret_cast<float2*>(dst + (size_t)(p.r_lo + 8 * h) * width +
-                                 col0 + 8 * q + p.c_lo) =
-          make_float2(v[4 * q + 2 * h], v[4 * q + 2 * h + 1]);
-}
-
-template <int BN>
-__device__ __forceinline__ void store_block(const float (&v)[BN / 2],
-                                            __nv_bfloat16* dst, int width,
-                                            AccPos p, int col0) {
-#pragma unroll
-  for (int q = 0; q < BN / 8; ++q)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      *reinterpret_cast<__nv_bfloat162*>(
-          dst + (size_t)(p.r_lo + 8 * h) * width + col0 + 8 * q + p.c_lo) =
-          __floats2bfloat162_rn(v[4 * q + 2 * h], v[4 * q + 2 * h + 1]);
-}
-
-// The scratch planes ([n_pad][W] each) in 'int8' mode: d16 holds the bf16
-// da of layer 0 at plane 0 and of each skip layer at plane 1 + its index
-// among the skip layers (the B operands of the feature dW).
-__host__ __device__ inline int feature_slot(unsigned skip_mask, int l) {
-  int slot = 0;
-  for (int k = 1; k <= l; ++k) slot += (skip_mask >> k) & 1u;
-  return slot;
 }
 
 // What a consumer thread of the tile pass needs for its epilogues.
@@ -361,15 +179,12 @@ int8_bwd_tile_kernel(const __grid_constant__ CUtensorMap w0_map,
   unsigned char* smem = align_1024(smem_raw);
   const int width = p.width, depth = p.depth, stages = p.stages;
   const I8TileLayout lay =
-      i8_tile_layout(width, p.kpad64, p.num_dims, BN, stages);
+      i8_tile_layout(width, p.kpad64, p.num_dims, BN, stages, true);
   unsigned char* a_tile = smem;
-  unsigned char* f_tile = smem + lay.f;
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + lay.bars);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int blocks = width / BN;  // Column blocks of a layer.
   const size_t plane = (size_t)p.n_pad * width;
-  const int kq = width / 64;       // Slabs of an int8 product over W.
-  const int kb16 = p.kpad32 / 32;  // Slabs of a bf16 product over F.
   const int kdx = p.hybrid ? width / 32 : width / 64;
   auto ring = [&](int w) {
     return SlabRing{smem + lay.ring + w * stages * lay.slab,
@@ -394,17 +209,7 @@ int8_bwd_tile_kernel(const __grid_constant__ CUtensorMap w0_map,
       const SlabRing r = ring(w);
       RingPos it;
       for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
-        for (int cb = w; cb < blocks; cb += 2)
-          produce_slabs(r, it, &w0_map, cb * BN, kb16, 32);
-        for (int l = 1; l < depth; ++l)
-          for (int cb = w; cb < blocks; cb += 2) {
-            produce_slabs(r, it, &wq_map, (l - 1) * width + cb * BN, kq, 64);
-            if ((p.skip_mask >> l) & 1u)
-              produce_slabs(r, it, &tail_map,
-                            (feature_slot(p.skip_mask, l) - 1) * width +
-                                cb * BN,
-                            kb16, 32);
-          }
+        produce_forward<BN>(r, it, &w0_map, &wq_map, &tail_map, p, w);
         for (int l = depth - 1; l >= 1; --l)
           for (int cb = w; cb < blocks; cb += 2)
             produce_slabs(r, it, &wdx_map, (l - 1) * width + cb * BN, kdx,
@@ -417,12 +222,19 @@ int8_bwd_tile_kernel(const __grid_constant__ CUtensorMap w0_map,
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kI8ConsumerRegs));
   const int wg = warp / 4, wtid = tid % 128;
   const AccPos pos(wtid);
-  const SlabRing r = ring(wg);
+  const I8Consumer cons{ring(wg),
+                     a_tile,
+                     smem + lay.f,
+                     reinterpret_cast<float*>(smem + lay.rowmax),
+                     reinterpret_cast<float*>(smem + lay.scale),
+                     reinterpret_cast<float*>(smem + lay.recip),
+                     pos,
+                     tid,
+                     wg,
+                     lane};
+  const SlabRing& r = cons.r;
   RingPos it;
   float* red = reinterpret_cast<float*>(smem + lay.colred) + wg * 2 * 4 * BN;
-  float* rowmax = reinterpret_cast<float*>(smem + lay.rowmax);
-  float* scale = reinterpret_cast<float*>(smem + lay.scale);
-  float* recip = reinterpret_cast<float*>(smem + lay.recip);
   float* acts_f = static_cast<float*>(p.acts);
   __nv_bfloat16* acts_h = static_cast<__nv_bfloat16*>(p.acts);
   float* das_f = static_cast<float*>(p.das);
@@ -439,105 +251,12 @@ int8_bwd_tile_kernel(const __grid_constant__ CUtensorMap w0_map,
     float rmax[2];
     const I8TileCtx cx{pos, wtid, wg_bar, red, rows, plane, gi, groups, vec};
 
-    // The tile's bf16 features into F (the featurizer's scratch in A),
-    // once the previous tile is done with A and F.
-    named_sync(kI8Bar, kI8Consumers);
-    featurize_rows<kI8Tile>(
-        p.means, p.covs, p.basis_t, p.bb_t, row0, p.n, p.num_dims,
-        p.num_degs, p.use_contract != 0, reinterpret_cast<float*>(a_tile),
-        tid, kI8Consumers, p.kpad64,
-        [=](int s, int f, __nv_bfloat16 v) {
-          *reinterpret_cast<__nv_bfloat16*>(f_tile + swizzled_offset(s, f)) =
-              v;
-        },
-        [] { named_sync(kI8Bar, kI8Consumers); });
-    fence_proxy_async();
-    named_sync(kI8Bar, kI8Consumers);
-
-    // Both warpgroups' row maxima into rowmax[wg][64]; then all threads.
-    auto publish_rowmax = [&] {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float x = rmax[h];
-        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-        if (lane % 4 == 0) rowmax[wg * kI8Tile + pos.r_lo + 8 * h] = x;
-      }
-      named_sync(kI8Bar, kI8Consumers);
-    };
-    // Pass 2: the tile's f32 rows at src quantized per sample into A
-    // (scale[r] kept for the next epilogue), visible to wgmma after.
-    auto quantize_into_a = [&](const float* src) {
-      if (tid < kI8Tile) {
-        const float s =
-            fmaxf(fmaxf(rowmax[tid], rowmax[kI8Tile + tid]), kScaleFloor) /
-            127.0f;
-        scale[tid] = s;
-        recip[tid] = __frcp_rn(s);
-      }
-      named_sync(kI8Bar, kI8Consumers);
-      const int words = width / 4;  // float4 words of a row.
-      const int total = kI8Tile * words;
-      // kBatch loads in flight per thread before any is used.
-      for (int i0 = tid; i0 < total; i0 += kBatch * kI8Consumers) {
-        float4 x[kBatch];
-#pragma unroll
-        for (int j = 0; j < kBatch; ++j) {
-          const int i = i0 + j * kI8Consumers;
-          if (i < total)
-            x[j] = *reinterpret_cast<const float4*>(src + (size_t)i * 4);
-        }
-#pragma unroll
-        for (int j = 0; j < kBatch; ++j) {
-          const int i = i0 + j * kI8Consumers;
-          if (i >= total) break;
-          const int row = i / words, c = (i - row * words) * 4;
-          const float s = scale[row], r = recip[row];
-          const unsigned b0 = quantize_byte(x[j].x, s, r);
-          const unsigned b1 = quantize_byte(x[j].y, s, r);
-          const unsigned b2 = quantize_byte(x[j].z, s, r);
-          const unsigned b3 = quantize_byte(x[j].w, s, r);
-          *reinterpret_cast<unsigned*>(a_tile + swizzled_byte(row, c)) =
-              b0 | (b1 << 8) | (b2 << 16) | (b3 << 24);
-        }
-      }
-      fence_proxy_async();
-      named_sync(kI8Bar, kI8Consumers);
-    };
-
-    // The forward, layer by layer.
-    for (int l = 0; l < depth; ++l) {
-      rmax[0] = rmax[1] = 0.0f;
-      const bool skip = l > 0 && ((p.skip_mask >> l) & 1u);
-      const float* bias = p.biases + (size_t)l * width;
-      for (int cb = wg; cb < blocks; cb += 2) {
-        const int col0 = cb * BN;
-        float y[BN / 2];
-        if (l == 0) {
-          slab_product<BN>(y, f_tile, kb16, r, it, lane, false);
-        } else {
-          int acc[BN / 2];
-          slab_product<BN>(acc, a_tile, kq, r, it, lane, false);
-          const float* swl = p.sw + (size_t)(l - 1) * width + col0;
-          const float sx[2] = {scale[pos.r_lo], scale[pos.r_lo + 8]};
-#pragma unroll
-          for (int q = 0; q < BN / 8; ++q)
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              y[4 * q + e] = (float)acc[4 * q + e] *
-                             (__ldg(swl + 8 * q + pos.c_lo + e % 2) *
-                              sx[e / 2]);
-          // The skip layer's feature rows, accumulated onto y.
-          if (skip) slab_product<BN>(y, f_tile, kb16, r, it, lane, true);
-        }
-#pragma unroll
-        for (int q = 0; q < BN / 8; ++q)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            y[4 * q + e] = fmaxf(
-                y[4 * q + e] + __ldg(bias + col0 + 8 * q + pos.c_lo + e % 2),
-                0.0f);
-        if (l + 1 < depth) {
+    // The forward: each hidden layer's activation to its scratch plane
+    // (and, hybrid, to the staging block), its group absmax ('int8'); the
+    // last layer's da from g through its ReLU mask, 0 past n.
+    tile_forward<BN>(
+        p, cons, it, row0, rmax,
+        [&](int l, const float (&y)[BN / 2], int col0) {
           if (p.hybrid) {
             store_block<BN>(y, acts_h + l * plane + rows, width, pos, col0);
             store_block<BN>(y, stage, width, pos, col0);
@@ -546,15 +265,13 @@ int8_bwd_tile_kernel(const __grid_constant__ CUtensorMap w0_map,
             unsigned* slot =
                 p.x_max + ((size_t)l * groups + gi) * width + col0;
             column_reduce<BN, true>(y, red + 4 * BN, wtid, wg_bar,
-                                    [=](int c, float x) {
-                                      atomicMax(slot + c, __float_as_uint(x));
+                                    [=](int col, float x) {
+                                      atomicMax(slot + col, __float_as_uint(x));
                                     });
           }
-#pragma unroll
-          for (int i = 0; i < BN / 2; ++i)
-            rmax[(i / 2) % 2] = fmaxf(rmax[(i / 2) % 2], y[i]);
-        } else {
-          // da of the last layer: g through its ReLU mask; 0 past n.
+        },
+        [&](int l) { return p.hybrid ? stage : acts_f + l * plane + rows; },
+        [&](float (&y)[BN / 2], int col0) {
 #pragma unroll
           for (int q = 0; q < BN / 8; ++q)
 #pragma unroll
@@ -570,13 +287,9 @@ int8_bwd_tile_kernel(const __grid_constant__ CUtensorMap w0_map,
               y[i] = y[i] > 0.0f ? gv.x : 0.0f;
               y[i + 1] = y[i + 1] > 0.0f ? gv.y : 0.0f;
             }
-          da_epilogue<BN>(p, cx, l, y, col0, rmax);
-        }
-      }
-      publish_rowmax();
-      if (l + 1 < depth)
-        quantize_into_a(p.hybrid ? stage : acts_f + l * plane + rows);
-    }
+          da_epilogue<BN>(p, cx, depth - 1, y, col0, rmax);
+        });
+    publish_rowmax(cons, rmax);
 
     // The backward: da_l -> dx -> da_{l-1} through layer l-1's ReLU mask.
     for (int l = depth - 1; l >= 1; --l) {
@@ -604,7 +317,7 @@ int8_bwd_tile_kernel(const __grid_constant__ CUtensorMap w0_map,
         fence_proxy_async();
         named_sync(kI8Bar, kI8Consumers);
       } else {
-        quantize_into_a(das_f + (l - 1) * plane + rows);
+        quantize_into_a(cons, das_f + (l - 1) * plane + rows, width);
       }
       rmax[0] = rmax[1] = 0.0f;
       const int m = l - 1;
@@ -617,7 +330,8 @@ int8_bwd_tile_kernel(const __grid_constant__ CUtensorMap w0_map,
           int acc[BN / 2];
           slab_product<BN>(acc, a_tile, kdx, r, it, lane, false);
           const float* sw2 = p.swdx + (size_t)m * width + col0;
-          const float sd[2] = {scale[pos.r_lo], scale[pos.r_lo + 8]};
+          const float sd[2] = {cons.scale[pos.r_lo],
+                                cons.scale[pos.r_lo + 8]};
 #pragma unroll
           for (int q = 0; q < BN / 8; ++q)
 #pragma unroll
@@ -647,7 +361,7 @@ int8_bwd_tile_kernel(const __grid_constant__ CUtensorMap w0_map,
           }
         da_epilogue<BN>(p, cx, m, v, col0, rmax);
       }
-      publish_rowmax();
+      publish_rowmax(cons, rmax);
     }
   }
 }
@@ -963,33 +677,19 @@ extern "C" int int8_trunk_backward(
       n < 1 || n > n_pad || stages < 1 || grid < 1 || grid > tiles)
     return (int)cudaErrorInvalidValue;
   const int smem =
-      i8_tile_layout(width, kpad64, num_dims, bn, stages).total;
+      i8_tile_layout(width, kpad64, num_dims, bn, stages, true).total;
   if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 
   // The weight maps of the tile pass: [BN][64-byte] K-major slabs.
   CUtensorMap maps[4];
-  auto slab_map = [&](CUtensorMap* m, const void* base, bool bf16,
-                      long long rows, int cols) {
-    return tile_map(m,
-                    bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                         : CU_TENSOR_MAP_DATA_TYPE_UINT8,
-                    bf16 ? 2 : 1, base, rows, cols, bn, bf16 ? 32 : 64,
-                    CU_TENSOR_MAP_SWIZZLE_64B);
-  };
-  cudaError_t err = slab_map(&maps[0], w0t, true, width, kpad32);
+  cudaError_t err = i8_forward_maps(maps, w0t, wqt, tailt, width, depth,
+                                    kpad32, skips, bn);
   if (err != cudaSuccess) return (int)err;
-  maps[1] = maps[2] = maps[3] = maps[0];  // Unused without hidden layers.
+  maps[3] = maps[0];  // Unused without hidden layers.
   if (depth > 1) {
-    err = slab_map(&maps[1], wqt, false, (long long)(depth - 1) * width,
-                   width);
-    if (err == cudaSuccess)
-      err = slab_map(&maps[3], wdx, bwd_bf16 != 0,
-                     (long long)(depth - 1) * width, width);
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (skips > 0) {
-    err = slab_map(&maps[2], tailt, true, (long long)skips * width, kpad32);
+    err = i8_slab_map(&maps[3], wdx, bwd_bf16 != 0,
+                      (long long)(depth - 1) * width, width, bn);
     if (err != cudaSuccess) return (int)err;
   }
   auto f32 = [](const void* p) { return static_cast<const float*>(p); };
@@ -997,12 +697,12 @@ extern "C" int int8_trunk_backward(
   unsigned* x_max_u = static_cast<unsigned*>(x_max);
   unsigned* d_max_u = static_cast<unsigned*>(d_max);
   const I8TileArgs args{
-      f32(means), f32(covs), f32(basis_t), f32(bb_t), f32(sw), f32(swdx),
-      f32(biases), static_cast<const __nv_bfloat16*>(g), acts, das, d16_h,
+      {f32(means), f32(covs), f32(basis_t), f32(bb_t), f32(sw), f32(biases),
+       n, width, depth, kpad32, kpad64, num_dims, num_degs, use_contract,
+       stages, tiles, (unsigned)skip_mask},
+      f32(swdx), static_cast<const __nv_bfloat16*>(g), acts, das, d16_h,
       static_cast<float*>(stage), x_max_u, d_max_u,
-      static_cast<float*>(vec_part), n, n_pad, group, width, depth, kpad32,
-      kpad64, num_dims, num_degs, use_contract, bwd_bf16, stages, tiles,
-      (unsigned)skip_mask};
+      static_cast<float*>(vec_part), n_pad, group, bwd_bf16};
   err = bn == 128 ? launch_tile_pass<128>(maps, args, grid, smem, st)
                   : launch_tile_pass<64>(maps, args, grid, smem, st);
   if (err != cudaSuccess) return (int)err;
@@ -1078,7 +778,7 @@ extern "C" int int8_trunk_backward(
 extern "C" int int8_bwd_tile_smem(int width, int num_feats, int num_dims,
                                   int bn, int stages) {
   return mnt::i8_tile_layout(width, mnt::round_up(num_feats, 64), num_dims,
-                             bn, stages)
+                             bn, stages, true)
       .total;
 }
 

@@ -1,18 +1,20 @@
 """Where the time of the forward kernels K1 and K2, and of the int8 trunk's
-backward K6, goes, on the GPU.
+forward K5 and backward K6, goes, on the GPU.
 
 Builds variants of ``csrc/density_mlp.cu`` (K1), ``csrc/featurize_dense.cu``
-(K2) and ``csrc/int8_trunk_bwd.cu`` (K6) with parts taken out, each from a
+(K2), ``csrc/int8_trunk.cu`` (K5) and ``csrc/int8_trunk_bwd.cu`` (K6, K5 and
+K6 on ``csrc/int8_tile_pass.cuh``) with parts taken out, each from a
 patched copy of ``csrc/`` under ``build/``, and times every variant at the
 main path's shapes (K1: 262,144 samples through 360.gin's 504 -> 4 x 256
-PropMLP; K2: 131,072 samples, 504 -> 1,024; K6: 131,072 samples through the
-8 x 1,024 NerfMLP trunk, 'int8' and 'int8_hybrid') through the kernels' own
-wrappers, with CUDA events around 10 calls queued back to back (K6: 3), in
-rounds that take the variants in turn.  K1's and K2's variants run with the
-kernels' clusters of two CTAs and with one CTA per weight stream.  A
-variant's output is meaningless; only its time is read.
+PropMLP; K2: 131,072 samples, 504 -> 1,024; K5: 131,072 samples through the
+8 x 1,024 NerfMLP trunk, and 524,288, one render chunk; K6: 131,072 samples,
+'int8' and 'int8_hybrid') through the kernels' own wrappers, with CUDA
+events around 10 calls queued back to back (K5, K6: 3), in rounds that take
+the variants in turn.  K1's and K2's variants run with the kernels'
+clusters of two CTAs and with one CTA per weight stream.  A variant's
+output is meaningless; only its time is read.
 
-    python -m multinerf_tpu_torch.kernel_probe [--kernels k1k2|k6|all]
+    python -m multinerf_tpu_torch.kernel_probe [--kernels k1k2|k5|k6|all]
 
 Prints the card's name and power limit, one line per variant and kernel, and
 one JSON object as the last line.
@@ -23,6 +25,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -57,6 +60,7 @@ _NO_EPILOGUE = {
 
 K1_N = 4096 * 64
 K2_N = 4096 * 32
+K5_CHUNK = 16384 * 32  # One render chunk of the NerfMLP level.
 
 
 def _merge(*patches):
@@ -92,6 +96,7 @@ for _cluster, _prefix in ((2, ''), (1, 'single_cta_')):
 # quantizer), and its tile pass without parts (the scratch stores, the
 # column reductions, pass 2's per-sample quantization).
 _K6 = 'int8_trunk_bwd.cu'
+_TILE = 'int8_tile_pass.cuh'  # The tile pass that K5 and K6 share.
 _K6_NO_TILE = {_K6: (
     '  err = bn == 128 ? launch_tile_pass<128>(maps, args, grid, smem, st)\n'
     '                  : launch_tile_pass<64>(maps, args, grid, smem, st);',
@@ -108,7 +113,7 @@ _K6_NO_QUANTIZE = {_K6: ('    group_quantize_kernel<<<qgrid',
 _K6_NO_S8 = {_K6: ('        err = int8_dw(qx, qd,',
                    '        err = cudaSuccess;\n'
                    '        if (false) err = int8_dw(qx, qd,')}
-_K6_NO_STORES = {_K6: [
+_K6_NO_STORES = {_TILE: [
     ('      *reinterpret_cast<float2*>(dst + (size_t)(p.r_lo + 8 * h)',
      '      if (false) *reinterpret_cast<float2*>(dst + (size_t)(p.r_lo + 8 * h)'),
     ('      *reinterpret_cast<__nv_bfloat162*>(\n',
@@ -116,14 +121,14 @@ _K6_NO_STORES = {_K6: [
 _K6_NO_REDUCTIONS = {_K6: ('  const int lane = wtid % 32, warp = wtid / 32;\n',
                            '  if (wtid >= 0) return;\n'
                            '  const int lane = wtid % 32, warp = wtid / 32;\n')}
-_K6_NO_PASS2 = {_K6: (
-    '      for (int i0 = tid; i0 < total; i0 += kBatch * kI8Consumers) {\n'
-    '        float4 x[kBatch];',
-    '      for (int i0 = tid; i0 < 0; i0 += kBatch * kI8Consumers) {\n'
-    '        float4 x[kBatch];')}
+_NO_PASS2 = {_TILE: (
+    '  for (int i0 = tid; i0 < total; i0 += kBatch * kI8Consumers) {\n'
+    '    float4 x[kBatch];',
+    '  for (int i0 = tid; i0 < 0; i0 += kBatch * kI8Consumers) {\n'
+    '    float4 x[kBatch];')}
 # Pass 2 quantizing with div.rn (x / s) instead of the reciprocal and one
 # FMA correction; the probe also checks that both give the same outputs.
-_K6_PASS2_DIVIDE = {_K6: (
+_K6_PASS2_DIVIDE = {_TILE: (
     '  const float q = __fmul_rn(x, r);\n'
     '  return (unsigned)(__float2int_rn(__fmaf_rn(__fmaf_rn(-q, s, x), r, q)) &\n'
     '                    0xff);',
@@ -138,10 +143,25 @@ K6_VARIANTS = {
                             _K6_NO_HIDDEN_BF16, _K6_NO_S8),
     'no_scratch_stores': (_K6_NO_STORES,),
     'tile_no_reductions': _K6_DW + (_K6_NO_REDUCTIONS,),
-    'tile_no_pass2': _K6_DW + (_K6_NO_PASS2,),
+    'tile_no_pass2': _K6_DW + (_NO_PASS2,),
     'pass2_divide': (_K6_PASS2_DIVIDE,),
     'tile_products_only': _K6_DW + (_K6_NO_STORES, _K6_NO_REDUCTIONS,
-                                    _K6_NO_PASS2),
+                                    _NO_PASS2),
+}
+# K5 (int8_trunk.cu): its tile pass without the staging stores of the
+# hidden layers' rows (pass 2 then reads whatever the block holds), without
+# pass 2's per-sample quantization, or with neither and no output stores.
+_K5 = 'int8_trunk.cu'
+_K5_NO_STAGING = {_K5: (
+    '          store_block<BN>(y, stage, width, pos, col0);',
+    '          if (false) store_block<BN>(y, stage, width, pos, col0);')}
+_K5_NO_OUTPUT = {_K5: ('              if (row < p.n)',
+                       '              if (false)')}
+K5_VARIANTS = {
+    'full': (),
+    'no_pass2': (_NO_PASS2,),
+    'no_staging_stores': (_K5_NO_STAGING,),
+    'products_only': (_K5_NO_STAGING, _NO_PASS2, _K5_NO_OUTPUT),
 }
 ROUNDS = 5  # Every variant timed once per round, the rounds in turn.
 
@@ -262,9 +282,25 @@ def _k6(basis, num_feats, rng):
   return {v: (_merge(*parts), 1) for v, parts in K6_VARIANTS.items()}, run
 
 
+def _k5(basis, num_feats, rng):
+  """K5's variants (no clusters) and its calls at the training chunk's N
+  and at the render chunk's."""
+  means, covs = _inputs(rng, K5_CHUNK)
+  width, skip = 1024, (5,)
+  ws = [_uniform(rng, num_feats if l == 0 else
+                 width + (num_feats if l in skip else 0), width)
+        for l in range(8)]
+  bs = [torch.zeros(width, device='cuda') for _ in ws]
+  run = {
+      f'int8_trunk{tag}': (lambda n=n: i8t.int8_trunk_forward(
+          means[:n], covs[:n], ws, bs, basis, 0, 12, True, skip))
+      for tag, n in (('', K2_N), ('_chunk', K5_CHUNK))}
+  return {v: (_merge(*parts), 1) for v, parts in K5_VARIANTS.items()}, run
+
+
 def main(argv=None):
   parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-  parser.add_argument('--kernels', choices=('k1k2', 'k6', 'all'),
+  parser.add_argument('--kernels', choices=('k1k2', 'k5', 'k6', 'all'),
                       default='all')
   args = parser.parse_args(argv)
   if not torch.cuda.is_available():
@@ -281,12 +317,15 @@ def main(argv=None):
     groups.append(_k1k2(basis, num_feats, rng) + (10,))
   if args.kernels in ('k6', 'all'):
     groups.append(_k6(basis, num_feats, rng) + (3,))
+  if args.kernels in ('k5', 'all'):
+    groups.append(_k5(basis, num_feats, rng) + (3,))
   cluster = plans.FWD_CLUSTER
   results, checks = {}, {}
   try:
     for variants, run, calls in groups:
       libs = _build({v: patches for v, (patches, _) in variants.items()},
-                    tuple({name.replace('_hybrid', '') for name in run}))
+                    tuple({re.sub('_(hybrid|chunk)$', '', name)
+                           for name in run}))
       times = {v: {name: [] for name in run} for v in variants}
       for _ in range(ROUNDS):
         for variant, (_, cluster_size) in variants.items():

@@ -9,7 +9,7 @@ channel weight scales, the skip layers adding ``bf16(feats) @ bf16(W_tail)``
 360 config (8 x 1,024 trunk, 131,072 samples per 4,096-ray chunk) the
 tensor cores bound it (1,924 GOP of int8 and 271 GFLOP of bf16 products,
 1.25 ms); the design notes are in ``csrc/int8_trunk.cu`` and
-``csrc/int8_trunk.cuh``.
+``csrc/int8_tile_pass.cuh``, the tile pass it shares with K6.
 
 Backward (K6) replaces ``_bwd_kernel`` (with ``_qrows``): it recomputes the
 forward, walks back through the ReLU masks, and returns every dW_l and db_l.
@@ -212,10 +212,10 @@ def _stack(ts, dtype, device):
 
 
 def _operands(ws, bs, width, num_feats, skip_layers):
-  """The kernels' weight operands (csrc/int8_trunk.cuh: I8Trunk) and the
-  quantized layers."""
+  """The kernels' weight operands (csrc/int8_tile_pass.cuh: I8TrunkArgs)
+  and the quantized layers."""
   q = quantize_weights(ws, width)
-  kpad = -(-num_feats // 32) * 32  # csrc/int8_trunk.cuh: i8_kpad.
+  kpad = -(-num_feats // 32) * 32  # csrc/int8_tile_pass.cuh: i8_kpad.
   device = ws[0].device
   padded_t = lambda w: F.pad(w, (0, 0, 0, kpad - num_feats)).T.contiguous()
   hidden = q[1:]
@@ -240,12 +240,18 @@ def _launch(means, covs, ws, bs, basis, min_deg, max_deg, use_contract,
     raise ValueError('all inputs must be on one device.')
   basis_t, bb_t, num_dims, num_degs, num_feats, width, skip_mask = (
       _check_trunk(means, ws, bs, basis, min_deg, max_deg, skip_layers))
+  n = means.shape[0]
+  out = torch.empty((n, width), dtype=torch.bfloat16, device=means.device)
+  if n == 0:
+    return out
   ops, _ = _operands(ws, bs, width, num_feats, skip_layers)
-  out = torch.empty((means.shape[0], width), dtype=torch.bfloat16,
-                    device=means.device)
+  plan = plans.i8_fwd_plan(num_feats, width, num_dims, n,
+                           fd.num_sms(means.device))
+  stage = torch.empty((plan.stage_floats,), dtype=torch.float32,
+                      device=means.device)
   lib = build.load('int8_trunk')
   fn = lib.int8_trunk_forward
-  fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
+  fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 + [
       ctypes.c_void_p]
   fn.restype = ctypes.c_int
   counts['launches'] += 1
@@ -253,9 +259,9 @@ def _launch(means, covs, ws, bs, basis, min_deg, max_deg, use_contract,
                  bb_t.data_ptr(), ops['w0t'].data_ptr(),
                  ops['wqt'].data_ptr(), ops['sw'].data_ptr(),
                  ops['tailt'].data_ptr(), ops['biases'].data_ptr(),
-                 out.data_ptr(), means.shape[0], width, len(ws), num_dims,
-                 num_degs, int(use_contract), skip_mask,
-                 _stream(means.device)),
+                 stage.data_ptr(), out.data_ptr(), n, width, len(ws),
+                 num_dims, num_degs, int(use_contract), skip_mask, plan.bn,
+                 plan.stages, plan.grid, _stream(means.device)),
               'int8_trunk')
   return out
 

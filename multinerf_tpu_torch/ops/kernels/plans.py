@@ -339,29 +339,31 @@ def s8_dw_plan(width, n_pad, group, sms):
                   s8_dw_smem(bn))
 
 
-I8_TILE = 64  # Samples per tile of K6's tile pass: wgmma's M.
+I8_TILE = 64  # Samples per tile of the int8 tile pass (K5, K6): wgmma's M.
 I8_STAGES = (6, 5, 4, 3, 2)  # Its rings' depths, deepest that fits first.
 
 
-def i8_tile_smem(width, kpad64, num_dims, bn, stages):
-  """Dynamic shared memory of K6's tile pass (int8_trunk_bwd.cu,
+def i8_tile_smem(width, kpad64, num_dims, bn, stages, backward=True):
+  """Dynamic shared memory of the int8 tile pass (int8_tile_pass.cuh,
   i8_tile_layout): the int8 input tile A [64][W] in whole [64][128-byte]
-  blocks (at least the featurizer's scratch), the bf16 features F [64][kpad64] (hybrid dx: a
-  bf16 [64][W] over both), two warpgroups' rings of [BN][64-byte] slabs,
-  their column-reduction buffers, the row maxima, the per-sample scales
-  and their reciprocals, the barriers and the alignment slack."""
+  blocks (at least the featurizer's scratch), the bf16 features F [64][kpad64]
+  (K6's hybrid dx: a bf16 [64][W] over both), two warpgroups' rings of
+  [BN][64-byte] slabs, K6's column-reduction buffers, the row maxima, the
+  per-sample scales and their reciprocals, the barriers and the alignment
+  slack.  backward: K6's layout, else K5's."""
   scratch = featurizer_floats(num_dims, I8_TILE) * 4
   f = _ceil(max(I8_TILE * _ceil(width, 128) * 128, scratch), 1024) * 1024
-  region = _ceil(max(f + I8_TILE * kpad64 * 2, I8_TILE * width * 2),
-                 1024) * 1024
-  return (region + 2 * stages * bn * 64 + 2 * 2 * 4 * bn * 4 +
-          2 * I8_TILE * 4 + 2 * I8_TILE * 4 + 2 * 2 * stages * 8 + 1024)
+  hybrid = I8_TILE * width * 2 if backward else 0
+  region = _ceil(max(f + I8_TILE * kpad64 * 2, hybrid), 1024) * 1024
+  colred = 2 * 2 * 4 * bn * 4 if backward else 0
+  return (region + 2 * stages * bn * 64 + colred + 2 * I8_TILE * 4 +
+          2 * I8_TILE * 4 + 2 * 2 * stages * 8 + 1024)
 
 
 @dataclasses.dataclass(frozen=True)
 class I8TilePlan:
-  """K6's tile pass: persistent CTAs over 64-sample tiles, the two consumer
-  warpgroups taking the BN-column blocks of each layer in turn."""
+  """The int8 tile pass: persistent CTAs over 64-sample tiles, the two
+  consumer warpgroups taking the BN-column blocks of each layer in turn."""
   bn: int  # Output columns per wgmma block.
   stages: int  # Depth of each warpgroup's weight ring.
   tiles: int
@@ -373,22 +375,40 @@ class I8TilePlan:
     return list(range(cta, self.tiles, self.grid))
 
 
-def i8_tile_plan(num_feats, width, num_dims, n_pad, sms):
-  """K6's tile pass over n_pad samples: BN = 128 where it divides W, the
-  deepest rings that fit, one CTA per SM."""
+def _i8_tile(num_feats, width, num_dims, tiles, sms, backward):
+  """BN = 128 where it divides W, the deepest rings that fit, one CTA per
+  SM over `tiles` tiles."""
   if width < 64 or width % 64:
     raise ValueError(f'width {width}: the tile pass takes a multiple of 64.')
-  if n_pad < I8_TILE or n_pad % I8_TILE:
-    raise ValueError(f'{n_pad} samples are not whole tiles of {I8_TILE}.')
   bn = 128 if width % 128 == 0 else 64
   kpad64 = _ceil(num_feats, 64) * 64
   for stages in I8_STAGES:
-    smem = i8_tile_smem(width, kpad64, num_dims, bn, stages)
+    smem = i8_tile_smem(width, kpad64, num_dims, bn, stages, backward)
     if smem <= SMEM_LIMIT:
-      tiles = n_pad // I8_TILE
       return I8TilePlan(bn, stages, tiles, min(tiles, sms), smem)
   raise ValueError(f'{num_feats} features, width {width}: {smem} bytes of '
                    f'shared memory, over {SMEM_LIMIT}.')
+
+
+def i8_tile_plan(num_feats, width, num_dims, n_pad, sms):
+  """K6's tile pass over n_pad samples."""
+  if n_pad < I8_TILE or n_pad % I8_TILE:
+    raise ValueError(f'{n_pad} samples are not whole tiles of {I8_TILE}.')
+  return _i8_tile(num_feats, width, num_dims, n_pad // I8_TILE, sms, True)
+
+
+@dataclasses.dataclass(frozen=True)
+class I8FwdPlan(I8TilePlan):
+  """K5: its tile pass and its staging block."""
+  stage_floats: int  # [grid][64][W] f32: each CTA's rows of a hidden layer.
+
+
+def i8_fwd_plan(num_feats, width, num_dims, n, sms):
+  """K5 over n samples: ceil(n / 64) tiles, the last one ragged."""
+  if n < 1:
+    raise ValueError(f'{n} samples: K5 needs at least one.')
+  t = _i8_tile(num_feats, width, num_dims, _ceil(n, I8_TILE), sms, False)
+  return I8FwdPlan(*dataclasses.astuple(t), t.grid * I8_TILE * width)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -438,6 +438,53 @@ def test_int8_trunk_kernel_matches_plain(cuda):
   assert _rel_l2(got.float(), want.float()) < 2e-2
 
 
+# K5 at the edges of its 64-sample tiles (N = 1, 63, 64, 65, 300, 1,100),
+# at a narrow trunk and at 360.gin's width, with and without a skip layer
+# and with layer 0 alone: relative L2 < 2e-2, two launches bitwise equal,
+# one launch and no plain call per call.
+@pytest.mark.parametrize('shape', ['skip', 'no_skip', 'layer0'])
+@pytest.mark.parametrize('width', [64, 1024])
+@pytest.mark.parametrize('n', [1, 63, 64, 65, 300, 1100])
+def test_int8_trunk_kernel_at_small_n(cuda, n, width, shape):
+  depth, skip = {'skip': (8, (5,)), 'no_skip': (8, ()),
+                 'layer0': (1, ())}[shape]
+  if width == 64 and shape == 'skip':
+    depth, skip = 4, (2,)
+  rng = np.random.RandomState(n + width + depth)
+  means, covs = _gaussians(n, 9, cuda)
+  ws, bs = _nerf_trunk(rng, cuda, depth, width, skip)
+  args = (means, covs, ws, bs, BASIS)
+  i8t.reset_counts()
+  got = i8t.int8_trunk(*args, skip_layers=skip)
+  assert i8t.counts == {'launches': 1, 'plain_calls': 0}
+  again = i8t.int8_trunk(*args, skip_layers=skip)
+  want = i8t.int8_trunk_plain(*args, skip_layers=skip)
+  torch.cuda.synchronize()
+  assert got.dtype == want.dtype == torch.bfloat16
+  assert got.shape == want.shape == (n, width)
+  assert torch.equal(got, again), 'two launches differ'
+  assert bool(torch.isfinite(got.float()).all())
+  assert _rel_l2(got.float(), want.float()) < 2e-2
+
+
+def test_int8_trunk_shared_memory_matches_the_plans(cuda):
+  import ctypes
+  from multinerf_tpu_torch.ops.kernels import build
+  from multinerf_tpu_torch.ops.kernels import plans
+  k5 = build.load('int8_trunk').int8_fwd_tile_smem
+  k6 = build.load('int8_trunk_bwd').int8_bwd_tile_smem
+  for fn in (k5, k6):
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_int
+  sms = fd.num_sms(cuda)
+  for feats, width in ((NUM_FEATS, 1024), (NUM_FEATS, 64), (NUM_FEATS, 192),
+                       (672, 1024)):
+    plan = plans.i8_fwd_plan(feats, width, 21, 1000, sms)
+    assert k5(width, feats, 21, plan.bn, plan.stages) == plan.smem
+    tile = plans.i8_tile_plan(feats, width, 21, 1024, sms)
+    assert k6(width, feats, 21, tile.bn, tile.stages) == tile.smem
+
+
 @pytest.mark.parametrize('bwd_bf16', [False, True])
 def test_int8_trunk_backward_kernel_matches_plain(cuda, bwd_bf16):
   rng = np.random.RandomState(4)

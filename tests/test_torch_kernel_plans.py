@@ -1,9 +1,9 @@
-"""Launch plans of the kernels K1-K4 (pure Python, no GPU): the persistent
+"""Launch plans of the kernels K1-K6 (pure Python, no GPU): the persistent
 tile walks, split-K sample ranges, grids, tile shapes and shared-memory
 sizes that ``ops/kernels/plans.py`` hands to ``csrc/density_mlp.cu``,
-``featurize_dense.cu``, ``density_mlp_bwd.cu`` and
-``featurize_dense_dw.cu``, and the zero-padding of narrow trunks and
-weight columns."""
+``featurize_dense.cu``, ``density_mlp_bwd.cu``, ``featurize_dense_dw.cu``,
+``int8_trunk.cu`` and ``int8_trunk_bwd.cu``, and the zero-padding of
+narrow trunks and weight columns."""
 
 import numpy as np
 import pytest
@@ -438,3 +438,66 @@ def test_k6_tile_pass_shared_memory_at_the_360_shapes():
 def test_k6_tile_rings_shrink_to_fit(num_feats, width, stages):
   tile = plans.i8_tile_plan(num_feats, width, 21, 4096, SMS)
   assert tile.stages == stages and tile.smem <= plans.SMEM_LIMIT
+
+
+# K5's tile pass (csrc/int8_trunk.cu on int8_tile_pass.cuh): the same
+# 64-sample tiles over ceil(n / 64), the last one ragged, no padding of n.
+@pytest.mark.parametrize('n', [1, 63, 64, 65, 1100, N_NERF - 37, N_NERF,
+                               4 * N_NERF])
+@pytest.mark.parametrize('width', [64, 192, 1024])
+def test_k5_tiles_cover_every_sample_once(n, width):
+  plan = plans.i8_fwd_plan(F360, width, 21, n, SMS)
+  assert plan.tiles == -(-n // plans.I8_TILE)
+  assert plan.grid == min(plan.tiles, SMS)
+  walked = [t for cta in range(plan.grid) for t in plan.cta_tiles(cta)]
+  assert sorted(walked) == list(range(plan.tiles))
+  samples = [s for t in walked
+             for s in range(t * plans.I8_TILE, (t + 1) * plans.I8_TILE)
+             if s < n]
+  assert sorted(samples) == list(range(n))
+  assert width % plan.bn == 0 and plan.bn in (64, 128)
+  assert plan.stage_floats == plan.grid * plans.I8_TILE * width
+
+
+def test_k5_shared_memory_and_staging_at_the_360_shapes():
+  plan = plans.i8_fwd_plan(F360, 1024, 21, N_NERF, SMS)
+  # A [64][1024] int8 and F [64][512] bf16 (64 KB each), two 6-stage rings
+  # of [128][64] slabs, row maxima, scales and their reciprocals, barriers,
+  # alignment: no column-reduction buffers and no hybrid dx tile, so one
+  # stage deeper than K6's tile pass.
+  assert (plan.bn, plan.stages, plan.tiles, plan.grid) == (128, 6, 2048, 132)
+  assert plan.smem == (2 * 65536 + 2 * 6 * 8192 + 512 + 256 + 256 +
+                       2 * 2 * 6 * 8 + 1024)
+  assert plan.smem <= plans.SMEM_LIMIT
+  assert plans.i8_tile_smem(1024, 512, 21, 128, 6, backward=False) == (
+      plan.smem)
+  assert plans.i8_tile_smem(1024, 512, 21, 128, 6) > plans.SMEM_LIMIT
+  # The staging block, [132][64][1024] f32: 34.6 MB, under the 50 MB L2.
+  assert plan.stage_floats == 132 * 64 * 1024
+  assert 4 * plan.stage_floats < 50 * 2**20
+  # The render chunk (16,384 rays x 32 samples) keeps the grid and block.
+  chunk = plans.i8_fwd_plan(F360, 1024, 21, 4 * N_NERF, SMS)
+  assert (chunk.tiles, chunk.grid, chunk.stage_floats) == (
+      8192, 132, plan.stage_floats)
+
+
+@pytest.mark.parametrize('num_feats,width,stages', [
+    (F360, 64, 6), (F360, 1024, 6), (672, 1024, 4), (1008, 1024, 2)])
+def test_k5_ring_shrinks_to_fit(num_feats, width, stages):
+  plan = plans.i8_fwd_plan(num_feats, width, 21, 4096, SMS)
+  assert plan.stages == stages and plan.smem <= plans.SMEM_LIMIT
+  if stages < plans.I8_STAGES[0]:
+    deeper = plans.I8_STAGES[plans.I8_STAGES.index(stages) - 1]
+    assert plans.i8_tile_smem(width, -(-num_feats // 64) * 64, 21, plan.bn,
+                              deeper, backward=False) > plans.SMEM_LIMIT
+
+
+@pytest.mark.parametrize('call,match', [
+    (lambda: plans.i8_fwd_plan(F360, 96, 21, 512, SMS), 'multiple of 64'),
+    (lambda: plans.i8_fwd_plan(F360, 32, 21, 512, SMS), 'multiple of 64'),
+    (lambda: plans.i8_fwd_plan(F360, 1024, 21, 0, SMS), 'at least one'),
+    (lambda: plans.i8_fwd_plan(6000, 1024, 21, 512, SMS), 'shared memory'),
+])
+def test_k5_plan_rejects_what_the_kernel_does_not_take(call, match):
+  with pytest.raises(ValueError, match=match):
+    call()
