@@ -6,8 +6,11 @@ too), renders ``configs/360.gin`` at full model width through ``python -m
 multinerf_tpu_torch.render``'s entry point, trains it for 100 steps of
 4,096 rays through ``python -m multinerf_tpu_torch.train``'s, holds one
 train step on the GPU against the CPU, and checks that both paths went
-through the kernels; then renders and trains it under
-``trunk_dtype='bfloat16'`` (the same kernels K1-K4), and under
+through the kernels; runs the whole train driver on the device-resident
+sampler (30 steps, a resume to 60, checkpoints, summaries read back,
+in-train renders) and ``python -m multinerf_tpu_torch.eval`` on its final
+checkpoint; then renders and trains it under ``trunk_dtype='bfloat16'``
+(the same kernels K1-K4, and a bf16 train step GPU vs CPU), and under
 ``trunk_dtype='int8'`` and ``'int8_hybrid'`` (the int8 trunk kernels K5 and
 K6; K5 is also held and timed at one render chunk of 524,288 samples).
 
@@ -52,18 +55,21 @@ def log(msg):
 
 
 def phase_device():
+  """The card's name and power limit, as nvidia-smi prints them."""
   if not torch.cuda.is_available():
     raise SystemExit('FAIL device: torch.cuda.is_available() is false.')
   smi = subprocess.run(
       ['nvidia-smi', '--query-gpu=name,power.limit',
        '--format=csv,noheader'], capture_output=True, text=True, check=True)
-  log(smi.stdout.strip().splitlines()[0])
+  card = smi.stdout.strip().splitlines()[0]
+  log(card)
   log(f'device: {torch.cuda.get_device_name(0)}, count '
       f'{torch.cuda.device_count()}, torch {torch.__version__}, '
       f'cuda {torch.version.cuda}, python {sys.version.split()[0]}')
   # 360.gin's hidden layers are float32; the reference numerics are full f32.
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
+  return card
 
 
 KERNEL_LIBS = ('density_mlp', 'featurize_dense', 'density_mlp_bwd',
@@ -826,7 +832,7 @@ def phase_train(tag='train', bindings=(), steps=TRAIN_STEPS,
   """`steps` steps of configs/360.gin at full width, 4,096 rays per step,
   on dummy_unbounded, through ``python -m multinerf_tpu_torch.train``'s
   entry point; the launch counters, read around every step, show that each
-  step ran the path's kernels."""
+  step ran the path's kernels.  Returns (launches, median step seconds)."""
   from multinerf_tpu_torch import train
   from multinerf_tpu_torch import train_lib
   per_step = []
@@ -894,7 +900,7 @@ def phase_train(tag='train', bindings=(), steps=TRAIN_STEPS,
       f'{step_s * 1e3:.3f} ms over steps 6-{steps} (synchronised per '
       f'step), {TRAIN_RAYS / step_s:,.0f} train rays/s, max memory '
       f'allocated {peak_gib:.2f} GiB')
-  return launches
+  return launches, step_s
 
 
 # The cap of train_lib.leaf_gaps at full width: there the CPU step's own
@@ -905,7 +911,10 @@ def phase_train(tag='train', bindings=(), steps=TRAIN_STEPS,
 # nudge, and the GPU step was 1.75e-1 from it, so its cap is 0.25.  Its
 # loss terms get 5e-3 instead of 1e-3: the interlevel term, the proposal
 # levels' mismatch with the final level's weights, which the int8 NerfMLP
-# sets, was 1.94e-3 apart (the same card).
+# sets, was 1.94e-3 apart (the same card).  The bf16 step keeps the f32
+# step's bounds: its CPU step moves by 1.27e-1 at NerfMLP_0/Dense_0/kernel
+# under the nudge, the GPU step was 1.12e-1 from it (0.75 of the cap), and
+# its loss terms 4.7e-4 apart at most, the interlevel term (the same card).
 TRAIN_GAP_CAP = 0.15
 INT8_TRAIN_GAP_CAP = 0.25
 LOSS_TOL = 1e-3
@@ -975,6 +984,191 @@ def phase_train_reference(tag='train reference', bindings=(),
     raise SystemExit(f'FAIL {tag}: over the bounds: {over}')
 
 
+# The train driver on the device plane: 30 steps, then a resume to 60, with
+# a save, a console line and an in-train render on the way, then eval.
+DRIVER_STEPS = 60
+DRIVER_EVERY = 30
+DRIVER_EVAL_VIEWS = 3
+
+
+def _opt_state(optimizer):
+  """A CPU copy of an optimizer's per-parameter state."""
+  return {i: {k: v.detach().cpu().clone() for k, v in s.items()}
+          for i, s in optimizer.state_dict()['state'].items()}
+
+
+def phase_train_driver(card, host_step_s):
+  """``python -m multinerf_tpu_torch.train``'s whole driver at full width,
+  4,096 rays per step on the device plane (``Config.device_data_plane``):
+  30 steps (``early_exit_steps``), then a resume to step 60, saving every
+  30 steps and rendering a test view every 30; the event file read back by
+  the port's reader; then ``python -m multinerf_tpu_torch.eval`` over 3
+  test views of the final checkpoint.  The launch counters, read around
+  every step, render and eval, show K1-K4 in every step and K1/K2 in every
+  render, with no plain-version call.  Logs the device plane's step time,
+  the host sampler's time per batch on its own, and the render's rays/s."""
+  import argparse
+  from multinerf_tpu_torch import configs
+  from multinerf_tpu_torch import eval as eval_lib
+  from multinerf_tpu_torch import train
+  from multinerf_tpu_torch import train_lib
+  from multinerf_tpu_torch.data import datasets
+  from multinerf_tpu_torch.utils import checkpoints as ckpt_lib
+  from multinerf_tpu_torch.utils import summary
+  tag = 'train driver'
+  per_step, renders, restored = [], [], []
+
+  def counted(fn, log):
+    def run(*args, **kwargs):
+      before = _counts()
+      out = fn(*args, **kwargs)
+      after = _counts()
+      log.append(tuple({k: a[k] - b[k] for k in a}
+                       for a, b in zip(after, before)))
+      return out
+    return run
+
+  create_train_step = train_lib.create_train_step
+  test_render = train.in_train_test_render
+  restore_latest = ckpt_lib.CheckpointManager.restore_latest
+
+  def restore(mngr, state):
+    out = restore_latest(mngr, state)
+    if mngr.latest_step() is not None and out.optimizer is not None:
+      restored.append((out.step, _opt_state(out.optimizer),
+                       {k: v.detach().cpu().clone()
+                        for k, v in out.params.items()}))
+    return out
+
+  with tempfile.TemporaryDirectory() as tmp:
+    ckpt_dir = f'{tmp}/ckpt'
+    base = [f'--gin_configs={os.path.join(REPO, "configs", "360.gin")}',
+            "--gin_bindings=Config.dataset_loader='dummy_unbounded'",
+            f"--gin_bindings=Config.checkpoint_dir='{ckpt_dir}'",
+            '--device=cuda']
+    argv = base + [f'--gin_bindings={b}' for b in (
+        f'Config.batch_size={TRAIN_RAYS}', f'Config.max_steps={DRIVER_STEPS}',
+        'Config.lr_delay_steps=0', 'Config.print_every=10',
+        f'Config.checkpoint_every={DRIVER_EVERY}',
+        f'Config.train_render_every={DRIVER_EVERY}',
+        'Config.device_data_plane=True')]
+    torch.cuda.synchronize()
+    _reset_counts()
+    train_lib.create_train_step = lambda *a, **k: counted(
+        create_train_step(*a, **k), per_step)
+    train.in_train_test_render = counted(test_render, renders)
+    ckpt_lib.CheckpointManager.restore_latest = restore
+    t0 = time.perf_counter()
+    try:
+      first = train.main(argv + [
+          f'--gin_bindings=Config.early_exit_steps={DRIVER_EVERY}'])
+      saved = torch.load(os.path.join(ckpt_dir, f'checkpoint_{DRIVER_EVERY}'
+                                      '.pt'), weights_only=True)
+      second = train.main(argv)
+    finally:
+      train_lib.create_train_step = create_train_step
+      train.in_train_test_render = test_render
+      ckpt_lib.CheckpointManager.restore_latest = restore_latest
+    train_s = time.perf_counter() - t0
+    steps = ckpt_lib.CheckpointManager(ckpt_dir).steps()
+    if (first['init_step'], second['init_step'], steps) != (
+        1, DRIVER_EVERY + 1, [1, DRIVER_EVERY, DRIVER_STEPS]):
+      raise SystemExit(f'FAIL {tag}: first steps {first["init_step"]}, '
+                       f'{second["init_step"]}; checkpoints {steps}')
+    # The resumed run's state, as restored, against the file it came from.
+    step, opt_state, params = restored[-1]
+    want = {i: {k: v for k, v in s.items()}
+            for i, s in saved['opt_state']['state'].items()}
+    if step != DRIVER_EVERY or opt_state.keys() != want.keys() or not all(
+        opt_state[i].keys() == want[i].keys() and
+        all(torch.equal(opt_state[i][k], want[i][k]) for k in want[i])
+        for i in want) or not all(
+            torch.equal(params[k], v) for k, v in saved['params'].items()):
+      raise SystemExit(f'FAIL {tag}: the resumed state (step {step}) is not '
+                       'the saved one.')
+    losses = np.array(first['losses'] + second['losses'])
+    if len(losses) != DRIVER_STEPS or not np.isfinite(losses).all():
+      raise SystemExit(f'FAIL {tag}: losses {losses}')
+
+    events = summary.read_events(ckpt_dir)
+    for at in (DRIVER_EVERY, DRIVER_STEPS):
+      tags = {e['tag'] for e in events if e['step'] == at}
+      need = {'train_avg_loss', 'train_avg_psnr', 'train_psnr',
+              'train_learning_rate', 'train_rays_per_sec', 'test_rays_per_sec',
+              'train_metrics/psnr', 'train_metrics/ssim', 'test_true_color',
+              'test_output_color', 'test_output_ray_weights'}
+      if not need <= tags:
+        raise SystemExit(f'FAIL {tag}: step {at} lacks {need - tags}')
+    psnrs = [e['value'] for e in events if e['tag'] == 'train_metrics/psnr']
+    if len(psnrs) != 2 or not np.isfinite(psnrs).all():
+      raise SystemExit(f'FAIL {tag}: train_metrics/psnr {psnrs}')
+
+    before = _counts()
+    t0 = time.perf_counter()
+    evaluated = eval_lib.main(base + [
+        f'--gin_bindings=Config.max_steps={DRIVER_STEPS}',
+        f'--gin_bindings=Config.eval_dataset_limit={DRIVER_EVAL_VIEWS}'])
+    eval_s = time.perf_counter() - t0
+    after = _counts()
+    eval_counts = tuple({k: a[k] - b[k] for k in a}
+                        for a, b in zip(after, before))
+    names = sorted(os.listdir(evaluated['out_dir']))
+    scores = {}
+    for name in ('psnr', 'ssim', 'cc_psnr', 'cc_ssim'):
+      fname = f'metric_{name}_{DRIVER_STEPS}.txt'
+      if fname not in names:
+        raise SystemExit(f'FAIL {tag}: eval wrote no {fname} ({names})')
+      with open(os.path.join(evaluated['out_dir'], fname)) as f:
+        scores[name] = [float(v) for v in f.read().split()]
+      if (len(scores[name]) != DRIVER_EVAL_VIEWS or
+          not np.isfinite(scores[name]).all()):
+        raise SystemExit(f'FAIL {tag}: {fname}: {scores[name]}')
+    launches, plain = _counts()
+
+  fewest = {k: min(c[0][k] for c in per_step) for k in launches}
+  _check_launches(f'{tag} (every step)', fewest, plain,
+                  (F32_TRAIN[0], ()))
+  for i, (got, calls) in enumerate(renders + [eval_counts]):
+    _check_launches(f'{tag} render {i}', got, calls,
+                    (F32_RENDER[0], F32_TRAIN[0][2:] + F32_RENDER[1]))
+  if len(per_step) != DRIVER_STEPS or len(renders) != 2:
+    raise SystemExit(f'FAIL {tag}: {len(per_step)} steps, {len(renders)} '
+                     'renders counted.')
+
+  # The host sampler alone: one 4,096-ray batch of the train split.
+  config = configs.load_config(argparse.Namespace(
+      gin_configs=[os.path.join(REPO, 'configs', '360.gin')],
+      gin_bindings=["Config.dataset_loader = 'dummy_unbounded'",
+                    f'Config.batch_size = {TRAIN_RAYS}']))
+  dataset = datasets.load_dataset('train', None, config, seed=0)
+  batch_ms = []
+  for i in range(23):
+    t0 = time.perf_counter()
+    dataset._next_train()  # pylint: disable=protected-access
+    if i >= 3:
+      batch_ms.append((time.perf_counter() - t0) * 1e3)
+
+  step_s = statistics.median(first['step_seconds'][5:] +
+                             second['step_seconds'][5:])
+  render_rays = first['test_rays_per_sec'] + second['test_rays_per_sec']
+  log(f'{tag}: {train_s:.1f} s for two runs of {DRIVER_EVERY} steps (saves '
+      f'at {steps}, first resumed step {second["init_step"]}, Adam state and '
+      'parameters as saved); launches '
+      f'{launches}, plain-version calls {plain}')
+  log(f'{tag} ({card}): device plane, median step {step_s * 1e3:.3f} ms '
+      f'over steps 6-30 and 36-60 (synchronised per step), '
+      f'{TRAIN_RAYS / step_s:,.0f} train rays/s; host path (phase_train, '
+      f'prefetching) {host_step_s * 1e3:.3f} ms, '
+      f'{TRAIN_RAYS / host_step_s:,.0f} train rays/s; host sampler alone '
+      f'{statistics.median(batch_ms):.3f} ms per {TRAIN_RAYS}-ray batch '
+      f'(median of 20, _next_train); in-train render (64x64) '
+      f'{", ".join(f"{r:,.0f}" for r in render_rays)} rays/s')
+  log(f'{tag}: eval of {DRIVER_EVAL_VIEWS} views in {eval_s:.1f} s, '
+      f'psnr {scores["psnr"]}, ssim {scores["ssim"]}, color-corrected psnr '
+      f'{scores["cc_psnr"]}')
+  return launches
+
+
 SOURCES = {
     'density_mlp': ('multinerf_tpu_torch/csrc/density_mlp.cu',
                     'multinerf_tpu/ops/pallas/density_mlp.py:65'),
@@ -993,19 +1187,21 @@ SOURCES = {
 
 def main():
   t0 = time.perf_counter()
-  phase_device()
+  card = phase_device()
   phase_build()
   results = phase_kernels()
   results.update(phase_backward_kernels())
   results.update(phase_int8_kernels())
   paths = {'render': phase_main_path()}
   phase_reference()
-  paths['train'] = phase_train()
+  paths['train'], host_step_s = phase_train()
   phase_train_reference()
+  paths['train_driver'] = phase_train_driver(card, host_step_s)
   paths['render_bfloat16'] = phase_main_path('render bfloat16', BF16_BINDINGS,
                                              F32_RENDER)
   paths['train_bfloat16'] = phase_train('train bfloat16', BF16_BINDINGS,
-                                        BF16_STEPS, F32_TRAIN)
+                                        BF16_STEPS, F32_TRAIN)[0]
+  phase_train_reference('train reference bfloat16', BF16_BINDINGS)
   for mode in INT8_MODES:
     paths[f'render_{mode}'] = phase_main_path(
         f'render {mode}', int8_bindings(mode), INT8_RENDER)
@@ -1014,7 +1210,7 @@ def main():
   for mode, steps in zip(INT8_MODES, (TRAIN_STEPS, HYBRID_STEPS)):
     paths[f'train_{mode}'] = phase_train(f'train {mode}',
                                          int8_bindings(mode), steps,
-                                         INT8_TRAIN)
+                                         INT8_TRAIN)[0]
   phase_train_reference('train reference int8', int8_bindings('int8'),
                         INT8_TRAIN_GAP_CAP, INT8_LOSS_TOL)
   bounds = kernel_bounds()

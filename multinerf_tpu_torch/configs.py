@@ -178,8 +178,10 @@ def add_common_flags(parser: argparse.ArgumentParser):
                       help='Gin parameter bindings.')
 
 
-def load_config(args):
-  """Parse the gin files and bindings of parsed `args` into a Config.
+def load_config(args, save_config=False):
+  """Parse the gin files and bindings of parsed `args` into a Config; with
+  `save_config`, write the resolved bindings to ``config.gin`` in
+  ``Config.checkpoint_dir`` (configs.py:222-233 of the JAX package).
 
   Earlier bindings are cleared first, so one process can load several
   configurations in turn.
@@ -187,4 +189,11 @@ def load_config(args):
   ginlite.clear_config()
   ginlite.add_search_path(_REPO_ROOT)
   ginlite.parse_config_files_and_bindings(args.gin_configs, args.gin_bindings)
-  return ginlite.make('Config')
+  config = ginlite.make('Config')
+  if save_config:
+    if config.checkpoint_dir is None:
+      raise ValueError('Config.checkpoint_dir must name the output directory.')
+    os.makedirs(config.checkpoint_dir, exist_ok=True)
+    with open(os.path.join(config.checkpoint_dir, 'config.gin'), 'w') as f:
+      f.write(ginlite.config_str())
+  return config

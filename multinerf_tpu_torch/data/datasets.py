@@ -1,11 +1,16 @@
 """Datasets of the render and train paths (port of parts of datasets.py).
 
 ``Dataset`` holds a split's cameras, camera type, image size, near/far and
-exposure records.  A train split is also an iterator of random ray batches
-(``_next_train``, datasets.py:225-282): pixels and cameras drawn from the
-dataset's own ``np.random.RandomState(seed)``, rays cast on the host with
-numpy as in the JAX package.  It is a plain iterator: the prefetch thread
-of the JAX loader is not ported.  The synthetic scenes ``dummy_scatter``
+exposure records, and is an iterator of host batches (datasets.py:93-300 of
+the JAX package).  A train split yields random ray batches (``_next_train``):
+pixels and cameras drawn from the dataset's own
+``np.random.RandomState(seed)``, rays cast on the host with numpy as in the
+JAX package.  A test split yields one whole view per batch (``_next_test``),
+its cameras in turn, with the view's ground-truth ``rgb``.  As in the JAX
+loader, a daemon thread makes the batches into a queue of 3; it starts at
+the first ``next()`` and is the only user of the random state, so the draws
+come in the order a synchronous loop would make them.  ``close()`` (or
+leaving a ``with`` block) stops it.  The synthetic scenes ``dummy_scatter``
 and ``dummy_unbounded`` are made with the same numpy as the JAX loaders
 (datasets.py:842-959), so both packages see identical cameras and images.
 """
@@ -13,6 +18,8 @@ and ``dummy_unbounded`` are made with the same numpy as the JAX loaders
 from __future__ import annotations
 
 import abc
+import queue
+import threading
 
 import numpy as np
 
@@ -40,6 +47,10 @@ class Dataset(metaclass=abc.ABCMeta):
   def __init__(self, split: str, data_dir: str, config, seed=0):
     self.split = types.DataSplit(split)
     self._rng = np.random.RandomState(seed)
+    self._queue = queue.Queue(3)  # Prefetch buffer of 3 batches.
+    self._stop = threading.Event()
+    self._thread = None
+    self._test_camera_idx = 0
     self._patch_size = max(config.patch_size, 1)
     self._batch_size = config.batch_size
     if self._patch_size**2 > self._batch_size:
@@ -101,11 +112,47 @@ class Dataset(metaclass=abc.ABCMeta):
     return self
 
   def __next__(self) -> types.Batch:
-    """The next random training batch (numpy arrays, patch-shaped)."""
-    if self.split != types.DataSplit.TRAIN:
-      raise TypeError('only a train split yields batches; test views are '
-                      'rendered by models.nerf.DeviceImageRenderer.')
-    return self._next_train()
+    """The next host batch (numpy arrays): random rays (patch-shaped) of a
+    train split, or the next whole view of a test split."""
+    if self._stop.is_set():
+      raise StopIteration
+    if self._thread is None:
+      self._thread = threading.Thread(target=self._produce, daemon=True)
+      self._thread.start()
+    batch = self._queue.get()
+    if isinstance(batch, Exception):
+      raise batch
+    return batch
+
+  def _produce(self):
+    """The producer thread: batches into the queue until close()."""
+    next_fn = (self._next_train if self.split == types.DataSplit.TRAIN
+               else self._next_test)
+    while not self._stop.is_set():
+      try:
+        batch = next_fn()
+      except Exception as e:
+        batch = e  # Raised by the consumer's next().
+      while not self._stop.is_set():
+        try:
+          self._queue.put(batch, timeout=0.1)
+          break
+        except queue.Full:
+          pass
+      if isinstance(batch, Exception):
+        return
+
+  def close(self):
+    """Stop the producer thread and wait for it."""
+    self._stop.set()
+    if self._thread is not None:
+      self._thread.join()
+
+  def __enter__(self):
+    return self
+
+  def __exit__(self, *exc):
+    self.close()
 
   @abc.abstractmethod
   def _load_renderings(self, config):
@@ -163,6 +210,22 @@ class Dataset(metaclass=abc.ABCMeta):
     else:
       cam_idx = self._rng.randint(0, self._n_examples, (1,))
     return self._make_ray_batch(pix_x_int, pix_y_int, cam_idx)
+
+  def generate_ray_batch(self, cam_idx: int) -> types.Batch:
+    """The rays of every pixel of camera `cam_idx`, [H, W] batch dims."""
+    if self._render_spherical:
+      raise NotImplementedError(
+          'Not ported yet: pano rendering (ROADMAP.md Queue 1: serving '
+          'slice, deferred items).')
+    pix_x_int, pix_y_int = camera_lib.pixel_coordinates(self.width,
+                                                        self.height)
+    return self._make_ray_batch(pix_x_int, pix_y_int, cam_idx)
+
+  def _next_test(self) -> types.Batch:
+    """One whole view, the cameras in turn."""
+    cam_idx = self._test_camera_idx
+    self._test_camera_idx = (self._test_camera_idx + 1) % self._n_examples
+    return self.generate_ray_batch(cam_idx)
 
 
 class DummyScatter(Dataset):

@@ -1,0 +1,114 @@
+"""The device-resident training data plane (port of data/device_sampler.py).
+
+The train images and the camera table live on the device.  Each step draws
+its pixels and cameras with ``torch.randint`` from a ``torch.Generator`` on
+that device, gathers their ``rgb`` and casts their rays with
+``data/cameras.py:cast_ray_batch(xnp=torch)``, the caster of
+``models.nerf.DeviceImageRenderer``: no host batch and no host-to-device copy
+per step.  The draws follow ``Dataset._next_train``'s rules (border mask,
+patches, all-images or single-image batching), not its random stream: the
+rays of given pixel and camera indices equal the host caster's.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from multinerf_tpu_torch.data import cameras as camera_lib
+from multinerf_tpu_torch.data import types
+
+
+class DeviceDataPlane:
+  """A train split's images and cameras on `device`, sampled there."""
+
+  def __init__(self, dataset, config, device):
+    """Upload a train Dataset's images and cameras to `device`."""
+    if config.apply_bayer_mask:
+      raise NotImplementedError(
+          'Not ported yet: the Bayer mask (ROADMAP.md Queue 1 item 4: the '
+          'rest of the model zoo, RawNeRF).')
+    self.device = torch.device(device)
+    self.camtype = dataset.camtype
+    self._patch_size = max(config.patch_size, 1)
+    self._num_patches = config.batch_size // self._patch_size**2
+    self._height, self._width = dataset.height, dataset.width
+    self._border = config.num_border_pixels_to_mask
+    self._single_image = config.batching == 'single_image'
+    self.near, self.far = float(dataset.near), float(dataset.far)
+
+    as_f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32),
+                                       device=self.device)
+    self.images = as_f32(dataset.images)
+    pixtocams, camtoworlds, distortion_params, pixtocam_ndc = dataset.cameras
+    self.cameras = (as_f32(pixtocams), as_f32(camtoworlds),
+                    distortion_params,
+                    None if pixtocam_ndc is None else as_f32(pixtocam_ndc))
+    records = dataset.exposure_records(np.arange(self.images.shape[0]))
+    self._exposure_values = None
+    if 'exposure_values' in records:
+      self._exposure_values = as_f32(np.broadcast_to(
+          records['exposure_values'], (self.images.shape[0],)))
+    if 'exposure_idx' in records:
+      raise NotImplementedError(
+          'Not ported yet: RawNeRF exposure indices (ROADMAP.md Queue 1 item '
+          '4: the rest of the model zoo, RawNeRF).')
+
+  def draw(self, generator):
+    """(pix_x, pix_y, cam_idx): int64 [P, ps, ps] pixel coordinates of
+    `num_patches` patches and [P, 1, 1] cameras, from `generator`."""
+    ps, n = self._patch_size, self._num_patches
+    randint = lambda lo, hi, shape: torch.randint(
+        lo, hi, shape, generator=generator, device=self.device)
+    lower = self._border
+    pix_x = randint(lower, self._width - self._border - ps + 1, (n, 1, 1))
+    pix_y = randint(lower, self._height - self._border - ps + 1, (n, 1, 1))
+    offsets = torch.arange(ps, device=self.device)
+    pix_x = (pix_x + offsets[None, None, :]).expand(n, ps, ps)
+    pix_y = (pix_y + offsets[None, :, None]).expand(n, ps, ps)
+    if self._single_image:
+      cam_idx = randint(0, self.images.shape[0], (1, 1, 1)).expand(n, 1, 1)
+    else:
+      cam_idx = randint(0, self.images.shape[0], (n, 1, 1))
+    return pix_x, pix_y, cam_idx
+
+  def make_batch(self, pix_x, pix_y, cam_idx) -> types.Batch:
+    """The Batch of given pixels and cameras ([P, ps, ps] / [P, 1, 1]),
+    shaped as ``train_lib.batch_to_device`` shapes a host batch: patch
+    axes of size 1 dropped."""
+    shape = pix_x.shape
+    cam = cam_idx.expand(shape)
+    ones = torch.ones(shape + (1,), dtype=torch.float32, device=self.device)
+    kw = dict(lossmult=ones, near=self.near * ones, far=self.far * ones,
+              cam_idx=cam[..., None])
+    if self._exposure_values is not None:
+      kw['exposure_values'] = self._exposure_values[cam][..., None]
+    rays = camera_lib.cast_ray_batch(
+        self.cameras, types.Pixels(pix_x, pix_y, **kw), self.camtype,
+        xnp=torch)
+    batch = types.Batch(rays=rays, rgb=self.images[cam, pix_y, pix_x])
+    if self._patch_size == 1:
+      squeeze = lambda x: None if x is None else x.reshape(
+          (shape[0],) + x.shape[3:])
+      batch = types.Batch(
+          rays=types.Rays(**{f: squeeze(getattr(rays, f))
+                             for f in rays.__dataclass_fields__}),
+          rgb=squeeze(batch.rgb))
+    return batch
+
+  def sample_batch(self, generator) -> types.Batch:
+    """One training batch drawn and cast on the device."""
+    return self.make_batch(*self.draw(generator))
+
+
+def create_device_train_step(train_step, plane: DeviceDataPlane):
+  """A step that samples its own batch on the device:
+  (generator, state, train_frac, compute_stats) -> (state, stats), around
+  `train_step` of ``train_lib.create_train_step``.  The generator draws the
+  pixels, then the step's jitter."""
+
+  def step(generator, state, train_frac, compute_stats):
+    batch = plane.sample_batch(generator)
+    return train_step(generator, state, batch, train_frac, compute_stats)
+
+  return step

@@ -207,5 +207,20 @@ def make(target: str, **overrides) -> Any:
   return apply_bindings(target, _CONFIGURABLES[target], **overrides)
 
 
+def config_str() -> str:
+  """Render the resolved config in gin file syntax (for checkpointing)."""
+  lines = []
+  for target in sorted(_BINDINGS):
+    for param, value in sorted(_BINDINGS[target].items()):
+      if callable(value):
+        name = next((k for k, v in _EXTERNALS.items() if v is value), None)
+        rendered = f'@{name}' if name else repr(value)
+      else:
+        rendered = repr(value)
+      lines.append(f'{target}.{param} = {rendered}')
+    lines.append('')
+  return '\n'.join(lines)
+
+
 def unknown_bindings() -> List[str]:
   return list(_UNKNOWN)

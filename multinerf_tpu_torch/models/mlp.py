@@ -267,7 +267,7 @@ class MLP(nn.Module):
                                   cfg.bottleneck_noise > 0):
       raise NotImplementedError(
           'Not ported yet: density and bottleneck noise (ROADMAP.md Queue 1 '
-          'item 2b, the rest of the training loop).')
+          'item 4: the rest of the model zoo, RawNeRF).')
     sample_shape = means.shape[:-1]
     means = means.reshape(-1, 3)
     covs = covs.reshape(-1, 3, 3)

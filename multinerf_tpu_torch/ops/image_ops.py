@@ -1,4 +1,13 @@
-"""Image transforms and metrics (port of parts of ops/image_ops.py)."""
+"""Image transforms and quality metrics (port of ops/image_ops.py).
+
+PSNR, SSIM (11×11 Gaussian window, sigma 1.5, k1 = 0.01, k2 = 0.03, VALID
+padding: the settings of the JAX ``ssim``) and the quadratic color
+correction of eval.  Metrics are computed on host images, as the eval and
+train drivers hold them: SSIM in float32 on the CPU, where no convolution
+takes TF32 or bf16 inputs (the JAX package asks for ``Precision.HIGHEST``
+because reduced-precision inputs bias the ``E[x^2] - mu^2`` variance
+terms).  LPIPS is not ported: its weights are not in the repository.
+"""
 
 from __future__ import annotations
 
@@ -8,6 +17,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def mse_to_psnr(mse):
@@ -26,14 +36,128 @@ def linear_to_srgb(linear, eps: Optional[float] = None,
   return xnp.where(linear <= 0.0031308, srgb0, srgb1)
 
 
-def make_postprocess_fns(config, dataset):
-  """(tonemap fn, color-correction fn) for a dataset's color space.
+def color_correct(img, ref, num_iters=5, eps=0.5 / 255):
+  """Fit a per-channel quadratic color transform warping img toward ref
+  (host numpy, as image_ops.py:72-110 of the JAX package).
 
-  Only the tonemap of the render path is ported: the identity.
+  Saturated pixels are masked out of the least-squares fit; because the
+  saturation set changes as the fit improves, the solve is iterated.
   """
+  if img.shape[-1] != ref.shape[-1]:
+    raise ValueError(
+        f"img's {img.shape[-1]} and ref's {ref.shape[-1]} channels must match")
+  num_channels = img.shape[-1]
+  img_mat = np.asarray(img).reshape([-1, num_channels])
+  ref_mat = np.asarray(ref).reshape([-1, num_channels])
+
+  def is_unclipped(z):  # Pixels near the [0, 1] rails carry no signal.
+    return (z >= eps) & (z <= 1 - eps)
+
+  mask0 = is_unclipped(img_mat)
+  for _ in range(num_iters):
+    # Quadratic expansion of each pixel: upper-triangular channel products,
+    # then the linear terms, then a bias.
+    quads = [img_mat[:, c:c + 1] * img_mat[:, c:] for c in range(num_channels)]
+    a_mat = np.concatenate(quads + [img_mat, np.ones_like(img_mat[:, :1])],
+                           axis=-1)
+    warp = []
+    for c in range(num_channels):
+      b = ref_mat[:, c]
+      mask = mask0[:, c] & is_unclipped(img_mat[:, c]) & is_unclipped(b)
+      w = np.linalg.lstsq(np.where(mask[:, None], a_mat, 0),
+                          np.where(mask, b, 0), rcond=-1)[0]
+      if not np.isfinite(w).all():
+        raise FloatingPointError('color_correct: non-finite fit.')
+      warp.append(w)
+    img_mat = np.clip(a_mat @ np.stack(warp, axis=-1), 0, 1)
+  return img_mat.reshape(img.shape)
+
+
+def _gaussian_kernel1d(filter_size: int, filter_sigma: float):
+  """Normalized 1D Gaussian window (float32)."""
+  offsets = (torch.arange(filter_size, dtype=torch.float32) -
+             (filter_size - 1) / 2)
+  g = torch.exp(-0.5 * (offsets / filter_sigma)**2)
+  return g / torch.sum(g)
+
+
+def _filter2d(img, kernel1d):
+  """Separable VALID filtering of an [H, W, C] (or [H, W]) image."""
+  squeeze = img.ndim == 2
+  if squeeze:
+    img = img[..., None]
+  c = img.shape[-1]
+  chw = img.permute(2, 0, 1)[None]  # [1, C, H, W], one group per channel.
+  k = kernel1d.shape[0]
+  out = F.conv2d(chw, kernel1d.reshape(1, 1, k, 1).expand(c, 1, k, 1),
+                 groups=c)
+  out = F.conv2d(out, kernel1d.reshape(1, 1, 1, k).expand(c, 1, 1, k),
+                 groups=c)
+  out = out[0].permute(1, 2, 0)
+  return out[..., 0] if squeeze else out
+
+
+def ssim(img0, img1, max_val=1.0, filter_size=11, filter_sigma=1.5,
+         k1=0.01, k2=0.03, return_map=False):
+  """Structural similarity (Wang et al. 2004) between two images.
+
+  Args:
+    img0, img1: [H, W, C] or [H, W] images in [0, max_val] (numpy arrays
+      or tensors; computed in float32 on the CPU).
+    max_val: dynamic range of the inputs.
+    filter_size, filter_sigma: Gaussian window parameters.
+    k1, k2: stabilization constants.
+    return_map: return the per-pixel SSIM map instead of its mean.
+
+  Returns:
+    A float32 tensor: the mean SSIM, or the SSIM map over the VALID region.
+  """
+  img0 = torch.as_tensor(np.asarray(img0, np.float32))
+  img1 = torch.as_tensor(np.asarray(img1, np.float32))
+  kernel = _gaussian_kernel1d(filter_size, filter_sigma)
+
+  mu0 = _filter2d(img0, kernel)
+  mu1 = _filter2d(img1, kernel)
+  mu00 = mu0 * mu0
+  mu11 = mu1 * mu1
+  mu01 = mu0 * mu1
+  sigma00 = _filter2d(img0 * img0, kernel) - mu00
+  sigma11 = _filter2d(img1 * img1, kernel) - mu11
+  sigma01 = _filter2d(img0 * img1, kernel) - mu01
+
+  c1 = (k1 * max_val)**2
+  c2 = (k2 * max_val)**2
+  numer = (2 * mu01 + c1) * (2 * sigma01 + c2)
+  denom = (mu00 + mu11 + c1) * (sigma00 + sigma11 + c2)
+  ssim_map = numer / denom
+  return ssim_map if return_map else torch.mean(ssim_map)
+
+
+class MetricHarness:
+  """PSNR and SSIM between a predicted and a ground-truth host image."""
+
+  def __init__(self, lpips_weights_path=None):
+    if lpips_weights_path:
+      raise NotImplementedError(
+          'Not ported yet: LPIPS (ROADMAP.md Queue 1 item 3: its weights are '
+          'not in the repository).')
+
+  def __call__(self, rgb_pred, rgb_gt, name_fn=lambda s: s):
+    mse = np.mean((np.asarray(rgb_pred) - np.asarray(rgb_gt))**2)
+    # The JAX harness takes the log of the float32 MSE.
+    psnr = float(mse_to_psnr(torch.tensor(mse, dtype=torch.float32)))
+    return {name_fn('psnr'): psnr,
+            name_fn('ssim'): float(ssim(rgb_pred, rgb_gt))}
+
+
+def make_postprocess_fns(config, dataset):
+  """(tonemap fn, color-correction fn) for a dataset's color space: the
+  identity and ``color_correct`` (RawNeRF's are not ported)."""
   del dataset
+  later = 'ROADMAP.md Queue 1 item 4: the rest of the model zoo, RawNeRF'
   if config.rawnerf_mode:
+    raise NotImplementedError(f'Not ported yet: the RawNeRF tonemap ({later}).')
+  if config.eval_raw_affine_cc:
     raise NotImplementedError(
-        'Not ported yet: the RawNeRF tonemap (ROADMAP.md Queue 1: the rest '
-        'of the model zoo).')
-  return (lambda z: z), None
+        f'Not ported yet: the raw affine color correction ({later}).')
+  return (lambda z: z), color_correct

@@ -6,8 +6,9 @@ torch.profiler.
         --gin_bindings='Config.batch_size=4096' [--warmup=13] [--steps=3]
 
 Sets the model up as ``python -m multinerf_tpu_torch.train`` does (same
-seeds, TF32 off), runs `warmup` steps, then `steps` more under the
-profiler, each synchronised.  With ``--frame`` it sets the model up as
+seeds, TF32 off, host batches prefetched or, with
+``Config.device_data_plane``, drawn on the device), runs `warmup` steps,
+then `steps` more under the profiler, each synchronised.  With ``--frame`` it sets the model up as
 ``python -m multinerf_tpu_torch.render`` does with no checkpoint (the same
 seed) and renders test frame 0 instead of taking a step, `warmup` times and
 then `steps` times under the profiler (``Config.render_path`` and
@@ -36,6 +37,7 @@ from multinerf_tpu_torch import render
 from multinerf_tpu_torch import train
 from multinerf_tpu_torch import train_lib
 from multinerf_tpu_torch.data import datasets
+from multinerf_tpu_torch.data import device_sampler
 from multinerf_tpu_torch.models import nerf
 
 
@@ -85,23 +87,34 @@ def main(argv=None):
     _, state, _, train_step, _ = train_lib.setup_model(config, train.SEED,
                                                        device)
     generator = torch.Generator(device=device).manual_seed(train.SEED)
+    if config.device_data_plane:
+      plane = device_sampler.DeviceDataPlane(dataset, config, device)
+      device_step = device_sampler.create_device_train_step(train_step,
+                                                            plane)
+    else:
+      prefetcher = train_lib.Prefetcher(dataset, device)
 
     def step(i, state):
-      batch = train_lib.batch_to_device(next(dataset), device)
       train_frac = float(np.clip((i - 1) / (config.max_steps - 1), 0, 1))
-      state, _ = train_step(generator, state, batch, train_frac, False)
+      if config.device_data_plane:
+        state, _ = device_step(generator, state, train_frac, False)
+      else:
+        state, _ = train_step(generator, state, prefetcher.take(),
+                              train_frac, False)
+        prefetcher.stage()  # As the train driver does.
       torch.cuda.synchronize(device)
       return state
 
-  for i in range(1, args.warmup + 1):
-    state = step(i, state)
   activities = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
-  with torch.profiler.profile(activities=activities) as prof:
-    t0 = time.perf_counter()
-    for i in range(args.warmup + 1, total + 1):
+  with dataset:
+    for i in range(1, args.warmup + 1):
       state = step(i, state)
-    wall_us = (time.perf_counter() - t0) * 1e6
+    with torch.profiler.profile(activities=activities) as prof:
+      t0 = time.perf_counter()
+      for i in range(args.warmup + 1, total + 1):
+        state = step(i, state)
+      wall_us = (time.perf_counter() - t0) * 1e6
 
   device_events = [e for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA and

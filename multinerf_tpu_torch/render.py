@@ -22,7 +22,6 @@ import time
 
 import torch
 
-from multinerf_tpu_torch import bridge
 from multinerf_tpu_torch import configs
 from multinerf_tpu_torch import train_lib
 from multinerf_tpu_torch.data import datasets
@@ -138,15 +137,16 @@ def main(argv=None):
 
   config = configs.load_config(args)
   dataset = datasets.load_dataset('test', config.data_dir, config)
-  model, state, render_eval_fn, _, _ = train_lib.setup_model(config, SEED,
-                                                             device)
+  _, state, render_eval_fn, _, _ = train_lib.setup_model(config, SEED,
+                                                         device)
   renderer = models.DeviceImageRenderer(render_eval_fn, config, dataset,
                                         device)
   postprocess_fn, _ = image_ops.make_postprocess_fns(config, dataset)
 
   ckpt = ckpt_lib.CheckpointManager(config.checkpoint_dir, keep=100)
-  state = ckpt.restore_latest(state)
-  bridge.load_flat(model, state.params)
+  # The model's own parameters, restored in place; no optimizer state.
+  state = ckpt.restore_latest(ckpt_lib.TrainState(step=0,
+                                                  params=state.params))
   print(f'Rendering checkpoint at step {state.step}.')
 
   out_name = 'path_renders' if config.render_path else 'test_preds'

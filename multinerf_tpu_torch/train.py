@@ -1,24 +1,36 @@
-"""Train entry point of the port: a short run of optimizer steps.
+"""Train entry point of the port.
 
     python -m multinerf_tpu_torch.train --gin_configs=configs/360.gin \
         --gin_bindings="Config.checkpoint_dir='...'" [--device=cuda]
 
-The host-batch path of train.py:117-440, reduced to what this slice needs:
-the same seeds (weights from 20200823, ray draws from 20201473),
-``train_frac = clip((step - 1) / (max_steps - 1), 0, 1)``, the tree
-statistics on the first step and every ``print_every``-th, the console line of
-train.py:411-415 at step 1 and every ``print_every`` steps, and the final
-state saved at ``max_steps``.  Each step is synchronised with the device, so
-the step times it reports are device-complete.  Not ported yet (ROADMAP.md
-Queue 1 item 2b): restore-latest and the ``checkpoint_every`` cadence, the
-prefetch thread, TensorBoard summaries, ``save_config``, in-train test
-renders and the GPU-resident sampler.  ``--device`` defaults to ``cuda``
-and the run fails when CUDA is not available: there is no CPU fallback.
+A port of train.py:127-438: the same seeds (weights from 20200823, ray draws
+from 20201473), ``config.gin`` written beside the checkpoints, a resume from
+the latest checkpoint (parameters and Adam state) at ``step + 1``, the save
+at step 1, every ``checkpoint_every`` steps and at ``max_steps``, host
+batches made by the dataset's producer thread and copied to the device one
+step ahead, during the step before (or, with ``Config.device_data_plane``,
+drawn and cast on the device), the tree statistics on the first step and
+every ``print_every``-th, and at each console line (train.py:411-415) the
+TensorBoard summaries under the JAX names: ``train_avg_*`` / ``train_max_*``
+scalars and ``train_*`` histograms of every statistic, ``train_num_params``,
+``train_learning_rate``, ``train_steps_per_sec``, ``train_rays_per_sec``,
+``train_avg_psnr_timed`` and ``train_avg_psnr_timed_approx``.  Every
+``train_render_every`` steps a test view is rendered (train.py:53-125) and
+logged: ``test_rays_per_sec``, ``train_metrics/*``, ``test_true_color`` and
+``test_output_*``.  ``Config.profile_step`` traces ``profile_num_steps``
+steps with torch.profiler into ``checkpoint_dir/profile``.  Rates are taken
+over the steps since the last line (JAX divides by ``print_every`` also
+when fewer steps ran).  Each step is synchronised with the device, so the
+step times it reports are device-complete.  ``--device`` defaults to
+``cuda`` and the run fails when CUDA is not available: there is no CPU
+fallback.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
+import os
 import sys
 import time
 
@@ -28,33 +40,134 @@ import torch
 from multinerf_tpu_torch import configs
 from multinerf_tpu_torch import train_lib
 from multinerf_tpu_torch.data import datasets
+from multinerf_tpu_torch.data import device_sampler
+from multinerf_tpu_torch.models import nerf as models
+from multinerf_tpu_torch.ops import image_ops
 from multinerf_tpu_torch.utils import checkpoints as ckpt_lib
+from multinerf_tpu_torch.utils import summary
+from multinerf_tpu_torch.utils import visualize as vis
 
 # train.py:118-120: the key of the weights and the numpy seed of the rays.
 SEED = 20200823
 DATA_SEED = 20201473
+TIME_PRECISION = 1000  # Integer times are in milliseconds.
+TREE_STAT_PREFIXES = ('weight_l2s/', 'grad_norms/', 'grad_maxes/',
+                      'opt_update_norms/', 'opt_update_maxes/')
 
 
-def _console_line(step, config, buffer, lr, rays_per_sec):
-  """train.py:403-415: averages over the steps since the last line."""
-  avg = {k: float(np.mean([float(s[k]) for s in buffer]))
-         for k in buffer[-1] if k == 'loss' or k == 'psnr' or
-         k.startswith('losses/')}
+def _console_line(step, config, avg_stats, lr, rays_per_sec):
+  """train.py:403-415: the averages since the last line."""
   precision = int(np.ceil(np.log10(config.max_steps))) + 1
   str_losses = {  # Each "losses/x" as "x[:4]".
       k[7:11]: (f'{v:0.5f}' if 1e-4 <= v < 10 else f'{v:0.1e}')
-      for k, v in avg.items() if k.startswith('losses/')}
+      for k, v in avg_stats.items() if k.startswith('losses/')}
   return (f'{step:{precision}d}' + f'/{config.max_steps:d}: ' +
-          f'loss={avg["loss"]:0.5f}, ' + f'psnr={avg["psnr"]:6.3f}, ' +
-          f'lr={lr:0.2e} | ' +
+          f'loss={avg_stats["loss"]:0.5f}, ' +
+          f'psnr={avg_stats["psnr"]:6.3f}, ' + f'lr={lr:0.2e} | ' +
           ', '.join([f'{k}={s}' for k, s in str_losses.items()]) +
           f', {rays_per_sec:0.0f} r/s')
 
 
+def transpose_stats(stats_buffer, step, print_every):
+  """The stats of the steps since the last line, key -> [n] or [n, k]
+  numpy (train.py:320-355).  The tree statistics exist on the steps that
+  computed them: those at step 1 and every `print_every`-th, or, when no
+  row is such a step (a resumed run's first step), row 0, the first step of
+  the run, which always computes them (ADVICE.md:3)."""
+  n_rows = len(stats_buffer)
+  buf_steps = np.arange(step - n_rows + 1, step + 1)
+  stats_mask = (buf_steps % print_every == 0) | (buf_steps == 1)
+  if not stats_mask.any():
+    stats_mask[0] = True
+  stacked = {}
+  for k in stats_buffer[int(np.flatnonzero(stats_mask)[0])]:
+    rows = stats_buffer
+    if k.startswith(TREE_STAT_PREFIXES):
+      rows = [s for s, m in zip(stats_buffer, stats_mask) if m]
+    stacked[k] = torch.stack([s[k] for s in rows]).cpu().numpy()
+  return stacked
+
+
+def split_stats(stacked, n_rows):
+  """Vector-valued stats become one stat per element (train.py:357-365)."""
+  out = {}
+  for k, v in stacked.items():
+    if v.ndim not in [1, 2] and v.shape[0] != n_rows:
+      raise ValueError('statistics must be of size [n], or [n, k].')
+    if v.ndim == 1:
+      out[k] = v
+    elif v.ndim == 2:
+      for i, vi in enumerate(tuple(v.T)):
+        out[f'{k}/{i}'] = vi
+  return out
+
+
+def in_train_test_render(step, renderer, train_frac, test_dataset, config,
+                         summary_writer, metric_harness, postprocess_fn,
+                         cam_idx):
+  """Render test view `cam_idx` mid-training and log its speed, metrics and
+  visualizations (train.py:53-125).  Returns the rays per second."""
+  t0 = time.time()
+  rendering = renderer(train_frac, cam_idx)
+  test_case = next(test_dataset)  # The same camera: the views come in turn.
+  dt = time.time() - t0
+  n_rays = int(np.prod(test_case.rays.directions.shape[:-1]))
+  summary_writer.scalar('test_rays_per_sec', n_rays / dt, step)
+  print(f'Eval {step}: {dt:0.3f}s., {n_rays / dt:0.0f} rays/sec')
+
+  t0 = time.time()
+  metric = metric_harness(postprocess_fn(rendering['rgb']),
+                          postprocess_fn(test_case.rgb))
+  print(f'Metrics computed in {time.time() - t0:0.3f}s')
+  for name, val in metric.items():
+    if not np.isnan(val):
+      print(f'{name} = {val:.4f}')
+      summary_writer.scalar('train_metrics/' + name, val, step)
+
+  if config.vis_decimate > 1:
+    rendering = vis.decimate(rendering, config.vis_decimate)
+    test_case = vis.decimate(test_case, config.vis_decimate)
+  t0 = time.time()
+  suite = vis.visualize_suite(rendering, test_case.rays)
+  print(f'Visualized in {time.time() - t0:0.3f}s')
+  summary_writer.image('test_true_color', test_case.rgb, step)
+  for name, img in suite.items():
+    summary_writer.image('test_output_' + name, img, step)
+  return n_rays / dt
+
+
+def _refuse_unported(config):
+  later = 'ROADMAP.md Queue 1'
+  if config.occupancy_culling:
+    raise NotImplementedError(
+        f'Not ported yet: occupancy culling ({later} item 5).')
+  if config.steps_per_jit_call > 1:
+    raise NotImplementedError(
+        f'Not ported yet: steps_per_jit_call > 1, the scanned multi-step '
+        f'plane ({later} item 5).')
+  if config.enable_robustnerf_loss:
+    raise NotImplementedError(
+        f'Not ported yet: RobustNeRF ({later} item 4: the rest of the model '
+        'zoo).')
+
+
+def _profile(device, log_dir):
+  activities = [torch.profiler.ProfilerActivity.CPU]
+  if device.type == 'cuda':
+    activities.append(torch.profiler.ProfilerActivity.CUDA)
+  prof = torch.profiler.profile(
+      activities=activities,
+      on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir))
+  prof.start()
+  return prof
+
+
 def main(argv=None):
-  """Train for Config.max_steps steps.  Returns {'losses', 'data_losses',
-  'step_seconds' (per step), 'stats' (the last step's, as floats or lists),
-  'checkpoint' (the final file)}."""
+  """Train to Config.max_steps (or early_exit_steps), resuming from the
+  latest checkpoint.  Returns {'init_step', 'losses', 'data_losses',
+  'step_seconds' (per step), 'stats' (the last step's, as floats or
+  lists), 'checkpoint' (the latest file), 'test_rays_per_sec' (per in-train
+  render)}."""
   parser = argparse.ArgumentParser(description='Train a model.')
   configs.add_common_flags(parser)
   parser.add_argument('--device', default='cuda',
@@ -67,46 +180,142 @@ def main(argv=None):
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
 
-  config = configs.load_config(args)
-  if config.checkpoint_dir is None:
-    raise ValueError('Config.checkpoint_dir must name the output directory.')
+  config = configs.load_config(args, save_config=True)
+  _refuse_unported(config)
   dataset = datasets.load_dataset('train', config.data_dir, config,
                                   seed=DATA_SEED)
-  _, state, _, train_step, lr_fn = train_lib.setup_model(config, SEED, device)
-  generator = torch.Generator(device=device).manual_seed(SEED)
+  test_dataset = datasets.load_dataset('test', config.data_dir, config)
+  postprocess_fn, _ = image_ops.make_postprocess_fns(config, test_dataset)
+  _, state, render_eval_fn, train_step, lr_fn = train_lib.setup_model(
+      config, SEED, device)
+  renderer = models.DeviceImageRenderer(render_eval_fn, config, test_dataset,
+                                        device)
+  num_params = sum(p.numel() for p in state.params.values())
+  print(f'Number of parameters being optimized: {num_params}')
+  metric_harness = image_ops.MetricHarness()
+
   ckpt = ckpt_lib.CheckpointManager(config.checkpoint_dir, keep=100)
-  num_steps = config.early_exit_steps or config.max_steps
-
-  out = {'losses': [], 'data_losses': [], 'step_seconds': []}
-  buffer = []
-  window_start = time.perf_counter()
+  state = ckpt.restore_latest(state)
   init_step = state.step + 1
-  for step in range(init_step, num_steps + 1):
-    t0 = time.perf_counter()
-    batch = train_lib.batch_to_device(next(dataset), device)
-    train_frac = float(np.clip((step - 1) / (config.max_steps - 1), 0, 1))
-    # train.py:265: the tree statistics on the first step and every
-    # print_every-th.
-    state, stats = train_step(
-        generator, state, batch, train_frac,
-        step == init_step or step % config.print_every == 0)
-    if device.type == 'cuda':
-      torch.cuda.synchronize(device)
-    out['step_seconds'].append(time.perf_counter() - t0)
-    out['losses'].append(float(stats['loss']))
-    out['data_losses'].append(float(stats['losses/data']))
-    buffer.append(stats)
-    if step == 1 or step % config.print_every == 0:
-      elapsed = time.perf_counter() - window_start
-      print(_console_line(step, config, buffer, float(lr_fn(step)),
-                          config.batch_size * len(buffer) / elapsed),
-            flush=True)
-      buffer = []
-      window_start = time.perf_counter()
+  summary_writer = summary.SummaryWriter(config.checkpoint_dir)
+  generator = torch.Generator(device=device).manual_seed(SEED)
 
-  ckpt.save(num_steps, state)
+  if config.device_data_plane:
+    plane = device_sampler.DeviceDataPlane(dataset, config, device)
+    device_step = device_sampler.create_device_train_step(train_step, plane)
+  else:
+    prefetcher = train_lib.Prefetcher(dataset, device)
+
+  num_steps = config.early_exit_steps or config.max_steps
+  out = {'init_step': init_step, 'losses': [], 'data_losses': [],
+         'step_seconds': [], 'test_rays_per_sec': []}
+  total_time = 0
+  total_steps = 0
+  reset_stats = True
+  test_render_count = 0
+  profiler = None
+  stats = {}
+  gc_was_enabled = gc.isenabled()
+  gc.disable()  # Avoid GC jitter in the hot loop.
+  try:
+    for step in range(init_step, num_steps + 1):
+      if reset_stats:
+        stats_buffer = []
+        train_start_time = time.time()
+        reset_stats = False
+
+      if config.profile_step > 0 and step == config.profile_step:
+        profiler = _profile(device, os.path.join(config.checkpoint_dir,
+                                                 'profile'))
+      if (profiler is not None and
+          step == config.profile_step + config.profile_num_steps):
+        profiler.stop()
+        profiler = None
+
+      learning_rate = float(lr_fn(step))
+      train_frac = float(np.clip((step - 1) / (config.max_steps - 1), 0, 1))
+      # train.py:265: the tree statistics on the first step of the run and
+      # on the steps that print.
+      will_print = step == init_step or step % config.print_every == 0
+
+      # The step's time includes taking its batch (a host batch whose copy
+      # was issued during the last step, or the device plane's draw) and
+      # staging the next one while this step runs on the device.
+      t0 = time.perf_counter()
+      if config.device_data_plane:
+        state, stats = device_step(generator, state, train_frac, will_print)
+      else:
+        state, stats = train_step(generator, state, prefetcher.take(),
+                                  train_frac, will_print)
+        if step < num_steps:
+          prefetcher.stage()
+      if device.type == 'cuda':
+        torch.cuda.synchronize(device)
+      out['step_seconds'].append(time.perf_counter() - t0)
+      out['losses'].append(float(stats['loss']))
+      out['data_losses'].append(float(stats['losses/data']))
+
+      if step % config.gc_every == 0:
+        gc.collect()
+
+      stats_buffer.append(stats)
+      if will_print:
+        elapsed_time = time.time() - train_start_time
+        steps_per_sec = len(stats_buffer) / elapsed_time
+        rays_per_sec = config.batch_size * steps_per_sec
+        # Robust total-time accumulation, resilient to preemption.
+        total_time += int(round(TIME_PRECISION * elapsed_time))
+        total_steps += len(stats_buffer)
+        approx_total_time = int(round(step * total_time / total_steps))
+
+        stats_split = split_stats(
+            transpose_stats(stats_buffer, step, config.print_every),
+            len(stats_buffer))
+        for k, v in stats_split.items():
+          summary_writer.histogram('train_' + k, v, step)
+        avg_stats = {k: float(np.mean(v)) for k, v in stats_split.items()}
+        max_stats = {k: float(np.max(v)) for k, v in stats_split.items()}
+        for k, v in avg_stats.items():
+          summary_writer.scalar(f'train_avg_{k}', v, step)
+        for k, v in max_stats.items():
+          summary_writer.scalar(f'train_max_{k}', v, step)
+        summary_writer.scalar('train_num_params', num_params, step)
+        summary_writer.scalar('train_learning_rate', learning_rate, step)
+        summary_writer.scalar('train_steps_per_sec', steps_per_sec, step)
+        summary_writer.scalar('train_rays_per_sec', rays_per_sec, step)
+        summary_writer.scalar('train_avg_psnr_timed', avg_stats['psnr'],
+                              total_time // TIME_PRECISION)
+        summary_writer.scalar('train_avg_psnr_timed_approx',
+                              avg_stats['psnr'],
+                              approx_total_time // TIME_PRECISION)
+        print(_console_line(step, config, avg_stats, learning_rate,
+                            rays_per_sec), flush=True)
+        reset_stats = True
+
+      if step == 1 or step % config.checkpoint_every == 0:
+        ckpt.save(step, state)
+
+      if (config.train_render_every > 0 and
+          step % config.train_render_every == 0):
+        out['test_rays_per_sec'].append(in_train_test_render(
+            step, renderer, train_frac, test_dataset, config, summary_writer,
+            metric_harness, postprocess_fn,
+            test_render_count % test_dataset.size))
+        test_render_count += 1
+
+    if config.max_steps % config.checkpoint_every != 0:
+      ckpt.save(config.max_steps, state)
+  finally:
+    if profiler is not None:
+      profiler.stop()
+    if gc_was_enabled:
+      gc.enable()
+    summary_writer.close()
+    dataset.close()
+    test_dataset.close()
+
   out['stats'] = {k: v.tolist() for k, v in stats.items()}
-  out['checkpoint'] = ckpt.path(num_steps)
+  out['checkpoint'] = ckpt.path(ckpt.latest_step())
   return out
 
 

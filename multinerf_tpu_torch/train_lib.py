@@ -176,7 +176,11 @@ def apply_gradients(state, grads, config, lr_fn):
 
 def batch_to_device(batch, device):
   """A host Batch -> tensors on `device`: floats as float32, the unit
-  patch axes of patch_size 1 dropped ([P, 1, 1, C] -> [P, C])."""
+  patch axes of patch_size 1 dropped ([P, 1, 1, C] -> [P, C]).  To a CUDA
+  device the arrays go through pinned memory, copied ``non_blocking`` on
+  the current stream."""
+  device = torch.device(device)
+  pin = device.type == 'cuda'
 
   def move(x):
     if x is None:
@@ -186,11 +190,58 @@ def batch_to_device(batch, device):
       x = x.reshape((x.shape[0],) + x.shape[3:])
     if np.issubdtype(x.dtype, np.floating):
       x = x.astype(np.float32)
-    return torch.as_tensor(np.array(x), device=device)  # A writable copy.
+    host = torch.from_numpy(np.array(x))  # A writable copy.
+    if pin:
+      return host.pin_memory().to(device, non_blocking=True)
+    return host.to(device)
 
   rays = type(batch.rays)(**{f: move(getattr(batch.rays, f))
                              for f in batch.rays.__dataclass_fields__})
   return types.Batch(rays=rays, rgb=move(batch.rgb))
+
+
+def _tensors(batch):
+  return [t for t in [batch.rgb] + [getattr(batch.rays, f) for f in
+                                    batch.rays.__dataclass_fields__]
+          if t is not None]
+
+
+class Prefetcher:
+  """Host batches of `batches` on `device`, one step ahead (train.py:41-48
+  of the JAX package).  ``stage()`` takes the next host batch and issues
+  its copy, on a CUDA device from pinned memory on a side stream;
+  ``take()`` returns the staged batch (staging one first if none is), the
+  consumer's stream waiting for its copy.  The train loop stages the next
+  batch once it has launched a step: the copy, and the dataset's producer
+  thread refilling its queue, then overlap that step on the device instead
+  of contending with the launches for the interpreter lock."""
+
+  def __init__(self, batches, device):
+    self._batches = batches
+    self._device = torch.device(device)
+    self._stream = (torch.cuda.Stream(self._device)
+                    if self._device.type == 'cuda' else None)
+    self._staged = None
+
+  def stage(self):
+    host = next(self._batches)
+    if self._stream is None:
+      self._staged = (batch_to_device(host, self._device), None)
+      return
+    with torch.cuda.stream(self._stream):
+      self._staged = (batch_to_device(host, self._device),
+                      self._stream.record_event())
+
+  def take(self):
+    if self._staged is None:
+      self.stage()
+    (batch, copied), self._staged = self._staged, None
+    if copied is not None:
+      consumer = torch.cuda.current_stream(self._device)
+      consumer.wait_event(copied)
+      for t in _tensors(batch):
+        t.record_stream(consumer)  # Allocated on the side stream.
+    return batch
 
 
 def loss_and_grads(model, config, batch, train_frac, generator=None):

@@ -7,8 +7,10 @@ optimizer, ``'opt_state'``: its ``state_dict()`` with every tensor on the
 CPU.  ``restore_latest`` keeps the contract of
 ``multinerf_tpu.utils.checkpoints.CheckpointManager.restore_latest``: the
 state comes back unchanged when no checkpoint exists, and names present on
-only one side keep the state's value or are dropped.  It restores the
-parameters only; resuming the optimizer is not ported yet.
+only one side keep the state's value or are dropped.  It copies the saved
+parameters into the state's own tensors (the model's parameters) and loads
+the optimizer's state, Adam's per-parameter ``step`` included, so a resumed
+run goes on with the same bias correction and learning-rate schedule.
 """
 
 from __future__ import annotations
@@ -49,7 +51,8 @@ class CheckpointManager:
     self._keep = keep
     os.makedirs(self._dir, exist_ok=True)
 
-  def _steps(self):
+  def steps(self):
+    """The steps of the checkpoints in the directory, ascending."""
     steps = []
     for path in glob.glob(os.path.join(self._dir, 'checkpoint_*.pt')):
       m = re.fullmatch(r'checkpoint_(\d+)\.pt', os.path.basename(path))
@@ -62,31 +65,40 @@ class CheckpointManager:
     return os.path.join(self._dir, f'checkpoint_{step}.pt')
 
   def latest_step(self) -> Optional[int]:
-    steps = self._steps()
+    steps = self.steps()
     return steps[-1] if steps else None
 
   def save(self, step: int, state: TrainState):
-    """Write `state` at `step`, keeping the newest `keep` checkpoints."""
+    """Write `state` as the checkpoint of `step`, keeping the newest `keep`
+    checkpoints."""
     tmp = self.path(step) + '.tmp'
-    record = {'step': int(step), 'params': _to_cpu(state.params)}
+    # The record keeps the state's own step: the final save of a run that
+    # exits early is named after max_steps (train.py:437-438).
+    record = {'step': int(state.step), 'params': _to_cpu(state.params)}
     if state.optimizer is not None:
       record['opt_state'] = _to_cpu(state.optimizer.state_dict())
     torch.save(record, tmp)
     os.replace(tmp, self.path(step))
-    for old in self._steps()[:-self._keep]:
+    for old in self.steps()[:-self._keep]:
       os.remove(self.path(old))
 
   def restore_latest(self, state: TrainState) -> TrainState:
-    """The latest checkpoint grafted onto `state`; `state` if none."""
+    """The latest checkpoint loaded into `state`; `state` if none.
+
+    The saved parameters are copied into `state.params`' tensors in place,
+    and the saved optimizer state, when both sides have one, into
+    `state.optimizer` (its tensors moved to the parameters' device).
+    """
     step = self.latest_step()
     if step is None:
       return state
     saved = torch.load(self.path(step), map_location='cpu',
                        weights_only=True)
-    params = {}
-    for name, value in state.params.items():
-      if name in saved['params']:
-        params[name] = saved['params'][name].to(value.device, value.dtype)
-      else:
-        params[name] = value
-    return TrainState(step=int(saved['step']), params=params)
+    with torch.no_grad():
+      for name, value in state.params.items():
+        if name in saved['params']:
+          value.copy_(saved['params'][name])
+    if state.optimizer is not None and 'opt_state' in saved:
+      state.optimizer.load_state_dict(saved['opt_state'])
+    return TrainState(step=int(saved['step']), params=state.params,
+                      optimizer=state.optimizer)

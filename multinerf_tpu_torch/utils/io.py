@@ -18,8 +18,8 @@ def _png_chunk(kind: bytes, data: bytes) -> bytes:
           struct.pack('>I', zlib.crc32(kind + data) & 0xffffffff))
 
 
-def write_png(pth: str, img_u8: np.ndarray) -> None:
-  """Write an [H, W] (gray) or [H, W, 3] (RGB) uint8 array as a PNG."""
+def encode_png(img_u8: np.ndarray) -> bytes:
+  """The PNG file of an [H, W] (gray) or [H, W, 3] (RGB) uint8 array."""
   img = np.ascontiguousarray(img_u8, np.uint8)
   if img.ndim == 2:
     color_type = 0
@@ -32,10 +32,15 @@ def write_png(pth: str, img_u8: np.ndarray) -> None:
   # Filter type 0 (None) before every row.
   raw = np.concatenate([np.zeros((height, 1), np.uint8), rows], axis=1)
   header = struct.pack('>IIBBBBB', width, height, 8, color_type, 0, 0, 0)
+  return (b'\x89PNG\r\n\x1a\n' + _png_chunk(b'IHDR', header) +
+          _png_chunk(b'IDAT', zlib.compress(raw.tobytes(), 6)) +
+          _png_chunk(b'IEND', b''))
+
+
+def write_png(pth: str, img_u8: np.ndarray) -> None:
+  """Write an [H, W] (gray) or [H, W, 3] (RGB) uint8 array as a PNG."""
   with open(pth, 'wb') as f:
-    f.write(b'\x89PNG\r\n\x1a\n' + _png_chunk(b'IHDR', header) +
-            _png_chunk(b'IDAT', zlib.compress(raw.tobytes(), 6)) +
-            _png_chunk(b'IEND', b''))
+    f.write(encode_png(img_u8))
 
 
 def write_tiff_f32(pth: str, img: np.ndarray) -> None:
@@ -68,10 +73,14 @@ def write_tiff_f32(pth: str, img: np.ndarray) -> None:
     f.write(b'II*\x00' + struct.pack('<I', 8 + len(pixels)) + pixels + ifd)
 
 
+def to_u8(img):
+  """An image in [0, 1] as uint8, NaNs as 0 (the JAX writer's rule)."""
+  return (np.clip(np.nan_to_num(img), 0.0, 1.0) * 255.0).astype(np.uint8)
+
+
 def save_img_u8(img, pth):
   """Save an RGB image in [0, 1] as an 8-bit PNG."""
-  quantized = np.clip(np.nan_to_num(img), 0.0, 1.0) * 255.0
-  write_png(pth, quantized.astype(np.uint8))
+  write_png(pth, to_u8(img))
 
 
 def save_img_f32(depthmap, pth):

@@ -127,19 +127,24 @@ def test_png_and_tiff_writers_read_back_exactly(tmp_path):
 
 
 def test_package_never_imports_jax():
-  # Every module of the port imports in a process where jax, flax, optax
-  # and orbax cannot be imported at all.
+  # Every module of the port imports in a process where jax, flax, optax,
+  # orbax, absl, tensorboard, tensorflow, matplotlib and Pillow cannot be
+  # imported at all.
   code = '\n'.join([
       'import importlib, pkgutil, sys',
-      "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax'):",
+      "banned = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'absl',",
+      "          'tensorboard', 'tensorflow', 'matplotlib', 'PIL')",
+      'for name in banned:',
       '  sys.modules[name] = None',
       'import multinerf_tpu_torch as pkg',
       'names = [m.name for m in pkgutil.walk_packages(pkg.__path__,',
       "                                               pkg.__name__ + '.')]",
+      "for name in ('eval', 'train', 'utils.summary', 'utils.visualize',",
+      "             'data.device_sampler'):",
+      "  assert 'multinerf_tpu_torch.' + name in names, name",
       'for name in names:',
       '  importlib.import_module(name)',
-      "assert not any(m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax',",
-      "                                   'multinerf_tpu') for m in",
+      "assert not any(m.split('.')[0] in banned + ('multinerf_tpu',) for m in",
       '           sys.modules if sys.modules[m] is not None)',
       'print(len(names))',
   ])
