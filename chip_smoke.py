@@ -12,7 +12,11 @@ in-train renders) and ``python -m multinerf_tpu_torch.eval`` on its final
 checkpoint; then renders and trains it under ``trunk_dtype='bfloat16'``
 (the same kernels K1-K4, and a bf16 train step GPU vs CPU), and under
 ``trunk_dtype='int8'`` and ``'int8_hybrid'`` (the int8 trunk kernels K5 and
-K6; K5 is also held and timed at one render chunk of 524,288 samples).
+K6; K5 is also held and timed at one render chunk of 524,288 samples);
+last, trains, evaluates and renders ``configs/blender_refnerf.gin``
+(Ref-NeRF) at full width on ``dummy_specular``, holds one of its steps on
+the GPU against the CPU, and checks that this path launched none of the
+kernels, as in the JAX package.
 
 Run from the repository root, with no arguments:
 
@@ -922,7 +926,8 @@ INT8_LOSS_TOL = 5e-3
 
 
 def phase_train_reference(tag='train reference', bindings=(),
-                          cap=TRAIN_GAP_CAP, loss_tol=LOSS_TOL):
+                          cap=TRAIN_GAP_CAP, loss_tol=LOSS_TOL,
+                          gin='360.gin', loader='dummy_unbounded'):
   """One full-width train step of 256 rays with Config.randomized=False,
   from the same initial weights, on the GPU (kernels) and on the CPU
   (plain versions): the loss terms and every gradient leaf.
@@ -939,8 +944,8 @@ def phase_train_reference(tag='train reference', bindings=(),
   from multinerf_tpu_torch import train_lib
   from multinerf_tpu_torch.data import datasets
   args = argparse.Namespace(
-      gin_configs=[os.path.join(REPO, 'configs', '360.gin')],
-      gin_bindings=["Config.dataset_loader = 'dummy_unbounded'",
+      gin_configs=[os.path.join(REPO, 'configs', gin)],
+      gin_bindings=[f"Config.dataset_loader = '{loader}'",
                     'Config.batch_size = 256', 'Config.randomized = False',
                     *bindings])
   config = configs.load_config(args)
@@ -1169,6 +1174,119 @@ def phase_train_driver(card, host_step_s):
   return launches
 
 
+# configs/blender_refnerf.gin at full width on the analytic Ref-NeRF scene.
+REFNERF_STEPS = 30
+REFNERF_EVAL_VIEWS = 3
+REFNERF_FRAME_JOBS = 8  # Test views 0 and 8 of 16.
+
+
+def phase_refnerf(card):
+  """Ref-NeRF (``configs/blender_refnerf.gin``: NerfMLP 8 x 256 for both
+  levels, 128 + 128 samples, density and predicted normals, reflections
+  through the IDE at deg_view 5, roughness, diffuse/specular, tint, n.v,
+  the orientation and predicted-normal losses, normal metrics) at full
+  width on ``dummy_specular``, through the entry points a user calls:
+  ``multinerf_tpu_torch.train.main`` for 30 steps of 4,096 rays (the loss
+  must fall, a checkpoint must be written), ``eval.main`` over 3 test
+  views (finite PSNR, SSIM and normal MAEs, the metric files written),
+  ``render.main`` over 2 test views with their ``normals`` frames; then one
+  256-ray step on the GPU against the CPU (``train_lib.leaf_gaps``, the
+  f32 bounds of phase_train_reference).  The path runs no kernel of the
+  port, as in the JAX package (density normals turn fusion off,
+  mlp.py:281-289): K1-K6 and their plain versions must launch zero times
+  in the whole phase.  Logs the median step, peak memory and the frames'
+  seconds and rays/s beside the card's name and power limit."""
+  from multinerf_tpu_torch import eval as eval_lib
+  from multinerf_tpu_torch import render
+  from multinerf_tpu_torch import train
+  tag = 'refnerf'
+  _reset_counts()
+  with tempfile.TemporaryDirectory() as tmp:
+    base = [
+        f'--gin_configs={os.path.join(REPO, "configs", "blender_refnerf.gin")}',
+        "--gin_bindings=Config.dataset_loader='dummy_specular'",
+        f"--gin_bindings=Config.checkpoint_dir='{tmp}/ckpt'",
+        f'--gin_bindings=Config.max_steps={REFNERF_STEPS}', '--device=cuda']
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trained = train.main(base + [f'--gin_bindings={b}' for b in (
+        f'Config.batch_size={TRAIN_RAYS}', 'Config.lr_delay_steps=0',
+        'Config.print_every=10')])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if not trained['checkpoint'] or not os.path.exists(trained['checkpoint']):
+      raise SystemExit(f'FAIL {tag}: no final checkpoint.')
+    losses = np.array(trained['losses'])
+    data = np.array(trained['data_losses'])
+    if len(losses) != REFNERF_STEPS or not np.isfinite(losses).all():
+      raise SystemExit(f'FAIL {tag}: losses {losses}')
+    for key, val in trained['stats'].items():
+      if not np.isfinite(np.asarray(val)).all():
+        raise SystemExit(f'FAIL {tag}: non-finite stat {key} = {val}')
+    first, last = float(data[:10].mean()), float(data[-10:].mean())
+    log(f'{tag}: mean data loss, steps 1-10 {first:.5f}, steps '
+        f'{REFNERF_STEPS - 9}-{REFNERF_STEPS} {last:.5f}; final psnr '
+        f'{trained["stats"]["psnr"]:.3f}, normal MAEs (degrees, per level) '
+        f'{trained["stats"]["normal_maes"]}, losses '
+        f'{ {k: v for k, v in trained["stats"].items() if "losses/" in k} }')
+    if not last < first:
+      raise SystemExit(f'FAIL {tag}: the data loss did not fall.')
+
+    t0 = time.perf_counter()
+    evaluated = eval_lib.main(base + [
+        f'--gin_bindings=Config.eval_dataset_limit={REFNERF_EVAL_VIEWS}'])
+    eval_s = time.perf_counter() - t0
+    names = sorted(os.listdir(evaluated['out_dir']))
+    scores = {}
+    for name in ('psnr', 'ssim', 'normals_mae', 'normals_pred_mae'):
+      fname = f'metric_{name}_{REFNERF_STEPS}.txt'
+      if fname not in names:
+        raise SystemExit(f'FAIL {tag}: eval wrote no {fname} ({names})')
+      with open(os.path.join(evaluated['out_dir'], fname)) as f:
+        scores[name] = [float(v) for v in f.read().split()]
+      if (len(scores[name]) != REFNERF_EVAL_VIEWS or
+          not np.isfinite(scores[name]).all()):
+        raise SystemExit(f'FAIL {tag}: {fname}: {scores[name]}')
+
+    frames = render.main(base + [
+        f"--gin_bindings=Config.render_dir='{tmp}/render'",
+        f'--gin_bindings=Config.render_num_jobs={REFNERF_FRAME_JOBS}'])
+    written = sorted(os.listdir(frames['out_dir']))
+    if frames['frames'] != [0, REFNERF_FRAME_JOBS] or not {
+        'normals_000.png', f'normals_{REFNERF_FRAME_JOBS:03d}.png'} <= set(
+            written):
+      raise SystemExit(f'FAIL {tag}: frames {frames["frames"]}, files '
+                       f'{written}')
+    for idx, rendering in frames['renderings'].items():
+      for key in ('rgb', 'normals', 'normals_pred', 'roughness', 'acc'):
+        if not np.isfinite(rendering[key]).all():
+          raise SystemExit(f'FAIL {tag}: frame {idx} {key} not finite')
+    frame_rays = 48 * 48  # The scene's resolution.
+
+    phase_train_reference(f'{tag} train reference', gin='blender_refnerf.gin',
+                          loader='dummy_specular')
+    launches, plain = _counts()
+  if max(launches.values()) or max(plain.values()):
+    raise SystemExit(f'FAIL {tag}: launches {launches}, plain-version calls '
+                     f'{plain}; the Ref-NeRF path runs no kernel.')
+  step_s = statistics.median(trained['step_seconds'][5:])
+  log(f'{tag} ({card}): {train_s:.1f} s for {REFNERF_STEPS} steps; median '
+      f'step {step_s * 1e3:.3f} ms over steps 6-{REFNERF_STEPS} '
+      f'(synchronised per step), {TRAIN_RAYS / step_s:,.0f} train rays/s, '
+      f'max memory allocated {peak_gib:.2f} GiB; eval of '
+      f'{REFNERF_EVAL_VIEWS} views in {eval_s:.1f} s, psnr '
+      f'{scores["psnr"]}, ssim {scores["ssim"]}, normals MAE '
+      f'{scores["normals_mae"]}, predicted normals MAE '
+      f'{scores["normals_pred_mae"]}; 48x48 frames in '
+      f'{", ".join(f"{s:.3f}" for s in frames["seconds"])} s, '
+      f'{", ".join(f"{frame_rays / s:,.0f}" for s in frames["seconds"])} '
+      'rays/s')
+  log(f'{tag} launches {launches}, plain-version calls {plain}')
+  return launches
+
+
 SOURCES = {
     'density_mlp': ('multinerf_tpu_torch/csrc/density_mlp.cu',
                     'multinerf_tpu/ops/pallas/density_mlp.py:65'),
@@ -1213,6 +1331,7 @@ def main():
                                          INT8_TRAIN)[0]
   phase_train_reference('train reference int8', int8_bindings('int8'),
                         INT8_TRAIN_GAP_CAP, INT8_LOSS_TOL)
+  paths['refnerf'] = phase_refnerf(card)
   bounds = kernel_bounds()
   chunk = bounds.pop('int8_trunk_render_chunk')
   results['int8_trunk']['render_chunk'].update(

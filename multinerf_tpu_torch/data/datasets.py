@@ -6,18 +6,26 @@ the JAX package).  A train split yields random ray batches (``_next_train``):
 pixels and cameras drawn from the dataset's own
 ``np.random.RandomState(seed)``, rays cast on the host with numpy as in the
 JAX package.  A test split yields one whole view per batch (``_next_test``),
-its cameras in turn, with the view's ground-truth ``rgb``.  As in the JAX
-loader, a daemon thread makes the batches into a queue of 3; it starts at
-the first ``next()`` and is the only user of the random state, so the draws
-come in the order a synchronous loop would make them.  ``close()`` (or
-leaving a ``with`` block) stops it.  The synthetic scenes ``dummy_scatter``
-and ``dummy_unbounded`` are made with the same numpy as the JAX loaders
-(datasets.py:842-959), so both packages see identical cameras and images.
+its cameras in turn, with the view's ground-truth ``rgb``.  With
+``Config.compute_disp_metrics`` / ``compute_normal_metrics`` a batch also
+carries the pixels' ``disps``, or ``normals`` and ``alphas``
+(datasets.py:246-253).  As in the JAX loader, a daemon thread makes the
+batches into a queue of 3; it starts at the first ``next()`` and is the
+only user of the random state, so the draws come in the order a
+synchronous loop would make them.  ``close()`` (or leaving a ``with``
+block) stops it.  The synthetic scenes ``dummy_scatter``,
+``dummy_unbounded`` and ``dummy_specular`` are made with the same numpy as
+the JAX loaders (datasets.py:842-959, 995-1079), so both packages see
+identical cameras, images and ground truth.  ``blender`` reads
+``transforms_{split}.json`` and its PNGs with the port's own PNG reader
+(``utils/io.py``).
 """
 
 from __future__ import annotations
 
 import abc
+import json
+import os
 import queue
 import threading
 
@@ -25,14 +33,18 @@ import numpy as np
 
 from multinerf_tpu_torch.data import cameras as camera_lib
 from multinerf_tpu_torch.data import types
+from multinerf_tpu_torch.ops import image_ops
+from multinerf_tpu_torch.utils import io as io_lib
 
 
 def load_dataset(split, train_dir, config, seed=0):
   """Load a split of a dataset using config.dataset_loader; `seed` seeds
   the train split's pixel draws."""
   loaders = {
+      'blender': Blender,
       'dummy_scatter': DummyScatter,
       'dummy_unbounded': DummyUnbounded,
+      'dummy_specular': DummySpecular,
   }
   if config.dataset_loader not in loaders:
     raise NotImplementedError(
@@ -57,6 +69,8 @@ class Dataset(metaclass=abc.ABCMeta):
       raise ValueError(f'Patch size {self._patch_size}^2 too large for '
                        f'batch size {self._batch_size}')
     self._batching = types.BatchingMethod(config.batching)
+    self._load_disps = config.compute_disp_metrics
+    self._load_normals = config.compute_normal_metrics
     self._num_border_pixels_to_mask = config.num_border_pixels_to_mask
     if config.apply_bayer_mask:
       raise NotImplementedError(
@@ -67,6 +81,9 @@ class Dataset(metaclass=abc.ABCMeta):
     self.far = config.far
     self.render_path = config.render_path
     self.distortion_params = None
+    self.disp_images = None
+    self.normal_images = None
+    self.alphas = None
     self.pixtocam_ndc = None
     self.metadata = None
     self.camtype = camera_lib.ProjectionType.PERSPECTIVE
@@ -178,8 +195,9 @@ class Dataset(metaclass=abc.ABCMeta):
     broadcast_scalar = lambda x: np.broadcast_to(x, pix_x_int.shape)[..., None]
     ray_kwargs = {
         'lossmult': broadcast_scalar(1.0) if lossmult is None else lossmult,
-        'near': broadcast_scalar(self.near),
-        'far': broadcast_scalar(self.far),
+        # Floats even where the config gives integers (blender's 2 and 6).
+        'near': broadcast_scalar(float(self.near)),
+        'far': broadcast_scalar(float(self.far)),
         'cam_idx': broadcast_scalar(cam_idx),
     }
     for key, val in self.exposure_records(cam_idx).items():
@@ -187,9 +205,15 @@ class Dataset(metaclass=abc.ABCMeta):
     pixels = types.Pixels(pix_x_int, pix_y_int, **ray_kwargs)
     rays = camera_lib.cast_ray_batch(self.cameras, pixels, self.camtype,
                                      xnp=np)
-    rgb = None if self.render_path else self.images[cam_idx, pix_y_int,
-                                                    pix_x_int]
-    return types.Batch(rays=rays, rgb=rgb)
+    batch = {'rays': rays}
+    if not self.render_path:
+      batch['rgb'] = self.images[cam_idx, pix_y_int, pix_x_int]
+    if self._load_disps:
+      batch['disps'] = self.disp_images[cam_idx, pix_y_int, pix_x_int]
+    if self._load_normals:
+      batch['normals'] = self.normal_images[cam_idx, pix_y_int, pix_x_int]
+      batch['alphas'] = self.alphas[cam_idx, pix_y_int, pix_x_int]
+    return types.Batch(**batch)
 
   def _next_train(self) -> types.Batch:
     """Random rays (patch_size 1) or patches, all images one resolution."""
@@ -226,6 +250,55 @@ class Dataset(metaclass=abc.ABCMeta):
     cam_idx = self._test_camera_idx
     self._test_camera_idx = (self._test_camera_idx + 1) % self._n_examples
     return self.generate_ray_batch(cam_idx)
+
+
+class Blender(Dataset):
+  """Blender synthetic scenes (transforms_{split}.json, datasets.py:302-356):
+  RGBA PNGs over a white background, ``_normal.png`` ground truth."""
+
+  def _load_renderings(self, config):
+    later = 'ROADMAP.md Queue 1 item 4: the rest of the model zoo, loaders'
+    if config.render_path:
+      raise ValueError('render_path cannot be used for the blender dataset.')
+    if config.use_tiffs or self._load_disps:
+      raise NotImplementedError(
+          'Not ported yet: the TIFF images of the blender loader '
+          f'(Config.use_tiffs, _disp.tiff for compute_disp_metrics; {later}).')
+    pose_file = os.path.join(self.data_dir,
+                             f'transforms_{self.split.value}.json')
+    with open(pose_file, 'r') as fp:
+      meta = json.load(fp)
+    images = []
+    normal_images = []
+    cams = []
+    for frame in meta['frames']:
+      fprefix = os.path.join(self.data_dir, frame['file_path'])
+
+      def get_img(f, fprefix=fprefix):
+        image = io_lib.load_img(fprefix + f)
+        if config.factor > 1:
+          image = image_ops.downsample(image, config.factor)
+        return image
+
+      images.append(get_img('.png') / 255.0)
+      if self._load_normals:
+        normal_images.append(get_img('_normal.png')[..., :3] * 2.0 / 255.0 -
+                             1.0)
+      cams.append(np.array(frame['transform_matrix'], dtype=np.float32))
+
+    self.images = np.stack(images, axis=0)
+    if self._load_normals:
+      self.normal_images = np.stack(normal_images, axis=0)
+      self.alphas = self.images[..., -1]
+
+    rgb, alpha = self.images[..., :3], self.images[..., -1:]
+    self.images = rgb * alpha + (1.0 - alpha)  # White background.
+    self.height, self.width = self.images.shape[1:3]
+    self.camtoworlds = np.stack(cams, axis=0)
+    self.focal = 0.5 * self.width / np.tan(
+        0.5 * float(meta['camera_angle_x']))
+    self.pixtocams = camera_lib.get_pixtocam(self.focal, self.width,
+                                             self.height)
 
 
 class DummyScatter(Dataset):
@@ -314,3 +387,78 @@ class DummyUnbounded(DummyScatter):
     q = (origins + t[..., None] * viewdirs) / self.SHELL_RADIUS
     phases = np.array([0.0, 2.1, 4.2], np.float32)
     return (0.5 + 0.5 * np.sin(6.0 * q + phases)).astype(np.float32)
+
+
+class DummySpecular(Dataset):
+  """A shiny unit sphere, the Ref-NeRF scene of datasets.py:995-1079: a
+  diffuse texture plus a Phong lobe around the reflected view direction,
+  with analytic normals, hit masks and disparities; white background,
+  near/far 2/6, train and test cameras on different rings."""
+
+  NUM_IMAGES = 16
+  RESOLUTION = 48
+  LIGHT = np.array([0.40824829, -0.40824829, 0.81649658], np.float32)
+  SHININESS = 32.0
+
+  @staticmethod
+  def sphere_hits(origins, viewdirs):
+    """Nearest unit-sphere intersection: (normals, hit mask, distance)."""
+    b = 2 * np.sum(origins * viewdirs, -1)
+    c = np.sum(origins ** 2, -1) - 1.0
+    disc = b ** 2 - 4 * c
+    hit = disc > 0
+    t_hit = np.where(hit, (-b - np.sqrt(np.maximum(disc, 0))) / 2, np.inf)
+    t_safe = np.where(hit, t_hit, 0.0)
+    normals = origins + t_safe[..., None] * viewdirs  # Unit: |p| = 1 at hit.
+    return normals.astype(np.float32), hit, t_hit
+
+  @classmethod
+  def shade(cls, normals, viewdirs, hit):
+    """Diffuse texture + Phong specular lobe; white at misses."""
+    n = normals
+    v = -viewdirs  # Surface -> camera.
+    n_dot_l = np.maximum(0.0, np.sum(n * cls.LIGHT, -1, keepdims=True))
+    albedo = 0.5 + 0.5 * np.sin(4.0 * n)
+    diffuse = albedo * (0.25 + 0.55 * n_dot_l)
+    r = 2.0 * np.sum(n * v, -1, keepdims=True) * n - v
+    r_dot_l = np.maximum(0.0, np.sum(r * cls.LIGHT, -1, keepdims=True))
+    specular = 0.9 * r_dot_l ** cls.SHININESS
+    color = np.clip(diffuse + specular, 0.0, 1.0)
+    return np.where(hit[..., None], color, 1.0).astype(np.float32)
+
+  def _load_renderings(self, config):
+    n = self.NUM_IMAGES
+    res = self.RESOLUTION
+    test = self.split == types.DataSplit.TEST
+
+    poses = []
+    for i in range(n):
+      theta = 2 * np.pi * (i + (0.5 if test else 0.0)) / n
+      height = 1.25 if test else (0.7 if i % 2 == 0 else 1.6)
+      position = np.array(
+          [3.5 * np.cos(theta), 3.5 * np.sin(theta), height])
+      poses.append(camera_lib.viewmatrix(
+          lookdir=position, up=np.array([0.0, 0.0, 1.0]), position=position))
+    self.camtoworlds = np.stack(poses).astype(np.float32)
+    self.height = self.width = res
+    self.focal = res * 1.4
+    self.pixtocams = camera_lib.get_pixtocam(self.focal, self.width,
+                                             self.height)
+
+    images, normal_maps, alpha_maps, disps = [], [], [], []
+    for i in range(n):
+      pix_x, pix_y = camera_lib.pixel_coordinates(res, res)
+      origins, _, viewdirs, _, _ = camera_lib.pixels_to_rays(
+          pix_x, pix_y, self.pixtocams, self.camtoworlds[i], xnp=np)
+      normals, hit, t_hit = self.sphere_hits(origins, viewdirs)
+      images.append(self.shade(normals, viewdirs, hit))
+      normal_maps.append(np.where(hit[..., None], normals, 0.0))
+      alpha_maps.append(hit.astype(np.float32))
+      disps.append((1.0 / np.maximum(np.where(hit, t_hit, np.inf), 1e-3))
+                   .astype(np.float32))
+    self.images = np.stack(images)
+    # The analytic normals and alphas always exist, as in the JAX loader.
+    self.normal_images = np.stack(normal_maps).astype(np.float32)
+    self.alphas = np.stack(alpha_maps)
+    if self._load_disps:
+      self.disp_images = np.stack(disps)

@@ -7,7 +7,9 @@ that device, gathers their ``rgb`` and casts their rays with
 ``models.nerf.DeviceImageRenderer``: no host batch and no host-to-device copy
 per step.  The draws follow ``Dataset._next_train``'s rules (border mask,
 patches, all-images or single-image batching), not its random stream: the
-rays of given pixel and camera indices equal the host caster's.
+rays of given pixel and camera indices equal the host caster's, and so do
+the ``disps``, ``normals`` and ``alphas`` of the metrics when the config
+asks for them.
 """
 
 from __future__ import annotations
@@ -40,6 +42,13 @@ class DeviceDataPlane:
     as_f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32),
                                        device=self.device)
     self.images = as_f32(dataset.images)
+    # The ground truth of the disparity and normal metrics, when asked for.
+    self.targets = {}
+    if config.compute_disp_metrics:
+      self.targets['disps'] = as_f32(dataset.disp_images)
+    if config.compute_normal_metrics:
+      self.targets['normals'] = as_f32(dataset.normal_images)
+      self.targets['alphas'] = as_f32(dataset.alphas)
     pixtocams, camtoworlds, distortion_params, pixtocam_ndc = dataset.cameras
     self.cameras = (as_f32(pixtocams), as_f32(camtoworlds),
                     distortion_params,
@@ -86,14 +95,17 @@ class DeviceDataPlane:
     rays = camera_lib.cast_ray_batch(
         self.cameras, types.Pixels(pix_x, pix_y, **kw), self.camtype,
         xnp=torch)
-    batch = types.Batch(rays=rays, rgb=self.images[cam, pix_y, pix_x])
+    targets = {k: v[cam, pix_y, pix_x] for k, v in self.targets.items()}
+    batch = types.Batch(rays=rays, rgb=self.images[cam, pix_y, pix_x],
+                        **targets)
     if self._patch_size == 1:
       squeeze = lambda x: None if x is None else x.reshape(
           (shape[0],) + x.shape[3:])
       batch = types.Batch(
           rays=types.Rays(**{f: squeeze(getattr(rays, f))
                              for f in rays.__dataclass_fields__}),
-          rgb=squeeze(batch.rgb))
+          rgb=squeeze(batch.rgb),
+          **{k: squeeze(v) for k, v in targets.items()})
     return batch
 
   def sample_batch(self, generator) -> types.Batch:

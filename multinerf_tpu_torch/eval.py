@@ -6,9 +6,12 @@
 A port of eval.py: restore the latest checkpoint, render each test view by
 camera index through ``models.nerf.DeviceImageRenderer``, color-correct it
 against the ground truth, score it (psnr and ssim, and their ``_cc``
-variants), write its images and the per-metric files under the JAX names
-(``color_XXX.png``, ``color_cc_XXX.png``, ``distance_{mean,median}_XXX.tiff``,
-``acc_XXX.tiff``, ``metric_{name}_{step}.txt``, ``metric_cc_...``), and with
+variants, and with ``Config.compute_disp_metrics`` /
+``compute_normal_metrics`` the disparity MSEs and the normal MAEs of
+eval.py:76-90), write its images and the per-metric files under the JAX
+names (``color_XXX.png``, ``color_cc_XXX.png``,
+``distance_{mean,median}_XXX.tiff``, ``normals_XXX.png``, ``acc_XXX.tiff``,
+``metric_{name}_{step}.txt``, ``metric_cc_...``), and with
 ``Config.eval_only_once=False`` poll for new checkpoints, logging
 TensorBoard summaries and showcase images under ``checkpoint_dir/eval``.
 Frames are rendered and scored one after the other (the JAX driver overlaps
@@ -31,6 +34,7 @@ from multinerf_tpu_torch import train_lib
 from multinerf_tpu_torch.data import datasets
 from multinerf_tpu_torch.models import nerf as models
 from multinerf_tpu_torch.ops import image_ops
+from multinerf_tpu_torch.ops import ref_utils
 from multinerf_tpu_torch.utils import checkpoints as ckpt_lib
 from multinerf_tpu_torch.utils import io as io_lib
 from multinerf_tpu_torch.utils import summary
@@ -51,7 +55,8 @@ def prepare_frame(rendering, batch, cc_fn):
   return gt
 
 
-def score_frame(rendering, gt, config, metric_harness, postprocess_fn):
+def score_frame(rendering, batch, gt, config, metric_harness,
+                postprocess_fn):
   """Quality metrics of one frame: (raw dict, color-corrected dict)."""
 
   def to_metric_space(img, quantize):
@@ -68,6 +73,24 @@ def score_frame(rendering, gt, config, metric_harness, postprocess_fn):
       to_metric_space(rendering['rgb'], quantize=True), gt_m)
   metric_cc = metric_harness(
       to_metric_space(rendering['rgb_cc'], quantize=True), gt_m)
+
+  if config.compute_disp_metrics:
+    for key in ('distance_mean', 'distance_median'):
+      if key in rendering:
+        disp = 1 / (1 + rendering[key])
+        tag = key.split('_')[1]
+        metric[f'disparity_{tag}_mse'] = float(
+            np.mean((disp - batch.disps)**2))
+
+  if config.compute_normal_metrics:
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32))
+    mae_weights = f32(rendering['acc']) * f32(batch.alphas)
+    gt_normals = ref_utils.l2_normalize(f32(batch.normals))
+    for key, val in rendering.items():
+      if key.startswith('normals') and val is not None:
+        metric[key + '_mae'] = float(ref_utils.compute_weighted_mae(
+            mae_weights, ref_utils.l2_normalize(f32(val)), gt_normals))
+
   for name, value in metric.items():
     print(f'{name:30s} = {value:.4f}')
   return metric, metric_cc
@@ -84,6 +107,9 @@ def save_frame_outputs(rendering, idx, out_dir, postprocess_fn):
   for key in ('distance_mean', 'distance_median'):
     io_lib.save_img_f32(rendering[key],
                         os.path.join(out_dir, f'{key}_{tag}.tiff'))
+  if 'normals' in rendering:
+    io_lib.save_img_u8(rendering['normals'] / 2 + 0.5,
+                       os.path.join(out_dir, f'normals_{tag}.png'))
   io_lib.save_img_f32(rendering['acc'],
                       os.path.join(out_dir, f'acc_{tag}.tiff'))
 
@@ -144,6 +170,9 @@ def log_tb_summaries(summary_writer, step, config, frame_metrics,
       pred = postprocess_fn(suite['color'])
       summary_writer.image(f'true_residual_{i}',
                            np.clip(pred - target + 0.5, 0, 1), step)
+      if config.compute_normal_metrics:
+        summary_writer.image(f'true_normals_{i}', batch.normals / 2 + 0.5,
+                             step)
 
 
 def write_metric_files(out_dir, step, config, frame_metrics, render_times,
@@ -187,8 +216,8 @@ def evaluate_checkpoint(step, renderer, dataset, config, out_dir,
       order = idx if config.deterministic_showcase else len(showcases)
       showcases.append((order, rendering, batch))
     if not config.render_path:
-      metric, metric_cc = score_frame(rendering, gt, config, metric_harness,
-                                      postprocess_fn)
+      metric, metric_cc = score_frame(rendering, batch, gt, config,
+                                      metric_harness, postprocess_fn)
       metrics.append(metric)
       metrics_cc.append(metric_cc)
     if (config.eval_save_output and config.eval_render_interval > 0 and
@@ -217,15 +246,11 @@ def main(argv=None):
   device = torch.device(args.device)
   if device.type == 'cuda' and not torch.cuda.is_available():
     raise RuntimeError('--device=cuda but CUDA is not available.')
-  # 360.gin's hidden layers are float32: keep their products in full f32.
+  # The configs' hidden layers are float32: keep their products in full f32.
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
 
   config = configs.load_config(args)
-  if config.compute_disp_metrics or config.compute_normal_metrics:
-    raise NotImplementedError(
-        'Not ported yet: disparity and normal metrics (ROADMAP.md Queue 1: '
-        'the rest of the model zoo).')
   dataset = datasets.load_dataset('test', config.data_dir, config)
   _, state, render_eval_fn, _, _ = train_lib.setup_model(config, SEED, device)
   state = ckpt_lib.TrainState(step=0, params=state.params)

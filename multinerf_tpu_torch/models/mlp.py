@@ -1,41 +1,54 @@
-"""The NeRF MLP of the mip-NeRF 360 render and train paths (models/mlp.py).
+"""The NeRF MLP of the render and train paths (models/mlp.py).
 
 Parameters keep the flax names and layout: ``Dense_{i}.kernel`` [in, out]
 and ``Dense_{i}.bias`` [out], numbered in the JAX creation order
-(mlp.py:250-257), so a JAX parameter tree loads by renaming alone
+(mlp.py:250-257): the trunk, the density head, then the Ref-NeRF heads
+(predicted normals, diffuse, tint, roughness), the bottleneck, the view
+branch and the rgb head.  So a JAX parameter tree loads by renaming alone
 (``multinerf_tpu_torch.bridge``).
 
-Only the fused path of the 360 config is ported:
+The trunk takes one of two paths, chosen as mlp.py:281-289 chooses:
 
-* a density-only MLP (PropMLP: ``disable_rgb``, no in-trunk skip) runs
-  whole in the fused density kernel (mlp.py:301-331);
-* with ``trunk_dtype`` 'int8' or 'int8_hybrid' and a ReLU activation, the
-  whole NerfMLP trunk runs in the fused int8 trunk kernel, which returns a
-  bf16 activation (mlp.py:332-359);
-* otherwise (NerfMLP) layer 0 and the feature half of every skip layer run
-  in the fused featurize -> Dense kernel (mlp.py:360-374); the hidden layers
-  are plain products in ``trunk_dtype`` ('float32' or 'bfloat16'), or
-  ``quant.quant_dense`` for the int8 modes;
-* then the density head, the bottleneck, the per-ray ``pos_enc`` view
-  encoding, the view branch (its hidden layers ``quant.quant_dense`` under
-  the int8 modes) and the rgb head (mlp.py:404-504); the heads are f32
-  products, which promote a bf16 input.
+* fused, when the MLP is eligible (density normals off, sample Gaussians
+  behind a stop-gradient, no warp or ``contract``, no skip at the trunk's
+  last layer) and ``use_fused_featurize`` is None or True:
+  - a density-only MLP (PropMLP: ``disable_rgb``, no in-trunk skip, no
+    predicted normals) runs whole in the fused density kernel
+    (mlp.py:301-331);
+  - with ``trunk_dtype`` 'int8' or 'int8_hybrid' and a ReLU activation, the
+    whole trunk runs in the fused int8 trunk kernel, which returns a bf16
+    activation (mlp.py:332-359);
+  - otherwise layer 0 and the feature half of every skip layer run in the
+    fused featurize -> Dense kernel (mlp.py:360-374), the hidden layers are
+    plain products in ``trunk_dtype`` ('float32' or 'bfloat16'), or
+    ``quant.quant_dense`` for the int8 modes;
+* unfused otherwise (mlp.py:375-403): the warp through
+  ``coord.track_linearize``, f32 features from the lifted IPE, then every
+  trunk layer a plain product in ``trunk_dtype`` (the first casts the f32
+  features to it, as flax's ``nn.Dense(dtype=...)`` does; the JAX package
+  stores them in bf16 on a TPU, a choice for its matrix unit).  This path
+  is differentiable in the sample means: density-gradient normals (one
+  batched ``torch.autograd.grad`` of the summed raw density, the sum trick
+  of mlp.py:414-426, with ``create_graph`` whenever gradients are on, so
+  that the orientation loss reaches the weights) and
+  ``Model.stop_level_grad=False`` need it.
 
-``use_fused_featurize=None`` means the fused kernels.  Unlike mlp.py:288,
-which takes the unfused f32 path on a CPU, the port runs the same call on
-the CPU through the kernels' plain versions, so its CPU numerics are the
-kernels' numerics.  Gradients reach every parameter: through the fused
-kernels' backward passes (which give the sample positions none, as in the
-JAX custom VJPs), the plain hidden-layer products, the heads and the view
-branch.  Configurations outside this slice raise NotImplementedError
-naming the ROADMAP item that brings them; so does training with density or
-bottleneck noise.
+Then the density head, the Ref-NeRF heads, the bottleneck, the view
+encoding (``pos_enc`` per ray, or the IDE of reflected directions per
+sample), n.v, the view branch and the rgb head, with the diffuse/specular
+combination through ``linear_to_srgb`` (mlp.py:404-504).  The heads are f32
+products, which promote a bf16 input.  ``use_fused_featurize=None`` takes
+the fused kernels on the CPU too (through their plain versions), unlike
+mlp.py:288.  Density and bottleneck noise, and int8 trunks with density
+normals, raise NotImplementedError naming the ROADMAP item that brings
+them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import math
 from typing import Any, Callable
 
 import numpy as np
@@ -47,7 +60,9 @@ from multinerf_tpu_torch import ginlite
 from multinerf_tpu_torch.models import initializers
 from multinerf_tpu_torch.ops import coord
 from multinerf_tpu_torch.ops import geopoly
+from multinerf_tpu_torch.ops import image_ops
 from multinerf_tpu_torch.ops import quant
+from multinerf_tpu_torch.ops import ref_utils
 from multinerf_tpu_torch.ops.kernels import density_mlp as dm
 from multinerf_tpu_torch.ops.kernels import featurize_dense as fd
 from multinerf_tpu_torch.ops.kernels import int8_trunk as i8t
@@ -111,29 +126,24 @@ class PropMLP(MLPConfig):
   pass
 
 
+def fused_eligible(cfg: MLPConfig):
+  """Whether the fused kernels can take this MLP (mlp.py:281-286): they
+  give the sample Gaussians no gradient, featurize unwarped or contracted
+  Gaussians only, and cannot end the trunk on a skip."""
+  return (cfg.disable_density_normals and cfg.inputs_have_stop_gradient and
+          cfg.warp_fn in (None, coord.contract) and
+          (cfg.net_depth <= 1 or (cfg.net_depth - 1) % cfg.skip_layer != 0))
+
+
 def _unsupported(cfg: MLPConfig):
-  """The ROADMAP item of the first option this port does not cover."""
-  ref_nerf = 'ROADMAP.md Queue 1: the rest of the model zoo, Ref-NeRF'
-  unfused = 'ROADMAP.md Queue 1: serving slice, the unfused MLP path'
+  """The first option this port does not cover, with its ROADMAP item."""
   checks = [
-      (not cfg.disable_density_normals, 'density-gradient normals', ref_nerf),
-      (cfg.enable_pred_normals, 'predicted normals', ref_nerf),
-      (cfg.use_reflections, 'reflection directions', ref_nerf),
-      (cfg.use_directional_enc, 'the integrated directional encoding',
-       ref_nerf),
-      (cfg.enable_pred_roughness, 'predicted roughness', ref_nerf),
-      (cfg.use_diffuse_color, 'diffuse color', ref_nerf),
-      (cfg.use_specular_tint, 'specular tint', ref_nerf),
-      (cfg.use_n_dot_v, 'n.v features', ref_nerf),
       (cfg.trunk_dtype not in (*_DTYPES, *_INT8),
        f'trunk_dtype={cfg.trunk_dtype!r}',
        'the port takes float32, bfloat16, int8 and int8_hybrid'),
-      (cfg.use_fused_featurize is False, 'the unfused featurization', unfused),
-      (cfg.warp_fn not in (None, coord.contract) or
-       not cfg.inputs_have_stop_gradient or
-       (cfg.net_depth > 1 and (cfg.net_depth - 1) % cfg.skip_layer == 0),
-       'a configuration the fused kernels cannot take',
-       unfused),
+      (cfg.trunk_dtype in _INT8 and not cfg.disable_density_normals,
+       'int8 trunks with density-gradient normals',
+       'ROADMAP.md Queue 1 item 4: the rest of the model zoo'),
   ]
   for bad, what, item in checks:
     if bad:
@@ -159,7 +169,8 @@ class Dense(nn.Module):
 
 
 class MLP(nn.Module):
-  """The positional-encoding MLP (forward at rng=None)."""
+  """The positional-encoding MLP with its Ref-NeRF heads (forward at
+  rng=None)."""
 
   def __init__(self, cfg: MLPConfig, use_viewdirs=True, *, generator,
                device):
@@ -167,6 +178,9 @@ class MLP(nn.Module):
     problem = _unsupported(cfg)
     if problem:
       raise NotImplementedError(f'Not ported yet: {problem}.')
+    if cfg.use_reflections and not (cfg.enable_pred_normals or
+                                    not cfg.disable_density_normals):
+      raise ValueError('Normals must be computed for reflection directions.')
     self.cfg = cfg
     self.use_viewdirs = use_viewdirs
     self.pos_basis_t = np.array(
@@ -176,8 +190,16 @@ class MLP(nn.Module):
     self.hidden_dtype = _DTYPES.get(cfg.trunk_dtype)
     self.int8 = cfg.trunk_dtype in _INT8
     self.hybrid = cfg.trunk_dtype == 'int8_hybrid'
-    self.full_density_fusion = (cfg.disable_rgb and
+    self.fused = (cfg.use_fused_featurize is not False and
+                  fused_eligible(cfg))
+    self.full_density_fusion = (self.fused and cfg.disable_rgb and
+                                not cfg.enable_pred_normals and
                                 cfg.net_depth <= cfg.skip_layer)
+    if cfg.use_directional_enc:
+      self.dir_enc_fn = ref_utils.generate_ide_fn(cfg.deg_view)
+    else:
+      self.dir_enc_fn = lambda direction, _: coord.pos_enc(
+          direction, min_deg=0, max_deg=cfg.deg_view, append_identity=True)
     kernel_init = getattr(initializers, cfg.weight_init)()
     ids = itertools.count()
 
@@ -195,15 +217,24 @@ class MLP(nn.Module):
       if self._is_skip(i):
         in_features += self.num_feats
       self.trunk.append(dense(in_features, width))
-    self.heads = {'density': dense(width, 1)}
+    # A skip after the trunk's last layer (unfused only) widens its output.
+    x_width = width + (self.num_feats if self._is_skip(cfg.net_depth) else 0)
+    self.heads = {'density': dense(x_width, 1)}
+    if cfg.enable_pred_normals:
+      self.heads['grad_pred'] = dense(x_width, 3)
     self.view_branch = []
     if cfg.disable_rgb:
       return
-    x_width = width
     if use_viewdirs:
-      inputs_width = 3 + 6 * cfg.deg_view
+      if cfg.use_diffuse_color:
+        self.heads['diffuse'] = dense(x_width, cfg.num_rgb_channels)
+      if cfg.use_specular_tint:
+        self.heads['tint'] = dense(x_width, 3)
+      if cfg.enable_pred_roughness:
+        self.heads['roughness'] = dense(x_width, 1)
+      inputs_width = self._dir_enc_width() + int(cfg.use_n_dot_v)
       if cfg.bottleneck_width > 0:
-        self.heads['bottleneck'] = dense(width, cfg.bottleneck_width)
+        self.heads['bottleneck'] = dense(x_width, cfg.bottleneck_width)
         inputs_width += cfg.bottleneck_width
       x_width = inputs_width
       for i in range(cfg.net_depth_viewdirs):
@@ -213,8 +244,15 @@ class MLP(nn.Module):
           x_width += inputs_width
     self.heads['rgb'] = dense(x_width, cfg.num_rgb_channels)
 
+  def _dir_enc_width(self):
+    cfg = self.cfg
+    if cfg.use_directional_enc:
+      return 2 * ref_utils.get_ml_array(cfg.deg_view).shape[1]
+    return 3 + 6 * cfg.deg_view
+
   def _is_skip(self, i):
-    """Layer i takes [x, features] (the fused path's numbering)."""
+    """Layer i takes [x, features]: the features are concatenated after
+    layer i - 1 when (i - 1) % skip_layer == 0 and i > 1."""
     return i > 1 and (i - 1) % self.cfg.skip_layer == 0
 
   def _hidden(self, layer, x):
@@ -223,7 +261,7 @@ class MLP(nn.Module):
       return quant.quant_dense(layer, x, self.hybrid)
     return layer(x, self.hidden_dtype)
 
-  def _trunk(self, means, covs):
+  def _fused_trunk(self, means, covs):
     cfg = self.cfg
     kw = dict(basis=self.pos_basis_t, min_deg=cfg.min_deg_point,
               max_deg=cfg.max_deg_point,
@@ -250,8 +288,37 @@ class MLP(nn.Module):
       x = cfg.net_activation(x)
     return x
 
+  def _unfused_trunk(self, means, covs):
+    cfg = self.cfg
+    if cfg.warp_fn is not None:
+      means, covs = coord.track_linearize(cfg.warp_fn, means, covs)
+    feats = coord.integrated_pos_enc_lifted(
+        means, covs, self.pos_basis_t, cfg.min_deg_point, cfg.max_deg_point)
+    x = feats
+    for i, layer in enumerate(self.trunk):
+      x = cfg.net_activation(self._hidden(layer, x))
+      if self._is_skip(i + 1):
+        x = torch.cat([x.to(feats.dtype), feats], dim=-1)
+    return x
+
+  def _predict_density(self, means, covs):
+    """(raw density [N], trunk output [N, C] or None)."""
+    cfg = self.cfg
+    head = self.heads['density']
+    if self.full_density_fusion:
+      raw_density = dm.density_mlp(
+          means, covs, [l.kernel for l in self.trunk],
+          [l.bias for l in self.trunk], head.kernel, head.bias[0],
+          self.pos_basis_t,
+          min_deg=cfg.min_deg_point, max_deg=cfg.max_deg_point,
+          use_contract=cfg.warp_fn is coord.contract)
+      return raw_density, None
+    trunk = self._fused_trunk if self.fused else self._unfused_trunk
+    x = trunk(means, covs)
+    return head(x)[..., 0], x
+
   def forward(self, means, covs, viewdirs=None, generator=None):
-    """Density and color of sample Gaussians.
+    """Density, color, normals and roughness of sample Gaussians.
 
     Args:
       means: [..., S, 3]; covs: [..., S, 3, 3] sample Gaussians.
@@ -260,7 +327,9 @@ class MLP(nn.Module):
         rng=None); only density and bottleneck noise would draw from it.
 
     Returns:
-      dict with 'density' [..., S] and 'rgb' [..., S, 3].
+      dict with 'density' [..., S], 'rgb' [..., S, 3], and 'normals',
+      'raw_grad_density', 'normals_pred', 'grad_pred' [..., S, 3] and
+      'roughness' [..., S, 1], each None where the MLP has no such output.
     """
     cfg = self.cfg
     if generator is not None and (cfg.density_noise > 0 or
@@ -273,35 +342,71 @@ class MLP(nn.Module):
     covs = covs.reshape(-1, 3, 3)
     n_flat = means.shape[0]
 
-    head = self.heads['density']
-    if self.full_density_fusion:
-      raw_density = dm.density_mlp(
-          means, covs, [l.kernel for l in self.trunk],
-          [l.bias for l in self.trunk], head.kernel, head.bias[0],
-          self.pos_basis_t,
-          min_deg=cfg.min_deg_point, max_deg=cfg.max_deg_point,
-          use_contract=cfg.warp_fn is coord.contract)
-      x = None
+    def per_sample(a):
+      """[..., C] per ray -> [N, C] per sample."""
+      return torch.broadcast_to(a[..., None, :],
+                                sample_shape + a.shape[-1:]).reshape(
+                                    n_flat, a.shape[-1])
+
+    raw_grad_density = normals = None
+    if cfg.disable_density_normals:
+      raw_density, x = self._predict_density(means, covs)
     else:
-      x = self._trunk(means, covs)
-      raw_density = head(x)[..., 0]
+      # Per-sample density gradients in one batched backward pass: each
+      # sample's density depends on its own mean alone, so the gradient of
+      # the sum is the per-sample gradient field.  With gradients on, the
+      # pass is itself differentiable (the predicted-normal loss reaches the
+      # weights through it); else its graph is dropped once it has run.
+      create_graph = torch.is_grad_enabled()
+      with torch.enable_grad():
+        if not means.requires_grad:
+          means = means.detach().requires_grad_(True)
+        raw_density, x = self._predict_density(means, covs)
+        raw_grad_density, = torch.autograd.grad(
+            raw_density.sum(), means, create_graph=create_graph)
+      if not create_graph:
+        raw_density, x = raw_density.detach(), x.detach()
+      # Normals point against the (pre-activation) density gradient.
+      normals = -ref_utils.l2_normalize(raw_grad_density)
+
+    grad_pred = normals_pred = None
+    normals_to_use = normals
+    if cfg.enable_pred_normals:
+      grad_pred = self.heads['grad_pred'](x)
+      normals_pred = -ref_utils.l2_normalize(grad_pred)
+      normals_to_use = normals_pred
+
     density = cfg.density_activation(raw_density + cfg.density_bias)
 
+    roughness = None
     if cfg.disable_rgb:
       rgb = torch.zeros_like(means)
     else:
       if self.use_viewdirs:
         if viewdirs is None:
           raise ValueError('this MLP was built to take view directions.')
+        if cfg.use_diffuse_color:
+          raw_rgb_diffuse = self.heads['diffuse'](x)
+        if cfg.use_specular_tint:
+          tint = torch.sigmoid(self.heads['tint'](x))
+        if cfg.enable_pred_roughness:
+          roughness = cfg.roughness_activation(
+              self.heads['roughness'](x) + cfg.roughness_bias)
         parts = []
         if 'bottleneck' in self.heads:
           parts.append(self.heads['bottleneck'](x))
-        # Encode per RAY (cheaper), then broadcast per sample.
-        dir_enc = coord.pos_enc(viewdirs, min_deg=0, max_deg=cfg.deg_view,
-                                append_identity=True)
-        parts.append(torch.broadcast_to(
-            dir_enc[..., None, :],
-            sample_shape + (dir_enc.shape[-1],)).reshape(n_flat, -1))
+        if cfg.use_reflections or cfg.use_n_dot_v:
+          viewdirs_flat = per_sample(viewdirs)
+        if cfg.use_reflections:
+          # viewdirs point camera -> point; reflect() wants point -> camera.
+          refdirs = ref_utils.reflect(-viewdirs_flat, normals_to_use)
+          parts.append(self.dir_enc_fn(refdirs, roughness))
+        else:
+          # Encode per RAY (cheaper), then broadcast per sample.
+          parts.append(per_sample(self.dir_enc_fn(viewdirs, roughness)))
+        if cfg.use_n_dot_v:
+          parts.append(torch.sum(normals_to_use * viewdirs_flat, dim=-1,
+                                 keepdim=True))
         x = torch.cat(parts, dim=-1)
         inputs = x
         for i, layer in enumerate(self.view_branch):
@@ -310,7 +415,20 @@ class MLP(nn.Module):
             x = torch.cat([x.to(inputs.dtype), inputs], dim=-1)
       rgb = cfg.rgb_activation(
           cfg.rgb_premultiplier * self.heads['rgb'](x) + cfg.rgb_bias)
+      if cfg.use_diffuse_color:
+        # Diffuse starts near 0.25, so the combined linear color is ~0.5.
+        diffuse_linear = torch.sigmoid(raw_rgb_diffuse - math.log(3.0))
+        specular_linear = (tint * rgb if cfg.use_specular_tint
+                           else 0.5 * rgb)
+        rgb = torch.clamp(image_ops.linear_to_srgb(
+            specular_linear + diffuse_linear, xnp=torch), 0, 1)
       rgb = rgb * (1 + 2 * cfg.rgb_padding) - cfg.rgb_padding
 
-    return dict(density=density.reshape(sample_shape),
-                rgb=rgb.reshape(sample_shape + rgb.shape[-1:]))
+    def unflatten(a):
+      return None if a is None else a.reshape(sample_shape + a.shape[1:])
+
+    return dict(density=unflatten(density), rgb=unflatten(rgb),
+                raw_grad_density=unflatten(raw_grad_density),
+                grad_pred=unflatten(grad_pred), normals=unflatten(normals),
+                normals_pred=unflatten(normals_pred),
+                roughness=unflatten(roughness))

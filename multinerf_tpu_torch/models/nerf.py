@@ -5,11 +5,15 @@ resample -> stop-gradient -> s_to_t -> cast Gaussians -> MLP -> alpha
 weights -> background -> composite, plus the ``ray_*`` visualization
 extras.  With a ``torch.Generator`` (the JAX rng) the resampling is
 jittered and a background color range is sampled; with None the output is
-deterministic.  Gradients reach the MLPs through the densities and colors
-of each level; the sampled distances carry none (``stop_level_grad``, the
-only setting the fused kernels allow: they give the sample positions no
-gradient).  Occupancy culling, GLO and learned exposure scaling are not
-ported yet and raise.
+deterministic.  Gradients reach the MLPs through the densities, colors and
+normals of each level.  With ``stop_level_grad`` (the default) the sampled
+distances carry none; with ``stop_level_grad=False`` they do, from each
+level's samples back through the resampling into the previous levels'
+MLPs, which then take the unfused path (nerf.py:95-105: the fused kernels
+give the sample positions no gradient).  The normals and roughness of the
+Ref-NeRF MLP are composited per level with the extras (nerf.py:291-300).
+Occupancy culling, GLO and learned exposure scaling are not ported yet and
+raise.
 
 ``DeviceImageRenderer`` (nerf.py:545-660) uploads the cameras once and casts
 every chunk's rays on the device; one frame is a Python loop over chunks of
@@ -18,6 +22,7 @@ every chunk's rays on the device; one frame is a Python loop over chunks of
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Optional, Tuple
 
@@ -82,19 +87,23 @@ class Model(nn.Module):
     if cfg.config is not None and cfg.config.occupancy_culling:
       raise NotImplementedError(
           'Not ported yet: occupancy culling (ROADMAP.md Queue 1).')
-    if not cfg.stop_level_grad:
-      # JAX falls back to its unfused XLA path there (nerf.py:95-105),
-      # which the port does not have.
-      raise NotImplementedError(
-          'Not ported yet: stop_level_grad=False, gradients through the '
-          'sample positions (ROADMAP.md Queue 1: serving slice, the unfused '
-          'MLP path).')
     self.cfg = cfg
+
+    def mlp_config(name):
+      mlp_cfg = ginlite.make(name)
+      if not cfg.stop_level_grad:
+        # Gradients flow through the sample positions, which the fused
+        # kernels cut: the MLPs' eligibility check then takes the unfused
+        # path (nerf.py:95-105).
+        mlp_cfg = dataclasses.replace(mlp_cfg,
+                                      inputs_have_stop_gradient=False)
+      return mlp_cfg
+
     # Built in the JAX creation order: NerfMLP first.
-    self.NerfMLP_0 = mlp_lib.MLP(ginlite.make('NerfMLP'), cfg.use_viewdirs,
+    self.NerfMLP_0 = mlp_lib.MLP(mlp_config('NerfMLP'), cfg.use_viewdirs,
                                  generator=generator, device=device)
     if not cfg.single_mlp:
-      self.PropMLP_0 = mlp_lib.MLP(ginlite.make('PropMLP'), cfg.use_viewdirs,
+      self.PropMLP_0 = mlp_lib.MLP(mlp_config('PropMLP'), cfg.use_viewdirs,
                                    generator=generator, device=device)
 
   def forward(self, rays: types.Rays, train_frac, compute_extras,
@@ -137,10 +146,11 @@ class Model(nn.Module):
       level_samples = (cfg.num_nerf_samples if final_level
                        else cfg.num_prop_samples)
 
-      # Everything up to the new sample distances runs without a graph:
-      # they are stop-gradient (nerf.py:193-195), and nothing else of this
+      # Everything up to the new sample distances runs without a graph
+      # when they are stop-gradient (nerf.py:193-195): nothing else of this
       # block reaches the losses.
-      with torch.no_grad():
+      with (torch.no_grad() if cfg.stop_level_grad
+            else contextlib.nullcontext()):
         if level > 0 and (cfg.dilation_bias > 0 or
                           cfg.dilation_multiplier > 0):
           pad = (cfg.dilation_bias + cfg.dilation_multiplier *
@@ -195,7 +205,9 @@ class Model(nn.Module):
 
       rendering_out = rendering.volumetric_rendering(
           ray_results['rgb'], hist_weights, t_edges, bg_rgbs, rays.far,
-          compute_extras)
+          compute_extras,
+          extras={k: v for k, v in ray_results.items()
+                  if k.startswith('normals') or k == 'roughness'})
 
       if compute_extras:
         n = cfg.config.vis_num_rays if cfg.config is not None else 16

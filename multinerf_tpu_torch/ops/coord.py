@@ -1,8 +1,11 @@
 """Coordinate-space warps and ray-distance parameterizations.
 
-Torch port of ``multinerf_tpu.ops.coord``: the scene contraction and its
-analytic Gaussian warp, the t <-> s ray-distance bijection, the lifted
-integrated positional encoding in its recurrence form, and ``pos_enc``.
+Torch port of ``multinerf_tpu.ops.coord``: the scene contraction, its
+inverse and its analytic Gaussian warp, ``track_linearize`` for any warp,
+the t <-> s ray-distance bijection, the integrated positional encoding
+(composed from ``lift_and_diagonalize``, and lifted, direct or in its
+recurrence form) and ``pos_enc``.  Every function is differentiable in the
+Gaussians' means, as the density-gradient normals of Ref-NeRF need.
 """
 
 from __future__ import annotations
@@ -22,6 +25,12 @@ def contract(x):
   r_sq = torch.clamp(torch.sum(x**2, dim=-1, keepdim=True), min=_F32_EPS)
   scale = (2 * torch.sqrt(r_sq) - 1) / r_sq
   return torch.where(r_sq <= 1, x, scale * x)
+
+
+def inv_contract(z):
+  """Inverse of contract()."""
+  r_sq = torch.clamp(torch.sum(z**2, dim=-1, keepdim=True), min=_F32_EPS)
+  return torch.where(r_sq <= 1, z, z / (2 * torch.sqrt(r_sq) - r_sq))
 
 
 def contract_gaussian(mean, cov):
@@ -53,6 +62,25 @@ def contract_gaussian(mean, cov):
   return new_mean, new_cov
 
 
+def track_linearize(fn, mean, cov):
+  """Warp Gaussians through fn: (fn(mean), J cov J^T), J the Jacobian of
+  fn at each mean (coord.py:76-92).  ``contract`` takes the analytic path;
+  any other warp pushes the covariance's columns, then the result's, through
+  the warp's linearization (one ``torch.func.jvp`` per column)."""
+  if mean.dim() + 1 != cov.dim():
+    raise ValueError('cov must be a full (non-diagonal) covariance.')
+  if fn is contract:
+    return contract_gaussian(mean, cov)
+
+  def push(m):
+    """[..., 3, 3] -> [..., 3, 3]: out[..., j, :] = J m[..., :, j]."""
+    return torch.stack(
+        [torch.func.jvp(fn, (mean,), (m[..., :, j],))[1]
+         for j in range(m.shape[-1])], dim=-2)
+
+  return fn(mean), push(push(cov))
+
+
 _INVERSES = {
     'reciprocal': torch.reciprocal,
     'log': torch.exp,
@@ -81,6 +109,53 @@ def construct_ray_warps(fn, t_near, t_far):
   t_to_s = lambda t: (fwd(t) - s_near) / (s_far - s_near)
   s_to_t = lambda s: inv(s * s_far + (1 - s) * s_near)
   return t_to_s, s_to_t
+
+
+def expected_sin(mean, var):
+  """E[sin(x)] for x ~ N(mean, var)."""
+  return torch.exp(-0.5 * var) * mathx.safe_sin(mean)
+
+
+def integrated_pos_enc(mean, var, min_deg, max_deg):
+  """Integrated positional encoding (mip-NeRF Eq 14): each coordinate's sin
+  at scales 2^[min_deg, max_deg), attenuated by its variance; the cos half
+  is the sin shifted by pi/2.  [..., d] -> [..., 2 * d * (max - min)]."""
+  scales = 2.0**torch.arange(min_deg, max_deg, dtype=mean.dtype,
+                             device=mean.device)
+  shape = mean.shape[:-1] + (-1,)
+  sm = torch.reshape(mean[..., None, :] * scales[:, None], shape)
+  sv = torch.reshape(var[..., None, :] * scales[:, None]**2, shape)
+  return expected_sin(torch.cat([sm, sm + 0.5 * math.pi], dim=-1),
+                      torch.cat([sv, sv], dim=-1))
+
+
+def lift_and_diagonalize(mean, cov, basis):
+  """Project (mean, cov) onto `basis` [3, L] columns, keeping only the
+  diagonal variances."""
+  basis = mathx.constant(basis, mean.device)
+  lifted_mean = mathx.matmul_hp(mean, basis)
+  lifted_var = torch.sum(basis * mathx.matmul_hp(cov, basis), dim=-2)
+  return lifted_mean, lifted_var
+
+
+def integrated_pos_enc_lifted(mean, cov, basis, min_deg, max_deg):
+  """lift_and_diagonalize + integrated_pos_enc in one (coord.py:168-222):
+  the degree recurrence past two degrees, else the direct sin/exp form with
+  the frequency scaling folded into the projections.  f32 features."""
+  if max_deg - min_deg > 2:
+    return integrated_pos_enc_lifted_recurrence(mean, cov, basis, min_deg,
+                                                max_deg)
+  basis = np.asarray(basis)
+  scales = 2.0**np.arange(min_deg, max_deg)
+  b_scaled = np.concatenate([basis * s for s in scales], axis=-1)
+  bb = np.einsum('ik,jk->ijk', basis, basis).reshape(9, basis.shape[-1])
+  bb_scaled = np.concatenate([bb * (s * s) for s in scales], axis=-1)
+  args = mathx.matmul_hp(mean, mathx.constant(b_scaled, mean.device))
+  var = mathx.matmul_hp(cov.reshape(cov.shape[:-2] + (9,)),
+                        mathx.constant(bb_scaled, mean.device))
+  atten = torch.exp(-0.5 * var)
+  return torch.cat([atten * mathx.safe_sin(args),
+                    atten * mathx.safe_sin(args + 0.5 * math.pi)], dim=-1)
 
 
 def lifted_basis(basis, min_deg):
@@ -118,8 +193,9 @@ def integrated_pos_enc_lifted_recurrence(mean, cov, basis, min_deg, max_deg,
   batch_shape = mean.shape[:-1]
   mean_flat = mean.reshape(-1, 3)
   cov_flat = cov.reshape(-1, 9)
-  args0 = mean_flat @ torch.as_tensor(basis_t, device=mean.device).T  # [N, L]
-  var0 = cov_flat @ torch.as_tensor(bb_t, device=mean.device).T
+  # [N, L]; full f32 (the einsums of coord.py:276-279 are HIGHEST).
+  args0 = mathx.matmul_hp(mean_flat, mathx.constant(basis_t.T, mean.device))
+  var0 = mathx.matmul_hp(cov_flat, mathx.constant(bb_t.T, mean.device))
 
   sins, coss = [], []
   s = c = e = None

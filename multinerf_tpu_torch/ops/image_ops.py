@@ -36,6 +36,29 @@ def linear_to_srgb(linear, eps: Optional[float] = None,
   return xnp.where(linear <= 0.0031308, srgb0, srgb1)
 
 
+def srgb_to_linear(srgb, eps: Optional[float] = None,
+                   xnp: types.ModuleType = np):
+  """Inverse sRGB OETF for srgb in [0, 1]; `xnp` is numpy or torch."""
+  if eps is None:
+    eps = float(np.finfo(np.float32).eps)
+  linear0 = 25 / 323 * srgb
+  linear1 = xnp.maximum((200 * srgb + 11) / 211,
+                        xnp.full_like(srgb, eps))**(12 / 5)
+  return xnp.where(srgb <= 0.04045, linear0, linear1)
+
+
+def downsample(img, factor):
+  """Area downsample; `factor` must divide the image height and width."""
+  sh = img.shape
+  if not (sh[0] % factor == 0 and sh[1] % factor == 0):
+    raise ValueError(
+        f'Downsampling factor {factor} does not evenly divide image '
+        f'shape {sh[:2]}')
+  img = img.reshape(
+      (sh[0] // factor, factor, sh[1] // factor, factor) + sh[2:])
+  return img.mean((1, 3))
+
+
 def color_correct(img, ref, num_iters=5, eps=0.5 / 255):
   """Fit a per-channel quadratic color transform warping img toward ref
   (host numpy, as image_ops.py:72-110 of the JAX package).

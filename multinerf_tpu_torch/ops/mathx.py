@@ -19,6 +19,65 @@ TRIG_PERIOD = 100.0 * math.pi
 _EXP_CLAMP = 88.0
 
 
+_CONSTANTS = {}
+
+
+def constant(array, device, dtype=torch.float32):
+  """A host constant (a table, a basis) as a tensor on `device`, copied
+  there once per process: a copy from pageable host memory waits for the
+  device's queue to drain, so the per-call paths take their tables from
+  here.  Do not write to the tensor returned."""
+  host = np.ascontiguousarray(array, dtype=torch.empty((), dtype=dtype)
+                              .numpy().dtype)
+  key = (host.tobytes(), host.shape, str(dtype), str(torch.device(device)))
+  if key not in _CONSTANTS:
+    # A normal tensor even when first asked for under inference_mode, so
+    # that autograd may save it later.
+    with torch.inference_mode(False):
+      _CONSTANTS[key] = torch.from_numpy(host.copy()).to(device)
+  return _CONSTANTS[key]
+
+
+class _MatmulHP(torch.autograd.Function):
+  """a @ b with TF32 off on the CUDA backend, forward and backward."""
+
+  @staticmethod
+  def forward(ctx, a, b):
+    ctx.save_for_backward(a, b)
+    return _f32_product(a, b)
+
+  @staticmethod
+  def backward(ctx, g):
+    a, b = ctx.saved_tensors
+    # Through matmul_hp again, so a second derivative is also full f32.
+    grad_a = grad_b = None
+    if ctx.needs_input_grad[0]:
+      grad_a = matmul_hp(g, b.transpose(-1, -2))
+    if ctx.needs_input_grad[1]:
+      grad_b = matmul_hp(a.transpose(-1, -2), g)
+    return grad_a, grad_b
+
+
+def _f32_product(a, b):
+  flags = torch.backends.cuda.matmul
+  allow_tf32 = flags.allow_tf32
+  flags.allow_tf32 = False
+  try:
+    return a @ b
+  finally:
+    flags.allow_tf32 = allow_tf32
+
+
+def matmul_hp(a, b):
+  """f32 product at full precision whatever the backend's TF32 setting
+  (mathx.py:29's ``Precision.HIGHEST``), in its gradients too.  `a` is
+  [..., K], `b` is [K, N]."""
+  if a.dim() > 2:
+    out = matmul_hp(a.reshape(-1, a.shape[-1]), b)
+    return out.reshape(a.shape[:-1] + out.shape[-1:])
+  return _MatmulHP.apply(a, b)
+
+
 def _reduce(x):
   return torch.where(torch.abs(x) < TRIG_PERIOD, x,
                      torch.remainder(x, TRIG_PERIOD))

@@ -82,11 +82,14 @@ def compute_alpha_weights(density, tdist, dirs, opaque_background=False):
   return weights, alpha, transmittance
 
 
-def volumetric_rendering(rgbs, weights, tdist, bg_rgbs, t_far, compute_extras):
+def volumetric_rendering(rgbs, weights, tdist, bg_rgbs, t_far, compute_extras,
+                         extras=None):
   """Composite per-sample colors/values into per-ray renderings.
 
   Returns a dict with 'rgb' and, with compute_extras, 'acc',
-  'distance_mean', 'distance_median' and 'distance_percentile_{5,95}'.
+  'distance_mean', 'distance_median', 'distance_percentile_{5,95}' and
+  every entry of `extras` ({name: [..., s, c] per-sample values, or None})
+  composited by the weights.
   """
   rendering = {}
 
@@ -97,6 +100,9 @@ def volumetric_rendering(rgbs, weights, tdist, bg_rgbs, t_far, compute_extras):
 
   if compute_extras:
     rendering['acc'] = acc
+    for k, v in (extras or {}).items():
+      if v is not None:
+        rendering[k] = (weights[..., None] * v).sum(dim=-2)
 
     def acc_weighted_mean(x):
       return (weights * x).sum(dim=-1) / torch.clamp(acc, min=_F32_EPS)

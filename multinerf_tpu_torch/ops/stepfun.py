@@ -126,7 +126,7 @@ def weighted_percentile(t, w, ps):
   """Percentiles of the step fn (t, w); w must sum to 1 along the last axis."""
   cw = integrate_weights(w)
   q = torch.broadcast_to(
-      torch.tensor(ps, dtype=t.dtype, device=t.device) / 100,
+      mathx.constant(np.asarray(ps) / 100, t.device, t.dtype),
       t.shape[:-1] + (len(ps),))
   return mathx.interp_sorted(q, cw, t)
 

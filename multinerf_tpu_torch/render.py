@@ -37,6 +37,7 @@ SEED = 20200823
 # Channels written per frame: tag -> file extension.
 FRAME_EXTS = {
     'color': 'png',
+    'normals': 'png',
     'acc': 'tiff',
     'distance_mean': 'tiff',
     'distance_median': 'tiff',
@@ -75,6 +76,9 @@ class FrameStore:
     """Queue one frame's channel images for writing."""
     self._write(io_lib.save_img_u8, rendering['rgb'],
                 self.frame_name('color', idx))
+    if 'normals' in rendering:
+      self._write(io_lib.save_img_u8, rendering['normals'] / 2 + 0.5,
+                  self.frame_name('normals', idx))
     for tag in ('distance_mean', 'distance_median', 'acc'):
       self._write(io_lib.save_img_f32, rendering[tag],
                   self.frame_name(tag, idx))
@@ -131,7 +135,7 @@ def main(argv=None):
   device = torch.device(args.device)
   if device.type == 'cuda' and not torch.cuda.is_available():
     raise RuntimeError('--device=cuda but CUDA is not available.')
-  # 360.gin's hidden layers are float32: keep their products in full f32.
+  # The configs' hidden layers are float32: keep their products in full f32.
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
 

@@ -16,9 +16,12 @@ scalars and ``train_*`` histograms of every statistic, ``train_num_params``,
 ``train_learning_rate``, ``train_steps_per_sec``, ``train_rays_per_sec``,
 ``train_avg_psnr_timed`` and ``train_avg_psnr_timed_approx``.  Every
 ``train_render_every`` steps a test view is rendered (train.py:53-125) and
-logged: ``test_rays_per_sec``, ``train_metrics/*``, ``test_true_color`` and
-``test_output_*``.  ``Config.profile_step`` traces ``profile_num_steps``
-steps with torch.profiler into ``checkpoint_dir/profile``.  Rates are taken
+logged: ``test_rays_per_sec``, ``train_metrics/*``, ``test_true_color``
+(and ``test_true_normals`` with ``Config.compute_normal_metrics``) and
+``test_output_*``.  ``Config.early_exit_steps`` (0 included) stops the run
+after that many steps, as train.py:235-238.  ``Config.profile_step`` traces
+``profile_num_steps`` steps with torch.profiler into
+``checkpoint_dir/profile``.  Rates are taken
 over the steps since the last line (JAX divides by ``print_every`` also
 when fewer steps ran).  Each step is synchronised with the device, so the
 step times it reports are device-complete.  ``--device`` defaults to
@@ -131,6 +134,9 @@ def in_train_test_render(step, renderer, train_frac, test_dataset, config,
   suite = vis.visualize_suite(rendering, test_case.rays)
   print(f'Visualized in {time.time() - t0:0.3f}s')
   summary_writer.image('test_true_color', test_case.rgb, step)
+  if config.compute_normal_metrics:
+    summary_writer.image('test_true_normals', test_case.normals / 2 + 0.5,
+                         step)
   for name, img in suite.items():
     summary_writer.image('test_output_' + name, img, step)
   return n_rays / dt
@@ -176,7 +182,7 @@ def main(argv=None):
   device = torch.device(args.device)
   if device.type == 'cuda' and not torch.cuda.is_available():
     raise RuntimeError('--device=cuda but CUDA is not available.')
-  # 360.gin's hidden layers are float32: keep their products in full f32.
+  # The configs' hidden layers are float32: keep their products in full f32.
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
 
@@ -206,7 +212,8 @@ def main(argv=None):
   else:
     prefetcher = train_lib.Prefetcher(dataset, device)
 
-  num_steps = config.early_exit_steps or config.max_steps
+  num_steps = (config.early_exit_steps
+               if config.early_exit_steps is not None else config.max_steps)
   out = {'init_step': init_step, 'losses': [], 'data_losses': [],
          'step_seconds': [], 'test_rays_per_sec': []}
   total_time = 0
@@ -315,7 +322,8 @@ def main(argv=None):
     test_dataset.close()
 
   out['stats'] = {k: v.tolist() for k, v in stats.items()}
-  out['checkpoint'] = ckpt.path(ckpt.latest_step())
+  latest = ckpt.latest_step()
+  out['checkpoint'] = None if latest is None else ckpt.path(latest)
   return out
 
 

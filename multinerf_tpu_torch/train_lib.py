@@ -2,13 +2,15 @@
 
 The training step (train_lib.py:244-425 with ``jit=False``): render the
 batch through every level, the data loss (``mse`` or ``charb``), the
-proposal (interlevel) and distortion losses, backpropagation through the
-fused kernels' backward passes, per-module clipping by value then by norm,
-``nan_to_num`` of the clipped gradients, and Adam on the log-linear
-learning-rate schedule.  Statistics keep the JAX names, flattened with '/'
-(``losses/data``, ``grad_norms/NerfMLP_0``, ...).  Not ported: the RawNeRF,
-RobustNeRF and Ref-NeRF losses, weight decay, occupancy culling and the
-disparity and normal metrics (ROADMAP.md Queue 1).
+proposal (interlevel) and distortion losses, Ref-NeRF's orientation and
+predicted-normal losses, backpropagation through the fused kernels'
+backward passes (or, for density normals, through their own gradient),
+per-module clipping by value then by norm, ``nan_to_num`` of the clipped
+gradients, and Adam on the log-linear learning-rate schedule.  Statistics
+keep the JAX names, flattened with '/' (``losses/data``,
+``grad_norms/NerfMLP_0``, ...), with the ``disparity_mses`` and
+``normal_maes`` metrics when asked for.  Not ported: the RawNeRF and
+RobustNeRF losses, weight decay and occupancy culling (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -21,9 +23,11 @@ import torch
 
 from multinerf_tpu_torch import bridge
 from multinerf_tpu_torch.data import types
+from multinerf_tpu_torch.models import mlp as mlp_lib
 from multinerf_tpu_torch.models import nerf as nerf_lib
 from multinerf_tpu_torch.ops import image_ops
 from multinerf_tpu_torch.ops import mathx
+from multinerf_tpu_torch.ops import ref_utils
 from multinerf_tpu_torch.ops import stepfun
 from multinerf_tpu_torch.utils import checkpoints
 
@@ -66,7 +70,9 @@ def abs_max_stats(flat):
 
 
 def compute_data_loss(batch, renderings, rays, config):
-  """Photometric loss over all levels (train_lib.py:77-135): (loss, mses)."""
+  """Photometric loss over all levels (train_lib.py:77-135): (loss, stats),
+  stats holding the per-level 'mses' and, with the metrics on,
+  'disparity_mses' and 'normal_maes' (detached)."""
   if config.data_loss_type not in ('mse', 'charb'):
     raise NotImplementedError(
         f'Not ported yet: data_loss_type={config.data_loss_type!r} '
@@ -76,6 +82,7 @@ def compute_data_loss(batch, renderings, rays, config):
     lossmult = torch.ones_like(lossmult)
   denom = lossmult.sum()
   mses, data_losses = [], []
+  metrics = {}
   for rendering in renderings:
     resid_sq = (rendering['rgb'] - batch.rgb[..., :3])**2
     mses.append((lossmult * resid_sq).sum() / denom)
@@ -84,10 +91,26 @@ def compute_data_loss(batch, renderings, rays, config):
     else:
       data_loss = torch.sqrt(resid_sq + config.charb_padding**2)
     data_losses.append((lossmult * data_loss).sum() / denom)
+    with torch.no_grad():
+      if config.compute_disp_metrics:
+        disp = 1 / (1 + rendering['distance_mean'])
+        metrics.setdefault('disparity_mses', []).append(
+            ((disp - batch.disps)**2).mean())
+      if config.compute_normal_metrics:
+        if 'normals' in rendering:
+          normal_mae = ref_utils.compute_weighted_mae(
+              rendering['acc'] * batch.alphas,
+              ref_utils.l2_normalize(rendering['normals']),
+              ref_utils.l2_normalize(batch.normals))
+        else:
+          normal_mae = torch.full((), torch.nan, device=denom.device)
+        metrics.setdefault('normal_maes', []).append(normal_mae)
   data_losses = torch.stack(data_losses)
   loss = (config.data_coarse_loss_mult * torch.sum(data_losses[:-1]) +
           config.data_loss_mult * data_losses[-1])
-  return loss, torch.stack(mses).detach()
+  stats = {'mses': torch.stack(mses).detach()}
+  stats.update({k: torch.stack(v) for k, v in metrics.items()})
+  return loss, stats
 
 
 def interlevel_loss(ray_history, config):
@@ -109,6 +132,45 @@ def distortion_loss(ray_history, config):
   loss = torch.mean(stepfun.lossfun_distortion(last['sdist'],
                                                last['weights']))
   return config.distortion_loss_mult * loss
+
+
+def orientation_loss(rays, model, ray_history, config):
+  """Ref-NeRF's orientation loss: the weighted squared n.v of the normals
+  (``config.orientation_loss_target``) that face away from the camera."""
+  total_loss = 0.0
+  v = -1.0 * rays.viewdirs  # Points from the surface toward the camera.
+  for i, ray_results in enumerate(ray_history):
+    w = ray_results['weights']
+    n = ray_results[config.orientation_loss_target]
+    if n is None:
+      raise ValueError('Normals cannot be None if orientation loss is on.')
+    n_dot_v = (n * v[..., None, :]).sum(dim=-1)
+    loss = torch.mean((w * torch.clamp(n_dot_v, max=0.0)**2).sum(dim=-1))
+    mult = (config.orientation_coarse_loss_mult
+            if i < model.cfg.num_levels - 1
+            else config.orientation_loss_mult)
+    total_loss = total_loss + mult * loss
+  return total_loss
+
+
+def predicted_normal_loss(model, ray_history, config):
+  """Ref-NeRF's supervision of the predicted normals by the density
+  gradient's: the weighted 1 - n.n_pred."""
+  total_loss = 0.0
+  for i, ray_results in enumerate(ray_history):
+    w = ray_results['weights']
+    n = ray_results['normals']
+    n_pred = ray_results['normals_pred']
+    if n is None or n_pred is None:
+      raise ValueError('Predicted and gradient normals cannot be None if '
+                       'predicted normal loss is on.')
+    loss = torch.mean(
+        (w * (1.0 - torch.sum(n * n_pred, dim=-1))).sum(dim=-1))
+    mult = (config.predicted_normal_coarse_loss_mult
+            if i < model.cfg.num_levels - 1
+            else config.predicted_normal_loss_mult)
+    total_loss = total_loss + mult * loss
+  return total_loss
 
 
 def clip_gradients(grads, config):
@@ -197,12 +259,16 @@ def batch_to_device(batch, device):
 
   rays = type(batch.rays)(**{f: move(getattr(batch.rays, f))
                              for f in batch.rays.__dataclass_fields__})
-  return types.Batch(rays=rays, rgb=move(batch.rgb))
+  return types.Batch(rays=rays, **{f: move(getattr(batch, f))
+                                   for f in _TARGETS})
+
+
+_TARGETS = ('rgb', 'disps', 'normals', 'alphas')
 
 
 def _tensors(batch):
-  return [t for t in [batch.rgb] + [getattr(batch.rays, f) for f in
-                                    batch.rays.__dataclass_fields__]
+  return [t for t in [getattr(batch, f) for f in _TARGETS] +
+          [getattr(batch.rays, f) for f in batch.rays.__dataclass_fields__]
           if t is not None]
 
 
@@ -247,22 +313,34 @@ class Prefetcher:
 def loss_and_grads(model, config, batch, train_frac, generator=None):
   """The training loss of `batch` and its gradient (the loss_fn of
   train_lib.py:302-373 under value_and_grad): (loss, {name: loss term},
-  mses [levels], {flax name: raw gradient}).  Leaves ``.grad`` set on the
-  model's parameters."""
+  stats of compute_data_loss, {flax name: raw gradient}).  Leaves ``.grad``
+  set on the model's parameters."""
   rays = batch.rays
-  renderings, ray_history = model(rays, train_frac, compute_extras=False,
+  compute_extras = (config.compute_disp_metrics or
+                    config.compute_normal_metrics)
+  renderings, ray_history = model(rays, train_frac,
+                                  compute_extras=compute_extras,
                                   generator=generator)
   losses = {}
-  losses['data'], mses = compute_data_loss(batch, renderings, rays, config)
+  losses['data'], stats = compute_data_loss(batch, renderings, rays, config)
   if config.interlevel_loss_mult > 0:
     losses['interlevel'] = interlevel_loss(ray_history, config)
   if config.distortion_loss_mult > 0:
     losses['distortion'] = distortion_loss(ray_history, config)
+  if (config.orientation_coarse_loss_mult > 0 or
+      config.orientation_loss_mult > 0):
+    losses['orientation'] = orientation_loss(rays, model, ray_history,
+                                             config)
+  if (config.predicted_normal_coarse_loss_mult > 0 or
+      config.predicted_normal_loss_mult > 0):
+    losses['predicted_normals'] = predicted_normal_loss(model, ray_history,
+                                                        config)
   loss = torch.sum(torch.stack(list(losses.values())))
   loss.backward()
   grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
            for k, p in bridge.named_parameters(model).items()}
-  return loss.detach(), {k: v.detach() for k, v in losses.items()}, mses, grads
+  return (loss.detach(), {k: v.detach() for k, v in losses.items()}, stats,
+          grads)
 
 
 def create_train_step(model, config, device):
@@ -272,7 +350,9 @@ def create_train_step(model, config, device):
   with ``state.optimizer`` holding Adam over the model's parameters.
   `generator` (a torch.Generator on `device`) draws the jitter when
   ``config.randomized``.  stats: 'loss', 'losses/{data,interlevel,
-  distortion}', 'mses', 'psnrs', 'psnr' (detached tensors), plus with
+  distortion,orientation,predicted_normals}', 'mses', 'psnrs', 'psnr'
+  and, with the metrics on, 'disparity_mses' and 'normal_maes' (detached
+  tensors), plus with
   `compute_stats` the tree statistics 'weight_l2s/...' (before the update),
   'grad_norms/...', 'grad_maxes/...' (raw gradients), 'opt_update_norms/...'
   and 'opt_update_maxes/...'.
@@ -282,27 +362,16 @@ def create_train_step(model, config, device):
   if config.weight_decay_mults:
     raise NotImplementedError(
         f'Not ported yet: weight_decay_mults ({later} item 2b).')
-  if config.compute_disp_metrics or config.compute_normal_metrics:
-    raise NotImplementedError(
-        f'Not ported yet: disparity and normal metrics ({later}: the rest '
-        'of the model zoo).')
-  if (config.orientation_loss_mult > 0 or
-      config.orientation_coarse_loss_mult > 0 or
-      config.predicted_normal_loss_mult > 0 or
-      config.predicted_normal_coarse_loss_mult > 0):
-    raise NotImplementedError(
-        f'Not ported yet: the Ref-NeRF losses ({later}: the rest of the '
-        'model zoo).')
   lr_fn = learning_rate_fn(config)
 
   def train_step(generator, state, batch, train_frac, compute_stats):
     params = bridge.named_parameters(model)
     state.optimizer.zero_grad(set_to_none=True)
-    loss, losses, mses, grads = loss_and_grads(
+    loss, losses, stats, grads = loss_and_grads(
         model, config, batch, train_frac,
         generator if config.randomized else None)
 
-    stats = {'loss': loss, 'mses': mses}
+    stats = dict(stats, loss=loss)
     stats.update({f'losses/{k}': v for k, v in losses.items()})
     if compute_stats:
       tree_stats = {'weight_l2s': norm_sq_stats(params),
@@ -318,7 +387,7 @@ def create_train_step(model, config, device):
       tree_stats['opt_update_maxes'] = abs_max_stats(delta)
       for family, values in tree_stats.items():
         stats.update({f'{family}/{k}': v for k, v in values.items()})
-    stats['psnrs'] = image_ops.mse_to_psnr(mses)
+    stats['psnrs'] = image_ops.mse_to_psnr(stats['mses'])
     stats['psnr'] = stats['psnrs'][-1]
     return state, stats
 
@@ -346,7 +415,7 @@ def nudge_origins(batch):
   """`batch` with its ray origins moved by a relative NUDGE."""
   rays = dataclasses.replace(batch.rays,
                              origins=batch.rays.origins * (1 + NUDGE))
-  return types.Batch(rays=rays, rgb=batch.rgb)
+  return dataclasses.replace(batch, rays=rays)
 
 
 def _rel_l2(got, want):
@@ -370,12 +439,22 @@ def leaf_gaps(got, want, want_nudged, cap=GAP_CAP):
 # --- Rendering and setup. --------------------------------------------------------
 
 
+def needs_gradients(model):
+  """Whether rendering `model` differentiates it: its density normals."""
+  return any(not m.cfg.disable_density_normals for m in model.modules()
+             if isinstance(m, mlp_lib.MLP))
+
+
 def create_render_fn(model):
   """(train_frac, rays) -> (renderings, ray_history), deterministic, with
-  the extras, under ``torch.inference_mode``."""
+  the extras, under ``torch.inference_mode``; or under ``torch.no_grad``
+  when the model computes density normals, which turn gradients on around
+  their own backward pass (inference tensors cannot enter autograd)."""
+  no_graph = (torch.no_grad if needs_gradients(model)
+              else torch.inference_mode)
 
   def render_eval_fn(train_frac, rays):
-    with torch.inference_mode():
+    with no_graph():
       return model(rays, train_frac=train_frac, compute_extras=True)
 
   return render_eval_fn

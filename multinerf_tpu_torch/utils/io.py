@@ -1,8 +1,10 @@
-"""Image files written with the standard library alone.
+"""Image files read and written with the standard library alone.
 
 ``save_img_u8`` (8-bit PNG) and ``save_img_f32`` (32-bit float TIFF) take
 the same arguments and write the same formats as ``multinerf_tpu.utils.io``
-(which uses Pillow, not installed beside the GPU).
+(which uses Pillow, not installed beside the GPU); ``load_img`` reads 8-bit
+PNGs (grey, grey + alpha, RGB, RGBA; every filter type; not interlaced)
+into the array Pillow gives.
 """
 
 from __future__ import annotations
@@ -35,6 +37,82 @@ def encode_png(img_u8: np.ndarray) -> bytes:
   return (b'\x89PNG\r\n\x1a\n' + _png_chunk(b'IHDR', header) +
           _png_chunk(b'IDAT', zlib.compress(raw.tobytes(), 6)) +
           _png_chunk(b'IEND', b''))
+
+
+_PNG_SIGNATURE = b'\x89PNG\r\n\x1a\n'
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # Color type -> samples per pixel.
+
+
+def _paeth(a, b, c):
+  p = a + b - c
+  pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+  if pa <= pb and pa <= pc:
+    return a
+  return b if pb <= pc else c
+
+
+def _unfilter_row(kind, row, prior, bpp):
+  """One scanline's bytes (uint8 [stride]) with its filter undone, given
+  the reconstructed row above (zeros for the first)."""
+  if kind == 0:  # None
+    return row
+  if kind == 1:  # Sub: a running sum per sample, modulo 256.
+    sums = np.cumsum(row.reshape(-1, bpp).astype(np.int64), axis=0)
+    return (sums % 256).astype(np.uint8).reshape(-1)
+  if kind == 2:  # Up
+    return (row.astype(np.int64) + prior).astype(np.uint8)
+  if kind not in (3, 4):
+    raise ValueError(f'bad PNG filter type {kind}')
+  out = bytearray(row.tobytes())
+  up = prior.tobytes()
+  for i in range(len(out)):
+    left = out[i - bpp] if i >= bpp else 0
+    if kind == 3:  # Average
+      pred = (left + up[i]) >> 1
+    else:  # Paeth
+      pred = _paeth(left, up[i], up[i - bpp] if i >= bpp else 0)
+    out[i] = (out[i] + pred) & 0xff
+  return np.frombuffer(bytes(out), np.uint8)
+
+
+def decode_png(data: bytes) -> np.ndarray:
+  """The uint8 array of an 8-bit, non-interlaced PNG file: [H, W] grey, or
+  [H, W, C] for grey + alpha (2), RGB (3) and RGBA (4)."""
+  if data[:8] != _PNG_SIGNATURE:
+    raise ValueError('not a PNG file.')
+  pos, idat, header = 8, [], None
+  while pos < len(data):
+    length, = struct.unpack('>I', data[pos:pos + 4])
+    kind = data[pos + 4:pos + 8]
+    body = data[pos + 8:pos + 8 + length]
+    pos += 12 + length
+    if kind == b'IHDR':
+      header = struct.unpack('>IIBBBBB', body)
+    elif kind == b'IDAT':
+      idat.append(body)
+    elif kind == b'IEND':
+      break
+  width, height, depth, color_type, _, _, interlace = header
+  if depth != 8 or color_type not in _PNG_CHANNELS or interlace:
+    raise ValueError(f'unsupported PNG: bit depth {depth}, color type '
+                     f'{color_type}, interlace {interlace}')
+  channels = _PNG_CHANNELS[color_type]
+  stride = width * channels
+  raw = np.frombuffer(zlib.decompress(b''.join(idat)), np.uint8).reshape(
+      height, stride + 1)
+  rows = []
+  prior = np.zeros(stride, np.uint8)
+  for y in range(height):
+    prior = _unfilter_row(int(raw[y, 0]), raw[y, 1:], prior, channels)
+    rows.append(prior)
+  img = np.stack(rows).reshape(height, width, channels)
+  return img[..., 0] if channels == 1 else img
+
+
+def load_img(pth: str) -> np.ndarray:
+  """Load a PNG as float32 (no scaling applied), as utils/io.py:24-27."""
+  with open(pth, 'rb') as f:
+    return decode_png(f.read()).astype(np.float32)
 
 
 def write_png(pth: str, img_u8: np.ndarray) -> None:

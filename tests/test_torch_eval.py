@@ -120,10 +120,12 @@ def test_eval_polls_and_writes_summaries(tmp_path):
 
 
 def test_eval_refuses_what_is_not_ported(tmp_path):
-  with pytest.raises(NotImplementedError, match='disparity and normal'):
+  # The disparity metric of the blender loader reads _disp.tiff files.
+  with pytest.raises(NotImplementedError, match='TIFF'):
     eval_lib.main(['--device=cpu', f'--gin_configs={tp.CONFIG_360}'] + [
         f'--gin_bindings={b}' for b in _bindings(
-            tmp_path, 'Config.compute_disp_metrics = True')])
+            tmp_path, 'Config.compute_disp_metrics = True',
+            "Config.dataset_loader = 'blender'")])
   if not torch.cuda.is_available():
     with pytest.raises(RuntimeError, match='CUDA is not available'):
       eval_lib.main([f'--gin_configs={tp.CONFIG_360}'])

@@ -221,10 +221,11 @@ def test_cast_ray_batch_matches_jax(xnp):
 
 
 @pytest.mark.parametrize('bindings,match', [
-    (['NerfMLP.disable_density_normals = False'], 'Ref-NeRF'),
+    (['NerfMLP.disable_density_normals = False',
+      "NerfMLP.trunk_dtype = 'int8'"], 'int8 trunks with density'),
     (["NerfMLP.trunk_dtype = 'float16'"], 'float16'),
-    (['NerfMLP.use_fused_featurize = False'], 'unfused'),
-    (['NerfMLP.net_depth = 5'], 'unfused'),
+    (['Model.learned_exposure_scaling = True'], 'exposure scaling'),
+    (['Config.occupancy_culling = True'], 'occupancy culling'),
     (['Model.num_glo_features = 4'], 'GLO'),
 ])
 def test_unported_options_raise(bindings, match):

@@ -200,3 +200,37 @@ def test_driver_refuses_what_is_not_ported(tmp_path, binding, item):
   with pytest.raises(NotImplementedError, match=item):
     train.main(['--device=cpu'] + _argv(tp.SMALL_BINDINGS + (
         binding, f"Config.checkpoint_dir = '{tmp_path}'")))
+
+
+def test_early_exit_steps_zero_runs_no_step_and_saves_what_jax_saves(
+    tmp_path):
+  # train.py:235-238: early_exit_steps = 0 runs no step; the final save of
+  # train.py:456-457 then writes the initial state under max_steps.
+  bindings = COMMON[:-3] + ('Config.max_steps = 3',
+                            'Config.early_exit_steps = 0',
+                            'Config.checkpoint_every = 2',
+                            'Config.train_render_every = 0')
+  jax_dir = str(tmp_path / 'jax')
+  env = dict(os.environ, JAX_PLATFORMS='cpu', OMP_NUM_THREADS='1',
+             XLA_FLAGS='--xla_force_host_platform_device_count=1',
+             PYTHONPATH=tp.REPO + os.pathsep + os.environ.get('PYTHONPATH',
+                                                              ''))
+  cmd = [sys.executable, os.path.join(tp.REPO, 'tests', 'helpers',
+                                      'cli_runner.py'),
+         os.path.join(tp.REPO, 'train.py')] + _argv(bindings + (
+             f"Config.checkpoint_dir = '{jax_dir}'",))
+  proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                        timeout=600, check=False)
+  assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-3000:]
+  jax_steps = sorted(int(n) for n in os.listdir(jax_dir) if n.isdigit())
+
+  port_dir = str(tmp_path / 'port')
+  out = train.main(['--device=cpu'] + _argv(bindings + (
+      f"Config.checkpoint_dir = '{port_dir}'",)))
+  assert out['losses'] == [] and out['init_step'] == 1
+  assert checkpoints.CheckpointManager(port_dir).steps() == jax_steps == [3]
+  saved = torch.load(out['checkpoint'], weights_only=True)
+  assert saved['step'] == 0
+  _, config = tp.configs(bindings)
+  fresh = train_lib.setup_model(config, train.SEED, 'cpu')[1].params
+  assert all(torch.equal(saved['params'][k], v) for k, v in fresh.items())

@@ -360,9 +360,11 @@ def test_training_options_outside_the_slice_raise():
   with pytest.raises(NotImplementedError, match='weight_decay_mults'):
     train_lib.setup_model(config, 0, 'cpu')
   _, config = tp.configs(tp.SMALL_BINDINGS + (
-      'Model.stop_level_grad = False',))
-  with pytest.raises(NotImplementedError, match='stop_level_grad'):
-    train_lib.setup_model(config, 0, 'cpu')
+      "Config.data_loss_type = 'rawnerf'",))
+  model = train_lib.setup_model(config, 0, 'cpu')[0]
+  batch = types.Batch(rays=tp.torch_rays(tp.rays(4)), rgb=torch.ones(4, 3))
+  with pytest.raises(NotImplementedError, match='rawnerf'):
+    train_lib.loss_and_grads(model, config, batch, 0.5)
   _, config = tp.configs(tp.SMALL_BINDINGS + ('NerfMLP.density_noise = 1.0',))
   model = train_lib.setup_model(config, 0, 'cpu')[0]
   rays = tp.torch_rays(tp.rays(4))
