@@ -16,7 +16,14 @@ K6; K5 is also held and timed at one render chunk of 524,288 samples);
 last, trains, evaluates and renders ``configs/blender_refnerf.gin``
 (Ref-NeRF) at full width on ``dummy_specular``, holds one of its steps on
 the GPU against the CPU, and checks that this path launched none of the
-kernels, as in the JAX package.
+kernels, as in the JAX package.  Then the real-capture data plane: it
+writes two captures of the dummy_unbounded scene in the layout COLMAP
+leaves (``sparse/0``, Exif-only JPEG originals, an ``images_4`` PNG level),
+one unbounded through a distorted OPENCV camera, one forward-facing with
+``poses_bounds.npy``, and drives ``configs/360.gin`` (host path and device
+plane) and ``configs/llff_256.gin`` (after K1-K4 are held against their
+plain versions at its shapes) through train, eval and render on them,
+holding each capture's rays cast on the card against the host cast.
 
 Run from the repository root, with no arguments:
 
@@ -31,6 +38,7 @@ import ctypes
 import json
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -625,13 +633,13 @@ def _achieved(summary, bound, suffix=''):
           f'bound_share{suffix}': bound['bound_ms'] / ms}
 
 
-def kernel_bounds():
-  """Each kernel's bound at the shapes of the kernel phases: each input
-  read once (means and covs, 48 bytes a sample), each output written once,
-  the weights once; products of the trunks (2 operations a multiply-add),
-  the features' few hundred f32 operations a sample aside."""
-  f, h, w = 504, 256, 1024  # Features, PropMLP and NerfMLP widths.
-  n1, n2 = K1_SAMPLES, K2_SAMPLES
+def kernel_bounds(f=504, h=256, w=1024, n1=K1_SAMPLES, n2=K2_SAMPLES):
+  """Each kernel's bound at the shapes of the kernel phases (by default
+  360.gin's: `f` features, PropMLP width `h`, NerfMLP width `w`, K1/K3 over
+  `n1` samples, the others over `n2`): each input read once (means and
+  covs, 48 bytes a sample), each output written once, the weights once;
+  products of the trunks (2 operations a multiply-add), the features' few
+  hundred f32 operations a sample aside."""
   prop = f * h + 3 * h * h  # PropMLP trunk weights.
   nerf_bf16 = 2 * f * w  # Layer 0 and the skip layer's feature rows.
   nerf_i8 = 7 * w * w  # The seven int8 hidden layers.
@@ -832,11 +840,15 @@ def _reset_counts():
 
 
 def phase_train(tag='train', bindings=(), steps=TRAIN_STEPS,
-                kernels=F32_TRAIN):
-  """`steps` steps of configs/360.gin at full width, 4,096 rays per step,
-  on dummy_unbounded, through ``python -m multinerf_tpu_torch.train``'s
-  entry point; the launch counters, read around every step, show that each
-  step ran the path's kernels.  Returns (launches, median step seconds)."""
+                kernels=F32_TRAIN, gin='360.gin',
+                data=("Config.dataset_loader='dummy_unbounded'",),
+                ckpt_dir=None):
+  """`steps` steps of configs/`gin` (360.gin) at full width, 4,096 rays per
+  step, on the scene of the `data` bindings (dummy_unbounded), through
+  ``python -m multinerf_tpu_torch.train``'s entry point, checkpoints into
+  `ckpt_dir` (a temporary one); the launch counters, read around every
+  step, show that each step ran the path's kernels.  Returns (launches,
+  median step seconds)."""
   from multinerf_tpu_torch import train
   from multinerf_tpu_torch import train_lib
   per_step = []
@@ -854,14 +866,14 @@ def phase_train(tag='train', bindings=(), steps=TRAIN_STEPS,
     return step
 
   with tempfile.TemporaryDirectory() as tmp:
-    argv = [f'--gin_configs={os.path.join(REPO, "configs", "360.gin")}',
-            "--gin_bindings=Config.dataset_loader='dummy_unbounded'",
+    argv = [f'--gin_configs={os.path.join(REPO, "configs", gin)}',
             f'--gin_bindings=Config.batch_size={TRAIN_RAYS}',
             f'--gin_bindings=Config.max_steps={steps}',
             '--gin_bindings=Config.lr_delay_steps=0',
             '--gin_bindings=Config.print_every=10',
-            f"--gin_bindings=Config.checkpoint_dir='{tmp}/ckpt'",
-            '--device=cuda'] + [f'--gin_bindings={b}' for b in bindings]
+            f"--gin_bindings=Config.checkpoint_dir='{ckpt_dir or tmp}'",
+            '--device=cuda'] + [f'--gin_bindings={b}' for b in (
+                *data, *bindings)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
@@ -1287,6 +1299,410 @@ def phase_refnerf(card):
   return launches
 
 
+# --- The real-capture data plane: configs/360.gin and configs/llff_256.gin
+# on captures written here in the layout COLMAP and
+# scripts/local_colmap_and_resize.sh leave, read by the port's llff loader.
+
+CAPTURE_STEPS = 30
+CAPTURE_FRAMES = 4
+CAPTURE_EVAL_VIEWS = 3  # llffhold 8 of 24 (or 20) views: views 0, 8, 16.
+CAPTURE_FACTOR = 4  # Both configs read images_4.
+FULL_SIZE = (1024, 768)  # The originals, width x height; images_4 256 x 192.
+# configs/360.gin's capture: 24 views on a ring around the dummy_unbounded
+# scene, one OPENCV camera (fx, fy, cx, cy at the originals, k1, k2, p1, p2).
+RING_VIEWS = 24
+OPENCV = (4, (820.0, 815.0, 511.5, 383.5, 0.045, -0.012, 0.0008, -0.0006))
+# configs/llff_256.gin's: 20 views on a plane facing the scene, PINHOLE.
+PLANE_VIEWS = 20
+PINHOLE = (1, (900.0, 900.0, 512.0, 384.0))
+PLANE_BOUNDS = (3.0, 64.0)  # Nearest sphere and the shell, from the plane.
+# llff_256.gin's kernel shapes: 96 features (octahedron, 16 degrees), a
+# PropMLP 4 x 256 over 128 samples and a NerfMLP 8 x 256 over 32 samples of
+# a 4,096-ray step, no contraction.
+LLFF_K1 = 4096 * 128
+LLFF_K2 = 4096 * 32
+LLFF_DEG = 16
+# The rays of one view cast on the card (torch, float32, full-f32 rotations)
+# against the loader's host cast (numpy, float64): max |card - host| <=
+# CAST_TOL * max(1, max |host|) per field, float32 rounding through the
+# undistortion's Newton steps and the NDC division.
+CAST_TOL = 1e-5
+
+
+def _qvec(rot):
+  """A rotation matrix as COLMAP's (w, x, y, z) quaternion."""
+  tr = np.trace(rot)
+  if tr > 0:
+    s = 2 * np.sqrt(tr + 1.0)
+    return np.array([s / 4, (rot[2, 1] - rot[1, 2]) / s,
+                     (rot[0, 2] - rot[2, 0]) / s, (rot[1, 0] - rot[0, 1]) / s])
+  i = int(np.argmax(np.diag(rot)))
+  j, k = (i + 1) % 3, (i + 2) % 3
+  s = 2 * np.sqrt(max(0.0, 1.0 + rot[i, i] - rot[j, j] - rot[k, k]))
+  q = np.empty(4)
+  q[0] = (rot[k, j] - rot[j, k]) / s
+  q[1 + i] = s / 4
+  q[1 + j] = (rot[j, i] + rot[i, j]) / s
+  q[1 + k] = (rot[k, i] + rot[i, k]) / s
+  return q
+
+
+def write_colmap_model(sparse, poses, names, camera):
+  """COLMAP's binary ``cameras.bin``, ``images.bin`` and ``points3D.bin``
+  (reconstruction_io.cc): one shared camera (model id, params), one image
+  per NeRF-convention camera-to-world pose, no points."""
+  model_id, params = camera
+  os.makedirs(sparse)
+  with open(os.path.join(sparse, 'cameras.bin'), 'wb') as f:
+    f.write(struct.pack('<Q', 1))
+    f.write(struct.pack('<iiQQ', 1, model_id, *FULL_SIZE))
+    f.write(struct.pack(f'<{len(params)}d', *params))
+  with open(os.path.join(sparse, 'images.bin'), 'wb') as f:
+    f.write(struct.pack('<Q', len(names)))
+    for i, (name, pose) in enumerate(zip(names, poses)):
+      # NeRF (right, up, back) -> COLMAP (right, down, forward) axes, then
+      # world-to-camera.
+      c2w = np.concatenate([pose @ np.diag([1.0, -1.0, -1.0, 1.0]),
+                            [[0, 0, 0, 1.0]]], axis=0)
+      w2c = np.linalg.inv(c2w)
+      f.write(struct.pack('<i4d3di', i + 1, *_qvec(w2c[:3, :3]), *w2c[:3, 3],
+                          1))
+      f.write(name.encode() + b'\x00' + struct.pack('<Q', 0))
+  with open(os.path.join(sparse, 'points3D.bin'), 'wb') as f:
+    f.write(struct.pack('<Q', 0))
+
+
+def exif_jpeg(exposure, iso):
+  """A JPEG container with no image, SOI + APP1 Exif + EOI: a little-endian
+  IFD0 whose Exif sub-IFD holds ExposureTime (a RATIONAL) and
+  ISOSpeedRatings (a SHORT).  At a pyramid level the llff loader reads only
+  the originals' names and Exif."""
+  sub_at = 8 + 2 + 12 + 4
+  rational_at = sub_at + 2 + 2 * 12 + 4
+  tiff = (b'II*\x00' + struct.pack('<IH', 8, 1) +
+          struct.pack('<HHII', 0x8769, 4, 1, sub_at) + struct.pack('<I', 0) +
+          struct.pack('<H', 2) +
+          struct.pack('<HHII', 0x829A, 5, 1, rational_at) +
+          struct.pack('<HHIHH', 0x8827, 3, 1, iso, 0) + struct.pack('<I', 0) +
+          struct.pack('<II', *exposure))
+  app1 = b'Exif\x00\x00' + tiff
+  return (b'\xff\xd8\xff\xe1' + struct.pack('>H', len(app1) + 2) + app1 +
+          b'\xff\xd9')
+
+
+def write_capture(root, poses, camera, bounds=None, device='cuda'):
+  """A capture of the dummy_unbounded scene under `root`: ``sparse/0``,
+  the originals under ``images/`` (Exif-only JPEGs, exposures 1/(100 + 20
+  i) s at ISO 100-400) and the PNG level ``images_4/``, each pixel shaded
+  by the scene's analytic color along the ray of the distorted camera at
+  that level (cast on `device`, shaded on the host); with `bounds`,
+  ``poses_bounds.npy``.  Returns the seconds it took."""
+  from multinerf_tpu_torch.data import cameras as camera_lib
+  from multinerf_tpu_torch.data import colmap
+  from multinerf_tpu_torch.data import datasets
+  from multinerf_tpu_torch.utils import io as io_lib
+  t0 = time.perf_counter()
+  n = len(poses)
+  names = [f'IMG_{i:04d}.JPG' for i in range(n)]
+  write_colmap_model(os.path.join(root, 'sparse', '0'), poses, names, camera)
+  model_id, params = camera
+  cam = colmap.Camera(1, model_id, *FULL_SIZE, params)
+  pixtocam = np.linalg.inv(camera_lib.intrinsic_matrix(
+      cam.fx, cam.fy, cam.cx, cam.cy)) @ np.diag(
+          [CAPTURE_FACTOR, CAPTURE_FACTOR, 1.0])
+  width, height = (s // CAPTURE_FACTOR for s in FULL_SIZE)
+  pix_x, pix_y = (p.to(device) for p in camera_lib.pixel_coordinates(
+      width, height, xnp=torch))
+  as_f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
+  level = os.path.join(root, f'images_{CAPTURE_FACTOR}')
+  os.makedirs(level)
+  os.makedirs(os.path.join(root, 'images'))
+  for i, (name, pose) in enumerate(zip(names, poses)):
+    with open(os.path.join(root, 'images', name), 'wb') as f:
+      f.write(exif_jpeg((1, 100 + 20 * i), 100 * (1 + i % 4)))
+    origins, _, viewdirs, _, _ = camera_lib.pixels_to_rays(
+        pix_x, pix_y, as_f32(pixtocam), as_f32(pose),
+        distortion_params=cam.distortion(), xnp=torch)
+    io_lib.save_img_u8(datasets.DummyUnbounded.shade(
+        origins.cpu().numpy(), viewdirs.cpu().numpy()),
+                       os.path.join(level, f'IMG_{i:04d}.png'))
+  if bounds is not None:
+    np.save(os.path.join(root, 'poses_bounds.npy'), np.concatenate(
+        [np.zeros((n, 15)), np.tile([bounds], (n, 1))], -1))
+  return time.perf_counter() - t0
+
+
+def ring_poses():
+  """Cameras around the scene at two heights, looking at its center."""
+  from multinerf_tpu_torch.data import cameras as camera_lib
+  poses = []
+  for i in range(RING_VIEWS):
+    theta = 2 * np.pi * i / RING_VIEWS
+    pos = np.array([3.5 * np.cos(theta), 3.5 * np.sin(theta),
+                    0.6 if i % 2 == 0 else 1.4])
+    poses.append(camera_lib.viewmatrix(pos, np.array([0.0, 0.0, 1.0]), pos))
+  return np.stack(poses)
+
+
+def plane_poses():
+  """A 5 x 4 grid of cameras on the plane z = 4.5, looking down -z."""
+  from multinerf_tpu_torch.data import cameras as camera_lib
+  poses = []
+  for i in range(PLANE_VIEWS):
+    pos = np.array([-0.6 + 0.3 * (i % 5), -0.45 + 0.3 * (i // 5), 4.5])
+    poses.append(camera_lib.viewmatrix(np.array([0.0, 0.0, 1.0]),
+                                       np.array([0.0, 1.0, 0.0]), pos))
+  return np.stack(poses)
+
+
+def _hold_capture_cast(tag, config):
+  """Test view 0 of the capture cast on the card, as the renderer and the
+  device sampler cast it (``cast_ray_batch(xnp=torch)``), against the
+  loader's host cast: within CAST_TOL per field."""
+  from multinerf_tpu_torch.data import cameras as camera_lib
+  from multinerf_tpu_torch.data import datasets
+  from multinerf_tpu_torch.data import types
+  with datasets.load_dataset('test', config.data_dir, config) as dataset:
+    host = dataset.generate_ray_batch(0).rays
+    pixtocams, camtoworlds, distortion, pixtocam_ndc = dataset.cameras
+    as_f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device='cuda')
+    cameras = (as_f32(pixtocams), as_f32(camtoworlds), distortion,
+               None if pixtocam_ndc is None else as_f32(pixtocam_ndc))
+    pix_x, pix_y = camera_lib.pixel_coordinates(dataset.width,
+                                                dataset.height, xnp=torch)
+    ones = torch.ones(pix_x.shape + (1,), device='cuda')
+    pixels = types.Pixels(pix_x.cuda(), pix_y.cuda(), lossmult=ones,
+                          near=ones, far=ones,
+                          cam_idx=torch.zeros_like(ones, dtype=torch.int64))
+    card = camera_lib.cast_ray_batch(cameras, pixels, dataset.camtype,
+                                     xnp=torch)
+    torch.cuda.synchronize()
+  gaps = {}
+  for key in ('origins', 'directions', 'viewdirs', 'radii', 'imageplane'):
+    want = getattr(host, key)
+    got = getattr(card, key).cpu().numpy().astype(np.float64)
+    if got.shape != want.shape or not np.isfinite(got).all():
+      raise SystemExit(f'FAIL {tag}: card rays {key} {got.shape}, host '
+                       f'{want.shape}')
+    gaps[key] = float(np.abs(got - want).max())
+    bound = CAST_TOL * max(1.0, float(np.abs(want).max()))
+    if not gaps[key] <= bound:
+      raise SystemExit(f'FAIL {tag}: card rays {key} {gaps[key]:.3e} from '
+                       f'the host cast (bound {bound:.3e})')
+  log(f'{tag}: view 0 cast on the card vs the host cast, max |gap| per '
+      f'field {gaps} (bound {CAST_TOL} * max(1, max|host|)); distortion '
+      f'{distortion}, NDC {pixtocam_ndc is not None}')
+
+
+def _capture_config(gin, data_dir):
+  import argparse
+  from multinerf_tpu_torch import configs
+  return configs.load_config(argparse.Namespace(
+      gin_configs=[os.path.join(REPO, 'configs', gin)],
+      gin_bindings=[f"Config.data_dir = '{data_dir}'"]))
+
+
+def _counted(fn, *args):
+  """fn(*args) between two reads of the counters: (its result, launches,
+  plain-version calls)."""
+  _reset_counts()
+  out = fn(*args)
+  torch.cuda.synchronize()
+  return (out, *_counts())
+
+
+def _capture_eval_render(tag, key, argv, shape):
+  """``eval.main`` over the test split's views and ``render.main`` over
+  CAPTURE_FRAMES frames of the render path: metric files and finite PSNR,
+  frames finite, K1/K2 (not K3-K6) launched in each, no plain version.
+  Returns ({'<key>_eval': launches, '<key>_render': launches}, frame
+  seconds)."""
+  from multinerf_tpu_torch import eval as eval_lib
+  from multinerf_tpu_torch import render
+  no_train = F32_TRAIN[0][2:] + F32_RENDER[1]
+  evaluated, launches, plain = _counted(eval_lib.main, argv + [
+      f'--gin_bindings=Config.eval_dataset_limit={CAPTURE_EVAL_VIEWS}'])
+  _check_launches(f'{tag} eval', launches, plain, (F32_RENDER[0], no_train))
+  scores = {}
+  for name in ('psnr', 'ssim'):
+    with open(os.path.join(evaluated['out_dir'],
+                           f'metric_{name}_{CAPTURE_STEPS}.txt')) as f:
+      scores[name] = [float(v) for v in f.read().split()]
+    if (len(scores[name]) != CAPTURE_EVAL_VIEWS or
+        not np.isfinite(scores[name]).all()):
+      raise SystemExit(f'FAIL {tag} eval: {name} {scores[name]}')
+  log(f'{tag} eval of {CAPTURE_EVAL_VIEWS} test views: psnr '
+      f'{scores["psnr"]}, ssim {scores["ssim"]}')
+  torch.cuda.reset_peak_memory_stats()
+  frames, render_launches, plain = _counted(render.main, argv + [
+      '--gin_bindings=Config.render_path=True',
+      f'--gin_bindings=Config.render_path_frames={CAPTURE_FRAMES}'])
+  _check_launches(f'{tag} render', render_launches, plain,
+                  (F32_RENDER[0], no_train))
+  if (frames['frames'] != list(range(CAPTURE_FRAMES)) or
+      not os.path.basename(frames['out_dir']).startswith(
+          f'path_renders_step_{CAPTURE_STEPS}')):
+    raise SystemExit(f'FAIL {tag} render: frames {frames["frames"]} in '
+                     f'{frames["out_dir"]}')
+  _check_frames(f'{tag} render {shape[1]}x{shape[0]}', frames, shape)
+  log(f'{tag} render: max memory allocated '
+      f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+  return ({f'{key}_eval': launches, f'{key}_render': render_launches},
+          frames['seconds'])
+
+
+def phase_capture_360(card):
+  """configs/360.gin at full width on a distorted capture: 24 views of the
+  dummy_unbounded scene through one OPENCV camera, read by the llff loader
+  (COLMAP model, images_4 PNGs, exposures from the originals' Exif, PCA
+  alignment, ellipse path).  Holds a view's rays cast on the card against
+  the host cast, trains 30 steps of 4,096 rays on the host path and 30 on
+  the device plane (the loss must fall, K1-K4 every step), evaluates the
+  test split and renders 4 ellipse frames (K1/K2 in each)."""
+  tag = 'capture 360'
+  with tempfile.TemporaryDirectory() as tmp:
+    data = os.path.join(tmp, 'capture')
+    write_s = write_capture(data, ring_poses(), OPENCV)
+    config = _capture_config('360.gin', data)
+    if config.dataset_loader != 'llff' or config.factor != CAPTURE_FACTOR:
+      raise SystemExit(f'FAIL {tag}: 360.gin reads {config.dataset_loader} '
+                       f'at factor {config.factor}')
+    _hold_capture_cast(tag, config)
+    paths = {}
+    ckpt = os.path.join(tmp, 'ckpt')
+    paths['capture_360_train'], step_s = phase_train(
+        f'{tag} train', (), CAPTURE_STEPS, F32_TRAIN,
+        data=(f"Config.data_dir='{data}'",), ckpt_dir=ckpt)
+    paths['capture_360_device_plane'], plane_s = phase_train(
+        f'{tag} train device plane', ('Config.device_data_plane=True',),
+        CAPTURE_STEPS, F32_TRAIN, data=(f"Config.data_dir='{data}'",))
+    argv = [f'--gin_configs={os.path.join(REPO, "configs", "360.gin")}',
+            f"--gin_bindings=Config.data_dir='{data}'",
+            f"--gin_bindings=Config.checkpoint_dir='{ckpt}'",
+            f'--gin_bindings=Config.max_steps={CAPTURE_STEPS}',
+            '--device=cuda']
+    more, frame_s = _capture_eval_render(tag, 'capture_360', argv,
+                                         (192, 256))
+    paths.update(more)
+  log(f'{tag} ({card}): capture written in {write_s:.1f} s; median step '
+      f'{step_s * 1e3:.3f} ms host path, {plane_s * 1e3:.3f} ms device '
+      f'plane ({TRAIN_RAYS / step_s:,.0f} and {TRAIN_RAYS / plane_s:,.0f} '
+      'train rays/s); 256x192 ellipse frames in '
+      f'{", ".join(f"{s:.3f}" for s in frame_s)} s')
+  return paths
+
+
+def _ndc_gaussians(n, seed):
+  """Sample Gaussians of a forward-facing scene in NDC: means in
+  [-1, 1]^3, small covariances (cylinders of a 256-pixel-wide view)."""
+  rng = np.random.RandomState(seed)
+  means = rng.uniform(-1.0, 1.0, (n, 3)).astype(np.float32)
+  a = rng.randn(n, 3, 3).astype(np.float32) * 0.004
+  covs = a @ np.swapaxes(a, -1, -2)
+  return (torch.tensor(means, device='cuda'),
+          torch.tensor(covs, device='cuda'))
+
+
+def phase_llff_kernels():
+  """K1-K4 against their plain versions at llff_256.gin's shapes (96
+  features, PropMLP 4 x 256 over LLFF_K1 samples, NerfMLP 96 -> 256 over
+  LLFF_K2, no contraction), with the kernel phases' bounds and two
+  launches bitwise equal, at N and N - 37; each kernel's single-call time
+  and its plain version's.  Returns {kernel: summary}."""
+  from multinerf_tpu_torch.ops import geopoly
+  from multinerf_tpu_torch.ops.kernels import density_mlp as dm
+  from multinerf_tpu_torch.ops.kernels import featurize_dense as fd
+  basis = np.array(geopoly.generate_basis('octahedron', 1)).T  # [3, 3]
+  num_feats = 2 * LLFF_DEG * basis.shape[-1]
+  if num_feats != 96:
+    raise SystemExit(f'FAIL llff kernels: {num_feats} features')
+  kw = dict(min_deg=0, max_deg=LLFF_DEG, use_contract=False)
+  rng = np.random.RandomState(11)
+  results = {}
+  means, covs = _ndc_gaussians(LLFF_K1, seed=12)
+  ws, bs, wd = _prop_trunk(rng, num_feats)
+  bd = torch.tensor(np.float32(-0.3), device='cuda')
+  args = lambda n: (means[:n], covs[:n], ws, bs, wd, bd, basis)
+  results['density_mlp'] = _compare(
+      'density_mlp llff_256', lambda n: dm.density_mlp(*args(n), **kw),
+      lambda n: dm.density_mlp_plain(*args(n), **kw), LLFF_K1)
+  g = torch.tensor(rng.randn(LLFF_K1).astype(np.float32), device='cuda')
+
+  def k3(fn):
+    def run(n):
+      dws, dbs, dwd, dbd = fn(means[:n], covs[:n], ws, bs, wd, g[:n], basis,
+                              **kw)
+      return [*dws, *dbs, dwd, dbd]
+    return run
+  results['density_mlp_bwd'] = _compare_leaves(
+      'density_mlp_bwd llff_256', k3(dm.density_mlp_backward),
+      k3(dm.density_mlp_bwd_plain), LLFF_K1)
+
+  means, covs = _ndc_gaussians(LLFF_K2, seed=13)
+  w = _he_uniform(rng, num_feats, 256)
+  b = torch.tensor(rng.randn(256).astype(np.float32) * 0.1, device='cuda')
+  args = lambda n: (means[:n], covs[:n], w, b, basis)
+  results['featurize_dense'] = _compare(
+      'featurize_dense llff_256', lambda n: fd.featurize_dense(*args(n), **kw),
+      lambda n: fd.featurize_dense_plain(*args(n), **kw), LLFF_K2)
+  g = torch.tensor(rng.randn(LLFF_K2, 256).astype(np.float32), device='cuda')
+
+  def k4(fn):
+    return lambda n: [fn(means[:n], covs[:n], g[:n], basis, **kw)]
+  results['featurize_dense_dw'] = _compare_leaves(
+      'featurize_dense_dw llff_256', k4(fd.featurize_dense_dw),
+      k4(fd.featurize_dense_dw_plain), LLFF_K2)
+  bounds = kernel_bounds(f=num_feats, h=256, w=256, n1=LLFF_K1, n2=LLFF_K2)
+  for name, summary in results.items():
+    bound = bounds[name]
+    summary.update(bound_ms=bound['bound_ms'], bound_by=bound['bound_by'],
+                   **_achieved(summary, bound))
+    log(f'{name} llff_256: {summary["ms"]:.3f} ms (plain '
+        f'{summary["plain_ms"]:.3f} ms), bound {bound["bound_ms"]:.4f} ms '
+        f'({bound["bound_by"]}), {summary["bound_share"]:.3f} of the bound')
+  return results
+
+
+def phase_capture_llff(card):
+  """configs/llff_256.gin at full width on a forward-facing capture: 20
+  views of the scene from a plane, one PINHOLE camera, poses_bounds.npy
+  (NDC, spiral path).  First K1-K4 at its shapes against their plain
+  versions (phase_llff_kernels); then a view's NDC rays cast on the card
+  against the host cast, 30 train steps of 4,096 rays (the loss must fall,
+  K1-K4 every step), eval of the test split and 4 spiral frames (K1/K2 in
+  each).  Returns (kernel summaries, {path: launches})."""
+  tag = 'capture llff'
+  results = phase_llff_kernels()
+  with tempfile.TemporaryDirectory() as tmp:
+    data = os.path.join(tmp, 'capture')
+    write_s = write_capture(data, plane_poses(), PINHOLE, PLANE_BOUNDS)
+    config = _capture_config('llff_256.gin', data)
+    if not config.forward_facing or config.factor != CAPTURE_FACTOR:
+      raise SystemExit(f'FAIL {tag}: llff_256.gin is not forward-facing '
+                       f'at factor {CAPTURE_FACTOR}')
+    _hold_capture_cast(tag, config)
+    paths = {}
+    ckpt = os.path.join(tmp, 'ckpt')
+    paths['capture_llff_train'], step_s = phase_train(
+        f'{tag} train', (), CAPTURE_STEPS, F32_TRAIN, gin='llff_256.gin',
+        data=(f"Config.data_dir='{data}'",), ckpt_dir=ckpt)
+    argv = [f'--gin_configs={os.path.join(REPO, "configs", "llff_256.gin")}',
+            f"--gin_bindings=Config.data_dir='{data}'",
+            f"--gin_bindings=Config.checkpoint_dir='{ckpt}'",
+            f'--gin_bindings=Config.max_steps={CAPTURE_STEPS}',
+            '--device=cuda']
+    more, frame_s = _capture_eval_render(tag, 'capture_llff', argv,
+                                         (192, 256))
+    paths.update(more)
+  log(f'{tag} ({card}): capture written in {write_s:.1f} s; median step '
+      f'{step_s * 1e3:.3f} ms ({TRAIN_RAYS / step_s:,.0f} train rays/s); '
+      '256x192 spiral frames in '
+      f'{", ".join(f"{s:.3f}" for s in frame_s)} s; kernels at its shapes '
+      + ', '.join(f'{k} {r["ms"]:.3f} ms (bound {r["bound_ms"]:.4f})'
+                  for k, r in results.items()))
+  return results, paths
+
+
 SOURCES = {
     'density_mlp': ('multinerf_tpu_torch/csrc/density_mlp.cu',
                     'multinerf_tpu/ops/pallas/density_mlp.py:65'),
@@ -1332,6 +1748,11 @@ def main():
   phase_train_reference('train reference int8', int8_bindings('int8'),
                         INT8_TRAIN_GAP_CAP, INT8_LOSS_TOL)
   paths['refnerf'] = phase_refnerf(card)
+  paths.update(phase_capture_360(card))
+  llff, more = phase_capture_llff(card)
+  paths.update(more)
+  for name, summary in llff.items():
+    results[name]['llff_256'] = summary
   bounds = kernel_bounds()
   chunk = bounds.pop('int8_trunk_render_chunk')
   results['int8_trunk']['render_chunk'].update(

@@ -18,12 +18,18 @@ block) stops it.  The synthetic scenes ``dummy_scatter``,
 the JAX loaders (datasets.py:842-959, 995-1079), so both packages see
 identical cameras, images and ground truth.  ``blender`` reads
 ``transforms_{split}.json`` and its PNGs with the port's own PNG reader
-(``utils/io.py``).
+(``utils/io.py``).  The capture loaders (datasets.py:56-90, 358-733) read
+real scenes the same way: ``llff`` (COLMAP's ``sparse/0`` or a
+``transforms.json``, an ``images_N`` pyramid, Exif exposures, forward-facing
+NDC with a spiral path or a PCA-aligned unbounded scene with an ellipse or
+spline path), ``tat_nerfpp``, ``tat_fvs`` and ``dtu``.  Their images must
+be PNGs: a JPEG raises NotImplementedError (``utils/io.py``).
 """
 
 from __future__ import annotations
 
 import abc
+import concurrent.futures
 import json
 import os
 import queue
@@ -32,6 +38,7 @@ import threading
 import numpy as np
 
 from multinerf_tpu_torch.data import cameras as camera_lib
+from multinerf_tpu_torch.data import colmap
 from multinerf_tpu_torch.data import types
 from multinerf_tpu_torch.ops import image_ops
 from multinerf_tpu_torch.utils import io as io_lib
@@ -42,6 +49,10 @@ def load_dataset(split, train_dir, config, seed=0):
   the train split's pixel draws."""
   loaders = {
       'blender': Blender,
+      'llff': LLFF,
+      'tat_nerfpp': TanksAndTemplesNerfPP,
+      'tat_fvs': TanksAndTemplesFVS,
+      'dtu': DTU,
       'dummy_scatter': DummyScatter,
       'dummy_unbounded': DummyUnbounded,
       'dummy_specular': DummySpecular,
@@ -49,8 +60,47 @@ def load_dataset(split, train_dir, config, seed=0):
   if config.dataset_loader not in loaders:
     raise NotImplementedError(
         f'Not ported yet: dataset_loader={config.dataset_loader!r} '
-        '(ROADMAP.md Queue 1: the rest of the model zoo, loaders).')
+        '(ROADMAP.md Queue 1 item 4: the rest of the model zoo, the '
+        'synthetic scenes).')
   return loaders[config.dataset_loader](split, train_dir, config, seed=seed)
+
+
+def load_blender_posedata(data_dir, split=None):
+  """Poses and intrinsics of a Blender/NGP ``transforms.json``
+  (datasets.py:56-90): (names, poses, pixtocam, distortion, camtype)."""
+  suffix = '' if split is None else f'_{split}'
+  pose_file = os.path.join(data_dir, f'transforms{suffix}.json')
+  with open(pose_file, 'r') as fp:
+    meta = json.load(fp)
+  names = []
+  poses = []
+  for frame in meta['frames']:
+    filepath = os.path.join(data_dir, frame['file_path'])
+    if os.path.exists(filepath):
+      names.append(frame['file_path'].split('/')[-1])
+      poses.append(np.array(frame['transform_matrix'], dtype=np.float32))
+  poses = np.stack(poses, axis=0)
+
+  w = meta['w']
+  h = meta['h']
+  cx = meta.get('cx', w / 2.0)
+  cy = meta.get('cy', h / 2.0)
+  if 'fl_x' in meta:
+    fx = meta['fl_x']
+  else:
+    fx = 0.5 * w / np.tan(0.5 * float(meta['camera_angle_x']))
+  if 'fl_y' in meta:
+    fy = meta['fl_y']
+  else:
+    fy = 0.5 * h / np.tan(0.5 * float(meta['camera_angle_y']))
+  pixtocam = np.linalg.inv(camera_lib.intrinsic_matrix(fx, fy, cx, cy))
+  coeffs = ['k1', 'k2', 'p1', 'p2']
+  if not any(c in meta for c in coeffs):
+    params = None
+  else:
+    params = {c: meta.get(c, 0.0) for c in coeffs}
+  camtype = camera_lib.ProjectionType.PERSPECTIVE
+  return names, poses, pixtocam, params, camtype
 
 
 class Dataset(metaclass=abc.ABCMeta):
@@ -239,8 +289,8 @@ class Dataset(metaclass=abc.ABCMeta):
     """The rays of every pixel of camera `cam_idx`, [H, W] batch dims."""
     if self._render_spherical:
       raise NotImplementedError(
-          'Not ported yet: pano rendering (ROADMAP.md Queue 1: serving '
-          'slice, deferred items).')
+          'Not ported yet: pano rendering (ROADMAP.md Queue 1 item 1: '
+          'serving slice, deferred items).')
     pix_x_int, pix_y_int = camera_lib.pixel_coordinates(self.width,
                                                         self.height)
     return self._make_ray_batch(pix_x_int, pix_y_int, cam_idx)
@@ -301,6 +351,336 @@ class Blender(Dataset):
                                              self.height)
 
 
+class LLFF(Dataset):
+  """Real captures with COLMAP poses, the mip-NeRF 360 and LLFF layouts
+  (datasets.py:358-534), in four stages: pose recovery, pixel decode, world
+  normalization with a render path, split selection."""
+
+  def _downsampling_factor(self, config):
+    """The image pyramid level to read: ``images_{factor}``."""
+    if config.rawnerf_mode:
+      raise NotImplementedError(
+          'Not ported yet: RawNeRF captures (Config.rawnerf_mode; ROADMAP.md '
+          'Queue 1 item 4: the rest of the model zoo, RawNeRF).')
+    return config.factor if config.factor > 0 else 1
+
+  def _recover_poses(self, config, factor):
+    """Stage 1: the image names and [N, 3, 4] camera-to-world poses in the
+    COLMAP world frame, from ``sparse/0`` or else ``transforms.json``; sets
+    the intrinsics (the pyramid level folded into pixtocams), distortion
+    and camera type."""
+    sfm_dir = os.path.join(self.data_dir, 'sparse/0/')
+    if os.path.exists(sfm_dir):
+      names, poses, pixtocam, distortion, camtype = colmap.process_scene(
+          sfm_dir)
+    else:
+      names, poses, pixtocam, distortion, camtype = load_blender_posedata(
+          self.data_dir)
+
+    if config.load_alphabetical:
+      # Published metrics hold out every Nth image of the alphabetical order.
+      order = np.argsort(names)
+      names = [names[i] for i in order]
+      poses = poses[order]
+
+    # Pixel coordinates scale by `factor`, so pixtocam's pixel columns do.
+    self.pixtocams = (pixtocam @ np.diag([factor, factor, 1.0])).astype(
+        np.float32)
+    self.focal = 1.0 / self.pixtocams[0, 0]
+    self.distortion_params = distortion
+    self.camtype = camtype
+    return names, poses
+
+  def _decode_pixels(self, image_names, factor):
+    """Stage 2: the [N, H, W, 3] images of `image_names` from the pyramid
+    level, and the exposures (shutter x ISO / 1000) of the originals' Exif
+    when they carry it."""
+    originals_dir = os.path.join(self.data_dir, 'images')
+    level_dir = originals_dir if factor == 1 else (
+        os.path.join(self.data_dir, f'images_{factor}'))
+    for d in (level_dir, originals_dir):
+      if not os.path.exists(d):
+        raise ValueError(f'Image folder {d} does not exist.')
+    # COLMAP names the originals; the level may name its files otherwise
+    # (.JPG -> .png), so translate through the two sorted listings.
+    renamed = dict(zip(sorted(os.listdir(originals_dir)),
+                       sorted(os.listdir(level_dir))))
+    with concurrent.futures.ThreadPoolExecutor() as pool:
+      decoded = pool.map(
+          lambda name: io_lib.load_img(
+              os.path.join(level_dir, renamed[name])), image_names)
+      images = np.stack(list(decoded), axis=0) / 255.0
+
+    self.exifs = [io_lib.load_exif(os.path.join(originals_dir, name))
+                  for name in image_names]
+    if all(k in self.exifs[0] for k in ('ExposureTime', 'ISOSpeedRatings')):
+      shutter_iso = np.array(
+          [float(x['ExposureTime']) * float(x['ISOSpeedRatings'])
+           for x in self.exifs])
+      self.exposures = shutter_iso / 1000.0
+    return images
+
+  def _normalize_world(self, config, poses):
+    """Stage 3: the COLMAP frame to the rendering frame, and a render path.
+
+    Forward-facing captures rescale by the near bound of
+    ``poses_bounds.npy``, recenter, and take NDC and a spiral path;
+    unbounded ones are aligned by PCA and take an ellipse (or keyframe
+    spline) path.  Sets ``colmap_to_world_transform`` and
+    ``render_poses``; returns the transformed poses.
+    """
+    bounds = np.array([0.01, 1.0])
+    bounds_file = os.path.join(self.data_dir, 'poses_bounds.npy')
+    if os.path.exists(bounds_file):
+      with open(bounds_file, 'rb') as fp:
+        bounds = np.load(fp)[:, -2:]
+
+    if config.forward_facing:
+      self.pixtocam_ndc = self.pixtocams.reshape(-1, 3, 3)[0]
+      # Rescale so the nearest scene content sits at ~0.75 depth units.
+      scale = 1.0 / (bounds.min() * 0.75)
+      poses = poses.copy()
+      poses[:, :3, 3] *= scale
+      poses, recenter = camera_lib.recenter_poses(poses)
+      self.colmap_to_world_transform = recenter @ np.diag([scale] * 3 + [1])
+      self.render_poses = camera_lib.generate_spiral_path(
+          poses, bounds * scale, n_frames=config.render_path_frames)
+      return poses
+
+    poses, self.colmap_to_world_transform = camera_lib.transform_poses_pca(
+        poses)
+    if config.render_spline_keyframes is not None:
+      (self.spline_indices, self.render_poses,
+       self.render_exposures) = camera_lib.create_render_spline_path(
+           config, self._image_names, poses, self.exposures)
+    else:
+      self.render_poses = camera_lib.generate_ellipse_path(
+          poses,
+          n_frames=config.render_path_frames,
+          z_variation=config.z_variation,
+          z_phase=config.z_phase)
+    return poses
+
+  def _split_indices(self, config, num_images):
+    """Stage 4: the image indices of this split (every llffhold-th one is
+    a test view)."""
+    everything = np.arange(num_images)
+    held_out = everything % config.llffhold == 0
+    if self.split == types.DataSplit.TEST:
+      return everything[held_out]
+    if config.llff_use_all_images_for_training:
+      return everything
+    return everything[~held_out]
+
+  def _load_renderings(self, config):
+    factor = self._downsampling_factor(config)
+    image_names, poses = self._recover_poses(config, factor)
+    self._image_names = image_names
+    images = self._decode_pixels(image_names, factor)
+    poses = self._normalize_world(config, poses)
+    self.poses = poses
+
+    keep = self._split_indices(config, images.shape[0])
+    images = images[keep]
+    poses = poses[keep]
+    if self.exposures is not None:
+      self.exposures = self.exposures[keep]
+
+    self.images = images
+    self.camtoworlds = self.render_poses if config.render_path else poses
+    self.height, self.width = images.shape[1:3]
+
+
+class TanksAndTemplesNerfPP(Dataset):
+  """Tanks and Temples, NeRF++ directory layout (datasets.py:537-580);
+  ``render_path`` reads ``camera_path/``."""
+
+  def _load_renderings(self, config):
+    split_str = 'camera_path' if config.render_path else self.split.value
+    basedir = os.path.join(self.data_dir, split_str)
+
+    def load_files(dirname, load_fn, shape=None):
+      files = [
+          os.path.join(basedir, dirname, f)
+          for f in sorted(os.listdir(os.path.join(basedir, dirname)))
+      ]
+      mats = np.array([load_fn(f) for f in files])
+      if shape is not None:
+        mats = mats.reshape(mats.shape[:1] + shape)
+      return mats
+
+    poses = load_files('pose', np.loadtxt, (4, 4))
+    # Flip Y/Z to our coordinate frame.
+    poses = np.matmul(poses, np.diag(np.array([1, -1, -1, 1])))
+
+    intrinsics = load_files('intrinsics', np.loadtxt, (4, 4))
+
+    if not config.render_path:
+      self.images = load_files('rgb', io_lib.read_png_u8) / 255.0
+      self.height, self.width = self.images.shape[1:3]
+    else:
+      # The resolution of a test image.
+      d = os.path.join(self.data_dir, 'test', 'rgb')
+      f = os.path.join(d, sorted(os.listdir(d))[0])
+      self.height, self.width = io_lib.load_img(f).shape[:2]
+      self.images = None
+
+    self.camtoworlds = poses
+    # Use only the first focal length.
+    self.focal = intrinsics[0, 0, 0]
+    self.pixtocams = camera_lib.get_pixtocam(self.focal, self.width,
+                                             self.height)
+
+
+class TanksAndTemplesFVS(Dataset):
+  """Tanks and Temples, Free View Synthesis layout (datasets.py:583-640)."""
+
+  def _load_renderings(self, config):
+    render_only = config.render_path and self.split == types.DataSplit.TEST
+
+    basedir = os.path.join(self.data_dir, 'dense')
+    sizes = [f for f in sorted(os.listdir(basedir)) if f.startswith('ibr3d')]
+    sizes = sizes[::-1]
+    if config.factor >= len(sizes):
+      raise ValueError(f'Factor {config.factor} larger than {len(sizes)}')
+
+    basedir = os.path.join(basedir, sizes[config.factor])
+    path = lambda f: os.path.join(basedir, f)
+
+    files = [f for f in sorted(os.listdir(basedir)) if f.startswith('im_')]
+    if render_only:
+      files = files[:1]
+    images = np.array([io_lib.read_png_u8(path(f)) for f in files]) / 255.0
+
+    intrinsics, rot, trans = (np.load(path(f'{n}.npy'))
+                              for n in ('Ks', 'Rs', 'ts'))
+
+    # COLMAP world-to-cam -> our cam-to-world.
+    w2c = np.concatenate([rot, trans[..., None]], axis=-1)
+    c2w_colmap = np.linalg.inv(camera_lib.pad_poses(w2c))[:, :3, :4]
+    c2w = c2w_colmap @ np.diag(np.array([1, -1, -1, 1]))
+
+    poses, _ = camera_lib.transform_poses_pca(c2w)
+    self.poses = poses
+    self.images = images
+    self.height, self.width = self.images.shape[1:3]
+    self.camtoworlds = poses
+    self.focal = intrinsics[0, 0, 0]
+    self.pixtocams = camera_lib.get_pixtocam(self.focal, self.width,
+                                             self.height)
+
+    if render_only:
+      render_path = camera_lib.generate_ellipse_path(
+          poses,
+          config.render_path_frames,
+          z_variation=config.z_variation,
+          z_phase=config.z_phase)
+      self.images = None
+      self.camtoworlds = render_path
+      self.render_poses = render_path
+    else:
+      all_indices = np.arange(images.shape[0])
+      indices = {
+          types.DataSplit.TEST:
+              all_indices[all_indices % config.llffhold == 0],
+          types.DataSplit.TRAIN:
+              all_indices[all_indices % config.llffhold != 0],
+      }[self.split]
+      self.images = self.images[indices]
+      self.camtoworlds = self.camtoworlds[indices]
+
+
+class DTU(Dataset):
+  """DTU MVS scans: rectified images and calibration projection matrices
+  (datasets.py:643-733)."""
+
+  def _load_renderings(self, config):
+    if config.render_path:
+      raise ValueError('render_path cannot be used for the DTU dataset.')
+
+    images = []
+    pixtocams = []
+    camtoworlds = []
+
+    # A scan has 49 or 65 poses, 8 images (light conditions) each.
+    n_images = len(os.listdir(self.data_dir)) // 8
+    for i in range(1, n_images + 1):
+      if config.dtu_light_cond < 7:
+        light_str = f'{config.dtu_light_cond}_r' + (
+            '5000' if i < 50 else '7000')
+      else:
+        light_str = 'max'
+
+      fname = os.path.join(self.data_dir, f'rect_{i:03d}_{light_str}.png')
+      image = io_lib.load_img(fname) / 255.0
+      if config.factor > 1:
+        image = image_ops.downsample(image, config.factor)
+      images.append(image)
+
+      fname = os.path.join(self.data_dir, f'../../cal18/pos_{i:03d}.txt')
+      projection = np.loadtxt(fname, dtype=np.float32)
+      camera_mat, rot_mat, t = _decompose_projection_matrix(projection)
+      camera_mat = camera_mat / camera_mat[2, 2]
+      pose = np.eye(4, dtype=np.float32)
+      pose[:3, :3] = rot_mat.transpose()
+      pose[:3, 3] = (t[:3] / t[3])[:, 0]
+      camtoworlds.append(pose[:3])
+
+      if config.factor > 0:
+        camera_mat = np.diag(
+            [1.0 / config.factor, 1.0 / config.factor, 1.0]).astype(
+                np.float32) @ camera_mat
+      pixtocams.append(np.linalg.inv(camera_mat))
+
+    pixtocams = np.stack(pixtocams)
+    camtoworlds = np.stack(camtoworlds)
+    images = np.stack(images)
+
+    def rescale_poses(poses):
+      s = np.max(np.abs(poses[:, :3, -1]))
+      out = np.copy(poses)
+      out[:, :3, -1] /= s
+      return out
+
+    camtoworlds, _ = camera_lib.recenter_poses(camtoworlds)
+    camtoworlds = rescale_poses(camtoworlds)
+    # Flip y/z to OpenGL convention.
+    camtoworlds = camtoworlds @ np.diag([1.0, -1.0, -1.0, 1.0]).astype(
+        np.float32)
+
+    all_indices = np.arange(images.shape[0])
+    split_indices = {
+        types.DataSplit.TEST: all_indices[all_indices % config.dtuhold == 0],
+        types.DataSplit.TRAIN: all_indices[all_indices % config.dtuhold != 0],
+    }
+    indices = split_indices[self.split]
+
+    self.images = images[indices]
+    self.height, self.width = images.shape[1:3]
+    self.camtoworlds = camtoworlds[indices]
+    self.pixtocams = pixtocams[indices]
+
+
+def _decompose_projection_matrix(p: np.ndarray):
+  """Decompose P = K [R | -RC] into (K, R, C homogeneous) by an RQ
+  decomposition (datasets.py:716-733)."""
+  import scipy.linalg
+  m = p[:3, :3]
+  k, r = scipy.linalg.rq(m)
+  # Make the intrinsic diagonal positive.
+  signs = np.diag(np.sign(np.diag(k)))
+  k = k @ signs
+  r = signs @ r
+  if np.linalg.det(r) < 0:
+    k = -k
+    r = -r
+  # Camera center: right null vector of P.
+  _, _, vh = np.linalg.svd(p)
+  c = vh[-1]
+  c = c.reshape(4, 1)
+  return k, r, c
+
+
 class DummyScatter(Dataset):
   """Small spheres scattered in mostly empty space, analytic ground truth."""
 
@@ -338,30 +718,36 @@ class DummyScatter(Dataset):
       pix_x, pix_y = camera_lib.pixel_coordinates(res, res)
       origins, _, viewdirs, _, _ = camera_lib.pixels_to_rays(
           pix_x, pix_y, self.pixtocams, self.camtoworlds[i], xnp=np)
-      # Nearest positive ray-sphere hit across all spheres.
-      t_best = np.full(origins.shape[:-1], np.inf, np.float32)
-      nearest = np.zeros(origins.shape[:-1], np.int32)
-      for k, center in enumerate(self.CENTERS):
-        oc = origins - center
-        b = 2 * np.sum(oc * viewdirs, -1)
-        c = np.sum(oc ** 2, -1) - self.RADIUS ** 2
-        disc = b ** 2 - 4 * c
-        t = np.where(disc > 0, (-b - np.sqrt(np.maximum(disc, 0))) / 2,
-                     np.inf)
-        t = np.where(t > 0, t, np.inf)
-        nearest = np.where(t < t_best, k, nearest)
-        t_best = np.minimum(t_best, t)
-      hit = np.isfinite(t_best)
-      t_safe = np.where(hit, t_best, 0.0)
-      p = origins + t_safe[..., None] * viewdirs
-      phase = (2 * np.pi / len(self.CENTERS)) * nearest
-      texture = 0.5 + 0.5 * np.sin(4.0 * p + phase[..., None])
-      images.append(
-          np.where(hit[..., None], texture,
-                   self._miss_color(origins, viewdirs)).astype(np.float32))
+      images.append(self.shade(origins, viewdirs))
     self.images = np.stack(images)
 
-  def _miss_color(self, origins, viewdirs):
+  @classmethod
+  def shade(cls, origins, viewdirs):
+    """The scene's analytic color along rays (numpy [..., 3] each): the
+    nearest sphere's texture, else the miss color."""
+    # Nearest positive ray-sphere hit across all spheres.
+    t_best = np.full(origins.shape[:-1], np.inf, np.float32)
+    nearest = np.zeros(origins.shape[:-1], np.int32)
+    for k, center in enumerate(cls.CENTERS):
+      oc = origins - center
+      b = 2 * np.sum(oc * viewdirs, -1)
+      c = np.sum(oc ** 2, -1) - cls.RADIUS ** 2
+      disc = b ** 2 - 4 * c
+      t = np.where(disc > 0, (-b - np.sqrt(np.maximum(disc, 0))) / 2,
+                   np.inf)
+      t = np.where(t > 0, t, np.inf)
+      nearest = np.where(t < t_best, k, nearest)
+      t_best = np.minimum(t_best, t)
+    hit = np.isfinite(t_best)
+    t_safe = np.where(hit, t_best, 0.0)
+    p = origins + t_safe[..., None] * viewdirs
+    phase = (2 * np.pi / len(cls.CENTERS)) * nearest
+    texture = 0.5 + 0.5 * np.sin(4.0 * p + phase[..., None])
+    return np.where(hit[..., None], texture,
+                    cls.miss_color(origins, viewdirs)).astype(np.float32)
+
+  @classmethod
+  def miss_color(cls, origins, viewdirs):
     """Color for rays that miss every sphere (white)."""
     del origins, viewdirs
     return np.float32(1.0)
@@ -379,12 +765,13 @@ class DummyUnbounded(DummyScatter):
       [-1.2, -0.9, 0.2], [0.0, 1.3, 0.45], [-0.2, 0.1, 0.75],
   ], dtype=np.float32)
 
-  def _miss_color(self, origins, viewdirs):
+  @classmethod
+  def miss_color(cls, origins, viewdirs):
     # Cameras sit inside the shell, so its far root always exists.
     b = 2 * np.sum(origins * viewdirs, -1)
-    c = np.sum(origins ** 2, -1) - self.SHELL_RADIUS ** 2
+    c = np.sum(origins ** 2, -1) - cls.SHELL_RADIUS ** 2
     t = (-b + np.sqrt(np.maximum(b ** 2 - 4 * c, 0.0))) / 2
-    q = (origins + t[..., None] * viewdirs) / self.SHELL_RADIUS
+    q = (origins + t[..., None] * viewdirs) / cls.SHELL_RADIUS
     phases = np.array([0.0, 2.1, 4.2], np.float32)
     return (0.5 + 0.5 * np.sin(6.0 * q + phases)).astype(np.float32)
 

@@ -39,8 +39,9 @@ class DeviceDataPlane:
     self._single_image = config.batching == 'single_image'
     self.near, self.far = float(dataset.near), float(dataset.far)
 
-    as_f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32),
-                                       device=self.device)
+    # A copy: the exposure records may be read-only broadcasts.
+    as_f32 = lambda a: torch.tensor(np.asarray(a, np.float32),
+                                    device=self.device)
     self.images = as_f32(dataset.images)
     # The ground truth of the disparity and normal metrics, when asked for.
     self.targets = {}

@@ -310,8 +310,8 @@ class DeviceImageRenderer:
     """
     if dataset._render_spherical:  # pylint: disable=protected-access
       raise NotImplementedError(
-          'Not ported yet: pano rendering (ROADMAP.md Queue 1: serving '
-          'slice, deferred items).')
+          'Not ported yet: pano rendering (ROADMAP.md Queue 1 item 1: '
+          'serving slice, deferred items).')
     self._render_fn = render_fn
     self._config = config
     self._device = device
@@ -319,8 +319,8 @@ class DeviceImageRenderer:
     self._height, self._width = dataset.height, dataset.width
     self._near, self._far = float(dataset.near), float(dataset.far)
     pixtocams, camtoworlds, distortion_params, pixtocam_ndc = dataset.cameras
-    as_f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32),
-                                       device=device)
+    # A copy: the exposure records may be read-only broadcasts.
+    as_f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
     self._cameras = (as_f32(pixtocams), as_f32(camtoworlds),
                      distortion_params,
                      None if pixtocam_ndc is None else as_f32(pixtocam_ndc))

@@ -52,9 +52,9 @@ class _MatmulHP(torch.autograd.Function):
     # Through matmul_hp again, so a second derivative is also full f32.
     grad_a = grad_b = None
     if ctx.needs_input_grad[0]:
-      grad_a = matmul_hp(g, b.transpose(-1, -2))
+      grad_a = matmul_hp(g, b.transpose(-1, -2)).sum_to_size(a.shape)
     if ctx.needs_input_grad[1]:
-      grad_b = matmul_hp(a.transpose(-1, -2), g)
+      grad_b = matmul_hp(a.transpose(-1, -2), g).sum_to_size(b.shape)
     return grad_a, grad_b
 
 
@@ -71,8 +71,9 @@ def _f32_product(a, b):
 def matmul_hp(a, b):
   """f32 product at full precision whatever the backend's TF32 setting
   (mathx.py:29's ``Precision.HIGHEST``), in its gradients too.  `a` is
-  [..., K], `b` is [K, N]."""
-  if a.dim() > 2:
+  [..., K] and `b` [K, N], or both batched, [..., M, K] and [..., K, N],
+  their batch axes broadcast."""
+  if a.dim() > 2 and b.dim() == 2:
     out = matmul_hp(a.reshape(-1, a.shape[-1]), b)
     return out.reshape(a.shape[:-1] + out.shape[-1:])
   return _MatmulHP.apply(a, b)

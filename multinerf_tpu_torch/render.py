@@ -163,7 +163,7 @@ def main(argv=None):
   summary = render_job(config, dataset, renderer, store, postprocess_fn)
   if store.count_frames() == dataset.size:
     print('All frames found; video assembly is not ported yet '
-          '(ROADMAP.md Queue 1: serving slice, deferred items).')
+          '(ROADMAP.md Queue 1 item 1: serving slice, deferred items).')
   summary['out_dir'] = store.out_dir
   return summary
 

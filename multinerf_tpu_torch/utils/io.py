@@ -4,15 +4,21 @@
 the same arguments and write the same formats as ``multinerf_tpu.utils.io``
 (which uses Pillow, not installed beside the GPU); ``load_img`` reads 8-bit
 PNGs (grey, grey + alpha, RGB, RGBA; every filter type; not interlaced)
-into the array Pillow gives.
+into the array Pillow gives, and refuses JPEGs (their decoder is not ported
+yet).  ``load_exif`` reads the Exif tags of a JPEG by name, as the JAX
+package's Pillow call names them.
 """
 
 from __future__ import annotations
 
+import fractions
 import struct
 import zlib
 
 import numpy as np
+
+JPEG_LATER = 'ROADMAP.md Queue 1 item 8: JPEG decoding without Pillow'
+_JPEG_SOI = b'\xff\xd8'  # A JPEG file's first marker.
 
 
 def _png_chunk(kind: bytes, data: bytes) -> bytes:
@@ -109,10 +115,134 @@ def decode_png(data: bytes) -> np.ndarray:
   return img[..., 0] if channels == 1 else img
 
 
+def read_png_u8(pth: str) -> np.ndarray:
+  """The uint8 array of a PNG file; a JPEG raises NotImplementedError."""
+  with open(pth, 'rb') as f:
+    data = f.read()
+  if data[:2] == _JPEG_SOI:
+    raise NotImplementedError(
+        f'Not ported yet: reading the JPEG image {pth} ({JPEG_LATER}); '
+        'convert the images to PNG.')
+  return decode_png(data)
+
+
 def load_img(pth: str) -> np.ndarray:
   """Load a PNG as float32 (no scaling applied), as utils/io.py:24-27."""
+  return read_png_u8(pth).astype(np.float32)
+
+
+# --- Exif. --------------------------------------------------------------------
+
+_EXIF_IFD = 0x8769  # The Exif sub-IFD's offset, a tag of IFD0.
+# The names of the Exif tags (Pillow's ExifTags.TAGS for these ids).
+EXIF_TAGS = {
+    0x010F: 'Make', 0x0110: 'Model', 0x0112: 'Orientation',
+    0x011A: 'XResolution', 0x011B: 'YResolution', 0x0128: 'ResolutionUnit',
+    0x0131: 'Software', 0x0132: 'DateTime', 0x013B: 'Artist',
+    0x0213: 'YCbCrPositioning', 0x8298: 'Copyright', _EXIF_IFD: 'ExifOffset',
+    0x829A: 'ExposureTime', 0x829D: 'FNumber', 0x8822: 'ExposureProgram',
+    0x8827: 'ISOSpeedRatings', 0x8830: 'SensitivityType',
+    0x9000: 'ExifVersion', 0x9003: 'DateTimeOriginal',
+    0x9004: 'DateTimeDigitized', 0x9201: 'ShutterSpeedValue',
+    0x9202: 'ApertureValue', 0x9203: 'BrightnessValue',
+    0x9204: 'ExposureBiasValue', 0x9205: 'MaxApertureValue',
+    0x9207: 'MeteringMode', 0x9208: 'LightSource', 0x9209: 'Flash',
+    0x920A: 'FocalLength', 0xA001: 'ColorSpace', 0xA002: 'ExifImageWidth',
+    0xA003: 'ExifImageHeight', 0xA402: 'ExposureMode',
+    0xA403: 'WhiteBalance', 0xA405: 'FocalLengthIn35mmFilm',
+    0xA406: 'SceneCaptureType', 0xA434: 'LensModel',
+}
+# TIFF field type -> (struct code, bytes per value).
+_TIFF_TYPES = {1: ('B', 1), 2: ('s', 1), 3: ('H', 2), 4: ('I', 4),
+               5: ('II', 8), 6: ('b', 1), 7: ('s', 1), 8: ('h', 2),
+               9: ('i', 4), 10: ('ii', 8), 11: ('f', 4), 12: ('d', 8)}
+
+
+def _rational(num, den):
+  """A TIFF (S)RATIONAL: exact, usable through float(); NaN over 0."""
+  return fractions.Fraction(num, den) if den else float('nan')
+
+
+def _tiff_value(tiff, order, kind, count, field):
+  """One IFD entry's value: a scalar for one value, else a tuple; text as
+  str, UNDEFINED as bytes."""
+  code, size = _TIFF_TYPES[kind]
+  nbytes = size * count
+  if nbytes > 4:
+    offset, = struct.unpack(order + 'I', field)
+    raw = tiff[offset:offset + nbytes]
+  else:
+    raw = field[:nbytes]
+  if kind == 2:
+    return raw.split(b'\x00', 1)[0].decode('latin-1')
+  if kind == 7:
+    return bytes(raw)
+  if kind in (5, 10):
+    pairs = struct.unpack(order + code * count, raw)
+    values = tuple(_rational(n, d) for n, d in zip(pairs[::2], pairs[1::2]))
+  else:
+    values = struct.unpack(f'{order}{count}{code}', raw)
+  return values[0] if count == 1 else values
+
+
+def _read_ifd(tiff, order, offset):
+  """The {tag id: value} of the IFD at `offset` of a TIFF block."""
+  count, = struct.unpack(order + 'H', tiff[offset:offset + 2])
+  out = {}
+  for i in range(count):
+    entry = tiff[offset + 2 + 12 * i:offset + 14 + 12 * i]
+    tag, kind, n = struct.unpack(order + 'HHI', entry[:8])
+    if kind in _TIFF_TYPES:
+      out[tag] = _tiff_value(tiff, order, kind, n, entry[8:12])
+  return out
+
+
+def parse_tiff_exif(tiff: bytes):
+  """{tag id: value} of a TIFF block's IFD0 and its Exif sub-IFD, in either
+  byte order."""
+  order = {b'II': '<', b'MM': '>'}.get(tiff[:2])
+  if order is None:
+    raise ValueError('not a TIFF header.')
+  ifd0, = struct.unpack(order + 'I', tiff[4:8])
+  tags = _read_ifd(tiff, order, ifd0)
+  if _EXIF_IFD in tags:
+    tags.update(_read_ifd(tiff, order, tags[_EXIF_IFD]))
+  return tags
+
+
+def _jpeg_exif_block(data: bytes):
+  """The TIFF block of a JPEG's APP1 Exif segment, or None."""
+  pos = 2
+  while pos + 4 <= len(data):
+    if data[pos] != 0xFF:
+      return None
+    marker = data[pos + 1]
+    if marker == 0xFF:  # Fill byte.
+      pos += 1
+      continue
+    if marker in (0xD9, 0xDA):  # EOI, or the scan: no header follows.
+      return None
+    length, = struct.unpack('>H', data[pos + 2:pos + 4])
+    body = data[pos + 4:pos + 2 + length]
+    if marker == 0xE1 and body[:6] == b'Exif\x00\x00':
+      return body[6:]
+    pos += 2 + length
+  return None
+
+
+def load_exif(pth: str):
+  """The named Exif tags of a JPEG (utils/io.py:31-37 of the JAX package,
+  without Pillow): IFD0 and the Exif sub-IFD of its APP1 segment.
+  Rationals are exact (``float()`` gives their value), SHORTs and LONGs
+  ints.  {} for any other file (a PNG), or a JPEG without Exif."""
   with open(pth, 'rb') as f:
-    return decode_png(f.read()).astype(np.float32)
+    data = f.read()
+  tiff = _jpeg_exif_block(data) if data[:2] == _JPEG_SOI else None
+  if tiff is None:
+    return {}
+  tags = parse_tiff_exif(tiff)
+  return {EXIF_TAGS[tag]: value for tag, value in tags.items()
+          if tag in EXIF_TAGS}
 
 
 def write_png(pth: str, img_u8: np.ndarray) -> None:
