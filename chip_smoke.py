@@ -23,7 +23,17 @@ one unbounded through a distorted OPENCV camera, one forward-facing with
 ``poses_bounds.npy``, and drives ``configs/360.gin`` (host path and device
 plane) and ``configs/llff_256.gin`` (after K1-K4 are held against their
 plain versions at its shapes) through train, eval and render on them,
-holding each capture's rays cast on the card against the host cast.
+holding each capture's rays cast on the card against the host cast.  Last,
+the rest of the model zoo: K2 and K4 held against their plain versions at
+``configs/llff_raw.gin``'s shape (N = 2,097,152, outputs over 2^31 bytes),
+then RawNeRF trained at its 16,384 rays a step on a raw capture in the
+HDR+ test-scene layout the script writes (RGGB mosaics with ``.npy``
+sidecars, exiftool JSON, three shutter buckets), evaluated under
+``llff_raw_test.gin`` (affine color correction, cropped borders) and
+rendered through the raw tonemap; RobustNeRF (``360_robustnerf.gin``, 16 x
+16 patches, the loss threshold fed back) on ``dummy_distractor`` on both
+data paths; GLO (``360_glo4.gin``) trained, evaluated and rendered with
+zero GLO vectors; each with one step on the GPU against the CPU.
 
 Run from the repository root, with no arguments:
 
@@ -842,13 +852,14 @@ def _reset_counts():
 def phase_train(tag='train', bindings=(), steps=TRAIN_STEPS,
                 kernels=F32_TRAIN, gin='360.gin',
                 data=("Config.dataset_loader='dummy_unbounded'",),
-                ckpt_dir=None):
-  """`steps` steps of configs/`gin` (360.gin) at full width, 4,096 rays per
-  step, on the scene of the `data` bindings (dummy_unbounded), through
-  ``python -m multinerf_tpu_torch.train``'s entry point, checkpoints into
-  `ckpt_dir` (a temporary one); the launch counters, read around every
-  step, show that each step ran the path's kernels.  Returns (launches,
-  median step seconds)."""
+                ckpt_dir=None, rays=TRAIN_RAYS, thresholds=None):
+  """`steps` steps of configs/`gin` (360.gin) at full width, `rays` rays
+  per step (4,096), on the scene of the `data` bindings (dummy_unbounded),
+  through ``python -m multinerf_tpu_torch.train``'s entry point,
+  checkpoints into `ckpt_dir` (a temporary one); the launch counters, read
+  around every step, show that each step ran the path's kernels.  The loss
+  threshold each step is given is appended to `thresholds`, when a list.
+  Returns (launches, median step seconds, the driver's summary)."""
   from multinerf_tpu_torch import train
   from multinerf_tpu_torch import train_lib
   per_step = []
@@ -858,6 +869,8 @@ def phase_train(tag='train', bindings=(), steps=TRAIN_STEPS,
     step_fn = create_train_step(*args, **kwargs)
 
     def step(*step_args):
+      if thresholds is not None:
+        thresholds.append(step_args[5])
       before = _counts()[0]
       out = step_fn(*step_args)
       after = _counts()[0]
@@ -867,7 +880,7 @@ def phase_train(tag='train', bindings=(), steps=TRAIN_STEPS,
 
   with tempfile.TemporaryDirectory() as tmp:
     argv = [f'--gin_configs={os.path.join(REPO, "configs", gin)}',
-            f'--gin_bindings=Config.batch_size={TRAIN_RAYS}',
+            f'--gin_bindings=Config.batch_size={rays}',
             f'--gin_bindings=Config.max_steps={steps}',
             '--gin_bindings=Config.lr_delay_steps=0',
             '--gin_bindings=Config.print_every=10',
@@ -914,9 +927,9 @@ def phase_train(tag='train', bindings=(), steps=TRAIN_STEPS,
   step_s = statistics.median(summary['step_seconds'][5:])
   log(f'{tag}: {seconds:.1f} s for {steps} steps; median step '
       f'{step_s * 1e3:.3f} ms over steps 6-{steps} (synchronised per '
-      f'step), {TRAIN_RAYS / step_s:,.0f} train rays/s, max memory '
+      f'step), {rays / step_s:,.0f} train rays/s, max memory '
       f'allocated {peak_gib:.2f} GiB')
-  return launches, step_s
+  return launches, step_s, summary
 
 
 # The cap of train_lib.leaf_gaps at full width: there the CPU step's own
@@ -935,14 +948,24 @@ TRAIN_GAP_CAP = 0.15
 INT8_TRAIN_GAP_CAP = 0.25
 LOSS_TOL = 1e-3
 INT8_LOSS_TOL = 5e-3
+# The interlevel term of 360_robustnerf.gin's and 360_glo4.gin's steps is
+# more sensitive than 360.gin's on their random weights: the CPU step moved
+# it by 2.37e-3 (robustnerf: one 16 x 16 patch of neighbouring rays) and
+# 2.13e-3 (glo4) under the nudge, and the GPU step was 1.76e-3 and 1.24e-3
+# from the CPU step ("NVIDIA H100 80GB HBM3, 700.00 W"); their loss terms
+# get 5e-3, as the int8 step's do.
+ZOO_LOSS_TOL = 5e-3
 
 
 def phase_train_reference(tag='train reference', bindings=(),
                           cap=TRAIN_GAP_CAP, loss_tol=LOSS_TOL,
-                          gin='360.gin', loader='dummy_unbounded'):
-  """One full-width train step of 256 rays with Config.randomized=False,
-  from the same initial weights, on the GPU (kernels) and on the CPU
-  (plain versions): the loss terms and every gradient leaf.
+                          gin='360.gin', loader='dummy_unbounded',
+                          data_dir=None):
+  """One full-width train step of 256 rays with Config.randomized=False
+  (no jitter, no noise), from the same initial weights, on the GPU
+  (kernels) and on the CPU (plain versions): the loss terms and every
+  gradient leaf.  The rays come from `loader`'s train split (at
+  `data_dir`, for a capture).
 
   Bounds: each loss term within `loss_tol` relative (f32: 1e-3, measured
   1e-4 at most, the interlevel term); each gradient leaf by
@@ -961,7 +984,8 @@ def phase_train_reference(tag='train reference', bindings=(),
                     'Config.batch_size = 256', 'Config.randomized = False',
                     *bindings])
   config = configs.load_config(args)
-  host_batch = next(datasets.load_dataset('train', None, config, seed=0))
+  with datasets.load_dataset('train', data_dir, config, seed=0) as dataset:
+    host_batch = next(dataset)
   runs = []
   for device, nudge in (('cuda', False), ('cpu', False), ('cpu', True)):
     t0 = time.perf_counter()
@@ -1570,10 +1594,10 @@ def phase_capture_360(card):
     _hold_capture_cast(tag, config)
     paths = {}
     ckpt = os.path.join(tmp, 'ckpt')
-    paths['capture_360_train'], step_s = phase_train(
+    paths['capture_360_train'], step_s, _ = phase_train(
         f'{tag} train', (), CAPTURE_STEPS, F32_TRAIN,
         data=(f"Config.data_dir='{data}'",), ckpt_dir=ckpt)
-    paths['capture_360_device_plane'], plane_s = phase_train(
+    paths['capture_360_device_plane'], plane_s, _ = phase_train(
         f'{tag} train device plane', ('Config.device_data_plane=True',),
         CAPTURE_STEPS, F32_TRAIN, data=(f"Config.data_dir='{data}'",))
     argv = [f'--gin_configs={os.path.join(REPO, "configs", "360.gin")}',
@@ -1683,7 +1707,7 @@ def phase_capture_llff(card):
     _hold_capture_cast(tag, config)
     paths = {}
     ckpt = os.path.join(tmp, 'ckpt')
-    paths['capture_llff_train'], step_s = phase_train(
+    paths['capture_llff_train'], step_s, _ = phase_train(
         f'{tag} train', (), CAPTURE_STEPS, F32_TRAIN, gin='llff_256.gin',
         data=(f"Config.data_dir='{data}'",), ckpt_dir=ckpt)
     argv = [f'--gin_configs={os.path.join(REPO, "configs", "llff_256.gin")}',
@@ -1701,6 +1725,432 @@ def phase_capture_llff(card):
       + ', '.join(f'{k} {r["ms"]:.3f} ms (bound {r["bound_ms"]:.4f})'
                   for k, r in results.items()))
   return results, paths
+
+
+# --- The rest of the model zoo: RawNeRF (configs/llff_raw.gin,
+# llff_raw_test.gin), RobustNeRF (360_robustnerf.gin) and GLO
+# (360_glo4.gin), at full width.
+
+ZOO_STEPS = 30
+ZOO_EVAL_VIEWS = 3
+# RawNeRF's capture: 20 train views and the HDR+ test view (a 21st pose,
+# shot as a bracket of 3 and merged), 1,024 x 768 RGGB mosaics, cut from
+# the ~12 MP phone captures of RawNeRF's scenes.  llff_raw.gin trains on
+# the full-resolution mosaic at its own 16,384 rays a step (one card takes
+# the whole batch), and its one NerfMLP (8 x 256, 96 features) runs both
+# levels of 128 samples: K2 and K4 at N = 16,384 x 128.
+RAW_VIEWS = 20
+RAW_RAYS = 16384
+RAW_K2 = RAW_RAYS * 128
+RAW_FRAMES = 2
+RAW_SHUTTERS = ('1/30', '1/60', '1/120')  # Exposure values 1, 1/2, 1/4.
+RAW_TEST_SHUTTERS = ('1/240', '1/60', '1/15')  # The test view's bracket.
+RAW_BLACK, RAW_WHITE = 64, 1023
+# A stuck kernel traps after 2^26 polls; this bounds the K2/K4 probe at
+# llff_raw's N (outputs over 2^31 bytes) below the chip call's own limit.
+PROBE_TIMEOUT_S = 300
+# The launch sets of the RawNeRF path: no density-only MLP (single_mlp).
+RAW_TRAIN = (('featurize_dense', 'featurize_dense_dw'),
+             ('density_mlp', 'density_mlp_bwd', 'int8_trunk',
+              'int8_trunk_bwd'))
+RAW_RENDER = (('featurize_dense',), RAW_TRAIN[1] + ('featurize_dense_dw',))
+
+
+class _Watchdog:
+  """Ends the process, failing, if its block runs over `seconds`."""
+
+  def __init__(self, what, seconds):
+    import threading
+    self._timer = threading.Timer(seconds, self._expire, (what, seconds))
+
+  @staticmethod
+  def _expire(what, seconds):
+    print(f'FAIL {what}: over its {seconds} s limit.', flush=True)
+    os._exit(3)  # pylint: disable=protected-access
+
+  def __enter__(self):
+    self._timer.start()
+    return self
+
+  def __exit__(self, *exc):
+    self._timer.cancel()
+
+
+def raw_poses():
+  """The HDR+ test view at the middle of a 5 x 4 grid of train views on the
+  plane z = 4.5, all looking down -z."""
+  from multinerf_tpu_torch.data import cameras as camera_lib
+  center = camera_lib.viewmatrix(np.array([0.0, 0.0, 1.0]),
+                                 np.array([0.0, 1.0, 0.0]),
+                                 np.array([0.05, -0.02, 4.5]))
+  return np.concatenate([center[None], plane_poses()])
+
+
+def _write_raw(raw_dir, name, mosaic, shutter):
+  """One raw shot in RawNeRF's layout: a DNG stub, its ``.npy`` sidecar
+  (the decoder's mosaic) and exiftool's JSON."""
+  from multinerf_tpu_torch.data import raw
+  os.makedirs(raw_dir, exist_ok=True)
+  base = os.path.join(raw_dir, os.path.splitext(name)[0])
+  np.save(base + '.npy', mosaic)
+  with open(base + '.dng', 'wb') as f:
+    f.write(b'DNG decoded into the .npy sidecar')
+  # The color matrix maps XYZ back to linear RGB: the camera sees sRGB
+  # primaries, white-balanced, so the tonemap shows the scene.
+  xyz_to_rgb = np.linalg.inv(raw._RGB2XYZ)  # pylint: disable=protected-access
+  with open(base + '.json', 'w') as f:
+    json.dump([{'BlackLevel': RAW_BLACK, 'WhiteLevel': RAW_WHITE,
+                'AsShotNeutral': '1.0 1.0 1.0',
+                'ColorMatrix2': ' '.join(f'{v:.7f}'
+                                         for v in xyz_to_rgb.ravel()),
+                'NoiseProfile': '0.00002 0.000001',
+                'ShutterSpeed': shutter}], f)
+
+
+def write_raw_capture(root, device='cuda'):
+  """RawNeRF's HDR+ test-scene layout under `root`: ``sparse/0`` (the test
+  view first, then RAW_VIEWS train views, PINHOLE at 1,024 x 768),
+  ``poses_bounds.npy``, ``raw/train`` (one shot per view, shutters cycling
+  over RAW_SHUTTERS), ``raw/test`` (the test view's bracket) and
+  ``hdrplus_test/merged.dng`` (its merge, with HDR+'s 2 extra bits).  Each
+  pixel's linear color is the dummy_unbounded scene's along its ray (cast
+  on `device`), on the RGGB mosaic, times the shot's exposure, plus 2
+  counts of read noise.  Returns the seconds it took."""
+  from multinerf_tpu_torch.data import cameras as camera_lib
+  from multinerf_tpu_torch.data import datasets
+  from multinerf_tpu_torch.data import raw
+  t0 = time.perf_counter()
+  poses = raw_poses()
+  names = [f'IMG_{i:04d}.dng' for i in range(len(poses))]
+  write_colmap_model(os.path.join(root, 'sparse', '0'), poses, names,
+                     PINHOLE)
+  np.save(os.path.join(root, 'poses_bounds.npy'), np.concatenate(
+      [np.zeros((len(poses), 15)), np.tile([PLANE_BOUNDS], (len(poses), 1))],
+      -1))
+  _, params = PINHOLE
+  pixtocam = np.linalg.inv(camera_lib.intrinsic_matrix(*params))
+  width, height = FULL_SIZE
+  pix_x, pix_y = camera_lib.pixel_coordinates(width, height)
+  bayer = raw.pixels_to_bayer_mask(pix_x, pix_y)
+  rng = np.random.RandomState(31)
+  as_f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
+
+  def linear(pose):
+    origins, _, viewdirs, _, _ = camera_lib.pixels_to_rays(
+        torch.tensor(pix_x, device=device), torch.tensor(pix_y, device=device),
+        as_f32(pixtocam), as_f32(pose), xnp=torch)
+    rgb = datasets.DummyUnbounded.shade(origins.cpu().numpy(),
+                                        viewdirs.cpu().numpy())
+    return (rgb * bayer).sum(-1)  # One channel per pixel.
+
+  def counts(color, shutter):
+    """A shot's sensor counts: exposure relative to the brightest train
+    bucket (1/30 s), read noise, clipped at the white level."""
+    scale = 30 / float(shutter[2:])
+    noisy = RAW_BLACK + (RAW_WHITE - RAW_BLACK) * scale * color + (
+        2.0 * rng.randn(*color.shape))
+    return np.clip(np.round(noisy), 0, RAW_WHITE).astype(np.uint16)
+
+  for i, (name, pose) in enumerate(zip(names[1:], poses[1:])):
+    shutter = RAW_SHUTTERS[i % len(RAW_SHUTTERS)]
+    _write_raw(os.path.join(root, 'raw', 'train'), name,
+               counts(linear(pose), shutter), shutter)
+  test = linear(poses[0])
+  for i, shutter in enumerate(RAW_TEST_SHUTTERS):
+    _write_raw(os.path.join(root, 'raw', 'test'), f'burst_{i}.dng',
+               counts(test, shutter), shutter)
+  # The loader takes the merge over 4 (HDR+'s extra bits) and scales it by
+  # the bracket's shortest:longest shutter ratio: so this merge holds the
+  # test view's colors at the train views' brightest exposure.
+  ratio = float(RAW_TEST_SHUTTERS[0][2:]) / float(RAW_TEST_SHUTTERS[-1][2:])
+  merged = 4 * (RAW_BLACK + (RAW_WHITE - RAW_BLACK) * ratio * test)
+  os.makedirs(os.path.join(root, 'hdrplus_test'))
+  np.save(os.path.join(root, 'hdrplus_test', 'merged.npy'),
+          np.round(merged).astype(np.uint16))
+  with open(os.path.join(root, 'hdrplus_test', 'merged.dng'), 'wb') as f:
+    f.write(b'DNG decoded into the .npy sidecar')
+  return time.perf_counter() - t0
+
+
+def phase_raw_kernels():
+  """K2 and K4 against their plain versions at llff_raw.gin's shape: 96
+  features (octahedron, 16 degrees), 96 -> 256 over RAW_K2 = 2,097,152
+  samples, no contraction: K2's f32 output and K4's cotangent are 2.15 GB,
+  over 2^31 bytes.  Held with the kernel phases' bounds, two launches
+  bitwise equal, at N and N - 37, under a watchdog; then each kernel's
+  single-call time and its plain version's, and its bound.  Returns
+  {kernel: summary}."""
+  from multinerf_tpu_torch.ops import geopoly
+  from multinerf_tpu_torch.ops.kernels import featurize_dense as fd
+  basis = np.array(geopoly.generate_basis('octahedron', 1)).T
+  num_feats = 2 * LLFF_DEG * basis.shape[-1]
+  kw = dict(min_deg=0, max_deg=LLFF_DEG, use_contract=False)
+  rng = np.random.RandomState(41)
+  results = {}
+  with _Watchdog('K2/K4 at llff_raw shapes', PROBE_TIMEOUT_S):
+    means, covs = _ndc_gaussians(RAW_K2, seed=42)
+    w = _he_uniform(rng, num_feats, 256)
+    b = torch.tensor(rng.randn(256).astype(np.float32) * 0.1, device='cuda')
+    args = lambda n: (means[:n], covs[:n], w, b, basis)
+    results['featurize_dense'] = _compare(
+        'featurize_dense llff_raw',
+        lambda n: fd.featurize_dense(*args(n), **kw),
+        lambda n: fd.featurize_dense_plain(*args(n), **kw), RAW_K2)
+    g = torch.tensor(rng.randn(RAW_K2, 256).astype(np.float32),
+                     device='cuda')
+    k4 = lambda fn: lambda n: [fn(means[:n], covs[:n], g[:n], basis, **kw)]
+    results['featurize_dense_dw'] = _compare_leaves(
+        'featurize_dense_dw llff_raw', k4(fd.featurize_dense_dw),
+        k4(fd.featurize_dense_dw_plain), RAW_K2)
+    del means, covs, g
+    torch.cuda.empty_cache()
+  bounds = kernel_bounds(f=num_feats, h=256, w=256, n1=RAW_K2, n2=RAW_K2)
+  for name, summary in results.items():
+    bound = bounds[name]
+    summary.update(bound_ms=bound['bound_ms'], bound_by=bound['bound_by'],
+                   **_achieved(summary, bound))
+    log(f'{name} llff_raw (N = {RAW_K2}): {summary["ms"]:.3f} ms (plain '
+        f'{summary["plain_ms"]:.3f} ms), bound {bound["bound_ms"]:.4f} ms '
+        f'({bound["bound_by"]}), {summary["bound_share"]:.3f} of the bound')
+  return results
+
+
+def _zoo_argv(gin, ckpt_dir, data):
+  return [f'--gin_configs={os.path.join(REPO, "configs", gin)}',
+          f"--gin_bindings=Config.checkpoint_dir='{ckpt_dir}'",
+          f'--gin_bindings=Config.max_steps={ZOO_STEPS}', '--device=cuda'] + [
+              f'--gin_bindings={b}' for b in data]
+
+
+def _eval_scores(tag, evaluated, names, views):
+  """The metric files of eval.main's output, each `views` finite values."""
+  scores = {}
+  for name in names:
+    path = os.path.join(evaluated['out_dir'], f'metric_{name}_{ZOO_STEPS}.txt')
+    if not os.path.exists(path):
+      raise SystemExit(f'FAIL {tag} eval: no {os.path.basename(path)}')
+    with open(path) as f:
+      scores[name] = [float(v) for v in f.read().split()]
+    if len(scores[name]) != views or not np.isfinite(scores[name]).all():
+      raise SystemExit(f'FAIL {tag} eval: {name} {scores[name]}')
+  return scores
+
+
+def phase_rawnerf(card):
+  """RawNeRF at full width on a raw capture in the HDR+ test-scene layout
+  (write_raw_capture): K2/K4 at its shapes first (phase_raw_kernels), then
+  ``configs/llff_raw.gin`` trained 30 steps of 16,384 rays through
+  ``multinerf_tpu_torch.train.main`` (the rawnerf loss on the Bayer mask,
+  density noise 1.0 from the step's generator, learned exposure scaling;
+  the loss must fall, the exposure offsets of the darker buckets must leave
+  0, K2/K4 every step and K1/K3 never; the raw tonemap ladder of an
+  in-train render logged), ``eval.main`` under ``llff_raw_test.gin`` on the
+  merged HDR+ view (affine color correction, 16 border pixels cropped),
+  ``render.main`` over 2 spiral frames through the raw tonemap, and one
+  256-ray step (noise off) on the GPU against the CPU.  Returns (kernel
+  summaries, {path: launches})."""
+  from multinerf_tpu_torch import eval as eval_lib
+  from multinerf_tpu_torch import render
+  from multinerf_tpu_torch.utils import summary as summary_lib
+  tag = 'rawnerf'
+  results = phase_raw_kernels()
+  paths = {}
+  with tempfile.TemporaryDirectory() as tmp:
+    data = os.path.join(tmp, 'capture')
+    write_s = write_raw_capture(data)
+    ckpt = os.path.join(tmp, 'ckpt')
+    paths['rawnerf_train'], step_s, trained = phase_train(
+        f'{tag} train', (f'Config.train_render_every={ZOO_STEPS}',),
+        ZOO_STEPS, RAW_TRAIN, gin='llff_raw.gin',
+        data=(f"Config.data_dir='{data}'",), ckpt_dir=ckpt, rays=RAW_RAYS)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    events = summary_lib.read_events(ckpt)
+    tags = {e['tag'] for e in events}
+    need = {'train_exposure_idx', 'test_unique_shutters',
+            'test_output_color_raw', 'test_output_color_auto',
+            'test_true_auto', 'test_output_color/97', 'test_true_color/97'}
+    if not need <= tags:
+      raise SystemExit(f'FAIL {tag}: the summaries lack {need - tags}')
+    offsets = {(int(e['tag'].split('_')[-2]), int(e['tag'].split('_')[-1])):
+               e['value'] for e in events
+               if e['tag'].startswith('exposure/scaling_') and
+               e['step'] == ZOO_STEPS}
+    if len(offsets) != 9 or any(offsets[(0, j)] != 0 for j in range(3)) or (
+        not any(offsets[(i, j)] != 0 for i in (1, 2) for j in range(3))):
+      raise SystemExit(f'FAIL {tag}: exposure offsets at step {ZOO_STEPS} '
+                       f'{offsets}')
+
+    argv = _zoo_argv('llff_raw_test.gin', ckpt, (f"Config.data_dir='{data}'",))
+    t0 = time.perf_counter()
+    evaluated, launches, plain = _counted(eval_lib.main, argv)
+    eval_s = time.perf_counter() - t0
+    _check_launches(f'{tag} eval', launches, plain, RAW_RENDER)
+    paths['rawnerf_eval'] = launches
+    scores = _eval_scores(tag, evaluated, ('psnr', 'ssim', 'cc_psnr',
+                                           'cc_ssim'), 1)
+    frames, launches, plain = _counted(
+        render.main, _zoo_argv('llff_raw.gin', ckpt, (
+            f"Config.data_dir='{data}'", 'Config.render_path=True',
+            f'Config.render_path_frames={RAW_FRAMES}',
+            f"Config.render_dir='{tmp}/render'")))
+    _check_launches(f'{tag} render', launches, plain, RAW_RENDER)
+    paths['rawnerf_render'] = launches
+    if frames['frames'] != list(range(RAW_FRAMES)):
+      raise SystemExit(f'FAIL {tag} render: frames {frames["frames"]}')
+    _check_frames(f'{tag} render 256x192', frames, (192, 256))
+    phase_train_reference(f'{tag} train reference', gin='llff_raw.gin',
+                          loader='llff', data_dir=data)
+  raw_steps = paths['rawnerf_train']
+  log(f'{tag} ({card}): capture written in {write_s:.1f} s; median step '
+      f'{step_s * 1e3:.3f} ms at {RAW_RAYS} rays ({RAW_RAYS / step_s:,.0f} '
+      f'train rays/s), max memory allocated {peak_gib:.2f} GiB; data loss '
+      f'{np.mean(trained["data_losses"][:10]):.5f} (steps 1-10) -> '
+      f'{np.mean(trained["data_losses"][-10:]):.5f} (steps 21-30); exposure '
+      f'offsets at step {ZOO_STEPS} {offsets}; launches in {ZOO_STEPS} '
+      f'steps {raw_steps}; eval of the HDR+ view in {eval_s:.1f} s: psnr '
+      f'{scores["psnr"]}, ssim {scores["ssim"]}, affine-corrected psnr '
+      f'{scores["cc_psnr"]}, ssim {scores["cc_ssim"]}; 256x192 frames in '
+      f'{", ".join(f"{s:.3f}" for s in frames["seconds"])} s')
+  return results, paths
+
+
+def _distractor_shares(config, ckpt_dir, threshold, batches=8,
+                       device='cuda'):
+  """The trained model's RobustNeRF mask on `batches` device-plane batches
+  of the train split: (the inlier share, the share of distractor pixels
+  masked out, the share of clean pixels masked out)."""
+  from multinerf_tpu_torch import robust
+  from multinerf_tpu_torch import train
+  from multinerf_tpu_torch import train_lib
+  from multinerf_tpu_torch.data import datasets
+  from multinerf_tpu_torch.data import device_sampler
+  from multinerf_tpu_torch.utils import checkpoints as ckpt_lib
+  model, state, _, _, _ = train_lib.setup_model(config, train.SEED,
+                                                torch.device(device))
+  ckpt_lib.CheckpointManager(ckpt_dir).restore_latest(
+      ckpt_lib.TrainState(step=0, params=state.params))
+  generator = torch.Generator(device=device).manual_seed(0)
+  kept, distractor, clean = [], [], []
+  with datasets.load_dataset('train', None, config) as dataset:
+    plane = device_sampler.DeviceDataPlane(dataset, config, device)
+    marks = torch.tensor(dataset.distractor_masks, device=device)
+    for _ in range(batches):
+      pix_x, pix_y, cam_idx = plane.draw(generator)
+      batch = plane.make_batch(pix_x, pix_y, cam_idx)
+      rays, unflatten = train_lib.flatten_patches(batch, config)
+      with torch.inference_mode():
+        rgb = unflatten(model(rays, 1.0, False)[0][-1]['rgb'])
+        mask, _ = robust.robustnerf_mask((rgb - batch.rgb)**2, threshold,
+                                         config)
+      mask = mask[..., 0] > 0
+      on = marks[cam_idx.expand_as(pix_x), pix_y, pix_x]
+      kept.append(mask.float().mean())
+      distractor.append((~mask[on]).float().sum() / on.sum().clamp(min=1))
+      clean.append((~mask[~on]).float().sum() / (~on).sum().clamp(min=1))
+  return tuple(float(torch.stack(v).mean()) for v in (kept, distractor,
+                                                       clean))
+
+
+def phase_robustnerf(card):
+  """RobustNeRF: ``configs/360_robustnerf.gin`` at full width on
+  ``dummy_distractor`` (5 solid squares pasted into each train view), 30
+  steps of 4,096 rays (16 patches of 16 x 16) on the host path and 30 on
+  the device plane, the loss threshold fed back from each step to the next
+  as a device tensor; K1-K4 every step.  Logs the mask's inlier share and,
+  from the trained model, the share of distractor and of clean pixels
+  masked out (recorded, not bounded), and holds one 256-ray step (one
+  patch) on the GPU against the CPU.  Returns {path: launches}."""
+  import argparse
+  from multinerf_tpu_torch import configs
+  tag = 'robustnerf'
+  data = ("Config.dataset_loader='dummy_distractor'",)
+  paths = {}
+  with tempfile.TemporaryDirectory() as tmp:
+    ckpt = os.path.join(tmp, 'ckpt')
+    seen = []
+    paths['robustnerf_train'], step_s, trained = phase_train(
+        f'{tag} train', (), ZOO_STEPS, F32_TRAIN, gin='360_robustnerf.gin',
+        data=data, ckpt_dir=ckpt, thresholds=seen)
+    if seen[0] != 1.0 or not all(
+        torch.is_tensor(t) and t.is_cuda and t.dim() == 0 for t in seen[1:]):
+      raise SystemExit(f'FAIL {tag}: thresholds {seen[:3]}')
+    seen_plane = []
+    paths['robustnerf_device_plane'], plane_s, on_plane = phase_train(
+        f'{tag} train device plane', ('Config.device_data_plane=True',),
+        ZOO_STEPS, F32_TRAIN, gin='360_robustnerf.gin', data=data,
+        thresholds=seen_plane)
+    if not all(torch.is_tensor(t) and t.is_cuda for t in seen_plane[1:]):
+      raise SystemExit(f'FAIL {tag} device plane: thresholds '
+                       f'{seen_plane[:3]}')
+    config = configs.load_config(argparse.Namespace(
+        gin_configs=[os.path.join(REPO, 'configs', '360_robustnerf.gin')],
+        gin_bindings=["Config.dataset_loader = 'dummy_distractor'",
+                      f'Config.batch_size = {TRAIN_RAYS}']))
+    threshold = trained['stats']['loss_threshold']
+    kept, distractor, clean = _distractor_shares(config, ckpt, threshold)
+  phase_train_reference(f'{tag} train reference', gin='360_robustnerf.gin',
+                        loader='dummy_distractor', loss_tol=ZOO_LOSS_TOL)
+  stats = trained['stats']
+  log(f'{tag} ({card}): median step {step_s * 1e3:.3f} ms host path, '
+      f'{plane_s * 1e3:.3f} ms device plane ({TRAIN_RAYS / step_s:,.0f} and '
+      f'{TRAIN_RAYS / plane_s:,.0f} train rays/s); thresholds fed back '
+      f'{", ".join(f"{float(t):.4g}" for t in seen[:4])} ... '
+      f'{float(seen[-1]):.4g}; last step: mask inlier share '
+      f'{stats["mask"]:.4f}, is_inlier_loss {stats["is_inlier_loss"]:.4f}, '
+      f'has_inlier_neighbors {stats["has_inlier_neighbors"]:.4f}, '
+      f'is_inlier_patch {stats["is_inlier_patch"]:.4f} (device plane '
+      f'{on_plane["stats"]["mask"]:.4f}); trained model, 8 batches: inlier '
+      f'share {kept:.4f}, distractor pixels masked {distractor:.4f}, clean '
+      f'pixels masked {clean:.4f}')
+  return paths
+
+
+def phase_glo(card):
+  """GLO: ``configs/360_glo4.gin`` at full width on ``dummy_unbounded``,
+  30 steps of 4,096 rays (each ray's camera row of the GLO table; K1-K4
+  every step), ``eval.main`` over 3 test views and ``render.main`` over 2
+  (zero GLO vectors, K1/K2 in each), and one 256-ray step on the GPU
+  against the CPU.  Returns {path: launches}."""
+  from multinerf_tpu_torch import eval as eval_lib
+  from multinerf_tpu_torch import render
+  tag = 'glo'
+  data = ("Config.dataset_loader='dummy_unbounded'",)
+  no_train = F32_TRAIN[0][2:] + F32_RENDER[1]
+  paths = {}
+  with tempfile.TemporaryDirectory() as tmp:
+    ckpt = os.path.join(tmp, 'ckpt')
+    paths['glo_train'], step_s, _ = phase_train(
+        f'{tag} train', (), ZOO_STEPS, F32_TRAIN, gin='360_glo4.gin',
+        data=data, ckpt_dir=ckpt)
+    glo = torch.load(os.path.join(ckpt, f'checkpoint_{ZOO_STEPS}.pt'),
+                     weights_only=True)['params']['Embed_0/embedding']
+    first = torch.load(os.path.join(ckpt, 'checkpoint_1.pt'),
+                       weights_only=True)['params']['Embed_0/embedding']
+    moved = float((glo[:48] - first[:48]).norm() / first[:48].norm())
+    argv = _zoo_argv('360_glo4.gin', ckpt, data)
+    evaluated, launches, plain = _counted(eval_lib.main, argv + [
+        f'--gin_bindings=Config.eval_dataset_limit={ZOO_EVAL_VIEWS}'])
+    _check_launches(f'{tag} eval', launches, plain,
+                    (F32_RENDER[0], no_train))
+    paths['glo_eval'] = launches
+    scores = _eval_scores(tag, evaluated, ('psnr', 'ssim'), ZOO_EVAL_VIEWS)
+    frames, launches, plain = _counted(render.main, argv + [
+        f"--gin_bindings=Config.render_dir='{tmp}/render'",
+        '--gin_bindings=Config.render_num_jobs=24'])
+    _check_launches(f'{tag} render', launches, plain,
+                    (F32_RENDER[0], no_train))
+    paths['glo_render'] = launches
+    if frames['frames'] != [0, 24]:
+      raise SystemExit(f'FAIL {tag} render: frames {frames["frames"]}')
+    _check_frames(f'{tag} render 64x64', frames, (64, 64))
+  phase_train_reference(f'{tag} train reference', gin='360_glo4.gin',
+                        loss_tol=ZOO_LOSS_TOL)
+  log(f'{tag} ({card}): median step {step_s * 1e3:.3f} ms '
+      f'({TRAIN_RAYS / step_s:,.0f} train rays/s); the train views\' GLO '
+      f'rows moved {moved:.3e} (relative L2) from step 1; eval (zero GLO) '
+      f'psnr {scores["psnr"]}, ssim {scores["ssim"]}; 64x64 frames in '
+      f'{", ".join(f"{s:.3f}" for s in frames["seconds"])} s')
+  return paths
 
 
 SOURCES = {
@@ -1728,7 +2178,7 @@ def main():
   results.update(phase_int8_kernels())
   paths = {'render': phase_main_path()}
   phase_reference()
-  paths['train'], host_step_s = phase_train()
+  paths['train'], host_step_s, _ = phase_train()
   phase_train_reference()
   paths['train_driver'] = phase_train_driver(card, host_step_s)
   paths['render_bfloat16'] = phase_main_path('render bfloat16', BF16_BINDINGS,
@@ -1753,6 +2203,12 @@ def main():
   paths.update(more)
   for name, summary in llff.items():
     results[name]['llff_256'] = summary
+  raw_kernels, more = phase_rawnerf(card)
+  paths.update(more)
+  for name, summary in raw_kernels.items():
+    results[name]['llff_raw'] = summary
+  paths.update(phase_robustnerf(card))
+  paths.update(phase_glo(card))
   bounds = kernel_bounds()
   chunk = bounds.pop('int8_trunk_render_chunk')
   results['int8_trunk']['render_chunk'].update(

@@ -3,7 +3,9 @@
 The port's modules register their parameters under the flax names and in
 the flax layout (``NerfMLP_0/Dense_0/kernel`` is [in, out]), so the bridge
 is a renaming: the flax path joined with '/' is the checkpoint name, and
-joined with '.' the PyTorch ``state_dict`` key.  No transposes.
+joined with '.' the PyTorch ``state_dict`` key.  No transposes.  The
+Model's embedding tables keep flax's names too: ``Embed_0/embedding``
+(GLO) and ``exposure_scaling_offsets/embedding`` (RawNeRF).
 """
 
 from __future__ import annotations

@@ -13,17 +13,21 @@ carries the pixels' ``disps``, or ``normals`` and ``alphas``
 batches into a queue of 3; it starts at the first ``next()`` and is the
 only user of the random state, so the draws come in the order a
 synchronous loop would make them.  ``close()`` (or leaving a ``with``
-block) stops it.  The synthetic scenes ``dummy_scatter``,
-``dummy_unbounded`` and ``dummy_specular`` are made with the same numpy as
-the JAX loaders (datasets.py:842-959, 995-1079), so both packages see
-identical cameras, images and ground truth.  ``blender`` reads
+block) stops it.  The synthetic scenes ``dummy``, ``dummy_sphere``,
+``dummy_scatter``, ``dummy_unbounded``, ``dummy_distractor`` (with its
+``distractor_masks``) and ``dummy_specular`` are made with the same numpy
+as the JAX loaders (datasets.py:736-1079), so both packages see identical
+cameras, images and ground truth.  With ``Config.apply_bayer_mask`` a train
+batch's ``lossmult`` is the RGGB mask of its pixels (``data/raw.py``).  ``blender`` reads
 ``transforms_{split}.json`` and its PNGs with the port's own PNG reader
 (``utils/io.py``).  The capture loaders (datasets.py:56-90, 358-733) read
 real scenes the same way: ``llff`` (COLMAP's ``sparse/0`` or a
 ``transforms.json``, an ``images_N`` pyramid, Exif exposures, forward-facing
 NDC with a spiral path or a PCA-aligned unbounded scene with an ellipse or
-spline path), ``tat_nerfpp``, ``tat_fvs`` and ``dtu``.  Their images must
-be PNGs: a JPEG raises NotImplementedError (``utils/io.py``).
+spline path; with ``Config.rawnerf_mode`` the raw mosaics of ``raw/``
+and their exposure metadata, HDR+ test scenes included), ``tat_nerfpp``,
+``tat_fvs`` and ``dtu``.  Their images must be PNGs: a JPEG raises
+NotImplementedError (``utils/io.py``).
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ import numpy as np
 
 from multinerf_tpu_torch.data import cameras as camera_lib
 from multinerf_tpu_torch.data import colmap
+from multinerf_tpu_torch.data import raw as raw_lib
 from multinerf_tpu_torch.data import types
 from multinerf_tpu_torch.ops import image_ops
 from multinerf_tpu_torch.utils import io as io_lib
@@ -53,15 +58,13 @@ def load_dataset(split, train_dir, config, seed=0):
       'tat_nerfpp': TanksAndTemplesNerfPP,
       'tat_fvs': TanksAndTemplesFVS,
       'dtu': DTU,
+      'dummy': Dummy,
+      'dummy_sphere': DummySphere,
       'dummy_scatter': DummyScatter,
       'dummy_unbounded': DummyUnbounded,
       'dummy_specular': DummySpecular,
+      'dummy_distractor': DummyDistractor,
   }
-  if config.dataset_loader not in loaders:
-    raise NotImplementedError(
-        f'Not ported yet: dataset_loader={config.dataset_loader!r} '
-        '(ROADMAP.md Queue 1 item 4: the rest of the model zoo, the '
-        'synthetic scenes).')
   return loaders[config.dataset_loader](split, train_dir, config, seed=seed)
 
 
@@ -122,10 +125,7 @@ class Dataset(metaclass=abc.ABCMeta):
     self._load_disps = config.compute_disp_metrics
     self._load_normals = config.compute_normal_metrics
     self._num_border_pixels_to_mask = config.num_border_pixels_to_mask
-    if config.apply_bayer_mask:
-      raise NotImplementedError(
-          'Not ported yet: the Bayer mask (ROADMAP.md Queue 1: the rest of '
-          'the model zoo, RawNeRF).')
+    self._apply_bayer_mask = config.apply_bayer_mask
     self.data_dir = data_dir
     self.near = config.near
     self.far = config.far
@@ -283,7 +283,12 @@ class Dataset(metaclass=abc.ABCMeta):
       cam_idx = self._rng.randint(0, self._n_examples, (num_patches, 1, 1))
     else:
       cam_idx = self._rng.randint(0, self._n_examples, (1,))
-    return self._make_ray_batch(pix_x_int, pix_y_int, cam_idx)
+    lossmult = None
+    if self._apply_bayer_mask:
+      # RawNeRF: each pixel's loss on its own channel of the RGGB mosaic.
+      lossmult = raw_lib.pixels_to_bayer_mask(pix_x_int, pix_y_int)
+    return self._make_ray_batch(pix_x_int, pix_y_int, cam_idx,
+                                lossmult=lossmult)
 
   def generate_ray_batch(self, cam_idx: int) -> types.Batch:
     """The rays of every pixel of camera `cam_idx`, [H, W] batch dims."""
@@ -307,7 +312,8 @@ class Blender(Dataset):
   RGBA PNGs over a white background, ``_normal.png`` ground truth."""
 
   def _load_renderings(self, config):
-    later = 'ROADMAP.md Queue 1 item 4: the rest of the model zoo, loaders'
+    later = ('ROADMAP.md Queue 1 item 4: the rest of the model zoo, the '
+             'TIFF reader')
     if config.render_path:
       raise ValueError('render_path cannot be used for the blender dataset.')
     if config.use_tiffs or self._load_disps:
@@ -357,12 +363,13 @@ class LLFF(Dataset):
   normalization with a render path, split selection."""
 
   def _downsampling_factor(self, config):
-    """The image pyramid level to read: ``images_{factor}``."""
-    if config.rawnerf_mode:
-      raise NotImplementedError(
-          'Not ported yet: RawNeRF captures (Config.rawnerf_mode; ROADMAP.md '
-          'Queue 1 item 4: the rest of the model zoo, RawNeRF).')
-    return config.factor if config.factor > 0 else 1
+    """The image pyramid level to read: ``images_{factor}``; raw training
+    reads level 0, as downsampling would lose the mosaic's phase."""
+    raw_train = (config.rawnerf_mode and
+                 self.split == types.DataSplit.TRAIN)
+    if config.factor > 0 and not raw_train:
+      return config.factor
+    return 1
 
   def _recover_poses(self, config, factor):
     """Stage 1: the image names and [N, 3, 4] camera-to-world poses in the
@@ -391,10 +398,18 @@ class LLFF(Dataset):
     self.camtype = camtype
     return names, poses
 
-  def _decode_pixels(self, image_names, factor):
-    """Stage 2: the [N, H, W, 3] images of `image_names` from the pyramid
-    level, and the exposures (shutter x ISO / 1000) of the originals' Exif
-    when they carry it."""
+  def _decode_pixels(self, config, image_names, factor):
+    """Stage 2: (the [N, H, W, 3] images of `image_names`, whether the
+    scene is a RawNeRF HDR+ test scene).  With ``rawnerf_mode`` the raw
+    mosaics of ``raw/``, demosaicked (``data/raw.py``), with their metadata
+    in ``self.metadata``; else the pyramid level, and the exposures (shutter
+    x ISO / 1000) of the originals' Exif when they carry it."""
+    if config.rawnerf_mode:
+      images, self.metadata, raw_testscene = raw_lib.load_raw_dataset(
+          self.split, self.data_dir, image_names,
+          config.exposure_percentile, factor)
+      return images, raw_testscene
+
     originals_dir = os.path.join(self.data_dir, 'images')
     level_dir = originals_dir if factor == 1 else (
         os.path.join(self.data_dir, f'images_{factor}'))
@@ -418,7 +433,7 @@ class LLFF(Dataset):
           [float(x['ExposureTime']) * float(x['ISOSpeedRatings'])
            for x in self.exifs])
       self.exposures = shutter_iso / 1000.0
-    return images
+    return images, False
 
   def _normalize_world(self, config, poses):
     """Stage 3: the COLMAP frame to the rendering frame, and a render path.
@@ -461,14 +476,14 @@ class LLFF(Dataset):
           z_phase=config.z_phase)
     return poses
 
-  def _split_indices(self, config, num_images):
+  def _split_indices(self, config, num_images, raw_testscene):
     """Stage 4: the image indices of this split (every llffhold-th one is
-    a test view)."""
+    a test view; an HDR+ test scene trains on every bracketed shot)."""
     everything = np.arange(num_images)
     held_out = everything % config.llffhold == 0
     if self.split == types.DataSplit.TEST:
       return everything[held_out]
-    if config.llff_use_all_images_for_training:
+    if config.llff_use_all_images_for_training or raw_testscene:
       return everything
     return everything[~held_out]
 
@@ -476,15 +491,23 @@ class LLFF(Dataset):
     factor = self._downsampling_factor(config)
     image_names, poses = self._recover_poses(config, factor)
     self._image_names = image_names
-    images = self._decode_pixels(image_names, factor)
+    images, raw_testscene = self._decode_pixels(config, image_names, factor)
     poses = self._normalize_world(config, poses)
+    if raw_testscene:
+      # The first COLMAP pose is the ground-truth test view's; the rest
+      # train.
+      poses = (poses[:1] if self.split == types.DataSplit.TEST
+               else poses[1:])
     self.poses = poses
 
-    keep = self._split_indices(config, images.shape[0])
+    keep = self._split_indices(config, images.shape[0], raw_testscene)
     images = images[keep]
     poses = poses[keep]
     if self.exposures is not None:
       self.exposures = self.exposures[keep]
+    if config.rawnerf_mode:
+      for key in ['exposure_idx', 'exposure_values']:
+        self.metadata[key] = self.metadata[key][keep]
 
     self.images = images
     self.camtoworlds = self.render_poses if config.render_path else poses
@@ -681,6 +704,95 @@ def _decompose_projection_matrix(p: np.ndarray):
   return k, r, c
 
 
+class Dummy(Dataset):
+  """A directional light field for tests (datasets.py:736-778): four
+  cameras on a circle, each pixel's color a smooth function of its view
+  direction."""
+
+  NUM_IMAGES = 4
+  RESOLUTION = 16
+
+  def _load_renderings(self, config):
+    rng = np.random.RandomState(42)
+    n = self.NUM_IMAGES
+    res = self.RESOLUTION
+    poses = []
+    for i in range(n):
+      theta = 2 * np.pi * i / n
+      position = np.array([4 * np.cos(theta), 4 * np.sin(theta), 1.0])
+      poses.append(camera_lib.viewmatrix(
+          lookdir=position, up=np.array([0.0, 0.0, 1.0]), position=position))
+    self.camtoworlds = np.stack(poses).astype(np.float32)
+    self.height = self.width = res
+    self.focal = res * 1.2
+    self.pixtocams = camera_lib.get_pixtocam(self.focal, self.width,
+                                             self.height)
+    images = []
+    for i in range(n):
+      pix_x, pix_y = camera_lib.pixel_coordinates(res, res)
+      _, _, viewdirs, _, _ = camera_lib.pixels_to_rays(
+          pix_x, pix_y, self.pixtocams, self.camtoworlds[i], xnp=np)
+      images.append(0.5 + 0.5 * np.sin(2.5 * viewdirs))
+    self.images = np.stack(images).astype(np.float32)
+    if self._load_disps:
+      self.disp_images = rng.rand(n, res, res).astype(np.float32)
+    if self._load_normals:
+      normals = rng.randn(n, res, res, 3).astype(np.float32)
+      self.normal_images = normals / np.linalg.norm(
+          normals, axis=-1, keepdims=True)
+      self.alphas = np.ones((n, res, res), np.float32)
+
+
+class DummySphere(Dataset):
+  """A textured unit sphere over a white background (datasets.py:
+  781-839): real parallax and analytic depth; the test ring sits higher
+  and at offset azimuths."""
+
+  NUM_IMAGES = 12
+  RESOLUTION = 32
+
+  def _load_renderings(self, config):
+    n = self.NUM_IMAGES
+    res = self.RESOLUTION
+    test = self.split == types.DataSplit.TEST
+    poses = []
+    for i in range(n):
+      theta = 2 * np.pi * (i + (0.5 if test else 0.0)) / n
+      height = 1.5 if test else 1.0
+      position = np.array(
+          [3.5 * np.cos(theta), 3.5 * np.sin(theta), height])
+      poses.append(camera_lib.viewmatrix(
+          lookdir=position, up=np.array([0.0, 0.0, 1.0]), position=position))
+    self.camtoworlds = np.stack(poses).astype(np.float32)
+    self.height = self.width = res
+    self.focal = res * 1.4
+    self.pixtocams = camera_lib.get_pixtocam(self.focal, self.width,
+                                             self.height)
+    images = []
+    disps = []
+    for i in range(n):
+      pix_x, pix_y = camera_lib.pixel_coordinates(res, res)
+      origins, _, viewdirs, _, _ = camera_lib.pixels_to_rays(
+          pix_x, pix_y, self.pixtocams, self.camtoworlds[i], xnp=np)
+      # |o + t d|^2 = 1 with a unit d.
+      b = 2 * np.sum(origins * viewdirs, -1)
+      c = np.sum(origins**2, -1) - 1.0
+      disc = b**2 - 4 * c
+      hit = disc > 0
+      t_hit = np.where(hit, (-b - np.sqrt(np.maximum(disc, 0))) / 2, np.inf)
+      t_safe = np.where(hit, t_hit, 0.0)
+      p = origins + t_safe[..., None] * viewdirs
+      texture = 0.5 + 0.5 * np.sin(5.0 * p)
+      images.append(np.where(hit[..., None], texture, 1.0).astype(np.float32))
+      disps.append((1.0 / np.maximum(t_hit, 1e-3)).astype(np.float32))
+    self.images = np.stack(images)
+    if self._load_disps:
+      self.disp_images = np.stack(disps)
+    if self._load_normals:
+      self.normal_images = self.images * 0  # A placeholder, as in JAX.
+      self.alphas = np.ones((n, res, res), np.float32)
+
+
 class DummyScatter(Dataset):
   """Small spheres scattered in mostly empty space, analytic ground truth."""
 
@@ -774,6 +886,33 @@ class DummyUnbounded(DummyScatter):
     q = (origins + t[..., None] * viewdirs) / cls.SHELL_RADIUS
     phases = np.array([0.0, 2.1, 4.2], np.float32)
     return (0.5 + 0.5 * np.sin(6.0 * q + phases)).astype(np.float32)
+
+
+class DummyDistractor(DummyScatter):
+  """DummyScatter with transient distractors in the train views
+  (datasets.py:962-992): five solid-color 8 x 8 squares at random places
+  in each train image, content no 3D scene explains (RobustNeRF's
+  synthetic-distractor protocol).  ``distractor_masks`` ([n, h, w] bool,
+  train split only) marks them; the test views stay clean."""
+
+  NUM_DISTRACTORS = 5
+  DISTRACTOR_SIZE = 8
+
+  def _load_renderings(self, config):
+    super()._load_renderings(config)
+    if self.split == types.DataSplit.TEST:
+      return
+    rng = np.random.RandomState(777)
+    n, h, w, _ = self.images.shape
+    self.images = np.array(self.images)  # An own, writable copy.
+    self.distractor_masks = np.zeros((n, h, w), bool)
+    s = self.DISTRACTOR_SIZE
+    for i in range(n):
+      for _ in range(self.NUM_DISTRACTORS):
+        y = rng.randint(0, h - s)
+        x = rng.randint(0, w - s)
+        self.images[i, y:y + s, x:x + s] = rng.rand(3).astype(np.float32)
+        self.distractor_masks[i, y:y + s, x:x + s] = True
 
 
 class DummySpecular(Dataset):

@@ -9,7 +9,8 @@ per step.  The draws follow ``Dataset._next_train``'s rules (border mask,
 patches, all-images or single-image batching), not its random stream: the
 rays of given pixel and camera indices equal the host caster's, and so do
 the ``disps``, ``normals`` and ``alphas`` of the metrics when the config
-asks for them.
+asks for them, the RGGB ``lossmult`` of ``Config.apply_bayer_mask`` and
+RawNeRF's ``exposure_idx`` and ``exposure_values``.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from multinerf_tpu_torch.data import cameras as camera_lib
+from multinerf_tpu_torch.data import raw
 from multinerf_tpu_torch.data import types
 
 
@@ -26,10 +28,7 @@ class DeviceDataPlane:
 
   def __init__(self, dataset, config, device):
     """Upload a train Dataset's images and cameras to `device`."""
-    if config.apply_bayer_mask:
-      raise NotImplementedError(
-          'Not ported yet: the Bayer mask (ROADMAP.md Queue 1 item 4: the '
-          'rest of the model zoo, RawNeRF).')
+    self._apply_bayer_mask = config.apply_bayer_mask
     self.device = torch.device(device)
     self.camtype = dataset.camtype
     self._patch_size = max(config.patch_size, 1)
@@ -55,14 +54,14 @@ class DeviceDataPlane:
                     distortion_params,
                     None if pixtocam_ndc is None else as_f32(pixtocam_ndc))
     records = dataset.exposure_records(np.arange(self.images.shape[0]))
-    self._exposure_values = None
+    self._exposure_values = self._exposure_idx = None
     if 'exposure_values' in records:
       self._exposure_values = as_f32(np.broadcast_to(
           records['exposure_values'], (self.images.shape[0],)))
     if 'exposure_idx' in records:
-      raise NotImplementedError(
-          'Not ported yet: RawNeRF exposure indices (ROADMAP.md Queue 1 item '
-          '4: the rest of the model zoo, RawNeRF).')
+      self._exposure_idx = torch.tensor(np.array(np.broadcast_to(
+          records['exposure_idx'], (self.images.shape[0],))),
+                                        device=self.device)
 
   def draw(self, generator):
     """(pix_x, pix_y, cam_idx): int64 [P, ps, ps] pixel coordinates of
@@ -89,8 +88,13 @@ class DeviceDataPlane:
     shape = pix_x.shape
     cam = cam_idx.expand(shape)
     ones = torch.ones(shape + (1,), dtype=torch.float32, device=self.device)
-    kw = dict(lossmult=ones, near=self.near * ones, far=self.far * ones,
+    lossmult = ones
+    if self._apply_bayer_mask:
+      lossmult = raw.pixels_to_bayer_mask(pix_x, pix_y, xnp=torch)
+    kw = dict(lossmult=lossmult, near=self.near * ones, far=self.far * ones,
               cam_idx=cam[..., None])
+    if self._exposure_idx is not None:
+      kw['exposure_idx'] = self._exposure_idx[cam][..., None]
     if self._exposure_values is not None:
       kw['exposure_values'] = self._exposure_values[cam][..., None]
     rays = camera_lib.cast_ray_batch(
@@ -116,12 +120,13 @@ class DeviceDataPlane:
 
 def create_device_train_step(train_step, plane: DeviceDataPlane):
   """A step that samples its own batch on the device:
-  (generator, state, train_frac, compute_stats) -> (state, stats), around
-  `train_step` of ``train_lib.create_train_step``.  The generator draws the
-  pixels, then the step's jitter."""
+  (generator, state, train_frac, compute_stats[, loss_threshold]) ->
+  (state, stats), around `train_step` of ``train_lib.create_train_step``.
+  The generator draws the pixels, then the step's jitter."""
 
-  def step(generator, state, train_frac, compute_stats):
+  def step(generator, state, train_frac, compute_stats, loss_threshold=1.0):
     batch = plane.sample_batch(generator)
-    return train_step(generator, state, batch, train_frac, compute_stats)
+    return train_step(generator, state, batch, train_frac, compute_stats,
+                      loss_threshold)
 
   return step

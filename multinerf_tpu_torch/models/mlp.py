@@ -36,12 +36,14 @@ The trunk takes one of two paths, chosen as mlp.py:281-289 chooses:
 Then the density head, the Ref-NeRF heads, the bottleneck, the view
 encoding (``pos_enc`` per ray, or the IDE of reflected directions per
 sample), n.v, the view branch and the rgb head, with the diffuse/specular
-combination through ``linear_to_srgb`` (mlp.py:404-504).  The heads are f32
-products, which promote a bf16 input.  ``use_fused_featurize=None`` takes
-the fused kernels on the CPU too (through their plain versions), unlike
-mlp.py:288.  Density and bottleneck noise, and int8 trunks with density
-normals, raise NotImplementedError naming the ROADMAP item that brings
-them.
+combination through ``linear_to_srgb`` (mlp.py:404-504), the view branch taking
+the per-ray GLO vector last (mlp.py:481-482).  The heads are f32 products,
+which promote a bf16 input.  ``use_fused_featurize=None`` takes the fused
+kernels on the CPU too (through their plain versions), unlike mlp.py:288.
+Density and bottleneck noise (RawNeRF's) are drawn from the training
+step's ``torch.Generator`` and are off without one (eval, render).  Int8
+trunks with density normals raise NotImplementedError naming the ROADMAP
+item that brings them.
 """
 
 from __future__ import annotations
@@ -172,8 +174,10 @@ class MLP(nn.Module):
   """The positional-encoding MLP with its Ref-NeRF heads (forward at
   rng=None)."""
 
-  def __init__(self, cfg: MLPConfig, use_viewdirs=True, *, generator,
-               device):
+  def __init__(self, cfg: MLPConfig, use_viewdirs=True, num_glo_features=0,
+               *, generator, device):
+    """`num_glo_features`: the width of the GLO vector the view branch
+    takes per ray (0: none)."""
     super().__init__()
     problem = _unsupported(cfg)
     if problem:
@@ -183,6 +187,7 @@ class MLP(nn.Module):
       raise ValueError('Normals must be computed for reflection directions.')
     self.cfg = cfg
     self.use_viewdirs = use_viewdirs
+    self.num_glo_features = num_glo_features
     self.pos_basis_t = np.array(
         geopoly.generate_basis(cfg.basis_shape, cfg.basis_subdivisions)).T
     self.num_feats = 2 * (cfg.max_deg_point - cfg.min_deg_point) * (
@@ -232,7 +237,8 @@ class MLP(nn.Module):
         self.heads['tint'] = dense(x_width, 3)
       if cfg.enable_pred_roughness:
         self.heads['roughness'] = dense(x_width, 1)
-      inputs_width = self._dir_enc_width() + int(cfg.use_n_dot_v)
+      inputs_width = (self._dir_enc_width() + int(cfg.use_n_dot_v) +
+                      num_glo_features)
       if cfg.bottleneck_width > 0:
         self.heads['bottleneck'] = dense(x_width, cfg.bottleneck_width)
         inputs_width += cfg.bottleneck_width
@@ -317,14 +323,17 @@ class MLP(nn.Module):
     x = trunk(means, covs)
     return head(x)[..., 0], x
 
-  def forward(self, means, covs, viewdirs=None, generator=None):
+  def forward(self, means, covs, viewdirs=None, glo_vec=None,
+              generator=None):
     """Density, color, normals and roughness of sample Gaussians.
 
     Args:
       means: [..., S, 3]; covs: [..., S, 3, 3] sample Gaussians.
       viewdirs: [..., 3] unit view directions per ray, or None.
+      glo_vec: [..., num_glo_features] GLO vector per ray, or None.
       generator: the training step's torch.Generator, or None (the JAX
-        rng=None); only density and bottleneck noise would draw from it.
+        rng=None): the density noise, then the bottleneck noise, are drawn
+        from it when their multipliers are positive.
 
     Returns:
       dict with 'density' [..., S], 'rgb' [..., S, 3], and 'normals',
@@ -332,11 +341,11 @@ class MLP(nn.Module):
       'roughness' [..., S, 1], each None where the MLP has no such output.
     """
     cfg = self.cfg
-    if generator is not None and (cfg.density_noise > 0 or
-                                  cfg.bottleneck_noise > 0):
-      raise NotImplementedError(
-          'Not ported yet: density and bottleneck noise (ROADMAP.md Queue 1 '
-          'item 4: the rest of the model zoo, RawNeRF).')
+    takes_glo = (self.num_glo_features > 0 and self.use_viewdirs and
+                 not cfg.disable_rgb)
+    if (glo_vec is not None) != takes_glo:
+      raise ValueError(f'this MLP takes {self.num_glo_features} GLO '
+                       'features in its view branch.')
     sample_shape = means.shape[:-1]
     means = means.reshape(-1, 3)
     covs = covs.reshape(-1, 3, 3)
@@ -369,6 +378,15 @@ class MLP(nn.Module):
       # Normals point against the (pre-activation) density gradient.
       normals = -ref_utils.l2_normalize(raw_grad_density)
 
+    def noise(x, scale):
+      """x plus `scale` times unit normal noise from the generator (on the
+      fused path after the kernel, as mlp.py:328-330 adds it)."""
+      return x + scale * torch.randn(x.shape, generator=generator,
+                                     dtype=x.dtype, device=x.device)
+
+    if generator is not None and cfg.density_noise > 0:
+      raw_density = noise(raw_density, cfg.density_noise)
+
     grad_pred = normals_pred = None
     normals_to_use = normals
     if cfg.enable_pred_normals:
@@ -394,7 +412,10 @@ class MLP(nn.Module):
               self.heads['roughness'](x) + cfg.roughness_bias)
         parts = []
         if 'bottleneck' in self.heads:
-          parts.append(self.heads['bottleneck'](x))
+          bottleneck = self.heads['bottleneck'](x)
+          if generator is not None and cfg.bottleneck_noise > 0:
+            bottleneck = noise(bottleneck, cfg.bottleneck_noise)
+          parts.append(bottleneck)
         if cfg.use_reflections or cfg.use_n_dot_v:
           viewdirs_flat = per_sample(viewdirs)
         if cfg.use_reflections:
@@ -407,6 +428,8 @@ class MLP(nn.Module):
         if cfg.use_n_dot_v:
           parts.append(torch.sum(normals_to_use * viewdirs_flat, dim=-1,
                                  keepdim=True))
+        if glo_vec is not None:
+          parts.append(per_sample(glo_vec))
         x = torch.cat(parts, dim=-1)
         inputs = x
         for i, layer in enumerate(self.view_branch):

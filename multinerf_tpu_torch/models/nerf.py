@@ -12,8 +12,12 @@ level's samples back through the resampling into the previous levels'
 MLPs, which then take the unfused path (nerf.py:95-105: the fused kernels
 give the sample positions no gradient).  The normals and roughness of the
 Ref-NeRF MLP are composited per level with the extras (nerf.py:291-300).
-Occupancy culling, GLO and learned exposure scaling are not ported yet and
-raise.
+GLO vectors (nerf.py:117-124) condition the final level's view branch: a
+row of the ``Embed_0`` table per training camera, zeros at eval and render
+(``zero_glo``).  RawNeRF's colors are scaled by each ray's exposure and,
+with ``learned_exposure_scaling``, by a learned RGB scaling per exposure
+bucket (``exposure_scaling_offsets``, index 0 pinned to 1; nerf.py:279-290).
+Occupancy culling is not ported yet and raises.
 
 ``DeviceImageRenderer`` (nerf.py:545-660) uploads the cameras once and casts
 every chunk's rays on the device; one frame is a Python loop over chunks of
@@ -24,6 +28,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
@@ -73,17 +78,25 @@ class ModelConfig:
   opaque_background: bool = False
 
 
+class Embed(nn.Module):
+  """flax ``nn.Embed``'s parameter: an ``embedding`` table [num, features]
+  looked up by index."""
+
+  def __init__(self, num_embeddings, features, init, device):
+    super().__init__()
+    self.embedding = nn.Parameter(init((num_embeddings, features)).to(device))
+
+  def forward(self, idx):
+    return self.embedding[idx]
+
+
 class Model(nn.Module):
-  """A mip-NeRF 360 model containing all MLPs (NerfMLP_0, PropMLP_0)."""
+  """A mip-NeRF 360 model containing all MLPs (NerfMLP_0, PropMLP_0), the
+  GLO table (Embed_0) and RawNeRF's exposure scaling table
+  (exposure_scaling_offsets)."""
 
   def __init__(self, cfg: ModelConfig, *, generator, device):
     super().__init__()
-    later = 'ROADMAP.md Queue 1: the rest of the model zoo'
-    if cfg.num_glo_features > 0:
-      raise NotImplementedError(f'Not ported yet: GLO embeddings ({later}).')
-    if cfg.learned_exposure_scaling:
-      raise NotImplementedError(
-          f'Not ported yet: learned exposure scaling ({later}, RawNeRF).')
     if cfg.config is not None and cfg.config.occupancy_culling:
       raise NotImplementedError(
           'Not ported yet: occupancy culling (ROADMAP.md Queue 1).')
@@ -101,13 +114,28 @@ class Model(nn.Module):
 
     # Built in the JAX creation order: NerfMLP first.
     self.NerfMLP_0 = mlp_lib.MLP(mlp_config('NerfMLP'), cfg.use_viewdirs,
-                                 generator=generator, device=device)
+                                 cfg.num_glo_features, generator=generator,
+                                 device=device)
     if not cfg.single_mlp:
       self.PropMLP_0 = mlp_lib.MLP(mlp_config('PropMLP'), cfg.use_viewdirs,
                                    generator=generator, device=device)
+    if cfg.num_glo_features > 0:
+      # flax's default embedding init (nerf.py:118): a normal of variance
+      # 1 / features.
+      self.Embed_0 = Embed(
+          cfg.num_glo_embeddings, cfg.num_glo_features,
+          lambda shape: torch.randn(shape, generator=generator) /
+          math.sqrt(shape[-1]), device)
+    # JAX creates the exposure table when its init rays carry exposure
+    # indices: with Config.rawnerf_mode (train_lib.py:484).
+    if cfg.learned_exposure_scaling and (cfg.config is None or
+                                         cfg.config.rawnerf_mode):
+      # Zero offsets: every exposure's scaling starts at 1.
+      self.exposure_scaling_offsets = Embed(
+          cfg.num_glo_embeddings, 3, torch.zeros, device)
 
   def forward(self, rays: types.Rays, train_frac, compute_extras,
-              generator=None):
+              generator=None, zero_glo=True):
     """Render a batch of rays through all sampling levels.
 
     Args:
@@ -115,8 +143,11 @@ class Model(nn.Module):
       train_frac: fraction of training done, in [0, 1].
       compute_extras: add the distance statistics and ray bundles.
       generator: a torch.Generator on the rays' device for the jittered
-        sampling and the random background, or None for deterministic
-        output (the JAX rng=None).
+        sampling, the random background and the MLPs' noise, or None for
+        deterministic output (the JAX rng=None).
+      zero_glo: give the final level zero GLO vectors (eval and render,
+        where a camera index names no training image); else each ray's
+        ``cam_idx`` row of the GLO table (training).
 
     Returns:
       (renderings, ray_history): per-level rendering dicts and raw results.
@@ -124,6 +155,14 @@ class Model(nn.Module):
     cfg = self.cfg
     nerf_mlp = self.NerfMLP_0
     prop_mlp = nerf_mlp if cfg.single_mlp else self.PropMLP_0
+    glo_vec = None
+    if cfg.num_glo_features > 0:
+      if zero_glo:
+        glo_vec = torch.zeros(rays.origins.shape[:-1] +
+                              (cfg.num_glo_features,),
+                              device=rays.origins.device)
+      else:
+        glo_vec = self.Embed_0(rays.cam_idx[..., 0].long())
     _, s_to_t = coord.construct_ray_warps(cfg.raydist_fn, rays.near,
                                           rays.far)
     if cfg.near_anneal_rate is None:
@@ -183,6 +222,7 @@ class Model(nn.Module):
       mlp = nerf_mlp if final_level else prop_mlp
       ray_results = mlp(means, covs,
                         viewdirs=rays.viewdirs if cfg.use_viewdirs else None,
+                        glo_vec=glo_vec if final_level else None,
                         generator=generator)
 
       hist_weights = rendering.compute_alpha_weights(
@@ -199,9 +239,17 @@ class Model(nn.Module):
             hist_weights.shape[:-1] + (3,), generator=generator,
             dtype=hist_weights.dtype, device=hist_weights.device)
 
+      # RawNeRF: colors scaled by the ray's exposure, and by a learned
+      # per-exposure RGB scaling whose index 0 is pinned to 1 (it anchors
+      # the scene's brightness).
       if rays.exposure_idx is not None:
         ray_results['rgb'] = (ray_results['rgb'] *
                               rays.exposure_values[..., None, :])
+        if cfg.learned_exposure_scaling:
+          exposure_idx = rays.exposure_idx[..., 0].long()
+          mask = (exposure_idx > 0)[..., None]
+          scaling = 1 + mask * self.exposure_scaling_offsets(exposure_idx)
+          ray_results['rgb'] = ray_results['rgb'] * scaling[..., None, :]
 
       rendering_out = rendering.volumetric_rendering(
           ray_results['rgb'], hist_weights, t_edges, bg_rgbs, rays.far,
@@ -328,9 +376,9 @@ class DeviceImageRenderer:
     records = dataset.exposure_records(np.arange(n_cams))
     self._exposure_idx = self._exposure_values = None
     if 'exposure_idx' in records:
-      self._exposure_idx = torch.as_tensor(np.broadcast_to(
-          np.asarray(records['exposure_idx'], np.int64), (n_cams,)),
-                                           device=device)
+      self._exposure_idx = torch.tensor(np.array(np.broadcast_to(
+          np.asarray(records['exposure_idx'], np.int64), (n_cams,))),
+                                        device=device)
     if 'exposure_values' in records:
       self._exposure_values = as_f32(np.broadcast_to(
           np.asarray(records['exposure_values'], np.float32), (n_cams,)))

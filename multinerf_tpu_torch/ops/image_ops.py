@@ -174,13 +174,16 @@ class MetricHarness:
 
 
 def make_postprocess_fns(config, dataset):
-  """(tonemap fn, color-correction fn) for a dataset's color space: the
-  identity and ``color_correct`` (RawNeRF's are not ported)."""
-  del dataset
-  later = 'ROADMAP.md Queue 1 item 4: the rest of the model zoo, RawNeRF'
+  """(tonemap fn, color-correction fn) for a dataset's color space
+  (image_ops.py:199-215): RawNeRF's raw tonemap (the dataset's
+  ``metadata['postprocess_fn']``, exposure as its optional second argument)
+  or the identity; the affine match of raw-space eval
+  (``Config.eval_raw_affine_cc``) or ``color_correct``."""
+  from multinerf_tpu_torch.data import raw  # data imports this module.
   if config.rawnerf_mode:
-    raise NotImplementedError(f'Not ported yet: the RawNeRF tonemap ({later}).')
-  if config.eval_raw_affine_cc:
-    raise NotImplementedError(
-        f'Not ported yet: the raw affine color correction ({later}).')
-  return (lambda z: z), color_correct
+    postprocess_fn = dataset.metadata['postprocess_fn']
+  else:
+    postprocess_fn = lambda z: z
+  cc_fn = (raw.match_images_affine if config.eval_raw_affine_cc
+           else color_correct)
+  return postprocess_fn, cc_fn

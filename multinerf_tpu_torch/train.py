@@ -14,11 +14,16 @@ every ``print_every``-th, and at each console line (train.py:411-415) the
 TensorBoard summaries under the JAX names: ``train_avg_*`` / ``train_max_*``
 scalars and ``train_*`` histograms of every statistic, ``train_num_params``,
 ``train_learning_rate``, ``train_steps_per_sec``, ``train_rays_per_sec``,
-``train_avg_psnr_timed`` and ``train_avg_psnr_timed_approx``.  Every
+``train_avg_psnr_timed`` and ``train_avg_psnr_timed_approx``, and with
+RawNeRF's learned exposure scaling the ``exposure/scaling_i_j`` offsets
+(its exposure metadata go to text summaries at step 0).  RobustNeRF's loss
+threshold is fed from each step to the next on the device.  Every
 ``train_render_every`` steps a test view is rendered (train.py:53-125) and
 logged: ``test_rays_per_sec``, ``train_metrics/*``, ``test_true_color``
 (and ``test_true_normals`` with ``Config.compute_normal_metrics``) and
-``test_output_*``.  ``Config.early_exit_steps`` (0 included) stops the run
+``test_output_*``; with ``Config.rawnerf_mode`` also the tonemap ladder
+(``color_raw``, ``color_auto``, ``color/{p}``, ``test_true_auto``,
+``test_true_color/{p}``).  ``Config.early_exit_steps`` (0 included) stops the run
 after that many steps, as train.py:235-238.  ``Config.profile_step`` traces
 ``profile_num_steps`` steps with torch.profiler into
 ``checkpoint_dir/profile``.  Rates are taken
@@ -133,10 +138,19 @@ def in_train_test_render(step, renderer, train_frac, test_dataset, config,
   t0 = time.time()
   suite = vis.visualize_suite(rendering, test_case.rays)
   print(f'Visualized in {time.time() - t0:0.3f}s')
-  summary_writer.image('test_true_color', test_case.rgb, step)
+  # The ground truth beside the suite, and RawNeRF's tonemap ladder.
+  truths = {'test_true_color': test_case.rgb}
   if config.compute_normal_metrics:
-    summary_writer.image('test_true_normals', test_case.normals / 2 + 0.5,
-                         step)
+    truths['test_true_normals'] = test_case.normals / 2 + 0.5
+  if config.rawnerf_mode:
+    suite['color_raw'] = rendering['rgb']
+    suite['color_auto'] = postprocess_fn(rendering['rgb'], None)
+    truths['test_true_auto'] = postprocess_fn(test_case.rgb, None)
+    for p, level in test_dataset.metadata['exposure_levels'].items():
+      suite[f'color/{p}'] = postprocess_fn(rendering['rgb'], level)
+      truths[f'test_true_color/{p}'] = postprocess_fn(test_case.rgb, level)
+  for tag, img in truths.items():
+    summary_writer.image(tag, img, step)
   for name, img in suite.items():
     summary_writer.image('test_output_' + name, img, step)
   return n_rays / dt
@@ -151,10 +165,6 @@ def _refuse_unported(config):
     raise NotImplementedError(
         f'Not ported yet: steps_per_jit_call > 1, the scanned multi-step '
         f'plane ({later} item 5).')
-  if config.enable_robustnerf_loss:
-    raise NotImplementedError(
-        f'Not ported yet: RobustNeRF ({later} item 4: the rest of the model '
-        'zoo).')
 
 
 def _profile(device, log_dir):
@@ -192,19 +202,32 @@ def main(argv=None):
                                   seed=DATA_SEED)
   test_dataset = datasets.load_dataset('test', config.data_dir, config)
   postprocess_fn, _ = image_ops.make_postprocess_fns(config, test_dataset)
-  _, state, render_eval_fn, train_step, lr_fn = train_lib.setup_model(
+  model, state, render_eval_fn, train_step, lr_fn = train_lib.setup_model(
       config, SEED, device)
   renderer = models.DeviceImageRenderer(render_eval_fn, config, test_dataset,
                                         device)
   num_params = sum(p.numel() for p in state.params.values())
   print(f'Number of parameters being optimized: {num_params}')
+  if (dataset.size > model.cfg.num_glo_embeddings and
+      model.cfg.num_glo_features > 0):
+    raise ValueError(f'Number of glo embeddings '
+                     f'{model.cfg.num_glo_embeddings} must be at least equal '
+                     f'to number of train images {dataset.size}')
   metric_harness = image_ops.MetricHarness()
 
   ckpt = ckpt_lib.CheckpointManager(config.checkpoint_dir, keep=100)
   state = ckpt.restore_latest(state)
   init_step = state.step + 1
   summary_writer = summary.SummaryWriter(config.checkpoint_dir)
+  if config.rawnerf_mode:
+    for name, data in zip(['train', 'test'], [dataset, test_dataset]):
+      for k in ['exposure_idx', 'exposure_values', 'unique_shutters']:
+        summary_writer.text(f'{name}_{k}', str(data.metadata[k]), 0)
+  exposure_table = state.params.get('exposure_scaling_offsets/embedding')
   generator = torch.Generator(device=device).manual_seed(SEED)
+  # RobustNeRF's threshold: each step's inlier quantile, fed back to the
+  # next step as a device tensor (train.py:296-297).
+  loss_threshold = 1.0
 
   if config.device_data_plane:
     plane = device_sampler.DeviceDataPlane(dataset, config, device)
@@ -250,12 +273,15 @@ def main(argv=None):
       # staging the next one while this step runs on the device.
       t0 = time.perf_counter()
       if config.device_data_plane:
-        state, stats = device_step(generator, state, train_frac, will_print)
+        state, stats = device_step(generator, state, train_frac, will_print,
+                                   loss_threshold)
       else:
         state, stats = train_step(generator, state, prefetcher.take(),
-                                  train_frac, will_print)
+                                  train_frac, will_print, loss_threshold)
         if step < num_steps:
           prefetcher.stage()
+      if config.enable_robustnerf_loss:
+        loss_threshold = stats['loss_threshold']
       if device.type == 'cuda':
         torch.cuda.synchronize(device)
       out['step_seconds'].append(time.perf_counter() - t0)
@@ -295,6 +321,14 @@ def main(argv=None):
         summary_writer.scalar('train_avg_psnr_timed_approx',
                               avg_stats['psnr'],
                               approx_total_time // TIME_PRECISION)
+        if dataset.metadata is not None and exposure_table is not None:
+          # The learned scaling offsets of each shutter bucket.
+          scalings = exposure_table.detach().cpu().numpy()
+          num_shutter_speeds = dataset.metadata['unique_shutters'].shape[0]
+          for i_s in range(num_shutter_speeds):
+            for j_s, value in enumerate(scalings[i_s]):
+              summary_writer.scalar(f'exposure/scaling_{i_s}_{j_s}', value,
+                                    step)
         print(_console_line(step, config, avg_stats, learning_rate,
                             rays_per_sec), flush=True)
         reset_stats = True

@@ -9,8 +9,12 @@ per-module clipping by value then by norm, ``nan_to_num`` of the clipped
 gradients, and Adam on the log-linear learning-rate schedule.  Statistics
 keep the JAX names, flattened with '/' (``losses/data``,
 ``grad_norms/NerfMLP_0``, ...), with the ``disparity_mses`` and
-``normal_maes`` metrics when asked for.  Not ported: the RawNeRF and
-RobustNeRF losses, weight decay and occupancy culling (ROADMAP.md Queue 1).
+``normal_maes`` metrics when asked for.  The data losses are ``mse``,
+``charb``, RawNeRF's ``rawnerf`` (renders clipped at 1, weighted by the
+log tonemap's gradient) and RobustNeRF's ``robustnerf`` (the residuals of
+patches masked by ``robust.robustnerf_mask`` against the loss
+threshold the previous step returned).  Not ported: weight decay and
+occupancy culling (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import numpy as np
 import torch
 
 from multinerf_tpu_torch import bridge
+from multinerf_tpu_torch import robust
 from multinerf_tpu_torch.data import types
 from multinerf_tpu_torch.models import mlp as mlp_lib
 from multinerf_tpu_torch.models import nerf as nerf_lib
@@ -69,14 +74,14 @@ def abs_max_stats(flat):
 # --- Loss terms. ----------------------------------------------------------------
 
 
-def compute_data_loss(batch, renderings, rays, config):
+def compute_data_loss(batch, renderings, rays, loss_threshold, config):
   """Photometric loss over all levels (train_lib.py:77-135): (loss, stats),
-  stats holding the per-level 'mses' and, with the metrics on,
-  'disparity_mses' and 'normal_maes' (detached)."""
-  if config.data_loss_type not in ('mse', 'charb'):
-    raise NotImplementedError(
-        f'Not ported yet: data_loss_type={config.data_loss_type!r} '
-        '(ROADMAP.md Queue 1: the rest of the model zoo).')
+  stats holding the per-level 'mses', with the metrics on
+  'disparity_mses' and 'normal_maes', and with the ``robustnerf`` loss the
+  mask's statistics of the last level (``robust.robustnerf_mask``; its
+  'loss_threshold' is the next step's `loss_threshold`), all detached."""
+  if config.data_loss_type not in ('mse', 'charb', 'rawnerf', 'robustnerf'):
+    raise ValueError(f'Unknown data loss type {config.data_loss_type}')
   lossmult = torch.broadcast_to(rays.lossmult, batch.rgb[..., :3].shape)
   if config.disable_multiscale_loss:
     lossmult = torch.ones_like(lossmult)
@@ -88,8 +93,21 @@ def compute_data_loss(batch, renderings, rays, config):
     mses.append((lossmult * resid_sq).sum() / denom)
     if config.data_loss_type == 'mse':
       data_loss = resid_sq
-    else:
+    elif config.data_loss_type == 'charb':
       data_loss = torch.sqrt(resid_sq + config.charb_padding**2)
+    elif config.data_loss_type == 'rawnerf':
+      # Renders clipped at 1, as the sensor saturates, then weighted by the
+      # gradient of the log tonemap curve (arxiv.org/abs/2111.13679 Eq 6),
+      # which takes no gradient.
+      rgb_render_clip = torch.clamp(rendering['rgb'], max=1.0)
+      resid_sq_clip = (rgb_render_clip - batch.rgb[..., :3])**2
+      scaling_grad = 1.0 / (1e-3 + rgb_render_clip.detach())
+      data_loss = resid_sq_clip * scaling_grad**2
+    else:
+      mask, robust_stats = robust.robustnerf_mask(resid_sq, loss_threshold,
+                                                  config)
+      data_loss = resid_sq * mask
+      metrics.update(robust_stats)
     data_losses.append((lossmult * data_loss).sum() / denom)
     with torch.no_grad():
       if config.compute_disp_metrics:
@@ -109,7 +127,8 @@ def compute_data_loss(batch, renderings, rays, config):
   loss = (config.data_coarse_loss_mult * torch.sum(data_losses[:-1]) +
           config.data_loss_mult * data_losses[-1])
   stats = {'mses': torch.stack(mses).detach()}
-  stats.update({k: torch.stack(v) for k, v in metrics.items()})
+  stats.update({k: torch.stack(v) if isinstance(v, list) else v
+                for k, v in metrics.items()})
   return loss, stats
 
 
@@ -310,19 +329,38 @@ class Prefetcher:
     return batch
 
 
-def loss_and_grads(model, config, batch, train_frac, generator=None):
+def flatten_patches(batch, config):
+  """A patch batch ([P, ps, ps, ...], RobustNeRF's) with its rays
+  flattened to [P * ps * ps, ...], and a function that gives a rendered
+  [P * ps * ps, ...] tensor the patch shape back."""
+  ps = config.patch_size
+  if ps <= 1 or batch.rgb.dim() != 4:
+    return batch.rays, lambda x: x
+  flat = lambda x: None if x is None else x.reshape((-1,) + x.shape[3:])
+  rays = type(batch.rays)(**{f: flat(getattr(batch.rays, f))
+                             for f in batch.rays.__dataclass_fields__})
+  return rays, lambda x: x.reshape(batch.rgb.shape[:3] + x.shape[1:])
+
+
+def loss_and_grads(model, config, batch, train_frac, generator=None,
+                   loss_threshold=1.0):
   """The training loss of `batch` and its gradient (the loss_fn of
-  train_lib.py:302-373 under value_and_grad): (loss, {name: loss term},
-  stats of compute_data_loss, {flax name: raw gradient}).  Leaves ``.grad``
-  set on the model's parameters."""
-  rays = batch.rays
+  train_lib.py:302-373 under value_and_grad, with ``zero_glo=False``):
+  (loss, {name: loss term}, stats of compute_data_loss, {flax name: raw
+  gradient}).  Leaves ``.grad`` set on the model's parameters.  Patches of
+  patch_size > 1 go through the model as flat rays and come back shaped
+  [P, ps, ps, ...] for the data loss (RobustNeRF votes over them)."""
+  rays, unflatten = flatten_patches(batch, config)
   compute_extras = (config.compute_disp_metrics or
                     config.compute_normal_metrics)
   renderings, ray_history = model(rays, train_frac,
                                   compute_extras=compute_extras,
-                                  generator=generator)
+                                  generator=generator, zero_glo=False)
+  shaped = [{k: v if k.startswith('ray_') or v is None else unflatten(v)
+             for k, v in r.items()} for r in renderings]
   losses = {}
-  losses['data'], stats = compute_data_loss(batch, renderings, rays, config)
+  losses['data'], stats = compute_data_loss(batch, shaped, batch.rays,
+                                            loss_threshold, config)
   if config.interlevel_loss_mult > 0:
     losses['interlevel'] = interlevel_loss(ray_history, config)
   if config.distortion_loss_mult > 0:
@@ -344,15 +382,19 @@ def loss_and_grads(model, config, batch, train_frac, generator=None):
 
 
 def create_train_step(model, config, device):
-  """(generator, state, batch, train_frac, compute_stats) -> (state, stats).
+  """(generator, state, batch, train_frac, compute_stats[, loss_threshold])
+  -> (state, stats).
 
   One optimizer step of `model` on a device Batch (``batch_to_device``),
   with ``state.optimizer`` holding Adam over the model's parameters.
   `generator` (a torch.Generator on `device`) draws the jitter when
   ``config.randomized``.  stats: 'loss', 'losses/{data,interlevel,
   distortion,orientation,predicted_normals}', 'mses', 'psnrs', 'psnr'
-  and, with the metrics on, 'disparity_mses' and 'normal_maes' (detached
-  tensors), plus with
+  and, with the metrics on, 'disparity_mses' and 'normal_maes', with the
+  ``robustnerf`` loss 'loss_threshold' (this batch's inlier quantile, the
+  next step's `loss_threshold`: a 0-d tensor on the device, so that
+  feeding it back costs no host sync) and the mask's inlier shares
+  (detached tensors), plus with
   `compute_stats` the tree statistics 'weight_l2s/...' (before the update),
   'grad_norms/...', 'grad_maxes/...' (raw gradients), 'opt_update_norms/...'
   and 'opt_update_maxes/...'.
@@ -364,12 +406,13 @@ def create_train_step(model, config, device):
         f'Not ported yet: weight_decay_mults ({later} item 2b).')
   lr_fn = learning_rate_fn(config)
 
-  def train_step(generator, state, batch, train_frac, compute_stats):
+  def train_step(generator, state, batch, train_frac, compute_stats,
+                 loss_threshold=1.0):
     params = bridge.named_parameters(model)
     state.optimizer.zero_grad(set_to_none=True)
     loss, losses, stats, grads = loss_and_grads(
         model, config, batch, train_frac,
-        generator if config.randomized else None)
+        generator if config.randomized else None, loss_threshold)
 
     stats = dict(stats, loss=loss)
     stats.update({f'losses/{k}': v for k, v in losses.items()})

@@ -8,8 +8,8 @@ and so must ``generate_ray_batch(0)``: the loaders are the same numpy
 arithmetic (bitwise), except where a render path comes from the ellipse,
 whose resampled angles JAX takes in float32 under ``jnp`` (held to
 ELLIPSE_TOL, see tests/test_torch_cameras_capture.py).  Also ``load_exif``
-against Pillow's, and the refusals: a JPEG pyramid, RawNeRF, the unported
-loaders.
+against Pillow's, and the refusals: a JPEG pyramid, pano rendering, a
+RawNeRF config on a capture without ``raw/``.
 """
 
 import json
@@ -412,13 +412,17 @@ def test_refusals(tmp_path):
     datasets.load_dataset('train', str(tmp_path), config)
   with pytest.raises(NotImplementedError, match='item 8: JPEG'):
     io_lib.load_img(str(src))
+  # RawNeRF reads raw/, which this capture lacks: JAX's error.
   _, config = tp.configs(('Config.factor = 2', 'Config.rawnerf_mode = True'))
-  with pytest.raises(NotImplementedError, match='item 4.*RawNeRF'):
+  with pytest.raises(ValueError, match='Raw image folder .*raw does not'):
     datasets.load_dataset('train', str(tmp_path), config)
-  for loader in ('dummy', 'dummy_sphere', 'dummy_distractor'):
+  # The synthetic scenes are ported (tests/test_torch_glo.py,
+  # tests/test_torch_robust.py hold them against JAX).
+  for loader, size in (('dummy', 4), ('dummy_sphere', 12),
+                       ('dummy_distractor', 24)):
     _, config = tp.configs((f"Config.dataset_loader = '{loader}'",))
-    with pytest.raises(NotImplementedError, match='item 4'):
-      datasets.load_dataset('train', None, config)
+    with datasets.load_dataset('train', None, config) as dataset:
+      assert dataset.size == size
   _, config = tp.configs(('Config.factor = 2', 'Config.render_path = True',
                           "Config.render_camtype = 'pano'"))
   dataset = datasets.load_dataset('test', str(tmp_path), config)

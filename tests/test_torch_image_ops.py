@@ -7,6 +7,7 @@ convolutions sum in another order), max |port - JAX| <= 1e-5;
 
 import os
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -15,6 +16,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), 'helpers'))
 import torch_parity as tp  # noqa: E402
 
 from multinerf_tpu.ops import image_ops as jimage_ops  # noqa: E402
+from multinerf_tpu_torch.data import raw  # noqa: E402
 from multinerf_tpu_torch.ops import image_ops  # noqa: E402
 
 TOL = 1e-5
@@ -72,10 +74,12 @@ def test_postprocess_fns_and_what_is_not_ported():
   tonemap, cc_fn = image_ops.make_postprocess_fns(config, None)
   x = np.arange(6.0)
   assert tonemap(x) is x and cc_fn is image_ops.color_correct
-  for binding in ('Config.rawnerf_mode = True',
-                  'Config.eval_raw_affine_cc = True'):
-    _, config = tp.configs((binding,))
-    with pytest.raises(NotImplementedError, match='item 4'):
-      image_ops.make_postprocess_fns(config, None)
+  # RawNeRF's: the dataset's raw tonemap and the affine match
+  # (tests/test_torch_rawnerf.py holds them against JAX).
+  _, config = tp.configs(('Config.rawnerf_mode = True',
+                          'Config.eval_raw_affine_cc = True'))
+  dataset = types.SimpleNamespace(metadata={'postprocess_fn': np.sqrt})
+  tonemap, cc_fn = image_ops.make_postprocess_fns(config, dataset)
+  assert tonemap is np.sqrt and cc_fn is raw.match_images_affine
   with pytest.raises(NotImplementedError, match='item 3'):
     image_ops.MetricHarness(lpips_weights_path='lpips.npz')

@@ -224,12 +224,30 @@ def test_cast_ray_batch_matches_jax(xnp):
     (['NerfMLP.disable_density_normals = False',
       "NerfMLP.trunk_dtype = 'int8'"], 'int8 trunks with density'),
     (["NerfMLP.trunk_dtype = 'float16'"], 'float16'),
-    (['Model.learned_exposure_scaling = True'], 'exposure scaling'),
     (['Config.occupancy_culling = True'], 'occupancy culling'),
-    (['Model.num_glo_features = 4'], 'GLO'),
 ])
 def test_unported_options_raise(bindings, match):
   _, torch_config = tp.configs(tp.SMALL_BINDINGS + tuple(bindings))
   with pytest.raises(NotImplementedError, match=match):
     nerf.construct_model(torch_config, torch.Generator().manual_seed(0),
                          'cpu')
+
+
+@pytest.mark.parametrize('bindings,table,shape', [
+    (['Model.learned_exposure_scaling = True', 'Config.rawnerf_mode = True'],
+     'exposure_scaling_offsets/embedding', (1000, 3)),
+    (['Model.num_glo_features = 4'], 'Embed_0/embedding', (1000, 4)),
+])
+def test_model_zoo_tables_have_the_flax_names(bindings, table, shape):
+  """The exposure scaling and GLO tables, once refused, under JAX's names
+  (tests/test_torch_glo.py and tests/test_torch_rawnerf.py hold their
+  models against JAX)."""
+  _, torch_config = tp.configs(tp.SMALL_BINDINGS + tuple(bindings))
+  model = nerf.construct_model(torch_config,
+                               torch.Generator().manual_seed(0), 'cpu')
+  named = bridge.named_parameters(model)
+  assert tuple(named[table].shape) == shape
+  if table.startswith('exposure'):
+    assert not named[table].any()  # Every scaling starts at 1.
+  else:
+    assert 0.4 < float(named[table].std()) < 0.6  # flax: 1 / sqrt(4).

@@ -140,7 +140,8 @@ def test_package_never_imports_jax():
       'names = [m.name for m in pkgutil.walk_packages(pkg.__path__,',
       "                                               pkg.__name__ + '.')]",
       "for name in ('eval', 'train', 'utils.summary', 'utils.visualize',",
-      "             'data.device_sampler', 'data.colmap'):",
+      "             'data.device_sampler', 'data.colmap', 'data.raw',",
+      "             'robust'):",
       "  assert 'multinerf_tpu_torch.' + name in names, name",
       'for name in names:',
       '  importlib.import_module(name)',

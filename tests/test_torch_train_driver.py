@@ -195,11 +195,12 @@ def test_tree_statistics_rows_of_a_print_window():
 @pytest.mark.parametrize('binding,item', [
     ('Config.occupancy_culling = True', 'item 5'),
     ('Config.steps_per_jit_call = 4', 'item 5'),
-    ('Config.enable_robustnerf_loss = True', 'item 4')])
+    ("Config.weight_decay_mults = {'NerfMLP_0': 0.1}", 'item 2b')])
 def test_driver_refuses_what_is_not_ported(tmp_path, binding, item):
   with pytest.raises(NotImplementedError, match=item):
     train.main(['--device=cpu'] + _argv(tp.SMALL_BINDINGS + (
-        binding, f"Config.checkpoint_dir = '{tmp_path}'")))
+        binding, "Config.dataset_loader = 'dummy'",
+        f"Config.checkpoint_dir = '{tmp_path}'")))
 
 
 def test_early_exit_steps_zero_runs_no_step_and_saves_what_jax_saves(

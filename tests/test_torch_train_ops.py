@@ -359,18 +359,30 @@ def test_training_options_outside_the_slice_raise():
       "Config.weight_decay_mults = {'NerfMLP_0': 0.1}",))
   with pytest.raises(NotImplementedError, match='weight_decay_mults'):
     train_lib.setup_model(config, 0, 'cpu')
-  _, config = tp.configs(tp.SMALL_BINDINGS + (
-      "Config.data_loss_type = 'rawnerf'",))
-  model = train_lib.setup_model(config, 0, 'cpu')[0]
+  # An unknown data loss raises JAX's error; RawNeRF's is ported
+  # (tests/test_torch_rawnerf.py holds it against JAX).
   batch = types.Batch(rays=tp.torch_rays(tp.rays(4)), rgb=torch.ones(4, 3))
-  with pytest.raises(NotImplementedError, match='rawnerf'):
-    train_lib.loss_and_grads(model, config, batch, 0.5)
+  for loss_type in ('rawnerf', 'l1'):
+    _, config = tp.configs(tp.SMALL_BINDINGS + (
+        f"Config.data_loss_type = '{loss_type}'",))
+    model = train_lib.setup_model(config, 0, 'cpu')[0]
+    if loss_type == 'l1':
+      with pytest.raises(ValueError, match='Unknown data loss type l1'):
+        train_lib.loss_and_grads(model, config, batch, 0.5)
+    else:
+      loss = train_lib.loss_and_grads(model, config, batch, 0.5)[0]
+      assert torch.isfinite(loss)
+  # Density noise: drawn from a generator, none without one (the JAX
+  # rng=None).
   _, config = tp.configs(tp.SMALL_BINDINGS + ('NerfMLP.density_noise = 1.0',))
   model = train_lib.setup_model(config, 0, 'cpu')[0]
   rays = tp.torch_rays(tp.rays(4))
-  model(rays, 0.5, False)  # rng=None draws no noise, as in JAX.
-  with pytest.raises(NotImplementedError, match='noise'):
-    model(rays, 0.5, False, generator=torch.Generator().manual_seed(0))
+  with torch.no_grad():
+    clean = model(rays, 0.5, False)[1][-1]['density']
+    assert torch.equal(clean, model(rays, 0.5, False)[1][-1]['density'])
+    noisy = model(rays, 0.5, False,
+                  generator=torch.Generator().manual_seed(0))[1][-1]
+  assert not torch.equal(noisy['density'], clean)
 
 
 def test_leaf_gaps_bound_by_the_reference_sensitivity_and_a_cap():
