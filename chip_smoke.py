@@ -33,7 +33,19 @@ sidecars, exiftool JSON, three shutter buckets), evaluated under
 rendered through the raw tonemap; RobustNeRF (``360_robustnerf.gin``, 16 x
 16 patches, the loss threshold fed back) on ``dummy_distractor`` on both
 data paths; GLO (``360_glo4.gin``) trained, evaluated and rendered with
-zero GLO vectors; each with one step on the GPU against the CPU.
+zero GLO vectors; each with one step on the GPU against the CPU.  Last,
+the 512-wide configs and the file formats: K1-K4 held against their plain
+versions at 672 features (``configs/blender_512.gin``'s and
+``llff_512.gin``'s: K1/K3 4 x 256 over 2,097,152 samples, K3's two-part
+layer 0 bitwise against its one-part layout, K2/K4 672 -> 512 over
+524,288); blender_512.gin trained 30 steps of 16,384 rays on a Blender-
+layout scene the script writes (800 x 800 RGBA PNGs, linear TIFF channels
+and disparities), one step GPU vs CPU, evaluated with ``use_tiffs``, the
+disparity metrics and LPIPS (random weights; one view's LPIPS on the card
+against the host), its test views rendered and assembled into MJPEG AVIs
+that are read back; llff_512.gin the same on the forward-facing capture
+with its ``images_4`` level written as JPEGs by the port's encoder (the
+decoder held against the arrays encoded).
 
 Run from the repository root, with no arguments:
 
@@ -208,17 +220,19 @@ def _hold_edges(name, run_kernel, run_plain, cases):
     _hold(name, got, again, run_plain(n, width), f'N={n} width {width}')
 
 
-def log_forward_plans(num_feats, num_dims):
-  """K1's and K2's launch plans at the kernel phase's shapes: dynamic
+def log_forward_plans(num_feats, num_dims, w=1024, n1=K1_SAMPLES,
+                      n2=K2_SAMPLES):
+  """K1's and K2's launch plans at a kernel phase's shapes (by default
+  360.gin's: K1 4 x 256 over n1, K2 to `w` columns over n2): dynamic
   shared memory per CTA (the C entry points, held against plans.py), ring
   depth and grid."""
   from multinerf_tpu_torch.ops.kernels import build
   from multinerf_tpu_torch.ops.kernels import featurize_dense as fd
   from multinerf_tpu_torch.ops.kernels import plans
   k1 = fd.fwd_plan(plans.density_mlp_fwd_plan, 'density_mlp', num_feats, 256,
-                   num_dims, K1_SAMPLES)
+                   num_dims, n1)
   k2 = fd.fwd_plan(plans.featurize_dense_fwd_plan, 'featurize_dense',
-                   num_feats, 1024, num_dims, K2_SAMPLES)
+                   num_feats, w, num_dims, n2)
   k1_smem = build.load('density_mlp').density_mlp_smem
   k2_smem = build.load('featurize_dense').featurize_dense_smem
   for fn, args in ((k1_smem, 4), (k2_smem, 5)):
@@ -338,31 +352,31 @@ def _compare_leaves(name, run_kernel, run_plain, n_full):
   return _summary(name, run_kernel, run_plain, n_full, worst)
 
 
-def log_backward_plans(num_feats, num_dims):
-  """K3's and K4's launch plans at the kernel phases' shapes: dynamic
-  shared memory per CTA (the C entry points, held against plans.py) and
-  grids."""
+def log_backward_plans(num_feats, num_dims, w=1024, n1=K1_SAMPLES,
+                       n2=K2_SAMPLES):
+  """K3's and K4's launch plans at a kernel phase's shapes (as
+  log_forward_plans'): dynamic shared memory per CTA (the C entry points,
+  held against plans.py), layer 0's K-parts and grids."""
   from multinerf_tpu_torch.ops.kernels import build
   from multinerf_tpu_torch.ops.kernels import plans
   sms = torch.cuda.get_device_properties(0).multi_processor_count
-  k3 = plans.density_mlp_bwd_plan(num_feats, 256, 4, num_dims, K1_SAMPLES,
-                                  sms)
-  k4 = plans.featurize_dense_dw_plan(num_feats, 1024, num_dims, K2_SAMPLES,
-                                     sms)
+  k3 = plans.density_mlp_bwd_plan(num_feats, 256, 4, num_dims, n1, sms)
+  k4 = plans.featurize_dense_dw_plan(num_feats, w, num_dims, n2, sms)
   k3_smem = build.load('density_mlp_bwd').density_mlp_bwd_smem
   k4_smem = build.load('featurize_dense_dw').featurize_dense_dw_smem
-  for fn, args in ((k3_smem, 4), (k4_smem, 3)):
+  for fn, args in ((k3_smem, 5), (k4_smem, 3)):
     fn.argtypes = [ctypes.c_int] * args
     fn.restype = ctypes.c_int
-  smem = (k3_smem(256, 4, num_feats, num_dims),
+  smem = (k3_smem(256, 4, num_feats, num_dims, k3.parts),
           k4_smem(num_feats, num_dims, k4.gemm.bn))
   if smem != (k3.smem, k4.smem):
     raise SystemExit(f'FAIL plans: shared memory {smem} in the sources, '
                      f'{(k3.smem, k4.smem)} in plans.py')
   log(f'density_mlp_bwd: tile pass {k3.smem:,} bytes of dynamic shared '
-      f'memory per CTA, {k3.grid} persistent CTAs over {k3.tiles} tiles of '
-      f'128 samples; dW GEMMs {k3.dw0.smem:,} bytes, grids {k3.dw0.grid} '
-      f'(dW_0) and {k3.dw1.grid} (dW_1..3)')
+      f'memory per CTA, layer 0 in {k3.parts} K-part(s) of {k3.kx} columns, '
+      f'{k3.grid} persistent CTAs over {k3.tiles} tiles of 128 samples; dW '
+      f'GEMMs {k3.dw0.smem:,} bytes, grids {k3.dw0.grid} (dW_0) and '
+      f'{k3.dw1.grid} (dW_1..3)')
   log(f'featurize_dense_dw: {k4.smem:,} bytes per CTA, GEMM grid '
       f'{k4.gemm.grid}')
 
@@ -1351,6 +1365,11 @@ LLFF_DEG = 16
 # CAST_TOL * max(1, max |host|) per field, float32 rounding through the
 # undistortion's Newton steps and the NDC division.
 CAST_TOL = 1e-5
+# The JPEG level of phase_llff_512's capture: 4:4:4 at quality 95.  The
+# scene's saturated colors change within a few pixels, so at 4:2:0 (a
+# quarter of the chroma samples) its views keep 28.1-28.7 dB, in Pillow's
+# files as in the port's (the same bytes), and at 4:4:4 43.5 dB.
+JPEG_QUALITY = 95
 
 
 def _qvec(rot):
@@ -1396,35 +1415,43 @@ def write_colmap_model(sparse, poses, names, camera):
     f.write(struct.pack('<Q', 0))
 
 
-def exif_jpeg(exposure, iso):
-  """A JPEG container with no image, SOI + APP1 Exif + EOI: a little-endian
-  IFD0 whose Exif sub-IFD holds ExposureTime (a RATIONAL) and
-  ISOSpeedRatings (a SHORT).  At a pyramid level the llff loader reads only
-  the originals' names and Exif."""
+def exif_tiff(exposure, iso):
+  """An Exif TIFF block: a little-endian IFD0 whose Exif sub-IFD holds
+  ExposureTime (a RATIONAL) and ISOSpeedRatings (a SHORT)."""
   sub_at = 8 + 2 + 12 + 4
   rational_at = sub_at + 2 + 2 * 12 + 4
-  tiff = (b'II*\x00' + struct.pack('<IH', 8, 1) +
+  return (b'II*\x00' + struct.pack('<IH', 8, 1) +
           struct.pack('<HHII', 0x8769, 4, 1, sub_at) + struct.pack('<I', 0) +
           struct.pack('<H', 2) +
           struct.pack('<HHII', 0x829A, 5, 1, rational_at) +
           struct.pack('<HHIHH', 0x8827, 3, 1, iso, 0) + struct.pack('<I', 0) +
           struct.pack('<II', *exposure))
-  app1 = b'Exif\x00\x00' + tiff
+
+
+def exif_jpeg(exposure, iso):
+  """A JPEG container with no image, SOI + APP1 Exif + EOI.  At a pyramid
+  level the llff loader reads only the originals' names and Exif."""
+  app1 = b'Exif\x00\x00' + exif_tiff(exposure, iso)
   return (b'\xff\xd8\xff\xe1' + struct.pack('>H', len(app1) + 2) + app1 +
           b'\xff\xd9')
 
 
-def write_capture(root, poses, camera, bounds=None, device='cuda'):
+def write_capture(root, poses, camera, bounds=None, device='cuda',
+                  level_jpeg=None):
   """A capture of the dummy_unbounded scene under `root`: ``sparse/0``,
   the originals under ``images/`` (Exif-only JPEGs, exposures 1/(100 + 20
   i) s at ISO 100-400) and the PNG level ``images_4/``, each pixel shaded
   by the scene's analytic color along the ray of the distorted camera at
   that level (cast on `device`, shaded on the host); with `bounds`,
-  ``poses_bounds.npy``.  Returns the seconds it took."""
+  ``poses_bounds.npy``.  With `level_jpeg`, a dict, the level is written
+  as JPEGs of that quality by ``utils/jpeg.encode_jpeg``, each with its
+  original's Exif, and the dict gets the arrays encoded, {name: uint8}.
+  Returns the seconds it took."""
   from multinerf_tpu_torch.data import cameras as camera_lib
   from multinerf_tpu_torch.data import colmap
   from multinerf_tpu_torch.data import datasets
   from multinerf_tpu_torch.utils import io as io_lib
+  from multinerf_tpu_torch.utils import jpeg
   t0 = time.perf_counter()
   n = len(poses)
   names = [f'IMG_{i:04d}.JPG' for i in range(n)]
@@ -1442,14 +1469,23 @@ def write_capture(root, poses, camera, bounds=None, device='cuda'):
   os.makedirs(level)
   os.makedirs(os.path.join(root, 'images'))
   for i, (name, pose) in enumerate(zip(names, poses)):
+    exposure, iso = (1, 100 + 20 * i), 100 * (1 + i % 4)
     with open(os.path.join(root, 'images', name), 'wb') as f:
-      f.write(exif_jpeg((1, 100 + 20 * i), 100 * (1 + i % 4)))
+      f.write(exif_jpeg(exposure, iso))
     origins, _, viewdirs, _, _ = camera_lib.pixels_to_rays(
         pix_x, pix_y, as_f32(pixtocam), as_f32(pose),
         distortion_params=cam.distortion(), xnp=torch)
-    io_lib.save_img_u8(datasets.DummyUnbounded.shade(
-        origins.cpu().numpy(), viewdirs.cpu().numpy()),
-                       os.path.join(level, f'IMG_{i:04d}.png'))
+    img = datasets.DummyUnbounded.shade(origins.cpu().numpy(),
+                                        viewdirs.cpu().numpy())
+    if level_jpeg is None:
+      io_lib.save_img_u8(img, os.path.join(level, f'IMG_{i:04d}.png'))
+    else:
+      level_name = f'IMG_{i:04d}.jpg'
+      level_jpeg[level_name] = io_lib.to_u8(img)
+      with open(os.path.join(level, level_name), 'wb') as f:
+        f.write(jpeg.encode_jpeg(level_jpeg[level_name], JPEG_QUALITY,
+                                 exif=exif_tiff(exposure, iso),
+                                 subsampling='4:4:4'))
   if bounds is not None:
     np.save(os.path.join(root, 'poses_bounds.npy'), np.concatenate(
         [np.zeros((n, 15)), np.tile([bounds], (n, 1))], -1))
@@ -2153,6 +2189,464 @@ def phase_glo(card):
   return paths
 
 
+# --- The 512-wide configs: configs/blender_512.gin and llff_512.gin.  672
+# features (16 degrees on the icosahedron basis, no contraction), PropMLP
+# 4 x 256 over one proposal level of 128 samples, NerfMLP 8 x 512 over 32,
+# 16,384 rays a step (Config.batch_size's default; neither gin sets it).
+
+DEG_512 = 16
+RAYS_512 = 16384
+K1_512 = RAYS_512 * 128
+K2_512 = RAYS_512 * 32
+STEPS_512 = 30
+# Launches of one step: the proposal level's K1 and K3, the NerfMLP's layer
+# 0 and skip layer through K2 and K4.
+PER_STEP_512 = {'density_mlp': 1, 'featurize_dense': 2, 'density_mlp_bwd': 1,
+                'featurize_dense_dw': 2, 'int8_trunk': 0, 'int8_trunk_bwd': 0}
+# The Blender layout's cut: 20 / 3 / 4 views (train / val / test) at the
+# scenes' 800 x 800 against their 100 / 100 / 200.
+BLENDER_SIZE = 800
+BLENDER_VIEWS = {'train': 20, 'val': 3, 'test': 4}
+BLENDER_EVAL_VIEWS = 3
+BLENDER_ANGLE_X = 0.6911112070083618  # The lego scene's camera_angle_x.
+# LPIPS of one view on the card against the host: float32 convolutions
+# with TF32 off on both, summed in other orders.
+LPIPS_TOL = 1e-4
+JPEG_PSNR_MIN = 40.0  # dB: the level's JPEGs at JPEG_QUALITY.
+LLFF_FRAME = (1008, 756)  # An LLFF images_4 frame, width x height.
+# llff_512.gin trains with the config's learning-rate warmup
+# (Config.lr_delay_steps, 512 steps from 1% of lr_init), where phase_train
+# takes it out: without it, its first steps at 2e-3 sent the density of
+# the forward-facing capture to zero within 10 steps (the data loss rose
+# from 0.31 to 0.42, the black of the opaque background, and stayed).
+LLFF_512_WARMUP = ('Config.lr_delay_steps = 512',)
+
+
+def _bounded_gaussians(n, seed):
+  """Samples of a bounded scene: means in [-2, 2]^3, covariances from
+  ~1e-10 to ~1e-4 (the high degrees attenuated for some, not others)."""
+  rng = np.random.RandomState(seed)
+  means = rng.uniform(-2.0, 2.0, (n, 3)).astype(np.float32)
+  a = rng.randn(n, 3, 3).astype(np.float32) * (
+      10.0**rng.uniform(-5, -2, (n, 1, 1))).astype(np.float32)
+  return (torch.tensor(means, device='cuda'),
+          torch.tensor(a @ np.swapaxes(a, -1, -2), device='cuda'))
+
+
+def _hold_k3_parts(basis, kw):
+  """K3's two-part layout of layer 0 against its one-part layout, where
+  both fit (672 features, width 128): every leaf bitwise equal.  The two
+  sum the same products in the same order; the padding adds zeros."""
+  from multinerf_tpu_torch.ops.kernels import density_mlp as dm
+  from multinerf_tpu_torch.ops.kernels import plans
+  rng = np.random.RandomState(53)
+  ws = [_he_uniform(rng, 2 * DEG_512 * 21, 128)] + [
+      _he_uniform(rng, 128, 128) for _ in range(3)]
+  bs = [torch.tensor(rng.randn(128).astype(np.float32) * 0.1, device='cuda')
+        for _ in ws]
+  wd = _he_uniform(rng, 128, 1)
+  plan = plans.density_mlp_bwd_plan
+  for n in (300, K1_SAMPLES):
+    means, covs = _bounded_gaussians(n, seed=54)
+    g = torch.tensor(rng.randn(n).astype(np.float32), device='cuda')
+    out = []
+    for parts in (1, 2):
+      plans.density_mlp_bwd_plan = (
+          lambda *a, parts=parts: plan(*a, parts=parts))
+      try:
+        dws, dbs, dwd, dbd = dm.density_mlp_backward(means, covs, ws, bs, wd,
+                                                     g, basis, **kw)
+      finally:
+        plans.density_mlp_bwd_plan = plan
+      out.append([*dws, *dbs, dwd, dbd])
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(*out)):
+      raise SystemExit(f'FAIL density_mlp_bwd 512: the two-part layout '
+                       f'differs from the one-part layout at N={n}')
+  log('density_mlp_bwd 512: layer 0 in two K-parts bitwise equal to one '
+      'part (672 features, width 128, N = 300 and 262,144, every leaf)')
+
+
+def phase_512_kernels():
+  """K1-K4 against their plain versions at the 512 configs' shapes: K1 and
+  K3 672 -> 4 x 256 over K1_512 samples, K2 and K4 672 -> 512 over K2_512
+  (no contraction), with the kernel phases' bounds (K3 with a cotangent
+  g >= 0, whose sums do not cancel, then with a random-signed one by
+  train_lib.leaf_gaps against the plain version's own move), two launches
+  bitwise equal, at N and N - 37; K3's two layouts bitwise; each kernel's
+  single-call time, its plain version's and its bound.  Returns {kernel:
+  summary}."""
+  from multinerf_tpu_torch import train_lib
+  from multinerf_tpu_torch.ops import geopoly
+  from multinerf_tpu_torch.ops.kernels import density_mlp as dm
+  from multinerf_tpu_torch.ops.kernels import featurize_dense as fd
+  basis = np.array(geopoly.generate_basis('icosahedron', 2)).T  # [3, 21]
+  num_feats = 2 * DEG_512 * basis.shape[-1]
+  if num_feats != 672:
+    raise SystemExit(f'FAIL 512 kernels: {num_feats} features')
+  kw = dict(min_deg=0, max_deg=DEG_512, use_contract=False)
+  log_forward_plans(num_feats, basis.shape[-1], 512, K1_512, K2_512)
+  log_backward_plans(num_feats, basis.shape[-1], 512, K1_512, K2_512)
+  rng = np.random.RandomState(51)
+  results = {}
+  with _Watchdog('K1-K4 at the 512 shapes', PROBE_TIMEOUT_S):
+    _hold_k3_parts(basis, kw)
+    means, covs = _bounded_gaussians(K1_512, seed=52)
+    ws, bs, wd = _prop_trunk(rng, num_feats)
+    bd = torch.tensor(np.float32(-0.3), device='cuda')
+    args = lambda n: (means[:n], covs[:n], ws, bs, wd, bd, basis)
+    results['density_mlp'] = _compare(
+        'density_mlp 512', lambda n: dm.density_mlp(*args(n), **kw),
+        lambda n: dm.density_mlp_plain(*args(n), **kw), K1_512)
+    g = torch.tensor(np.abs(rng.randn(K1_512)).astype(np.float32),
+                     device='cuda')
+
+    def k3(fn, g):
+      def run(n, m=None):
+        dws, dbs, dwd, dbd = fn(means[:n] if m is None else m, covs[:n], ws,
+                                bs, wd, g[:n], basis, **kw)
+        return [*dws, *dbs, dwd, dbd]
+      return run
+    results['density_mlp_bwd'] = _compare_leaves(
+        'density_mlp_bwd 512 (g >= 0)', k3(dm.density_mlp_backward, g),
+        k3(dm.density_mlp_bwd_plain, g), K1_512)
+    g = torch.tensor(rng.randn(K1_512).astype(np.float32), device='cuda')
+    leaves = lambda fn, m: {f'leaf {i}': t.cpu() for i, t in enumerate(
+        k3(fn, g)(K1_512, m))}
+    gaps = train_lib.leaf_gaps(
+        leaves(dm.density_mlp_backward, means),
+        leaves(dm.density_mlp_bwd_plain, means),
+        leaves(dm.density_mlp_bwd_plain, means * (1 + train_lib.NUDGE)),
+        cap=TRAIN_GAP_CAP)
+    log('density_mlp_bwd 512, random-signed cotangent: relative L2 to '
+        'plain (plain nudged) per leaf: ' + ', '.join(
+            f'{gap:.2e} ({sens:.2e})' for gap, sens, _ in gaps.values()))
+    over = {k: v for k, v in gaps.items() if not v[0] <= v[2]}
+    if over:
+      raise SystemExit(f'FAIL density_mlp_bwd 512: over train_lib.leaf_gaps '
+                       f'bounds: {over}')
+    del means, covs, g
+
+    means, covs = _bounded_gaussians(K2_512, seed=55)
+    w = _he_uniform(rng, num_feats, 512)
+    b = torch.tensor(rng.randn(512).astype(np.float32) * 0.1, device='cuda')
+    args = lambda n: (means[:n], covs[:n], w, b, basis)
+    results['featurize_dense'] = _compare(
+        'featurize_dense 512', lambda n: fd.featurize_dense(*args(n), **kw),
+        lambda n: fd.featurize_dense_plain(*args(n), **kw), K2_512)
+    g = torch.tensor(rng.randn(K2_512, 512).astype(np.float32), device='cuda')
+    k4 = lambda fn: lambda n: [fn(means[:n], covs[:n], g[:n], basis, **kw)]
+    results['featurize_dense_dw'] = _compare_leaves(
+        'featurize_dense_dw 512', k4(fd.featurize_dense_dw),
+        k4(fd.featurize_dense_dw_plain), K2_512)
+    del means, covs, g
+    torch.cuda.empty_cache()
+  bounds = kernel_bounds(f=num_feats, h=256, w=512, n1=K1_512, n2=K2_512)
+  for name, summary in results.items():
+    bound = bounds[name]
+    summary.update(bound_ms=bound['bound_ms'], bound_by=bound['bound_by'],
+                   **_achieved(summary, bound))
+    log(f'{name} 512: {summary["ms"]:.3f} ms (plain '
+        f'{summary["plain_ms"]:.3f} ms), bound {bound["bound_ms"]:.4f} ms '
+        f'({bound["bound_by"]}), {summary["bound_share"]:.3f} of the bound')
+  return results
+
+
+def _check_launches_512(tag, launches, steps):
+  """Exactly PER_STEP_512 launches a step over `steps` steps."""
+  want = {k: v * steps for k, v in PER_STEP_512.items()}
+  if launches != want:
+    raise SystemExit(f'FAIL {tag}: launches {launches}, expected {want}')
+
+
+def write_blender_scene(root, device='cuda'):
+  """A scene in the Blender layout under `root`: transforms_{train,val,
+  test}.json (cameras on a sphere of radius 4 looking at the origin) and
+  800 x 800 RGBA PNGs of a textured unit sphere on a transparent
+  background; the val and test views also as linear _R/_G/_B/_A.tiff
+  channels and a _disp.tiff (1 / (1 + t), t the hit's distance along the
+  ray's direction; 1 / (1 + far) at misses).  Returns the seconds it
+  took."""
+  from multinerf_tpu_torch.data import cameras as camera_lib
+  from multinerf_tpu_torch.ops import image_ops
+  from multinerf_tpu_torch.utils import io as io_lib
+  t0 = time.perf_counter()
+  size = BLENDER_SIZE
+  focal = 0.5 * size / np.tan(0.5 * BLENDER_ANGLE_X)
+  pixtocam = torch.tensor(camera_lib.get_pixtocam(focal, size, size),
+                          dtype=torch.float32, device=device)
+  pix_x, pix_y = (p.to(device) for p in camera_lib.pixel_coordinates(
+      size, size, xnp=torch))
+  for k, (split, views) in enumerate(BLENDER_VIEWS.items()):
+    os.makedirs(os.path.join(root, split))
+    frames = []
+    for i in range(views):
+      theta = 2 * np.pi * i / views + 0.37 * k
+      pos = 4.0 * np.array([np.cos(theta) * np.cos(0.5),
+                            np.sin(theta) * np.cos(0.5), np.sin(0.5)])
+      pose = np.eye(4)
+      pose[:3] = camera_lib.viewmatrix(pos, np.array([0.0, 0.0, 1.0]), pos)
+      origins, directions, _, _, _ = camera_lib.pixels_to_rays(
+          pix_x, pix_y, pixtocam,
+          torch.tensor(pose[:3], dtype=torch.float32, device=device),
+          xnp=torch)
+      a = (directions * directions).sum(-1)
+      b = 2 * (origins * directions).sum(-1)
+      c = (origins * origins).sum(-1) - 1.0
+      disc = b * b - 4 * a * c
+      t = (-b - torch.sqrt(torch.clamp(disc, min=0))) / (2 * a)
+      hit = (disc > 0) & (t > 0)
+      p = origins + torch.where(hit, t, 0)[..., None] * directions
+      color = torch.where(hit[..., None], 0.5 + 0.5 * torch.sin(4 * p), 1.0)
+      alpha = hit.float()
+      color, alpha = color.cpu().numpy(), alpha.cpu().numpy()
+      name = f'{split}/r_{i}'
+      prefix = os.path.join(root, name)
+      io_lib.write_png(prefix + '.png', io_lib.to_u8(
+          np.concatenate([color, alpha[..., None]], -1)))
+      if split != 'train':
+        linear = image_ops.srgb_to_linear(color)
+        for c_idx, ch in enumerate('RGB'):
+          io_lib.save_img_f32(linear[..., c_idx], f'{prefix}_{ch}.tiff')
+        io_lib.save_img_f32(alpha, prefix + '_A.tiff')
+        disp = torch.where(hit, 1 / (1 + t), 1 / (1 + 6.0))
+        io_lib.save_img_f32(disp.cpu().numpy(), prefix + '_disp.tiff')
+      frames.append({'file_path': f'./{name}',
+                     'transform_matrix': pose.tolist()})
+    with open(os.path.join(root, f'transforms_{split}.json'), 'w') as f:
+      json.dump({'camera_angle_x': BLENDER_ANGLE_X, 'frames': frames}, f)
+  return time.perf_counter() - t0
+
+
+def _check_videos(tag, rendered, frames):
+  """The render's videos: one AVI per channel, its RIFF parsed, `frames`
+  JPEG frames each; the color video's first frame, decoded by
+  utils/jpeg.py, is the quality-90 JPEG of color_000.png (bitwise), and
+  its PSNR to the PNG is logged."""
+  from multinerf_tpu_torch.utils import io as io_lib
+  from multinerf_tpu_torch.utils import jpeg
+  from multinerf_tpu_torch.utils import video as video_lib
+  videos = rendered['videos']
+  names = [os.path.basename(v) for v in videos]
+  if not videos or any(not v.endswith('.avi') for v in videos):
+    raise SystemExit(f'FAIL {tag}: videos {videos}')
+  for path in videos:
+    stored = {k: len(v) for k, v in video_lib.read_avi_frames(path).items()}
+    if stored != {b'00dc': frames}:
+      raise SystemExit(f'FAIL {tag}: {path} holds the chunks {stored}')
+  color = [v for v in videos if v.endswith('_color.avi')]
+  if len(color) != 1:
+    raise SystemExit(f'FAIL {tag}: no color video in {videos}')
+  first = video_lib.read_avi_frames(color[0])[b'00dc'][0]
+  png = io_lib.read_image(os.path.join(rendered['out_dir'], 'color_000.png'))
+  got = jpeg.decode_jpeg(first)
+  if not np.array_equal(got, jpeg.decode_jpeg(jpeg.encode_jpeg(png, 90))):
+    raise SystemExit(f'FAIL {tag}: the first color frame is not the '
+                     'quality-90 JPEG of its PNG.')
+  mse = np.mean((got.astype(np.float64) - png)**2)
+  psnr = 10 * np.log10(255.0**2 / max(mse, 1e-12))
+  log(f'{tag} videos: {len(videos)} AVIs ({", ".join(names)}), {frames} '
+      f'frames each; the first color frame decodes to the quality-90 JPEG '
+      f'of its PNG, {psnr:.2f} dB from it')
+
+
+def _lpips_view(tag, card, weights, img0, img1):
+  """LPIPS of one view on the card (timed, after one warm-up call) and on
+  the host, within LPIPS_TOL relative.  Returns the card's seconds."""
+  from multinerf_tpu_torch.ops import lpips
+  on_card = lpips.LPIPS(weights, 'cuda')
+  on_card(img0, img1)
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  got = on_card(img0, img1)
+  seconds = time.perf_counter() - t0
+  t0 = time.perf_counter()
+  want = lpips.LPIPS(weights, 'cpu')(img0, img1)
+  host_s = time.perf_counter() - t0
+  rel = abs(got - want) / abs(want)
+  log(f'{tag} LPIPS of one {img0.shape[1]}x{img0.shape[0]} view: card '
+      f'{got:.6f} in {seconds:.3f} s, host {want:.6f} in {host_s:.1f} s, '
+      f'relative gap {rel:.2e} (bound {LPIPS_TOL}) ({card})')
+  if not (np.isfinite(got) and rel <= LPIPS_TOL):
+    raise SystemExit(f'FAIL {tag}: LPIPS card {got} vs host {want}')
+  return seconds
+
+
+def phase_blender_512(card):
+  """configs/blender_512.gin at full width on write_blender_scene's scene:
+  30 train steps of 16,384 rays through ``multinerf_tpu_torch.train.main``
+  (the loss must fall; 1 K1 + 2 K2 + 1 K3 + 2 K4 a step, no plain call),
+  one 256-ray step on the GPU against the CPU, ``eval.main`` over 3 test
+  views with ``Config.use_tiffs``, ``compute_disp_metrics`` and LPIPS on
+  random weights (PSNR, SSIM, LPIPS and the disparity MSEs written and
+  read back; one view's LPIPS on the card against the host), and
+  ``render.main`` over the 4 test views with their videos read back.
+  Returns {path: launches}."""
+  from multinerf_tpu_torch import eval as eval_lib
+  from multinerf_tpu_torch import render
+  from multinerf_tpu_torch.ops import lpips
+  from multinerf_tpu_torch.utils import io as io_lib
+  tag = 'blender_512'
+  paths = {}
+  no_train = F32_TRAIN[0][2:] + F32_RENDER[1]
+  with tempfile.TemporaryDirectory() as tmp:
+    data = os.path.join(tmp, 'scene')
+    write_s = write_blender_scene(data)
+    ckpt = os.path.join(tmp, 'ckpt')
+    torch.cuda.reset_peak_memory_stats()
+    paths[f'{tag}_train'], step_s, trained = phase_train(
+        f'{tag} train', (), STEPS_512, F32_TRAIN, gin='blender_512.gin',
+        data=(f"Config.data_dir='{data}'",), ckpt_dir=ckpt, rays=RAYS_512)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    _check_launches_512(f'{tag} train', paths[f'{tag}_train'], STEPS_512)
+    phase_train_reference(f'{tag} train reference', gin='blender_512.gin',
+                          loader='blender', data_dir=data)
+    weights = os.path.join(tmp, 'lpips.npz')
+    np.savez(weights, **lpips.random_params(np.random.RandomState(0)))
+    argv = _zoo_argv('blender_512.gin', ckpt, (f"Config.data_dir='{data}'",))
+    t0 = time.perf_counter()
+    evaluated, launches, plain = _counted(eval_lib.main, argv + [
+        '--gin_bindings=Config.use_tiffs=True',
+        '--gin_bindings=Config.compute_disp_metrics=True',
+        f"--gin_bindings=Config.lpips_weights_path='{weights}'",
+        f'--gin_bindings=Config.eval_dataset_limit={BLENDER_EVAL_VIEWS}'])
+    eval_s = time.perf_counter() - t0
+    _check_launches(f'{tag} eval', launches, plain, (F32_RENDER[0], no_train))
+    paths[f'{tag}_eval'] = launches
+    scores = _eval_scores(tag, evaluated, (
+        'psnr', 'ssim', 'lpips', 'disparity_mean_mse',
+        'disparity_median_mse'), BLENDER_EVAL_VIEWS)
+    rendered_0 = io_lib.read_image(os.path.join(
+        evaluated['out_dir'], f'color_000.png')) / 255.0
+    rgba = io_lib.read_image(os.path.join(data, 'test', 'r_0.png')) / 255.0
+    truth = rgba[..., :3] * rgba[..., 3:] + (1 - rgba[..., 3:])
+    lpips_s = _lpips_view(tag, card, weights, rendered_0.astype(np.float32),
+                          truth.astype(np.float32))
+    rendered, launches, plain = _counted(render.main, argv + [
+        f"--gin_bindings=Config.render_dir='{tmp}/render'"])
+    _check_launches(f'{tag} render', launches, plain,
+                    (F32_RENDER[0], no_train))
+    paths[f'{tag}_render'] = launches
+    views = BLENDER_VIEWS['test']
+    if rendered['frames'] != list(range(views)):
+      raise SystemExit(f'FAIL {tag} render: frames {rendered["frames"]}')
+    _check_frames(f'{tag} render', rendered, (BLENDER_SIZE, BLENDER_SIZE))
+    _check_videos(f'{tag} render', rendered, views)
+  data_losses = trained['data_losses']
+  log(f'{tag} ({card}): scene written in {write_s:.1f} s; median step '
+      f'{step_s * 1e3:.3f} ms at {RAYS_512} rays ({RAYS_512 / step_s:,.0f} '
+      f'train rays/s), max memory allocated {peak_gib:.2f} GiB; data loss '
+      f'{np.mean(data_losses[:10]):.5f} (steps 1-10) -> '
+      f'{np.mean(data_losses[-10:]):.5f} (steps 21-30); launches in '
+      f'{STEPS_512} steps {paths[f"{tag}_train"]}; eval of '
+      f'{BLENDER_EVAL_VIEWS} 800x800 views in {eval_s:.1f} s: psnr '
+      f'{scores["psnr"]}, ssim {scores["ssim"]}, lpips (random weights) '
+      f'{scores["lpips"]}, disparity mse (mean, median) '
+      f'{scores["disparity_mean_mse"]}, {scores["disparity_median_mse"]}; '
+      f'LPIPS {lpips_s:.3f} s a view on the card; 800x800 frames in '
+      f'{", ".join(f"{s:.3f}" for s in rendered["seconds"])} s')
+  return paths
+
+
+def _time_llff_frame_decode():
+  """Seconds (median of 3) to decode one LLFF_FRAME 4:2:0 JPEG at
+  JPEG_QUALITY: a smooth image with mild noise, encoded by encode_jpeg."""
+  from multinerf_tpu_torch.utils import jpeg
+  w, h = LLFF_FRAME
+  y, x = np.mgrid[0:h, 0:w] / 37.0
+  rng = np.random.RandomState(56)
+  img = np.stack([np.sin(x + 0.3 * y), np.cos(0.7 * x - y),
+                  np.sin(0.5 * x * y / 20)], -1) * 100 + 128
+  img = np.clip(img + rng.randn(h, w, 3) * 3, 0, 255).astype(np.uint8)
+  data = jpeg.encode_jpeg(img, JPEG_QUALITY)
+  times = []
+  for _ in range(3):
+    t0 = time.perf_counter()
+    jpeg.decode_jpeg(data)
+    times.append(time.perf_counter() - t0)
+  return statistics.median(times), len(data)
+
+
+def phase_llff_512(card):
+  """configs/llff_512.gin at full width on the forward-facing PINHOLE
+  capture of phase_capture_llff, its images_4 level written as JPEGs by
+  encode_jpeg (4:4:4, quality 95, each with its original's Exif): the
+  decoder held against the arrays encoded (PSNR >= 40 dB, two decodes
+  identical), the capture's load timed, 30 train steps of 16,384 rays (1
+  K1 + 2 K2 + 1 K3 + 2 K4 a step; the config's warmup kept), one 256-ray
+  step on the GPU against the CPU, eval of the test split and 4 spiral
+  frames with their videos.  Returns {path: launches}."""
+  from multinerf_tpu_torch.data import datasets
+  from multinerf_tpu_torch.utils import jpeg
+  tag = 'llff_512'
+  decode_s, frame_bytes = _time_llff_frame_decode()
+  with tempfile.TemporaryDirectory() as tmp:
+    data = os.path.join(tmp, 'capture')
+    level = {}
+    write_s = write_capture(data, plane_poses(), PINHOLE, PLANE_BOUNDS,
+                            level_jpeg=level)
+    psnrs, seconds = [], []
+    for name, want in level.items():
+      with open(os.path.join(data, f'images_{CAPTURE_FACTOR}', name),
+                'rb') as f:
+        encoded = f.read()
+      t0 = time.perf_counter()
+      got = jpeg.decode_jpeg(encoded)
+      seconds.append(time.perf_counter() - t0)
+      if got.tobytes() != jpeg.decode_jpeg(encoded).tobytes():
+        raise SystemExit(f'FAIL {tag}: two decodes of {name} differ.')
+      mse = np.mean((got.astype(np.float64) - want)**2)
+      psnrs.append(10 * np.log10(255.0**2 / max(mse, 1e-12)))
+    if min(psnrs) < JPEG_PSNR_MIN:
+      raise SystemExit(f'FAIL {tag}: JPEG level PSNR {min(psnrs):.2f} dB < '
+                       f'{JPEG_PSNR_MIN}')
+    config = _capture_config('llff_512.gin', data)
+    t0 = time.perf_counter()
+    with datasets.load_dataset('train', data, config) as dataset:
+      load_s = time.perf_counter() - t0
+      shape = dataset.images.shape
+    paths = {}
+    ckpt = os.path.join(tmp, 'ckpt')
+    torch.cuda.reset_peak_memory_stats()
+    paths[f'{tag}_train'], step_s, trained = phase_train(
+        f'{tag} train', LLFF_512_WARMUP, STEPS_512, F32_TRAIN,
+        gin='llff_512.gin', data=(f"Config.data_dir='{data}'",),
+        ckpt_dir=ckpt, rays=RAYS_512)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    _check_launches_512(f'{tag} train', paths[f'{tag}_train'], STEPS_512)
+    phase_train_reference(f'{tag} train reference', gin='llff_512.gin',
+                          loader='llff', data_dir=data)
+    argv = [f'--gin_configs={os.path.join(REPO, "configs", "llff_512.gin")}',
+            f"--gin_bindings=Config.data_dir='{data}'",
+            f"--gin_bindings=Config.checkpoint_dir='{ckpt}'",
+            f'--gin_bindings=Config.max_steps={STEPS_512}',
+            f"--gin_bindings=Config.render_dir='{tmp}/render'",
+            '--device=cuda']
+    more, frame_s = _capture_eval_render(tag, tag, argv, (192, 256))
+    paths.update(more)
+    render_dir = os.path.join(tmp, 'render')
+    videos = sorted(os.path.join(render_dir, f) for f in os.listdir(render_dir)
+                    if f.endswith('.avi'))
+    out_dir = [os.path.join(render_dir, d) for d in os.listdir(render_dir)
+               if d.startswith('path_renders')]
+    _check_videos(f'{tag} render', {'videos': videos, 'out_dir': out_dir[0]},
+                  CAPTURE_FRAMES)
+  data_losses = trained['data_losses']
+  log(f'{tag} ({card}): capture written in {write_s:.1f} s, its '
+      f'{len(level)} images_4 JPEGs (4:4:4, quality {JPEG_QUALITY}) within '
+      f'{min(psnrs):.2f}-{max(psnrs):.2f} dB of the arrays encoded, decoded '
+      f'in {statistics.median(seconds) * 1e3:.1f} ms each (median), the '
+      f'train split ({shape[0]} views of {shape[2]}x{shape[1]}) loaded in '
+      f'{load_s:.2f} s; one {LLFF_FRAME[0]}x{LLFF_FRAME[1]} 4:2:0 JPEG '
+      f'({frame_bytes:,} bytes) decoded in {decode_s:.3f} s on the host; '
+      f'median step {step_s * 1e3:.3f} ms at {RAYS_512} rays '
+      f'({RAYS_512 / step_s:,.0f} train rays/s), max memory allocated '
+      f'{peak_gib:.2f} GiB; data loss {np.mean(data_losses[:10]):.5f} '
+      f'(steps 1-10) -> {np.mean(data_losses[-10:]):.5f} (steps 21-30); '
+      f'256x192 spiral frames in {", ".join(f"{s:.3f}" for s in frame_s)} s')
+  return paths
+
+
 SOURCES = {
     'density_mlp': ('multinerf_tpu_torch/csrc/density_mlp.cu',
                     'multinerf_tpu/ops/pallas/density_mlp.py:65'),
@@ -2209,6 +2703,10 @@ def main():
     results[name]['llff_raw'] = summary
   paths.update(phase_robustnerf(card))
   paths.update(phase_glo(card))
+  for name, summary in phase_512_kernels().items():
+    results[name]['512'] = summary
+  paths.update(phase_blender_512(card))
+  paths.update(phase_llff_512(card))
   bounds = kernel_bounds()
   chunk = bounds.pop('int8_trunk_render_chunk')
   results['int8_trunk']['render_chunk'].update(

@@ -131,12 +131,14 @@ __device__ __forceinline__ void produce_trunk_forward(
 // ring: MN-major (a layer's rows, [32][64] boxes, 128-byte swizzle) or
 // K-major (a layer's columns, one [W][32] box, 64-byte swizzle).  `it` is
 // the ring position, as the producer's.  Each warp releases a stage once
-// its products have read it.
+// its products have read it.  accumulate: add to acc (K3's second K-part of
+// layer 0) instead of starting from zero.
 template <int W, bool kBMnMajor>
 __device__ __forceinline__ void tile_product(float (&acc)[W / 2],
                                              const unsigned char* a,
                                              int k_slabs, const SlabRing& r,
-                                             RingPos& it, int lane) {
+                                             RingPos& it, int lane,
+                                             bool accumulate = false) {
   int prev = 0;  // The stage of the previous slab.
   for (int kb = 0; kb < k_slabs; ++kb) {
     const int s = it.stage;
@@ -148,7 +150,7 @@ __device__ __forceinline__ void tile_product(float (&acc)[W / 2],
 #pragma unroll
     for (int k = 0; k < kSlabK / 16; ++k) {
       const uint64_t da = smem_desc(a_kb + k * 32, 16, 1024);
-      const int scale_d = (kb | k) != 0;
+      const int scale_d = accumulate || (kb | k) != 0;
       if constexpr (kBMnMajor)
         wgmma<W, 0, 1>(acc, da,
                        smem_desc(b + k * 2048, kSlabK * 128, 1024), scale_d);

@@ -19,15 +19,16 @@ block) stops it.  The synthetic scenes ``dummy``, ``dummy_sphere``,
 as the JAX loaders (datasets.py:736-1079), so both packages see identical
 cameras, images and ground truth.  With ``Config.apply_bayer_mask`` a train
 batch's ``lossmult`` is the RGGB mask of its pixels (``data/raw.py``).  ``blender`` reads
-``transforms_{split}.json`` and its PNGs with the port's own PNG reader
-(``utils/io.py``).  The capture loaders (datasets.py:56-90, 358-733) read
+``transforms_{split}.json`` and its PNGs (or TIFFs) with the port's own
+readers (``utils/io.py``).  The capture loaders (datasets.py:56-90,
+358-733) read
 real scenes the same way: ``llff`` (COLMAP's ``sparse/0`` or a
 ``transforms.json``, an ``images_N`` pyramid, Exif exposures, forward-facing
 NDC with a spiral path or a PCA-aligned unbounded scene with an ellipse or
 spline path; with ``Config.rawnerf_mode`` the raw mosaics of ``raw/``
 and their exposure metadata, HDR+ test scenes included), ``tat_nerfpp``,
-``tat_fvs`` and ``dtu``.  Their images must be PNGs: a JPEG raises
-NotImplementedError (``utils/io.py``).
+``tat_fvs`` and ``dtu``.  Images are PNGs, JPEGs or TIFFs, read into the
+arrays Pillow gives (``utils/io.py``, ``utils/jpeg.py``).
 """
 
 from __future__ import annotations
@@ -309,22 +310,19 @@ class Dataset(metaclass=abc.ABCMeta):
 
 class Blender(Dataset):
   """Blender synthetic scenes (transforms_{split}.json, datasets.py:302-356):
-  RGBA PNGs over a white background, ``_normal.png`` ground truth."""
+  RGBA PNGs over a white background (or, with ``Config.use_tiffs``, linear
+  ``_R/_G/_B/_A.tiff`` channels taken to sRGB), ``_disp.tiff`` disparities
+  for ``Config.compute_disp_metrics``, ``_normal.png`` ground truth."""
 
   def _load_renderings(self, config):
-    later = ('ROADMAP.md Queue 1 item 4: the rest of the model zoo, the '
-             'TIFF reader')
     if config.render_path:
       raise ValueError('render_path cannot be used for the blender dataset.')
-    if config.use_tiffs or self._load_disps:
-      raise NotImplementedError(
-          'Not ported yet: the TIFF images of the blender loader '
-          f'(Config.use_tiffs, _disp.tiff for compute_disp_metrics; {later}).')
     pose_file = os.path.join(self.data_dir,
                              f'transforms_{self.split.value}.json')
     with open(pose_file, 'r') as fp:
       meta = json.load(fp)
     images = []
+    disp_images = []
     normal_images = []
     cams = []
     for frame in meta['frames']:
@@ -336,13 +334,21 @@ class Blender(Dataset):
           image = image_ops.downsample(image, config.factor)
         return image
 
-      images.append(get_img('.png') / 255.0)
+      if config.use_tiffs:
+        channels = [get_img(f'_{ch}.tiff') for ch in 'RGBA']
+        images.append(image_ops.linear_to_srgb(np.stack(channels, axis=-1)))
+      else:
+        images.append(get_img('.png') / 255.0)
+      if self._load_disps:
+        disp_images.append(get_img('_disp.tiff'))
       if self._load_normals:
         normal_images.append(get_img('_normal.png')[..., :3] * 2.0 / 255.0 -
                              1.0)
       cams.append(np.array(frame['transform_matrix'], dtype=np.float32))
 
     self.images = np.stack(images, axis=0)
+    if self._load_disps:
+      self.disp_images = np.stack(disp_images, axis=0)
     if self._load_normals:
       self.normal_images = np.stack(normal_images, axis=0)
       self.alphas = self.images[..., -1]
@@ -539,7 +545,7 @@ class TanksAndTemplesNerfPP(Dataset):
     intrinsics = load_files('intrinsics', np.loadtxt, (4, 4))
 
     if not config.render_path:
-      self.images = load_files('rgb', io_lib.read_png_u8) / 255.0
+      self.images = load_files('rgb', io_lib.read_image) / 255.0
       self.height, self.width = self.images.shape[1:3]
     else:
       # The resolution of a test image.
@@ -573,7 +579,7 @@ class TanksAndTemplesFVS(Dataset):
     files = [f for f in sorted(os.listdir(basedir)) if f.startswith('im_')]
     if render_only:
       files = files[:1]
-    images = np.array([io_lib.read_png_u8(path(f)) for f in files]) / 255.0
+    images = np.array([io_lib.read_image(path(f)) for f in files]) / 255.0
 
     intrinsics, rot, trans = (np.load(path(f'{n}.npy'))
                               for n in ('Ks', 'Rs', 'ts'))

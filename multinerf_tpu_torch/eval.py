@@ -5,7 +5,8 @@
 
 A port of eval.py: restore the latest checkpoint, render each test view by
 camera index through ``models.nerf.DeviceImageRenderer``, color-correct it
-against the ground truth, score it (psnr and ssim, and their ``_cc``
+against the ground truth, score it (psnr, ssim and, with
+``Config.lpips_weights_path``, lpips on the card; and their ``_cc``
 variants, and with ``Config.compute_disp_metrics`` /
 ``compute_normal_metrics`` the disparity MSEs and the normal MAEs of
 eval.py:76-90), write its images and the per-metric files under the JAX
@@ -257,7 +258,7 @@ def main(argv=None):
   renderer = models.DeviceImageRenderer(render_eval_fn, config, dataset,
                                         device)
   postprocess_fn, cc_fn = image_ops.make_postprocess_fns(config, dataset)
-  metric_harness = image_ops.MetricHarness(config.lpips_weights_path)
+  metric_harness = image_ops.MetricHarness(config.lpips_weights_path, device)
 
   out_dir = os.path.join(
       config.checkpoint_dir,

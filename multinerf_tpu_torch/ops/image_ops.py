@@ -6,7 +6,9 @@ correction of eval.  Metrics are computed on host images, as the eval and
 train drivers hold them: SSIM in float32 on the CPU, where no convolution
 takes TF32 or bf16 inputs (the JAX package asks for ``Precision.HIGHEST``
 because reduced-precision inputs bias the ``E[x^2] - mu^2`` variance
-terms).  LPIPS is not ported: its weights are not in the repository.
+terms).  LPIPS (``ops/lpips.py``) runs where the harness is told, on the
+card in the eval entry point, when ``Config.lpips_weights_path`` names
+weights.
 """
 
 from __future__ import annotations
@@ -23,6 +25,21 @@ import torch.nn.functional as F
 def mse_to_psnr(mse):
   """PSNR of a torch MSE, for a maximum pixel value of 1."""
   return -10.0 / math.log(10.0) * torch.log(mse)
+
+
+def psnr_to_mse(psnr):
+  """The torch MSE of a PSNR, for a maximum pixel value of 1."""
+  return torch.exp(-0.1 * math.log(10.0) * psnr)
+
+
+def ssim_to_dssim(ssim):
+  """Structural dissimilarity from SSIM."""
+  return (1 - ssim) / 2
+
+
+def dssim_to_ssim(dssim):
+  """SSIM from structural dissimilarity."""
+  return 1 - 2 * dssim
 
 
 def linear_to_srgb(linear, eps: Optional[float] = None,
@@ -157,20 +174,22 @@ def ssim(img0, img1, max_val=1.0, filter_size=11, filter_sigma=1.5,
 
 
 class MetricHarness:
-  """PSNR and SSIM between a predicted and a ground-truth host image."""
+  """PSNR and SSIM between a predicted and a ground-truth host image, and
+  LPIPS on `device` when a weight file is configured."""
 
-  def __init__(self, lpips_weights_path=None):
-    if lpips_weights_path:
-      raise NotImplementedError(
-          'Not ported yet: LPIPS (ROADMAP.md Queue 1 item 3: its weights are '
-          'not in the repository).')
+  def __init__(self, lpips_weights_path=None, device='cpu'):
+    from multinerf_tpu_torch.ops import lpips as lpips_lib
+    self.lpips_fn = lpips_lib.try_load(lpips_weights_path, device)
 
   def __call__(self, rgb_pred, rgb_gt, name_fn=lambda s: s):
     mse = np.mean((np.asarray(rgb_pred) - np.asarray(rgb_gt))**2)
     # The JAX harness takes the log of the float32 MSE.
     psnr = float(mse_to_psnr(torch.tensor(mse, dtype=torch.float32)))
-    return {name_fn('psnr'): psnr,
-            name_fn('ssim'): float(ssim(rgb_pred, rgb_gt))}
+    out = {name_fn('psnr'): psnr,
+           name_fn('ssim'): float(ssim(rgb_pred, rgb_gt))}
+    if self.lpips_fn is not None:
+      out[name_fn('lpips')] = self.lpips_fn(rgb_pred, rgb_gt)
+    return out
 
 
 def make_postprocess_fns(config, dataset):

@@ -20,7 +20,11 @@ sample positions get no gradient.  Design notes (a wgmma tile pass fed by
 TMA, then the four dW products on the split-K TMA + wgmma GEMM of
 ``csrc/wgmma_dw.cuh`` and ordered reduces, deterministic) are in
 ``csrc/density_mlp_bwd.cu``; the launch plans in ``plans.py``.  A trunk
-narrower than 64, 128 or 256 runs zero-padded to that width.
+narrower than 64, 128 or 256 runs zero-padded to that width.  Where the
+feature tile does not fit beside the rest (672 features: blender_512.gin
+and llff_512.gin), layer 0 runs in two K-parts, the sin and the cos half of
+the features: the wrapper lays w0's rows out part by part
+(``BwdPlan.w0_rows``) and the kernel returns dW_0 in the features' order.
 
 On a CUDA tensor each wrapper launches its kernel (or raises); on a CPU
 tensor it runs the plain version, in both directions: ``density_mlp_plain``
@@ -117,9 +121,17 @@ def _check_trunk(means, ws, bs, wd, bd, basis, min_deg, max_deg):
   return basis_t, bb_t, num_dims, num_degs, num_feats, depth, width
 
 
-def _trunk_operands(ws, bs, kpad):
-  """(w0 [kpad, W] bf16, w_hidden [depth-1, W, W] bf16, biases [depth, W])."""
-  w0 = fd.padded_bf16_rows(ws[0], kpad)
+def _trunk_operands(ws, bs, kpad, parts=None):
+  """(w0 [kpad, W] bf16, w_hidden [depth-1, W, W] bf16, biases [depth, W]).
+  parts: (first feature, first row, count) of each K-part of w0's rows
+  (K3's ``BwdPlan.w0_rows``); by default the features in order."""
+  if parts is None:
+    w0 = fd.padded_bf16_rows(ws[0], kpad)
+  else:
+    w0 = torch.zeros((kpad, ws[0].shape[-1]), dtype=torch.bfloat16,
+                     device=ws[0].device)
+    for f0, r0, count in parts:
+      w0[r0:r0 + count] = ws[0][f0:f0 + count]
   if len(ws) > 1:
     w_hidden = torch.stack([w.to(torch.bfloat16) for w in ws[1:]])
   else:
@@ -184,7 +196,8 @@ def _launch_bwd(means, covs, ws, bs, wd, g, basis, min_deg, max_deg,
                                     fd.num_sms(device))
   wp = plan.width  # The kernel's width: the trunk zero-padded to it.
   ws, bs, wd = _pad_trunk(ws, bs, wd, wp)
-  w0, w_hidden, biases = _trunk_operands(ws, bs, plan.kpad)
+  w0, w_hidden, biases = _trunk_operands(
+      ws, bs, plan.kpad, plan.w0_rows(num_feats) if plan.parts > 1 else None)
   wd_f = wd.reshape(-1).float().contiguous()
   vstride = (depth + 1) * wp + 1
   empty = lambda shape, dtype=torch.float32: torch.empty(
@@ -198,7 +211,7 @@ def _launch_bwd(means, covs, ws, bs, wd, g, basis, min_deg, max_deg,
   vec_out = empty((vstride,))
   lib = build.load('density_mlp_bwd')
   fn = lib.density_mlp_backward
-  fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 13 + [
+  fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 14 + [
       ctypes.c_void_p]
   fn.restype = ctypes.c_int
   bwd_counts['launches'] += 1
@@ -208,7 +221,8 @@ def _launch_bwd(means, covs, ws, bs, wd, g, basis, min_deg, max_deg,
                  feats.data_ptr(), acts.data_ptr(), das.data_ptr(),
                  vec_part.data_ptr(), part.data_ptr(), dw_out.data_ptr(),
                  vec_out.data_ptr(), n, wp, depth, num_dims, num_degs,
-                 int(use_contract), plan.grid, plan.dw0.bn, plan.dw0.splits,
+                 int(use_contract), plan.parts, plan.grid, plan.dw0.bn,
+                 plan.dw0.splits,
                  plan.dw0.per, plan.dw1.bn, plan.dw1.splits, plan.dw1.per,
                  torch.cuda.current_stream(device).cuda_stream),
               'density_mlp_bwd')

@@ -108,12 +108,13 @@ def featurizer_floats(num_dims, rows):
   return num_dims * 12 + rows * 12
 
 
-def bwd_smem(width, depth, kpad64, num_dims):
+def bwd_smem(width, depth, kx, num_dims):
   """Dynamic shared memory of K3's tile pass (csrc/density_mlp_bwd.cu,
-  bwd_layout): two warpgroups' operand tiles, the 4-stage weight ring, the
-  ReLU mask bits, two column-sum buffers per warpgroup (also the
-  featurizer's scratch), g, the barriers and the alignment slack."""
-  x = max(kpad64, 2 * width) * 128
+  bwd_layout): two warpgroups' operand tiles (a feature part of kx columns,
+  later two activation buffers), the 4-stage weight ring, the ReLU mask
+  bits, two column-sum buffers per warpgroup (also the featurizer's
+  scratch), g, the barriers and the alignment slack."""
+  x = max(kx, 2 * width) * 128
   slab = width * BWD_SLAB_K * 2
   masks = (depth - 1) * CONSUMER_THREADS * (width // 64) * 4
   aux = max(2 * 4 * width * 4, featurizer_floats(num_dims, 64) * 4)
@@ -125,17 +126,30 @@ def bwd_smem(width, depth, kpad64, num_dims):
 @dataclasses.dataclass(frozen=True)
 class BwdPlan:
   width: int  # The padded trunk width.
-  kpad: int  # Features rounded up to 64.
+  kpad: int  # Rows of w0 and of dW_0's GEMM: parts * kx.
   tiles: int
   n_pad: int
   grid: int  # Persistent CTAs of the tile pass.
   smem: int
   dw0: DwGemmPlan  # dW_0: [kpad, width] from the features.
   dw1: DwGemmPlan  # dW_1..: [width, width] from the activations.
+  parts: int = 1  # Layer 0's K-parts: 1, or 2 (the sin half, the cos half).
+  kx: int = 0  # Columns of one part: its features rounded up to 64.
+
+  def w0_rows(self, num_feats):
+    """[(first feature, first row of w0, count)] of each part: part p's
+    features lie in rows p * kx .. of w0 and of the feats scratch."""
+    per = num_feats // self.parts
+    return [(p * per, p * self.kx, per) for p in range(self.parts)]
 
 
-def density_mlp_bwd_plan(num_feats, width, depth, num_dims, n, sms):
-  """K3's plan: the tile pass and its four dW products."""
+def density_mlp_bwd_plan(num_feats, width, depth, num_dims, n, sms,
+                         parts=None):
+  """K3's plan: the tile pass and its four dW products.  Layer 0 runs in
+  one K-part where the feature tile fits beside the rest, else in two (the
+  sin and the cos half of the features, each padded to 64 columns), as
+  csrc/density_mlp_bwd.cu lays them out; `parts` asks for one layout (the
+  checks that hold the two against each other)."""
   if depth < 2:
     raise ValueError('the backward kernel needs a trunk of depth >= 2.')
   if num_feats < 1 or width < 1:
@@ -143,18 +157,21 @@ def density_mlp_bwd_plan(num_feats, width, depth, num_dims, n, sms):
   if n < 1:
     raise ValueError(f'{n} samples.')
   wp = padded_width(width)
-  kpad = _ceil(num_feats, 64) * 64
-  smem = bwd_smem(wp, depth, kpad, num_dims)
-  if smem > SMEM_LIMIT:
+  for parts in (1, 2) if parts is None else (parts,):
+    kx = _ceil(num_feats // parts, 64) * 64
+    smem = bwd_smem(wp, depth, kx, num_dims)
+    if smem <= SMEM_LIMIT:
+      break
+  else:
     raise ValueError(f'{num_feats} features, width {width}, depth {depth}: '
                      f'{smem} bytes of shared memory, over {SMEM_LIMIT}.')
   tiles = _ceil(n, TILE)
   n_pad = tiles * TILE
   if depth * n_pad >= 2**31:
     raise ValueError(f'{n} samples: too many for one launch.')
-  return BwdPlan(wp, kpad, tiles, n_pad, min(tiles, sms), smem,
-                 dw_gemm_plan(kpad, wp, n_pad, sms),
-                 dw_gemm_plan(wp, wp, n_pad, sms))
+  return BwdPlan(wp, parts * kx, tiles, n_pad, min(tiles, sms), smem,
+                 dw_gemm_plan(parts * kx, wp, n_pad, sms),
+                 dw_gemm_plan(wp, wp, n_pad, sms), parts, kx)
 
 
 def featurize_smem(kpad64, num_dims):

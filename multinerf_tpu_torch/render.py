@@ -6,9 +6,12 @@
 A port of render.py:50-252 with the same flags, frame striping over jobs
 (``Config.render_job_id`` / ``render_num_jobs``), resume by skipping
 finished frames, latest-checkpoint restore and output file names.  Frames
-are rendered by the device-casting renderer; video assembly is not ported
-yet (it needs an h264 encoder).  ``--device`` defaults to ``cuda`` and the
-run fails when CUDA is not available: there is no silent CPU fallback.
+are rendered by the device-casting renderer.  When every frame is on disk,
+the job assembles one video per channel as render.py:105-147 does (frames
+read back, depth through one normalization fit on frame 0 and the turbo
+colormap), written as MJPEG AVIs (``utils/video.py``: the card's machine
+has no h264 encoder).  ``--device`` defaults to ``cuda`` and the run fails
+when CUDA is not available: there is no silent CPU fallback.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import os
 import sys
 import time
 
+import numpy as np
 import torch
 
 from multinerf_tpu_torch import configs
@@ -29,23 +33,27 @@ from multinerf_tpu_torch.models import nerf as models
 from multinerf_tpu_torch.ops import image_ops
 from multinerf_tpu_torch.utils import checkpoints as ckpt_lib
 from multinerf_tpu_torch.utils import io as io_lib
+from multinerf_tpu_torch.utils import video as video_lib
+from multinerf_tpu_torch.utils import visualize as vis
 
 # The JAX render script's key (render.py:218): the same seed initializes the
 # weights when no checkpoint exists.
 SEED = 20200823
 
-# Channels written per frame: tag -> file extension.
-FRAME_EXTS = {
-    'color': 'png',
-    'normals': 'png',
-    'acc': 'tiff',
-    'distance_mean': 'tiff',
-    'distance_median': 'tiff',
+# Channels written per frame, each a video: tag -> (file extension,
+# u8-encoded?).
+VIDEO_TAGS = {
+    'color': ('png', True),
+    'normals': ('png', True),
+    'acc': ('tiff', False),
+    'distance_mean': ('tiff', False),
+    'distance_median': ('tiff', False),
 }
 
 
 class FrameStore:
-  """On-disk frames of one render job: naming, async writes, existence."""
+  """On-disk frames of one render job: naming, async writes, existence,
+  reading frames back for the videos."""
 
   def __init__(self, out_dir, num_frames, use_async=True):
     self.out_dir = out_dir
@@ -57,14 +65,14 @@ class FrameStore:
 
   def frame_name(self, tag, idx):
     return os.path.join(self.out_dir,
-                        f'{tag}_{idx:0{self._digits}d}.{FRAME_EXTS[tag]}')
+                        f'{tag}_{idx:0{self._digits}d}.{VIDEO_TAGS[tag][0]}')
 
   def has_frame(self, idx):
     return os.path.exists(self.frame_name('color', idx))
 
   def count_frames(self, tag='acc'):
     return len(glob.glob(os.path.join(self.out_dir,
-                                      f'{tag}_*.{FRAME_EXTS[tag]}')))
+                                      f'{tag}_*.{VIDEO_TAGS[tag][0]}')))
 
   def _write(self, fn, *args):
     if self._pool is not None:
@@ -89,6 +97,64 @@ class FrameStore:
       self._pool.shutdown(wait=True)
       for w in self._writes:
         w.result()
+
+  def get(self, tag, idx):
+    return io_lib.load_img(self.frame_name(tag, idx))
+
+
+def video_name_prefix(config, out_name):
+  """'{scene}_{experiment}_{out_name}' from the checkpoint path's tail."""
+  parts = [p for p in config.checkpoint_dir.split('/') if p]
+  if len(parts) >= 2:
+    experiment, scene = parts[-2], parts[-1]
+  else:
+    experiment, scene = 'exp', parts[-1]
+  return f'{scene}_{experiment}_{out_name}'
+
+
+def assemble_videos(config, store, base_dir, out_name, num_frames):
+  """Encode each rendered channel's frame sequence into a video; returns
+  the paths written."""
+  prefix = video_name_prefix(config, out_name)
+  os.makedirs(base_dir, exist_ok=True)
+
+  # Depth channels share one display normalization, fit on frame 0.
+  first_depth = store.get('distance_mean', 0)
+  shape = first_depth.shape[:2]
+  p = config.render_dist_percentile
+  span = np.percentile(first_depth.flatten(), [p, 100 - p])
+  d_lo, d_hi = [config.render_dist_curve_fn(x) for x in span]
+  print(f'Video shape is {shape}')
+
+  def decode(tag, idx):
+    """Read one stored frame back as float RGB in [0, 1]."""
+    img = store.get(tag, idx)
+    if VIDEO_TAGS[tag][1]:  # u8-encoded channels.
+      return img / 255.0
+    if tag.startswith('distance'):
+      curved = np.asarray(config.render_dist_curve_fn(img))
+      unit = np.clip((curved - min(d_lo, d_hi)) / abs(d_hi - d_lo), 0, 1)
+      return np.asarray(vis.turbo(unit))[..., :3]
+    return img
+
+  written = []
+  for tag in VIDEO_TAGS:
+    if not os.path.exists(store.frame_name(tag, 0)):
+      print(f'Images missing for tag {tag}')
+      continue
+    video_file = os.path.join(base_dir, f'{prefix}_{tag}.mp4')
+    print(f'Making video {video_file}...')
+    with video_lib.VideoWriter(video_file, fps=config.render_video_fps,
+                               shape=shape,
+                               crf=config.render_video_crf) as writer:
+      for idx in range(num_frames):
+        if not os.path.exists(store.frame_name(tag, idx)):
+          raise ValueError(
+              f'Image file {store.frame_name(tag, idx)} does not exist.')
+        frame = np.clip(np.nan_to_num(decode(tag, idx)), 0, 1)
+        writer.add_image((frame * 255).astype(np.uint8))
+    written.append(writer.path)
+  return written
 
 
 def plan_frames(config, store, num_frames):
@@ -126,7 +192,8 @@ def render_job(config, dataset, renderer, store, postprocess_fn):
 
 
 def main(argv=None):
-  """Run one render job; returns render_job's summary plus 'out_dir'."""
+  """Run one render job; returns render_job's summary plus 'out_dir' and
+  'videos' (the paths written, none until every frame is on disk)."""
   parser = argparse.ArgumentParser(description='Render frames of a model.')
   configs.add_common_flags(parser)
   parser.add_argument('--device', default='cuda',
@@ -161,9 +228,12 @@ def main(argv=None):
   store = FrameStore(os.path.join(base_dir, out_name), dataset.size,
                      use_async=config.render_save_async)
   summary = render_job(config, dataset, renderer, store, postprocess_fn)
+  summary['videos'] = []
+  # Whichever job finishes the set assembles the videos.
   if store.count_frames() == dataset.size:
-    print('All frames found; video assembly is not ported yet '
-          '(ROADMAP.md Queue 1 item 1: serving slice, deferred items).')
+    print(f'All files found, creating videos (job {config.render_job_id}).')
+    summary['videos'] = assemble_videos(config, store, base_dir, out_name,
+                                        dataset.size)
   summary['out_dir'] = store.out_dir
   return summary
 

@@ -1,12 +1,13 @@
-"""Image files read and written with the standard library alone.
+"""Image files read and written with the standard library and numpy alone.
 
 ``save_img_u8`` (8-bit PNG) and ``save_img_f32`` (32-bit float TIFF) take
 the same arguments and write the same formats as ``multinerf_tpu.utils.io``
-(which uses Pillow, not installed beside the GPU); ``load_img`` reads 8-bit
-PNGs (grey, grey + alpha, RGB, RGBA; every filter type; not interlaced)
-into the array Pillow gives, and refuses JPEGs (their decoder is not ported
-yet).  ``load_exif`` reads the Exif tags of a JPEG by name, as the JAX
-package's Pillow call names them.
+(which uses Pillow, not installed beside the GPU).  ``load_img`` reads into
+the array Pillow gives: 8-bit PNGs (grey, grey + alpha, RGB, RGBA; every
+filter type; not interlaced), JPEGs (``utils/jpeg.py``) and striped TIFFs
+(uncompressed, LZW or Deflate; 8, 16 or 32-bit samples, 1-4 per pixel,
+either byte order).  ``load_exif`` reads the Exif tags of a JPEG by name, as
+the JAX package's Pillow call names them.
 """
 
 from __future__ import annotations
@@ -17,8 +18,10 @@ import zlib
 
 import numpy as np
 
-JPEG_LATER = 'ROADMAP.md Queue 1 item 8: JPEG decoding without Pillow'
+from multinerf_tpu_torch.utils import jpeg
+
 _JPEG_SOI = b'\xff\xd8'  # A JPEG file's first marker.
+_TIFF_HEADERS = (b'II*\x00', b'MM\x00*')
 
 
 def _png_chunk(kind: bytes, data: bytes) -> bytes:
@@ -27,12 +30,13 @@ def _png_chunk(kind: bytes, data: bytes) -> bytes:
 
 
 def encode_png(img_u8: np.ndarray) -> bytes:
-  """The PNG file of an [H, W] (gray) or [H, W, 3] (RGB) uint8 array."""
+  """The PNG file of an [H, W] (gray) or [H, W, C] (gray + alpha, RGB,
+  RGBA) uint8 array."""
   img = np.ascontiguousarray(img_u8, np.uint8)
   if img.ndim == 2:
     color_type = 0
-  elif img.ndim == 3 and img.shape[-1] == 3:
-    color_type = 2
+  elif img.ndim == 3 and img.shape[-1] in (2, 3, 4):
+    color_type = {2: 4, 3: 2, 4: 6}[img.shape[-1]]
   else:
     raise ValueError(f'cannot write an image of shape {img.shape} as PNG.')
   height, width = img.shape[:2]
@@ -115,20 +119,21 @@ def decode_png(data: bytes) -> np.ndarray:
   return img[..., 0] if channels == 1 else img
 
 
-def read_png_u8(pth: str) -> np.ndarray:
-  """The uint8 array of a PNG file; a JPEG raises NotImplementedError."""
+def read_image(pth: str) -> np.ndarray:
+  """The array of a PNG, JPEG or TIFF file, as ``np.asarray(Image.open())``
+  gives it."""
   with open(pth, 'rb') as f:
     data = f.read()
   if data[:2] == _JPEG_SOI:
-    raise NotImplementedError(
-        f'Not ported yet: reading the JPEG image {pth} ({JPEG_LATER}); '
-        'convert the images to PNG.')
+    return jpeg.decode_jpeg(data)
+  if data[:4] in _TIFF_HEADERS:
+    return decode_tiff(data)
   return decode_png(data)
 
 
 def load_img(pth: str) -> np.ndarray:
-  """Load a PNG as float32 (no scaling applied), as utils/io.py:24-27."""
-  return read_png_u8(pth).astype(np.float32)
+  """Load an image as float32 (no scaling applied), as utils/io.py:24-27."""
+  return read_image(pth).astype(np.float32)
 
 
 # --- Exif. --------------------------------------------------------------------
@@ -245,8 +250,92 @@ def load_exif(pth: str):
           if tag in EXIF_TAGS}
 
 
+# --- TIFF images. -------------------------------------------------------------
+
+# (SampleFormat, BitsPerSample) -> numpy type: unsigned, signed, IEEE float.
+_TIFF_DTYPES = {(1, 8): 'u1', (1, 16): 'u2', (2, 16): 'i2', (1, 32): 'u4',
+                (2, 32): 'i4', (3, 32): 'f4'}
+
+
+def lzw_decode(data: bytes) -> bytes:
+  """TIFF's LZW (compression 5): MSB-first codes of 9 to 12 bits, 256 to
+  clear, 257 to end, the code width growing one code early."""
+  win = jpeg.bit_windows(data)
+  end = 8 * len(data)
+  out = bytearray()
+  table = [bytes([i]) for i in range(256)] + [b'', b'']
+  width, p, prev = 9, 0, None
+  while p + width <= end:
+    code = (win[p >> 3] >> (32 - (p & 7) - width)) & ((1 << width) - 1)
+    p += width
+    if code == 257:
+      break
+    if code == 256:
+      del table[258:]
+      width, prev = 9, None
+      continue
+    if prev is None:
+      entry = table[code]
+    else:
+      entry = table[code] if code < len(table) else prev + prev[:1]
+      table.append(prev + entry[:1])
+    out += entry
+    prev = entry
+    n = len(table) + 1
+    width = 9 if n < 512 else 10 if n < 1024 else 11 if n < 2048 else 12
+  return bytes(out)
+
+
+def decode_tiff(data: bytes) -> np.ndarray:
+  """The array of IFD0 of a striped TIFF: [H, W] for one sample a pixel,
+  else [H, W, C]; compression none, LZW or Deflate, with or without the
+  horizontal predictor; chunky samples of one type (``_TIFF_DTYPES``)."""
+  order = {b'II': '<', b'MM': '>'}.get(data[:2])
+  if order is None or data[:4] not in _TIFF_HEADERS:
+    raise ValueError('not a TIFF file.')
+  ifd0, = struct.unpack(order + 'I', data[4:8])
+  tags = _read_ifd(data, order, ifd0)
+  as_tuple = lambda v: v if isinstance(v, tuple) else (v,)
+  width, height = tags[256], tags[257]
+  channels = tags.get(277, 1)
+  bits = set(as_tuple(tags.get(258, 1)))
+  fmts = set(as_tuple(tags.get(339, 1)))
+  key = (fmts.pop(), bits.pop()) if len(bits) == len(fmts) == 1 else None
+  if key not in _TIFF_DTYPES:
+    raise NotImplementedError(f'TIFF samples of {tags.get(258)} bits, '
+                              f'format {tags.get(339, 1)}.')
+  compression = tags.get(259, 1)
+  predictor = tags.get(317, 1)
+  if tags.get(284, 1) != 1 or 322 in tags:
+    raise NotImplementedError('planar or tiled TIFF: only chunky strips.')
+  if tags.get(262, 1) not in (1, 2):
+    raise NotImplementedError(
+        f'TIFF photometric interpretation {tags.get(262)}: only grey and '
+        'RGB(A).')
+  if compression not in (1, 5, 8, 32946) or predictor not in (1, 2):
+    raise NotImplementedError(f'TIFF compression {compression}, predictor '
+                              f'{predictor}: none, LZW and Deflate, with '
+                              'or without the horizontal predictor.')
+  strips = []
+  for offset, count in zip(as_tuple(tags[273]), as_tuple(tags[279])):
+    raw = data[offset:offset + count]
+    if compression == 5:
+      raw = lzw_decode(raw)
+    elif compression in (8, 32946):
+      raw = zlib.decompress(raw)
+    strips.append(raw)
+  dtype = np.dtype(order + _TIFF_DTYPES[key])
+  count = height * width * channels
+  img = np.frombuffer(b''.join(strips), dtype, count).reshape(
+      height, width, channels)
+  if predictor == 2:  # Horizontal differencing, per sample, wrapping.
+    img = np.cumsum(img, axis=1, dtype=dtype)
+  img = img.astype(dtype.newbyteorder('='))
+  return img[..., 0] if channels == 1 else img
+
+
 def write_png(pth: str, img_u8: np.ndarray) -> None:
-  """Write an [H, W] (gray) or [H, W, 3] (RGB) uint8 array as a PNG."""
+  """Write an [H, W] or [H, W, C] uint8 array as a PNG (``encode_png``)."""
   with open(pth, 'wb') as f:
     f.write(encode_png(img_u8))
 

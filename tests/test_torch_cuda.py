@@ -346,6 +346,102 @@ def test_train_step_on_the_gpu_matches_the_cpu(cuda):
     assert gap <= bound, f'{k}: {gap:.3e} > {bound:.3e}'
 
 
+# K3 at 672 features (16 degrees: configs/blender_512.gin, llff_512.gin),
+# where layer 0 runs in two K-parts, the sin and the cos half of the
+# features.  Where both layouts fit (width 128) they give every leaf bit
+# for bit; at width 256 (two parts only) the kernel is held as at 504
+# features, at the full chunk by K3_TOL and at the tile edges by
+# train_lib.leaf_gaps.
+F672 = 672
+
+
+def _trunk672(rng, device, width):
+  ws = [_uniform(rng, (F672, width), F672, device)] + [
+      _uniform(rng, (width, width), width, device) for _ in range(3)]
+  bs = [torch.as_tensor(rng.randn(width).astype(np.float32) * 0.1,
+                        device=device) for _ in ws]
+  return ws, bs, _uniform(rng, (width, 1), width, device)
+
+
+def _k3_leaves(out):
+  return [*out[0], *out[1], out[2], out[3]]
+
+
+@pytest.mark.parametrize('n', [1, 129, 300, K1_N])
+def test_density_mlp_backward_two_parts_match_one_part_bitwise(cuda, n,
+                                                               monkeypatch):
+  from multinerf_tpu_torch.ops.kernels import plans
+  rng = np.random.RandomState(n)
+  means, covs = _gaussians(n, 10, cuda, 0.0)
+  ws, bs, wd = _trunk672(rng, cuda, 128)
+  g = torch.as_tensor(rng.randn(n).astype(np.float32), device=cuda)
+  plan = plans.density_mlp_bwd_plan
+  out = []
+  for parts in (1, 2):
+    monkeypatch.setattr(plans, 'density_mlp_bwd_plan',
+                        lambda *a, parts=parts: plan(*a, parts=parts))
+    out.append(_k3_leaves(dm.density_mlp_backward(
+        means, covs, ws, bs, wd, g, BASIS, 0, 16, False)))
+  torch.cuda.synchronize()
+  for i, (a, b) in enumerate(zip(*out)):
+    assert torch.equal(a, b), f'N={n} leaf {i}: the layouts differ'
+
+
+@pytest.mark.parametrize('use_contract', [True, False])
+def test_density_mlp_backward_kernel_at_672_features(cuda, use_contract):
+  rng = np.random.RandomState(11)
+  means, covs = _gaussians(K1_N, 12, cuda, 0.1 if use_contract else 0.0)
+  ws, bs, wd = _trunk672(rng, cuda, 256)
+  g = torch.as_tensor(rng.randn(K1_N).astype(np.float32), device=cuda)
+  args = (means, covs, ws, bs, wd, g, BASIS, 0, 16, use_contract)
+  dm.reset_counts()
+  got = _k3_leaves(dm.density_mlp_backward(*args))
+  again = _k3_leaves(dm.density_mlp_backward(*args))
+  assert dm.bwd_counts == {'launches': 2, 'plain_calls': 0}
+  assert got[0].shape == (F672, 256)
+  want = _k3_leaves(dm.density_mlp_bwd_plain(*args))
+  _check_leaves(got, again, want,
+                f'density_mlp_bwd 672 contract={use_contract}', K3_TOL)
+
+
+@pytest.mark.parametrize('n', [1, 100, 129])
+def test_density_mlp_backward_at_672_features_at_tile_edges(cuda, n):
+  rng = np.random.RandomState(n + 672)
+  means, covs = _gaussians(n, 13, cuda, 0.0)
+  ws, bs, wd = _trunk672(rng, cuda, 256)
+  g = torch.as_tensor(rng.randn(n).astype(np.float32), device=cuda)
+  rest = (covs, ws, bs, wd, g, BASIS, 0, 16, False)
+  leaves = lambda out: {f'leaf {i}': t.cpu()
+                        for i, t in enumerate(_k3_leaves(out))}
+  got = leaves(dm.density_mlp_backward(means, *rest))
+  again = leaves(dm.density_mlp_backward(means, *rest))
+  want = leaves(dm.density_mlp_bwd_plain(means, *rest))
+  nudged = leaves(dm.density_mlp_bwd_plain(means * (1 + train_lib.NUDGE),
+                                           *rest))
+  for k, w in list(want.items()):
+    assert torch.equal(got[k], again[k]), f'{k}: two launches differ'
+    assert bool(torch.isfinite(got[k]).all()), k
+    if not bool(w.any()):
+      assert not bool(got[k].any()), k
+      del want[k], nudged[k]
+  for k, (gap, _, bound) in train_lib.leaf_gaps(got, want, nudged).items():
+    assert gap <= bound, f'N={n} {k}: {gap:.3e} > {bound:.3e}'
+
+
+def test_backward_shared_memory_at_672_features_matches_the_plan(cuda):
+  import ctypes
+  from multinerf_tpu_torch.ops.kernels import build
+  from multinerf_tpu_torch.ops.kernels import plans
+  fn = build.load('density_mlp_bwd').density_mlp_bwd_smem
+  fn.argtypes = [ctypes.c_int] * 5
+  fn.restype = ctypes.c_int
+  for feats, width in ((F672, 256), (F672, 128), (NUM_FEATS, 256)):
+    plan = plans.density_mlp_bwd_plan(feats, width, 4, 21, 1000,
+                                      fd.num_sms(cuda))
+    assert fn(plan.width, 4, feats, 21, plan.parts) == plan.smem
+  assert plans.density_mlp_bwd_plan(F672, 256, 4, 21, 1000, 132).parts == 2
+
+
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
   means, covs = _gaussians(64, 3, cuda)
   kernel = torch.zeros((NUM_FEATS, 64), device=cuda)

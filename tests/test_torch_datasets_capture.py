@@ -8,10 +8,11 @@ and so must ``generate_ray_batch(0)``: the loaders are the same numpy
 arithmetic (bitwise), except where a render path comes from the ellipse,
 whose resampled angles JAX takes in float32 under ``jnp`` (held to
 ELLIPSE_TOL, see tests/test_torch_cameras_capture.py).  Also ``load_exif``
-against Pillow's, and the refusals: a JPEG pyramid, pano rendering, a
-RawNeRF config on a capture without ``raw/``.
+against Pillow's, and the refusals: an arithmetic-coded JPEG pyramid, pano
+rendering, a RawNeRF config on a capture without ``raw/``.
 """
 
+import io
 import json
 import os
 import struct
@@ -402,16 +403,21 @@ def test_big_endian_exif():
 
 def test_refusals(tmp_path):
   write_capture(str(tmp_path), ring_poses(4))
-  # A JPEG pyramid level: the decoder is not ported.
+  # A JPEG pyramid level of arithmetic-coded files: the one JPEG coding
+  # (with 12-bit samples) the decoder refuses, naming it.
   src = tmp_path / 'images' / 'IMG_0000.JPG'
+  buf = io.BytesIO()
+  Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(buf, 'JPEG')
+  arithmetic = buf.getvalue().replace(b'\xff\xc0', b'\xff\xc9', 1)
   os.makedirs(tmp_path / 'images_4')
   for name in os.listdir(tmp_path / 'images'):
-    (tmp_path / 'images_4' / name).write_bytes(src.read_bytes())
+    (tmp_path / 'images_4' / name).write_bytes(arithmetic)
   _, config = tp.configs(('Config.factor = 4',))
-  with pytest.raises(NotImplementedError, match='item 8: JPEG'):
+  with pytest.raises(NotImplementedError, match='arithmetic-coded'):
     datasets.load_dataset('train', str(tmp_path), config)
-  with pytest.raises(NotImplementedError, match='item 8: JPEG'):
-    io_lib.load_img(str(src))
+  # The Huffman-coded originals decode to Pillow's array.
+  np.testing.assert_array_equal(io_lib.load_img(str(src)),
+                                np.asarray(Image.open(src), np.float32))
   # RawNeRF reads raw/, which this capture lacks: JAX's error.
   _, config = tp.configs(('Config.factor = 2', 'Config.rawnerf_mode = True'))
   with pytest.raises(ValueError, match='Raw image folder .*raw does not'):

@@ -149,12 +149,19 @@ def test_blender_loader_matches_jax(tmp_path, factor):
 
 
 def test_blender_loader_refuses_tiffs(tmp_path):
-  for binding in ('Config.use_tiffs = True',
-                  'Config.compute_disp_metrics = True'):
-    _, config = tp.configs(("Config.dataset_loader = 'blender'", binding),
-                           files=(CONFIG_REFNERF,))
-    with pytest.raises(NotImplementedError, match='item 4'):
+  # The TIFF branch is ported (tests/test_torch_512.py holds it against
+  # JAX); a scene without the TIFFs it names fails as JAX's loader does.
+  _write_blender_fixture(str(tmp_path))
+  for binding, missing in (('Config.use_tiffs = True', 'r_0_R.tiff'),
+                           ('Config.compute_disp_metrics = True',
+                            'r_0_disp.tiff')):
+    jax_config, config = tp.configs(
+        ("Config.dataset_loader = 'blender'", binding),
+        files=(CONFIG_REFNERF,))
+    with pytest.raises(FileNotFoundError, match=missing):
       datasets.load_dataset('train', str(tmp_path), config)
+    with pytest.raises(FileNotFoundError, match=missing):
+      jdatasets.load_dataset('train', str(tmp_path), jax_config)
 
 
 def _filter_rows(img, filters):

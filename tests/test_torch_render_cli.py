@@ -141,7 +141,7 @@ def test_package_never_imports_jax():
       "                                               pkg.__name__ + '.')]",
       "for name in ('eval', 'train', 'utils.summary', 'utils.visualize',",
       "             'data.device_sampler', 'data.colmap', 'data.raw',",
-      "             'robust'):",
+      "             'robust', 'utils.jpeg', 'ops.lpips', 'utils.video'):",
       "  assert 'multinerf_tpu_torch.' + name in names, name",
       'for name in names:',
       '  importlib.import_module(name)',
