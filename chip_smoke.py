@@ -45,7 +45,16 @@ disparity metrics and LPIPS (random weights; one view's LPIPS on the card
 against the host), its test views rendered and assembled into MJPEG AVIs
 that are read back; llff_512.gin the same on the forward-facing capture
 with its ``images_4`` level written as JPEGs by the port's encoder (the
-decoder held against the arrays encoded).
+decoder held against the arrays encoded).  Occupancy culling (after the
+GLO phase): 360.gin with the bf16 trunk trains on ``dummy_scatter`` with
+the capacity ladder 0.33 / 0.5 / 0.67 on the host path (the grid's refresh
+probe timed, eval unculled), each rung forced from the saved state beside
+the unculled step, K2 and K4 held at the 0.33 rung's N = 43,008, a culled
+step and a weight-decay step on the GPU against the CPU, ``int8_hybrid``
+forced at 0.33 (K5/K6 at N = capacity); then the multi-step window
+(``steps_per_jit_call = 8`` on the device plane) with and without culling
+beside single device-plane steps, and one window held against 8 single
+steps.
 
 Run from the repository root, with no arguments:
 
@@ -56,6 +65,8 @@ is ``{"ok": true, "device": {...}}`` and the line before it the per-kernel
 JSON summary.
 """
 
+import collections
+import contextlib
 import ctypes
 import json
 import os
@@ -971,10 +982,25 @@ INT8_LOSS_TOL = 5e-3
 ZOO_LOSS_TOL = 5e-3
 
 
+# The share of the cells a culled step's update reaches whose evaluated
+# samples may differ between the GPU and the CPU step (phase_train_reference).
+GRID_CELLS_DIFFER = 0.05
+
+
+def _half_grid(config, device):
+  """An occupancy grid whose cells on the x < 0 side of contracted space
+  are empty and the others dense (uniform 0.5-2, seeded)."""
+  res = config.occupancy_grid_resolution
+  grid = np.zeros((res,) * 3, np.float32)
+  grid[res // 2:] = np.random.RandomState(5).uniform(
+      0.5, 2.0, grid[res // 2:].shape)
+  return torch.tensor(grid.reshape(-1), device=device)
+
+
 def phase_train_reference(tag='train reference', bindings=(),
                           cap=TRAIN_GAP_CAP, loss_tol=LOSS_TOL,
                           gin='360.gin', loader='dummy_unbounded',
-                          data_dir=None):
+                          data_dir=None, cull=None):
   """One full-width train step of 256 rays with Config.randomized=False
   (no jitter, no noise), from the same initial weights, on the GPU
   (kernels) and on the CPU (plain versions): the loss terms and every
@@ -985,8 +1011,15 @@ def phase_train_reference(tag='train reference', bindings=(),
   1e-4 at most, the interlevel term); each gradient leaf by
   train_lib.leaf_gaps, the rule that also holds the CPU step against JAX,
   with the CPU step as the reference, run a second time on nudged rays, and
-  a cap of `cap`.
+  a cap of `cap`.  With `cull` (a capacity) the final level runs culled
+  through a half-empty occupancy grid (_half_grid) on both sides, and the
+  grids after the step's update are held within TOL * max(1, max |grid|)
+  on the cells where both sides evaluated as many samples.  A sample
+  within a rounding of the grid's empty half keeps on one side only, and
+  then its cell, and the one the spare slots take next, differ; at most
+  GRID_CELLS_DIFFER of the cells the update reached may.
   """
+  from multinerf_tpu_torch.models import culling
   import argparse
   from multinerf_tpu_torch import configs
   from multinerf_tpu_torch import train
@@ -1000,17 +1033,24 @@ def phase_train_reference(tag='train reference', bindings=(),
   config = configs.load_config(args)
   with datasets.load_dataset('train', data_dir, config, seed=0) as dataset:
     host_batch = next(dataset)
-  runs = []
+  runs, grids = [], []
   for device, nudge in (('cuda', False), ('cpu', False), ('cpu', True)):
     t0 = time.perf_counter()
     model, _, _, _, _ = train_lib.setup_model(config, train.SEED,
                                               torch.device(device))
+    if cull is not None:
+      model.occupancy.grid.copy_(_half_grid(config, device))
     batch = train_lib.batch_to_device(host_batch, torch.device(device))
     if nudge:
       batch = train_lib.nudge_origins(batch)
-    loss, losses, _, grads = train_lib.loss_and_grads(model, config, batch,
-                                                      0.5)
+    loss, losses, stats, grads = train_lib.loss_and_grads(
+        model, config, batch, 0.5, cull=cull)
     losses['loss'] = loss
+    if cull is not None:
+      grids.append((culling.update_grid(
+          model.occupancy.grid, stats['occ_cells'], stats['occ_density'],
+          config.occupancy_grid_decay).cpu(), stats['occ_cells'].cpu(),
+                    float(stats['occ_keep_frac'])))
     runs.append(({k: v.cpu() for k, v in losses.items()},
                  {k: v.cpu() for k, v in grads.items()}))
     log(f'{tag}: one step on {device} (nudged: {nudge}) in '
@@ -1035,6 +1075,24 @@ def phase_train_reference(tag='train reference', bindings=(),
   worst = max((gap / bound, k) for k, (gap, _, bound) in gaps.items())
   log(f'{tag}: worst gradient gap is {worst[0]:.2f} of its bound '
       f'({worst[1]})')
+  if cull is not None:
+    (grid, cells, keep_frac), (grid_c, cells_c, keep_frac_c) = grids[:2]
+    count, count_c, count_n = (torch.bincount(g[1], minlength=grid.numel())
+                               for g in grids)
+    same = count == count_c
+    touched = int(((count > 0) | (count_c > 0)).sum())
+    differ = int((~same).sum())
+    gap = float((grid - grid_c).abs()[same].max())
+    bound = TOL * max(1.0, float(grid_c.abs().max()))
+    log(f'{tag}: culled at {cull} (keep fraction {keep_frac} on the GPU, '
+        f'{keep_frac_c} on the CPU); the compact samples fill {touched} '
+        f'cells, {differ} of them with other counts on the two sides '
+        f'(bound {GRID_CELLS_DIFFER:.0%}; the CPU step nudged: '
+        f'{int((count_n != count_c).sum())}); the grid after the update, '
+        f'max|GPU - CPU| over the others {gap:.3e} (bound {bound:.3e}), '
+        f'over all {float((grid - grid_c).abs().max()):.3e}')
+    if not gap <= bound or differ > GRID_CELLS_DIFFER * touched:
+      over['occupancy/grid'] = (gap, differ)
   if over:
     raise SystemExit(f'FAIL {tag}: over the bounds: {over}')
 
@@ -1958,11 +2016,11 @@ def _zoo_argv(gin, ckpt_dir, data):
               f'--gin_bindings={b}' for b in data]
 
 
-def _eval_scores(tag, evaluated, names, views):
+def _eval_scores(tag, evaluated, names, views, step=ZOO_STEPS):
   """The metric files of eval.main's output, each `views` finite values."""
   scores = {}
   for name in names:
-    path = os.path.join(evaluated['out_dir'], f'metric_{name}_{ZOO_STEPS}.txt')
+    path = os.path.join(evaluated['out_dir'], f'metric_{name}_{step}.txt')
     if not os.path.exists(path):
       raise SystemExit(f'FAIL {tag} eval: no {os.path.basename(path)}')
     with open(path) as f:
@@ -2647,6 +2705,441 @@ def phase_llff_512(card):
   return paths
 
 
+# --- Occupancy culling and the multi-step window: configs/360.gin at full
+# width with the bf16 trunk, as the JAX bench's culled arm runs it
+# (bench.py:459-502), on the sparse dummy_scatter scene.
+
+CULL_LADDER = (0.33, 0.5, 0.67)
+CULL_STEPS = 40
+CULL_FORCED_STEPS = 10
+CULL_EVAL_VIEWS = 3
+CULL_DATA = ("Config.dataset_loader='dummy_scatter'",)
+CULL_BINDINGS = BF16_BINDINGS + (
+    'Config.occupancy_culling = True',
+    f'Config.occupancy_capacity_ladder = {CULL_LADDER}',
+    'Config.occupancy_warmup_steps = 8',
+    'Config.occupancy_grid_refresh_every = 8')
+# Engages the lowest rung at the first refresh and holds it: no density
+# the weights reach in these few steps comes near the threshold, so the
+# keep fraction is 0 on an unculled step and 1/32 on a culled one (the
+# terminal sample, which opaque_background keeps).
+CULL_ENGAGED = ('Config.occupancy_threshold = 1000.0',)
+CULL_FORCED = CULL_ENGAGED + ('Config.occupancy_warmup_steps = 2',
+                              'Config.occupancy_grid_refresh_every = 4')
+WEIGHT_DECAY = ("Config.weight_decay_mults = "
+                "{'NerfMLP_0': 1e-5, 'PropMLP_0': 1e-4}",)
+SCAN_WINDOW = 8
+SCAN_STEPS = 40
+SCAN_BINDINGS = ('Config.device_data_plane = True',
+                 f'Config.steps_per_jit_call = {SCAN_WINDOW}',
+                 f'Config.print_every = {SCAN_WINDOW}')
+
+
+@contextlib.contextmanager
+def _launch_sizes():
+  """{kernel: [N of each launch]} of K2, K4, K5 and K6 while inside."""
+  from multinerf_tpu_torch.ops.kernels import featurize_dense as fd
+  from multinerf_tpu_torch.ops.kernels import int8_trunk as i8t
+  sizes = {}
+  saved = []
+  for module, attr, name in ((fd, '_launch', 'featurize_dense'),
+                             (fd, '_launch_dw', 'featurize_dense_dw'),
+                             (i8t, '_launch', 'int8_trunk'),
+                             (i8t, '_launch_bwd', 'int8_trunk_bwd')):
+    fn = getattr(module, attr)
+    sizes[name] = []
+
+    def record(means, *args, _fn=fn, _name=name, **kwargs):
+      sizes[_name].append(int(means.shape[0]))
+      return _fn(means, *args, **kwargs)
+    saved.append((module, attr, fn))
+    setattr(module, attr, record)
+  try:
+    yield sizes
+  finally:
+    for module, attr, fn in saved:
+      setattr(module, attr, fn)
+
+
+def _by_n(sizes):
+  """{kernel: {N: launches}} of _launch_sizes' record."""
+  return {k: dict(sorted(collections.Counter(v).items()))
+          for k, v in sizes.items() if v}
+
+
+def _check_engaged(tag, summary, sizes, steps=CULL_STEPS, warmup=8):
+  """Fails unless the run (CULL_BINDINGS + CULL_ENGAGED, `sizes` its
+  _launch_sizes record) ran unculled through step `warmup` and at the
+  lowest rung after it, K2 and K4 launched at that rung's capacity as
+  often a culled step as at the full N an unculled step, and K2 probed the
+  R^3 cells at every refresh.  Returns the median ms of the unculled steps
+  3 to `warmup` and of the culled steps after the first."""
+  from multinerf_tpu_torch.models import culling
+  rungs = summary['rungs']
+  want = {s: CULL_LADDER[0] for s in range(warmup + 1, steps + 1)}
+  if rungs != want:
+    raise SystemExit(f'FAIL {tag}: culled steps {rungs}, expected {want}')
+  cap = culling.round_capacity(K2_SAMPLES, CULL_LADDER[0])
+  by_n = _by_n(sizes)
+  for name in ('featurize_dense', 'featurize_dense_dw'):
+    counts = by_n.get(name, {})
+    per_step = counts.get(K2_SAMPLES, 0) // warmup
+    if not per_step or counts.get(cap, 0) != per_step * len(rungs):
+      raise SystemExit(f'FAIL {tag}: {name} launches by N {counts} over '
+                       f'{warmup} unculled and {len(rungs)} culled steps')
+  probes = by_n['featurize_dense'].get(64**3, 0)
+  refreshes = len(summary['keep_fracs'])
+  if refreshes != steps // 8 or not probes or probes % refreshes:
+    raise SystemExit(f'FAIL {tag}: {probes} K2 launches at R^3 over '
+                     f'{refreshes} refreshes')
+  seconds = summary['step_seconds']
+  # The first two steps and the first culled one are first calls.
+  return (statistics.median(seconds[2:warmup]) * 1e3,
+          statistics.median(seconds[warmup + 1:]) * 1e3)
+
+
+def _cull_config(bindings=()):
+  import argparse
+  from multinerf_tpu_torch import configs
+  return configs.load_config(argparse.Namespace(
+      gin_configs=[os.path.join(REPO, 'configs', '360.gin')],
+      gin_bindings=["Config.dataset_loader = 'dummy_scatter'",
+                    f'Config.batch_size = {TRAIN_RAYS}',
+                    'Config.lr_delay_steps = 0', *CULL_BINDINGS,
+                    *bindings]))
+
+
+def _culled_steps(model, config, device):
+  """{capacity or None: train step} over the ladder."""
+  from multinerf_tpu_torch import train_lib
+  steps = {None: train_lib.create_train_step(model, config, device)}
+  for cap in CULL_LADDER:
+    steps[cap] = train_lib.create_train_step(model, config, device, cull=cap)
+  return steps
+
+
+def phase_cull_kernels():
+  """K2 and K4 against their plain versions at the compact N of the 0.33
+  rung: 43,008 of a 4,096-ray step's 131,072 final-level samples."""
+  from multinerf_tpu_torch.models import culling
+  from multinerf_tpu_torch.ops import geopoly
+  from multinerf_tpu_torch.ops.kernels import featurize_dense as fd
+  basis = np.array(geopoly.generate_basis('icosahedron', 2)).T
+  num_feats = 2 * 12 * basis.shape[-1]
+  n = culling.round_capacity(K2_SAMPLES, CULL_LADDER[0])
+  rng = np.random.RandomState(7)
+  means, covs = _gaussians(n, seed=8)
+  w = _he_uniform(rng, num_feats, 1024)
+  b = torch.tensor(rng.randn(1024).astype(np.float32) * 0.1, device='cuda')
+  g = torch.tensor(rng.randn(n, 1024).astype(np.float32), device='cuda')
+  args = lambda k: (means[:k], covs[:k], w, b, basis)
+  results = {'featurize_dense': _compare(
+      'featurize_dense (culled)',
+      lambda k: fd.featurize_dense(*args(k), use_contract=True),
+      lambda k: fd.featurize_dense_plain(*args(k), use_contract=True), n)}
+  k4 = lambda fn: lambda k: [fn(means[:k], covs[:k], g[:k], basis)]
+  results['featurize_dense_dw'] = _compare_leaves(
+      'featurize_dense_dw (culled)', k4(fd.featurize_dense_dw),
+      k4(fd.featurize_dense_dw_plain), n)
+  # The compaction's overflow on the card: a keep share of 1/2 over the
+  # rung of 0.33, one mask on both sides, the maps bitwise.
+  keep = torch.tensor(np.random.RandomState(9).rand(TRAIN_RAYS, 32) < 0.5)
+  slot, inv = culling.compact_slots(keep.cuda(), n)
+  want_slot, want_inv = culling.compact_slots(keep, n)
+  same = (torch.equal(slot.cpu(), want_slot) and
+          torch.equal(inv.cpu(), want_inv))
+  log(f'compaction at N={K2_SAMPLES}, cap {n}, keep share '
+      f'{float(keep.float().mean()):.4f}: slot and inverse maps on the card '
+      f'{"bitwise equal to" if same else "differ from"} the CPU\'s')
+  if not same:
+    raise SystemExit('FAIL compaction: the card\'s maps differ from the CPU\'s')
+  bounds = kernel_bounds(n2=n)
+  for name, summary in results.items():
+    summary.update(n=n, **_achieved(summary, bounds[name]),
+                   bound_ms=bounds[name]['bound_ms'],
+                   bound_by=bounds[name]['bound_by'])
+    log(f'{name} (culled) N={n}: bound {summary["bound_ms"]:.4f} ms (set by '
+        f'{summary["bound_by"]}), {summary["ms"]:.3f} ms')
+  return results
+
+
+def _forced_ladder(tag, ckpt_dir):
+  """From the state saved in `ckpt_dir`: CULL_FORCED_STEPS steps at each
+  rung and unculled, each run restored to that state first and given the
+  same batches; ({capacity: median ms} (synchronised per step, the batch
+  drawn on the device beforehand), {capacity: mean loss})."""
+  from multinerf_tpu_torch import train
+  from multinerf_tpu_torch import train_lib
+  from multinerf_tpu_torch.data import datasets
+  from multinerf_tpu_torch.data import device_sampler
+  from multinerf_tpu_torch.utils import checkpoints as ckpt_lib
+  device = torch.device('cuda')
+  config = _cull_config()
+  manager = ckpt_lib.CheckpointManager(ckpt_dir)
+  with datasets.load_dataset('train', None, config, seed=0) as dataset:
+    model, state, _, _, _ = train_lib.setup_model(config, train.SEED, device)
+    plane = device_sampler.DeviceDataPlane(dataset, config, device)
+  ms, losses = {}, {}
+  for cap, step_fn in _culled_steps(model, config, device).items():
+    state = manager.restore_latest(state)
+    generator = torch.Generator(device).manual_seed(0)
+    times, cap_losses = [], []
+    for i in range(CULL_FORCED_STEPS + 2):
+      batch = plane.sample_batch(generator)
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      state, stats = step_fn(generator, state, batch, 1.0, False)
+      torch.cuda.synchronize()
+      if i >= 2:
+        times.append((time.perf_counter() - t0) * 1e3)
+      cap_losses.append(float(stats['loss']))
+    if not np.isfinite(cap_losses).all():
+      raise SystemExit(f'FAIL {tag}: non-finite loss at rung {cap}')
+    ms[cap] = statistics.median(times)
+    losses[cap] = float(np.mean(cap_losses))
+  return ms, losses
+
+
+def _forced_int8(tag):
+  """CULL_FORCED_STEPS int8_hybrid steps forced at the 0.33 rung from a
+  fresh state on the device plane: (launches, sizes, losses)."""
+  from multinerf_tpu_torch import train
+  from multinerf_tpu_torch import train_lib
+  from multinerf_tpu_torch.data import datasets
+  from multinerf_tpu_torch.data import device_sampler
+  device = torch.device('cuda')
+  config = _cull_config(int8_bindings('int8_hybrid'))
+  with datasets.load_dataset('train', None, config, seed=0) as dataset:
+    model, state, _, _, _ = train_lib.setup_model(config, train.SEED, device)
+    plane = device_sampler.DeviceDataPlane(dataset, config, device)
+  step_fn = train_lib.create_train_step(model, config, device,
+                                        cull=CULL_LADDER[0])
+  generator = torch.Generator(device).manual_seed(0)
+  losses = []
+  _reset_counts()
+  with _launch_sizes() as sizes:
+    for i in range(CULL_FORCED_STEPS):
+      state, stats = step_fn(generator, state, plane.sample_batch(generator),
+                             i / CULL_FORCED_STEPS, False)
+      losses.append(float(stats['loss']))
+  launches, plain = _counts()
+  if not np.isfinite(losses).all():
+    raise SystemExit(f'FAIL {tag}: losses {losses}')
+  _check_launches(tag, launches, plain, INT8_TRAIN)
+  return launches, _by_n(sizes), losses
+
+
+def phase_culling(card):
+  """Occupancy culling on the host path: configs/360.gin at full width
+  (bf16 trunk, CULL_BINDINGS) trained CULL_STEPS steps of 4,096 rays on
+  dummy_scatter through ``python -m multinerf_tpu_torch.train``'s entry
+  point, unculled for 8 steps, the grid refreshed every 8 and the ladder's
+  rung gated on the keep fraction, as the scene gives it; the same run
+  under CULL_ENGAGED, which must cull steps 9-40 at the lowest rung
+  (_check_engaged); eval of 3 views (unculled, as JAX's
+  eval renders); from the saved state CULL_FORCED_STEPS steps forced at
+  each rung beside as many unculled (bench.py:484-502); K2 and K4 held at
+  the 0.33 rung's N; a 256-ray culled step and a weight-decay step on the
+  GPU against the CPU; CULL_FORCED_STEPS int8_hybrid steps forced at 0.33
+  (K5/K6 at N = capacity).  Returns ({path: launches}, {kernel: summary})."""
+  from multinerf_tpu_torch import eval as eval_lib
+  from multinerf_tpu_torch.models import culling
+  tag = 'culling'
+  refresh_ms = []
+  refresh_grid = culling.refresh_grid
+
+  def timed_refresh(*args, **kwargs):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    refresh_grid(*args, **kwargs)
+    torch.cuda.synchronize()
+    refresh_ms.append((time.perf_counter() - t0) * 1e3)
+
+  paths = {}
+  with tempfile.TemporaryDirectory() as tmp:
+    ckpt = os.path.join(tmp, 'ckpt')
+    culling.refresh_grid = timed_refresh
+    try:
+      with _launch_sizes() as sizes:
+        paths['culling_train'], _, summary = phase_train(
+            f'{tag} train', CULL_BINDINGS, CULL_STEPS, F32_TRAIN,
+            data=CULL_DATA, ckpt_dir=ckpt)
+    finally:
+      culling.refresh_grid = refresh_grid
+    train_sizes = _by_n(sizes)
+    with _launch_sizes() as sizes:
+      paths['culling_train_engaged'], _, engaged = phase_train(
+          f'{tag} train (engaged)', CULL_BINDINGS + CULL_ENGAGED, CULL_STEPS,
+          F32_TRAIN, data=CULL_DATA)
+    engaged_ms = _check_engaged(f'{tag} train (engaged)', engaged, sizes)
+    engaged_sizes = _by_n(sizes)
+    argv = [f'--gin_configs={os.path.join(REPO, "configs", "360.gin")}',
+            f"--gin_bindings=Config.checkpoint_dir='{ckpt}'",
+            f'--gin_bindings=Config.max_steps={CULL_STEPS}',
+            f'--gin_bindings=Config.eval_dataset_limit={CULL_EVAL_VIEWS}',
+            '--device=cuda'] + [f'--gin_bindings={b}'
+                                for b in CULL_DATA + CULL_BINDINGS]
+    evaluated, launches, plain = _counted(eval_lib.main, argv)
+    _check_launches(f'{tag} eval', launches, plain,
+                    (F32_RENDER[0], F32_TRAIN[0][2:] + F32_RENDER[1]))
+    paths['culling_eval'] = launches
+    scores = _eval_scores(tag, evaluated, ('psnr', 'ssim'), CULL_EVAL_VIEWS,
+                          step=CULL_STEPS)
+    with _launch_sizes() as sizes:
+      forced_ms, forced_losses = _forced_ladder(tag, ckpt)
+    forced_sizes = _by_n(sizes)
+  kernels = phase_cull_kernels()
+  # The top rung: its spare slots take every kept sample (keep ~0.55).
+  phase_train_reference(f'{tag} train reference', CULL_BINDINGS,
+                        loader='dummy_scatter', cull=CULL_LADDER[-1])
+  phase_train_reference('train reference weight decay', WEIGHT_DECAY)
+  paths['culling_int8_hybrid'], int8_sizes, int8_losses = _forced_int8(
+      f'{tag} int8_hybrid')
+  cap = culling.round_capacity(K2_SAMPLES, CULL_LADDER[0])
+  if set(int8_sizes['int8_trunk']) != {cap} or set(
+      int8_sizes['int8_trunk_bwd']) != {cap}:
+    raise SystemExit(f'FAIL {tag} int8_hybrid: K5/K6 sizes {int8_sizes}')
+
+  rungs = summary['rungs']
+  seconds = summary['step_seconds']
+  unculled = [seconds[s - 1] for s in range(6, CULL_STEPS + 1)
+              if s not in rungs]
+  culled = [seconds[s - 1] for s in rungs]
+  median = lambda xs: (f'{statistics.median(xs) * 1e3:.3f} ms ({len(xs)} '
+                       'steps)' if xs else 'no step')
+  log(f'{tag} ({card}): keep fraction at each refresh '
+      f'{summary["keep_fracs"]}; rungs engaged {sorted(set(rungs.values()))} '
+      f'over {len(rungs)} of {CULL_STEPS} steps (from step '
+      f'{min(rungs) if rungs else None}); median step unculled '
+      f'{median(unculled)}, culled {median(culled)} (synchronised per '
+      f'step, steps 6-{CULL_STEPS}); refresh probe at R = 64 (262,144 '
+      f'cells) {", ".join(f"{t:.3f}" for t in refresh_ms)} ms')
+  log(f'{tag}: K2/K4 launches by N in the run (host path, refreshes '
+      f'included) {train_sizes}; eval psnr {scores["psnr"]}, ssim '
+      f'{scores["ssim"]}')
+  log(f'{tag} ({card}): the engaged run (occupancy_threshold 1000): keep '
+      f'fraction at each refresh {engaged["keep_fracs"]}; rung '
+      f'{CULL_LADDER[0]} over steps 9-{CULL_STEPS}; median step unculled '
+      f'{engaged_ms[0]:.3f} ms (steps 3-8), culled {engaged_ms[1]:.3f} ms '
+      f'(steps 10-{CULL_STEPS}); K2/K4 launches by N {engaged_sizes}')
+  log(f'{tag} ({card}): from the saved state, median of '
+      f'{CULL_FORCED_STEPS} steps: unculled {forced_ms[None]:.3f} ms, '
+      + ', '.join(f'rung {c} {forced_ms[c]:.3f} ms' for c in CULL_LADDER)
+      + '; mean loss over the same batches ' + ', '.join(
+          f'{c or "unculled"} {loss:.6f}' for c, loss in forced_losses.items())
+      + f'; K2/K4 launches by N {forced_sizes}')
+  log(f'{tag} int8_hybrid: {CULL_FORCED_STEPS} steps forced at rung '
+      f'{CULL_LADDER[0]}, K5/K6 launches by N {int8_sizes}, loss '
+      f'{int8_losses[0]:.5f} -> {int8_losses[-1]:.5f}')
+  return paths, kernels
+
+
+def _hold_window(tag, card):
+  """One window of SCAN_WINDOW steps against as many single steps of the
+  device plane, from the same state and generator on the card, under
+  CULL_FORCED (the gate engages inside the window); the single steps run
+  a second time on nudged rays for train_lib.leaf_gaps."""
+  from multinerf_tpu_torch import train
+  from multinerf_tpu_torch import train_lib
+  from multinerf_tpu_torch.data import datasets
+  from multinerf_tpu_torch.data import device_sampler
+  device = torch.device('cuda')
+  config = _cull_config(CULL_FORCED + SCAN_BINDINGS)
+  with datasets.load_dataset('train', None, config, seed=0) as dataset:
+    plane = device_sampler.DeviceDataPlane(dataset, config, device)
+
+  def run(windowed, nudge=False):
+    model, state, _, _, _ = train_lib.setup_model(config, train.SEED, device)
+    params0 = {k: v.detach().clone() for k, v in state.params.items()}
+    steps = _culled_steps(model, config, device)
+    gate = train_lib.CullingGate(model, config)
+    sample = plane.sample_batch
+    if nudge:
+      plane.sample_batch = lambda g: train_lib.nudge_origins(sample(g))
+    generator = torch.Generator(device).manual_seed(3)
+    try:
+      if windowed:
+        window = device_sampler.create_scan_train_step(
+            steps, plane, config, SCAN_WINDOW, gate)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _, _ = window(generator, state, 1)
+      else:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for step in range(1, SCAN_WINDOW + 1):
+          single = device_sampler.create_device_train_step(
+              steps[gate.cull(step)], plane)
+          state, stats = single(generator, state,
+                                (step - 1) / (config.max_steps - 1),
+                                step % config.print_every == 0 or step == 1)
+          gate.after_step(step, stats)
+      torch.cuda.synchronize()
+      seconds = time.perf_counter() - t0
+    finally:
+      plane.sample_batch = sample
+    moved = {k: (v.detach() - params0[k]).cpu() for k, v in
+             state.params.items()}
+    return moved, gate, seconds
+
+  window, gate_w, window_s = run(True)
+  single, gate_s, single_s = run(False)
+  nudged, _, _ = run(False, nudge=True)
+  bitwise = all(torch.equal(window[k], single[k]) for k in window)
+  grid = window.pop('occupancy/grid')
+  grid_s = single.pop('occupancy/grid')
+  nudged.pop('occupancy/grid')
+  gaps = train_lib.leaf_gaps(window, single, nudged, cap=TRAIN_GAP_CAP)
+  over = {k: g for k, (g, _, bound) in gaps.items() if not g <= bound}
+  worst = max((g / bound, k) for k, (g, _, bound) in gaps.items())
+  log(f'{tag} ({card}): one window of {SCAN_WINDOW} steps vs '
+      f'{SCAN_WINDOW} single steps from the same state and generator: '
+      f'{"bitwise equal" if bitwise else "not bitwise equal"}; worst '
+      f'update gap {worst[0]:.2f} of its leaf_gaps bound ({worst[1]}); '
+      f'grid max|window - single| {float((grid - grid_s).abs().max()):.3e}; '
+      f'rungs {gate_w.rungs} / {gate_s.rungs}, keep fractions '
+      f'{gate_w.keep_fracs} / {gate_s.keep_fracs}; {window_s:.3f} s / '
+      f'{single_s:.3f} s (first calls)')
+  if over or gate_w.rungs != gate_s.rungs or not gate_w.rungs:
+    raise SystemExit(f'FAIL {tag}: over the bounds {over}; rungs '
+                     f'{gate_w.rungs} vs {gate_s.rungs}')
+
+
+def phase_scan(card):
+  """The device plane with steps_per_jit_call = 8: CULL_BINDINGS and
+  CULL_ENGAGED trained SCAN_STEPS steps (5 windows) through the train
+  entry point, which must cull windows 2-5 (_check_engaged), then the
+  same without culling, then single device-plane steps without culling,
+  for the window's ms per step beside the single step's (one call); one
+  window held against single steps (_hold_window).  Returns {path:
+  launches}."""
+  tag = 'scan'
+  paths = {}
+  with _launch_sizes() as sizes:
+    paths['scan_culled'], _, summary = phase_train(
+        f'{tag} train (culled)', CULL_BINDINGS + CULL_ENGAGED + SCAN_BINDINGS,
+        SCAN_STEPS, F32_TRAIN, data=CULL_DATA)
+  culled_ms = _check_engaged(f'{tag} train (culled)', summary, sizes,
+                             SCAN_STEPS)
+  paths['scan'], window_s, _ = phase_train(
+      f'{tag} train', BF16_BINDINGS + SCAN_BINDINGS, SCAN_STEPS, F32_TRAIN,
+      data=CULL_DATA)
+  paths['scan_single'], single_s, _ = phase_train(
+      f'{tag} single steps', BF16_BINDINGS + (
+          'Config.device_data_plane = True',), SCAN_STEPS, F32_TRAIN,
+      data=CULL_DATA)
+  log(f'{tag} ({card}): device plane at 4,096 rays, bf16 trunk: window of '
+      f'{SCAN_WINDOW} / {SCAN_WINDOW} = {window_s * 1e3:.3f} ms a step, '
+      f'single steps {single_s * 1e3:.3f} ms (medians, steps 6-'
+      f'{SCAN_STEPS}); with culling engaged (occupancy_threshold 1000) '
+      f'{culled_ms[0]:.3f} ms a step unculled (window 1), '
+      f'{culled_ms[1]:.3f} ms culled (windows 2-5, rung {CULL_LADDER[0]}), '
+      f'keep fractions {summary["keep_fracs"]}; K2/K4 launches by N '
+      f'{_by_n(sizes)}')
+  _hold_window(tag, card)
+  return paths
+
+
 SOURCES = {
     'density_mlp': ('multinerf_tpu_torch/csrc/density_mlp.cu',
                     'multinerf_tpu/ops/pallas/density_mlp.py:65'),
@@ -2703,6 +3196,11 @@ def main():
     results[name]['llff_raw'] = summary
   paths.update(phase_robustnerf(card))
   paths.update(phase_glo(card))
+  more, cull_kernels = phase_culling(card)
+  paths.update(more)
+  for name, summary in cull_kernels.items():
+    results[name]['cull_0.33'] = summary
+  paths.update(phase_scan(card))
   for name, summary in phase_512_kernels().items():
     results[name]['512'] = summary
   paths.update(phase_blender_512(card))

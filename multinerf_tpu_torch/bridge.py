@@ -5,7 +5,8 @@ the flax layout (``NerfMLP_0/Dense_0/kernel`` is [in, out]), so the bridge
 is a renaming: the flax path joined with '/' is the checkpoint name, and
 joined with '.' the PyTorch ``state_dict`` key.  No transposes.  The
 Model's embedding tables keep flax's names too: ``Embed_0/embedding``
-(GLO) and ``exposure_scaling_offsets/embedding`` (RawNeRF).
+(GLO) and ``exposure_scaling_offsets/embedding`` (RawNeRF).  The occupancy
+grid, a buffer, keeps the name of its flax collection, ``occupancy/grid``.
 """
 
 from __future__ import annotations
@@ -46,6 +47,15 @@ def named_parameters(model: torch.nn.Module) -> Dict[str, torch.nn.Parameter]:
   return {k.replace('.', '/'): v for k, v in model.named_parameters()}
 
 
+def named_variables(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+  """The parameters, then the buffers (the occupancy grid), under their
+  flax names: what a checkpoint holds, as JAX's ``state.params`` holds
+  every collection."""
+  out = named_parameters(model)
+  out.update({k.replace('.', '/'): v for k, v in model.named_buffers()})
+  return out
+
+
 def to_jax_tree(flat: Dict[str, Any]) -> Dict[str, Any]:
   """{'A/B/kernel': tensor} (parameters, gradients, updates) -> the nested
   numpy tree of the JAX package, e.g. to hold against a flax gradient."""
@@ -78,6 +88,16 @@ def load_jax_params(model: torch.nn.Module, params: Dict[str, Any]):
   """Load a JAX parameter tree (nested dicts of arrays, e.g.
   ``variables['params']``) into the port's model."""
   load_flat(model, flatten(params))
+
+
+def load_jax_variables(model: torch.nn.Module, variables: Dict[str, Any]):
+  """Load JAX variables ({'params': tree, 'occupancy': {'grid': ...}})
+  into the port's model: every collection under its own name."""
+  flat = flatten(variables['params'])
+  for collection, tree in variables.items():
+    if collection != 'params':
+      flat.update(flatten(tree, f'{collection}/'))
+  load_flat(model, flat)
 
 
 def jax_params(model: torch.nn.Module) -> Dict[str, Any]:

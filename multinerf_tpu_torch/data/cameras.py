@@ -488,3 +488,12 @@ def cast_ray_batch(cameras, pixels: dtypes.Pixels,
       near=pixels.near, far=pixels.far, cam_idx=pixels.cam_idx,
       exposure_idx=pixels.exposure_idx,
       exposure_values=pixels.exposure_values)
+
+
+def cameras_to_device(cameras, device):
+  """A dataset's (pixtocams, camtoworlds, distortion_params, pixtocam_ndc)
+  with its arrays as float32 tensors on `device`, for the torch cast."""
+  pixtocams, camtoworlds, distortion_params, pixtocam_ndc = cameras
+  as_f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
+  return (as_f32(pixtocams), as_f32(camtoworlds), distortion_params,
+          None if pixtocam_ndc is None else as_f32(pixtocam_ndc))

@@ -127,6 +127,7 @@ class Dataset(metaclass=abc.ABCMeta):
     self._load_normals = config.compute_normal_metrics
     self._num_border_pixels_to_mask = config.num_border_pixels_to_mask
     self._apply_bayer_mask = config.apply_bayer_mask
+    self._cast_rays_in_train_step = config.cast_rays_in_train_step
     self.data_dir = data_dir
     self.near = config.near
     self.far = config.far
@@ -254,8 +255,11 @@ class Dataset(metaclass=abc.ABCMeta):
     for key, val in self.exposure_records(cam_idx).items():
       ray_kwargs[key] = broadcast_scalar(val)
     pixels = types.Pixels(pix_x_int, pix_y_int, **ray_kwargs)
-    rays = camera_lib.cast_ray_batch(self.cameras, pixels, self.camtype,
-                                     xnp=np)
+    if self._cast_rays_in_train_step and self.split == types.DataSplit.TRAIN:
+      rays = pixels  # Cast on the device by the train step.
+    else:
+      rays = camera_lib.cast_ray_batch(self.cameras, pixels, self.camtype,
+                                       xnp=np)
     batch = {'rays': rays}
     if not self.render_path:
       batch['rgb'] = self.images[cam_idx, pix_y_int, pix_x_int]

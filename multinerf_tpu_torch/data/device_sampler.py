@@ -10,7 +10,9 @@ patches, all-images or single-image batching), not its random stream: the
 rays of given pixel and camera indices equal the host caster's, and so do
 the ``disps``, ``normals`` and ``alphas`` of the metrics when the config
 asks for them, the RGGB ``lossmult`` of ``Config.apply_bayer_mask`` and
-RawNeRF's ``exposure_idx`` and ``exposure_values``.
+RawNeRF's ``exposure_idx`` and ``exposure_values``.  ``create_scan_train_step``
+runs a window of ``Config.steps_per_jit_call`` steps per call, with the
+culling protocol inside it.
 """
 
 from __future__ import annotations
@@ -49,10 +51,7 @@ class DeviceDataPlane:
     if config.compute_normal_metrics:
       self.targets['normals'] = as_f32(dataset.normal_images)
       self.targets['alphas'] = as_f32(dataset.alphas)
-    pixtocams, camtoworlds, distortion_params, pixtocam_ndc = dataset.cameras
-    self.cameras = (as_f32(pixtocams), as_f32(camtoworlds),
-                    distortion_params,
-                    None if pixtocam_ndc is None else as_f32(pixtocam_ndc))
+    self.cameras = camera_lib.cameras_to_device(dataset.cameras, self.device)
     records = dataset.exposure_records(np.arange(self.images.shape[0]))
     self._exposure_values = self._exposure_idx = None
     if 'exposure_values' in records:
@@ -130,3 +129,54 @@ def create_device_train_step(train_step, plane: DeviceDataPlane):
                       loss_threshold)
 
   return step
+
+
+def stack_window(rows):
+  """Per-step stats of a window -> {key: [num_steps, ...]}.  The tree
+  statistics exist on the steps that computed them, always the first
+  (``create_scan_train_step``); the others get zeros there, which
+  ``train.transpose_stats`` drops (JAX train.py:331-335)."""
+  return {k: torch.stack([r[k] if k in r else torch.zeros_like(v)
+                          for r in rows])
+          for k, v in rows[0].items()}
+
+
+def create_scan_train_step(train_steps, plane: DeviceDataPlane, config,
+                           num_steps: int, gate=None):
+  """`num_steps` whole optimizer steps in one call, each drawing its batch
+  on the device (the lax.scan of device_sampler.py:150-241, as an eager
+  loop):
+  (generator, state, start_step, loss_threshold) ->
+  (state, stats stacked [num_steps, ...], loss_threshold).
+
+  `train_steps` maps a capacity (None: unculled) to a step of
+  ``train_lib.create_train_step``; `gate` is the ``train_lib.CullingGate``
+  that picks each step's capacity and refreshes the grid, as on the host
+  path, or None without culling.  Inner step i of a window that starts at
+  `start_step` trains at the fraction of its own step, computes the tree
+  statistics at step 1, on print steps and on the window's first step, and
+  hands its RobustNeRF threshold on as a device tensor.  Nothing is read
+  back to the host between the steps but the gate's keep fraction at a
+  refresh, so one window equals `num_steps` single steps of
+  ``create_device_train_step`` with the same gate.
+  """
+
+  def window(generator, state, start_step, loss_threshold=1.0):
+    rows = []
+    for i in range(num_steps):
+      step = start_step + i
+      train_frac = float(np.clip((step - 1) / (config.max_steps - 1), 0, 1))
+      compute_stats = (step % config.print_every == 0 or step == 1 or
+                       i == 0)
+      step_fn = train_steps[gate.cull(step) if gate is not None else None]
+      batch = plane.sample_batch(generator)
+      state, stats = step_fn(generator, state, batch, train_frac,
+                             compute_stats, loss_threshold)
+      if gate is not None:
+        gate.after_step(step, stats)
+      if config.enable_robustnerf_loss:
+        loss_threshold = stats['loss_threshold']
+      rows.append(stats)
+    return state, stack_window(rows), loss_threshold
+
+  return window

@@ -307,11 +307,14 @@ class MLP(nn.Module):
         x = torch.cat([x.to(feats.dtype), feats], dim=-1)
     return x
 
-  def _predict_density(self, means, covs):
-    """(raw density [N], trunk output [N, C] or None)."""
+  def _predict_density(self, means, covs, paths=None):
+    """(raw density [N], trunk output [N, C] or None); `paths` is a
+    (fused, full_density_fusion) pair other than this MLP's."""
     cfg = self.cfg
     head = self.heads['density']
-    if self.full_density_fusion:
+    fused, full_density_fusion = paths or (self.fused,
+                                           self.full_density_fusion)
+    if full_density_fusion:
       raw_density = dm.density_mlp(
           means, covs, [l.kernel for l in self.trunk],
           [l.bias for l in self.trunk], head.kernel, head.bias[0],
@@ -319,9 +322,26 @@ class MLP(nn.Module):
           min_deg=cfg.min_deg_point, max_deg=cfg.max_deg_point,
           use_contract=cfg.warp_fn is coord.contract)
       return raw_density, None
-    trunk = self._fused_trunk if self.fused else self._unfused_trunk
+    trunk = self._fused_trunk if fused else self._unfused_trunk
     x = trunk(means, covs)
     return head(x)[..., 0], x
+
+  def probe_density(self, means, covs):
+    """The density of this MLP's trunk and density head alone, with no
+    noise: the occupancy grid's probe (culling.py:146-161), which JAX runs
+    as a clone with ``disable_rgb`` and ``disable_density_normals`` on the
+    trained parameters.  The clone's paths are taken: the fused kernels
+    whenever the clone is eligible, the whole fused density kernel for a
+    trunk no deeper than its skip layer."""
+    probe = dataclasses.replace(self.cfg, disable_rgb=True,
+                                disable_density_normals=True)
+    fused = probe.use_fused_featurize is not False and fused_eligible(probe)
+    paths = (fused, fused and not probe.enable_pred_normals and
+             probe.net_depth <= probe.skip_layer)
+    raw_density, _ = self._predict_density(
+        means.reshape(-1, 3), covs.reshape(-1, 3, 3), paths)
+    density = probe.density_activation(raw_density + probe.density_bias)
+    return density.reshape(means.shape[:-1])
 
   def forward(self, means, covs, viewdirs=None, glo_vec=None,
               generator=None):

@@ -17,7 +17,12 @@ row of the ``Embed_0`` table per training camera, zeros at eval and render
 (``zero_glo``).  RawNeRF's colors are scaled by each ray's exposure and,
 with ``learned_exposure_scaling``, by a learned RGB scaling per exposure
 bucket (``exposure_scaling_offsets``, index 0 pinned to 1; nerf.py:279-290).
-Occupancy culling is not ported yet and raises.
+With ``Config.occupancy_culling`` the Model carries the occupancy grid, a
+buffer of R^3 float32 under the JAX collection's name ``occupancy/grid``
+(not a parameter: Adam never sees it), and ``cull`` runs the final level
+through ``culling.apply_culled`` on the samples its grid keeps
+(nerf.py:207-262); unculled, the final level reports the grid feedback
+``occ_cells`` and ``occ_density`` and the keep fraction ``occ_keep_frac``.
 
 ``DeviceImageRenderer`` (nerf.py:545-660) uploads the cameras once and casts
 every chunk's rays on the device; one frame is a Python loop over chunks of
@@ -38,6 +43,7 @@ from torch import nn
 from multinerf_tpu_torch import ginlite
 from multinerf_tpu_torch.data import cameras as camera_lib
 from multinerf_tpu_torch.data import types
+from multinerf_tpu_torch.models import culling
 from multinerf_tpu_torch.models import mlp as mlp_lib
 from multinerf_tpu_torch.ops import coord
 from multinerf_tpu_torch.ops import rendering
@@ -92,14 +98,11 @@ class Embed(nn.Module):
 
 class Model(nn.Module):
   """A mip-NeRF 360 model containing all MLPs (NerfMLP_0, PropMLP_0), the
-  GLO table (Embed_0) and RawNeRF's exposure scaling table
-  (exposure_scaling_offsets)."""
+  GLO table (Embed_0), RawNeRF's exposure scaling table
+  (exposure_scaling_offsets) and the occupancy grid (occupancy.grid)."""
 
   def __init__(self, cfg: ModelConfig, *, generator, device):
     super().__init__()
-    if cfg.config is not None and cfg.config.occupancy_culling:
-      raise NotImplementedError(
-          'Not ported yet: occupancy culling (ROADMAP.md Queue 1).')
     self.cfg = cfg
 
     def mlp_config(name):
@@ -133,9 +136,15 @@ class Model(nn.Module):
       # Zero offsets: every exposure's scaling starts at 1.
       self.exposure_scaling_offsets = Embed(
           cfg.num_glo_embeddings, 3, torch.zeros, device)
+    self.track_occupancy = (cfg.config is not None and
+                            cfg.config.occupancy_culling)
+    if self.track_occupancy:
+      self.occupancy = nn.Module()
+      self.occupancy.register_buffer('grid', torch.zeros(
+          cfg.config.occupancy_grid_resolution**3, device=device))
 
   def forward(self, rays: types.Rays, train_frac, compute_extras,
-              generator=None, zero_glo=True):
+              generator=None, zero_glo=True, cull=None):
     """Render a batch of rays through all sampling levels.
 
     Args:
@@ -148,11 +157,16 @@ class Model(nn.Module):
       zero_glo: give the final level zero GLO vectors (eval and render,
         where a camera index names no training image); else each ray's
         ``cam_idx`` row of the GLO table (training).
+      cull: None, or the capacity (a rung of the ladder) at which the
+        final level runs through the occupancy grid's compaction (needs
+        Config.occupancy_culling).
 
     Returns:
       (renderings, ray_history): per-level rendering dicts and raw results.
     """
     cfg = self.cfg
+    if cull is not None and not self.track_occupancy:
+      raise ValueError('cull requires Config.occupancy_culling.')
     nerf_mlp = self.NerfMLP_0
     prop_mlp = nerf_mlp if cfg.single_mlp else self.PropMLP_0
     glo_vec = None
@@ -220,10 +234,30 @@ class Model(nn.Module):
       if cfg.disable_integration:
         covs = torch.zeros_like(covs)  # Zero covariance: IPE becomes PE.
       mlp = nerf_mlp if final_level else prop_mlp
-      ray_results = mlp(means, covs,
-                        viewdirs=rays.viewdirs if cfg.use_viewdirs else None,
-                        glo_vec=glo_vec if final_level else None,
-                        generator=generator)
+      viewdirs = rays.viewdirs if cfg.use_viewdirs else None
+      if final_level and self.track_occupancy:
+        resolution = cfg.config.occupancy_grid_resolution
+        cells = culling.cell_ids(means, resolution)
+        keep = culling.keep_mask(self.occupancy.grid[cells], cfg.config,
+                                 t_edges=t_edges, dirs=rays.directions)
+      if cull is not None and final_level:
+        if cfg.opaque_background:
+          # The last interval's alpha is 1 whatever its density: culled, it
+          # would paint the ray with the fill color (black).
+          keep[..., -1] = True
+        ray_results = culling.apply_culled(
+            mlp, means, covs, keep, cull, viewdirs=viewdirs,
+            glo_vec=glo_vec, generator=generator, cells=cells)
+      else:
+        ray_results = mlp(means, covs, viewdirs=viewdirs,
+                          glo_vec=glo_vec if final_level else None,
+                          generator=generator)
+        if final_level and self.track_occupancy:
+          # The grid's feedback and the gate's keep fraction, measured
+          # while not culling too.
+          ray_results['occ_cells'] = cells
+          ray_results['occ_density'] = ray_results['density'].detach()
+          ray_results['occ_keep_frac'] = torch.mean(keep.float())
 
       hist_weights = rendering.compute_alpha_weights(
           ray_results['density'], t_edges, rays.directions,
@@ -366,13 +400,10 @@ class DeviceImageRenderer:
     self._camtype = dataset.camtype
     self._height, self._width = dataset.height, dataset.width
     self._near, self._far = float(dataset.near), float(dataset.far)
-    pixtocams, camtoworlds, distortion_params, pixtocam_ndc = dataset.cameras
+    self._cameras = camera_lib.cameras_to_device(dataset.cameras, device)
     # A copy: the exposure records may be read-only broadcasts.
     as_f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
-    self._cameras = (as_f32(pixtocams), as_f32(camtoworlds),
-                     distortion_params,
-                     None if pixtocam_ndc is None else as_f32(pixtocam_ndc))
-    n_cams = np.asarray(camtoworlds).shape[0]
+    n_cams = self._cameras[1].shape[0]
     records = dataset.exposure_records(np.arange(n_cams))
     self._exposure_idx = self._exposure_values = None
     if 'exposure_idx' in records:

@@ -85,7 +85,7 @@ def main(argv=None):
     dataset = datasets.load_dataset('train', config.data_dir, config,
                                     seed=train.DATA_SEED)
     _, state, _, train_step, _ = train_lib.setup_model(config, train.SEED,
-                                                       device)
+                                                       device, dataset)
     generator = torch.Generator(device=device).manual_seed(train.SEED)
     if config.device_data_plane:
       plane = device_sampler.DeviceDataPlane(dataset, config, device)

@@ -26,7 +26,16 @@ logged: ``test_rays_per_sec``, ``train_metrics/*``, ``test_true_color``
 ``test_true_color/{p}``).  ``Config.early_exit_steps`` (0 included) stops the run
 after that many steps, as train.py:235-238.  ``Config.profile_step`` traces
 ``profile_num_steps`` steps with torch.profiler into
-``checkpoint_dir/profile``.  Rates are taken
+``checkpoint_dir/profile``.  With ``Config.occupancy_culling`` the host path
+runs one step per capacity rung and ``train_lib.CullingGate``: unculled
+until ``occupancy_warmup_steps``, then the rung the gate engaged at the
+last grid refresh (train.py:156-179, 260-289).  On the device plane
+(``Config.device_data_plane``) ``steps_per_jit_call`` > 1 runs windows of
+that many steps (``device_sampler.create_scan_train_step``), the culling
+protocol inside them; every cadence is then a multiple of the window, the
+cadence checks use the window's last step, and the losses, the stats and
+the synchronisation are read once per window (train.py:181-196, 290-351).
+Culling on the device plane needs such windows, as in JAX.  Rates are taken
 over the steps since the last line (JAX divides by ``print_every`` also
 when fewer steps ran).  Each step is synchronised with the device, so the
 step times it reports are device-complete.  ``--device`` defaults to
@@ -76,15 +85,24 @@ def _console_line(step, config, avg_stats, lr, rays_per_sec):
           f', {rays_per_sec:0.0f} r/s')
 
 
-def transpose_stats(stats_buffer, step, print_every):
+def transpose_stats(stats_buffer, step, print_every, scan_steps=1):
   """The stats of the steps since the last line, key -> [n] or [n, k]
   numpy (train.py:320-355).  The tree statistics exist on the steps that
   computed them: those at step 1 and every `print_every`-th, or, when no
   row is such a step (a resumed run's first step), row 0, the first step of
-  the run, which always computes them (ADVICE.md:3)."""
+  the run, which always computes them (ADVICE.md:3).  With `scan_steps` >
+  1 the buffer holds windows of stats stacked [scan_steps, ...], whose
+  first rows also computed them."""
+  if scan_steps > 1:
+    windows = [{k: v.cpu().numpy() for k, v in w.items()}
+               for w in stats_buffer]
+    stats_buffer = [{k: v[i] for k, v in w.items()}
+                    for w in windows for i in range(scan_steps)]
   n_rows = len(stats_buffer)
   buf_steps = np.arange(step - n_rows + 1, step + 1)
   stats_mask = (buf_steps % print_every == 0) | (buf_steps == 1)
+  if scan_steps > 1:
+    stats_mask[0::scan_steps] = True
   if not stats_mask.any():
     stats_mask[0] = True
   stacked = {}
@@ -92,7 +110,8 @@ def transpose_stats(stats_buffer, step, print_every):
     rows = stats_buffer
     if k.startswith(TREE_STAT_PREFIXES):
       rows = [s for s, m in zip(stats_buffer, stats_mask) if m]
-    stacked[k] = torch.stack([s[k] for s in rows]).cpu().numpy()
+    stacked[k] = (np.stack([s[k] for s in rows]) if scan_steps > 1 else
+                  torch.stack([s[k] for s in rows]).cpu().numpy())
   return stacked
 
 
@@ -156,15 +175,25 @@ def in_train_test_render(step, renderer, train_frac, test_dataset, config,
   return n_rays / dt
 
 
-def _refuse_unported(config):
-  later = 'ROADMAP.md Queue 1'
-  if config.occupancy_culling:
-    raise NotImplementedError(
-        f'Not ported yet: occupancy culling ({later} item 5).')
-  if config.steps_per_jit_call > 1:
-    raise NotImplementedError(
-        f'Not ported yet: steps_per_jit_call > 1, the scanned multi-step '
-        f'plane ({later} item 5).')
+def window_steps(config):
+  """The steps of one call: steps_per_jit_call on the device plane, else 1;
+  with JAX's checks of what it needs (train.py:167-172, 185-191)."""
+  if not config.device_data_plane:
+    return 1
+  scan_steps = max(1, config.steps_per_jit_call)
+  if config.occupancy_culling and scan_steps == 1:
+    raise ValueError(
+        'occupancy_culling with device_data_plane requires '
+        'steps_per_jit_call > 1 (culling runs inside the scan).')
+  if scan_steps > 1:
+    for name in ['print_every', 'checkpoint_every', 'train_render_every',
+                 'gc_every']:
+      val = getattr(config, name)
+      if val > 0 and val % scan_steps:
+        raise ValueError(
+            f'{name}={val} must be a multiple of steps_per_jit_call='
+            f'{scan_steps}')
+  return scan_steps
 
 
 def _profile(device, log_dir):
@@ -181,9 +210,11 @@ def _profile(device, log_dir):
 def main(argv=None):
   """Train to Config.max_steps (or early_exit_steps), resuming from the
   latest checkpoint.  Returns {'init_step', 'losses', 'data_losses',
-  'step_seconds' (per step), 'stats' (the last step's, as floats or
-  lists), 'checkpoint' (the latest file), 'test_rays_per_sec' (per in-train
-  render)}."""
+  'step_seconds' (per step; a window's time split evenly over its steps),
+  'stats' (the last step's, as floats or lists), 'checkpoint' (the latest
+  file), 'test_rays_per_sec' (per in-train render), 'keep_fracs' and
+  'rungs' (with culling: {step: keep fraction} at each grid refresh and
+  {step: capacity} at each culled step)}."""
   parser = argparse.ArgumentParser(description='Train a model.')
   configs.add_common_flags(parser)
   parser.add_argument('--device', default='cuda',
@@ -197,13 +228,21 @@ def main(argv=None):
   torch.backends.cudnn.allow_tf32 = False
 
   config = configs.load_config(args, save_config=True)
-  _refuse_unported(config)
+  scan_steps = window_steps(config)
   dataset = datasets.load_dataset('train', config.data_dir, config,
                                   seed=DATA_SEED)
   test_dataset = datasets.load_dataset('test', config.data_dir, config)
   postprocess_fn, _ = image_ops.make_postprocess_fns(config, test_dataset)
   model, state, render_eval_fn, train_step, lr_fn = train_lib.setup_model(
-      config, SEED, device)
+      config, SEED, device, dataset)
+  # One step per capacity rung, picked by the gate (train.py:156-179).
+  train_steps = {None: train_step}
+  gate = None
+  if config.occupancy_culling:
+    gate = train_lib.CullingGate(model, config)
+    for cap in gate.ladder:
+      train_steps[cap] = train_lib.create_train_step(
+          model, config, device, cull=cap, dataset=dataset)
   renderer = models.DeviceImageRenderer(render_eval_fn, config, test_dataset,
                                         device)
   num_params = sum(p.numel() for p in state.params.values())
@@ -231,7 +270,11 @@ def main(argv=None):
 
   if config.device_data_plane:
     plane = device_sampler.DeviceDataPlane(dataset, config, device)
-    device_step = device_sampler.create_device_train_step(train_step, plane)
+    if scan_steps > 1:
+      window = device_sampler.create_scan_train_step(
+          train_steps, plane, config, scan_steps, gate)
+    else:
+      device_step = device_sampler.create_device_train_step(train_step, plane)
   else:
     prefetcher = train_lib.Prefetcher(dataset, device)
 
@@ -248,17 +291,20 @@ def main(argv=None):
   gc_was_enabled = gc.isenabled()
   gc.disable()  # Avoid GC jitter in the hot loop.
   try:
-    for step in range(init_step, num_steps + 1):
+    for step0 in range(init_step, num_steps + 1, scan_steps):
+      # The window [step0, step] runs in one call; the cadences read its
+      # last step.
+      step = step0 + scan_steps - 1
       if reset_stats:
         stats_buffer = []
         train_start_time = time.time()
         reset_stats = False
 
-      if config.profile_step > 0 and step == config.profile_step:
+      if config.profile_step > 0 and step0 <= config.profile_step <= step:
         profiler = _profile(device, os.path.join(config.checkpoint_dir,
                                                  'profile'))
-      if (profiler is not None and
-          step == config.profile_step + config.profile_num_steps):
+      if (profiler is not None and step0 <= config.profile_step +
+          config.profile_num_steps <= step):
         profiler.stop()
         profiler = None
 
@@ -266,27 +312,38 @@ def main(argv=None):
       train_frac = float(np.clip((step - 1) / (config.max_steps - 1), 0, 1))
       # train.py:265: the tree statistics on the first step of the run and
       # on the steps that print.
-      will_print = step == init_step or step % config.print_every == 0
+      will_print = step0 == init_step or step % config.print_every == 0
 
       # The step's time includes taking its batch (a host batch whose copy
       # was issued during the last step, or the device plane's draw) and
       # staging the next one while this step runs on the device.
       t0 = time.perf_counter()
-      if config.device_data_plane:
+      if scan_steps > 1:
+        state, stats, loss_threshold = window(generator, state, step0,
+                                              loss_threshold)
+      elif config.device_data_plane:
         state, stats = device_step(generator, state, train_frac, will_print,
                                    loss_threshold)
       else:
-        state, stats = train_step(generator, state, prefetcher.take(),
-                                  train_frac, will_print, loss_threshold)
+        state, stats = train_steps[gate.cull(step) if gate else None](
+            generator, state, prefetcher.take(), train_frac, will_print,
+            loss_threshold)
         if step < num_steps:
           prefetcher.stage()
-      if config.enable_robustnerf_loss:
+        if gate is not None:
+          gate.after_step(step, stats)
+      if config.enable_robustnerf_loss and scan_steps == 1:
         loss_threshold = stats['loss_threshold']
       if device.type == 'cuda':
         torch.cuda.synchronize(device)
-      out['step_seconds'].append(time.perf_counter() - t0)
-      out['losses'].append(float(stats['loss']))
-      out['data_losses'].append(float(stats['losses/data']))
+      seconds = time.perf_counter() - t0
+      out['step_seconds'] += [seconds / scan_steps] * scan_steps
+      if scan_steps > 1:
+        out['losses'] += stats['loss'].tolist()
+        out['data_losses'] += stats['losses/data'].tolist()
+      else:
+        out['losses'].append(float(stats['loss']))
+        out['data_losses'].append(float(stats['losses/data']))
 
       if step % config.gc_every == 0:
         gc.collect()
@@ -294,16 +351,16 @@ def main(argv=None):
       stats_buffer.append(stats)
       if will_print:
         elapsed_time = time.time() - train_start_time
-        steps_per_sec = len(stats_buffer) / elapsed_time
+        steps_per_sec = len(stats_buffer) * scan_steps / elapsed_time
         rays_per_sec = config.batch_size * steps_per_sec
         # Robust total-time accumulation, resilient to preemption.
         total_time += int(round(TIME_PRECISION * elapsed_time))
-        total_steps += len(stats_buffer)
+        total_steps += len(stats_buffer) * scan_steps
         approx_total_time = int(round(step * total_time / total_steps))
 
         stats_split = split_stats(
-            transpose_stats(stats_buffer, step, config.print_every),
-            len(stats_buffer))
+            transpose_stats(stats_buffer, step, config.print_every,
+                            scan_steps), len(stats_buffer) * scan_steps)
         for k, v in stats_split.items():
           summary_writer.histogram('train_' + k, v, step)
         avg_stats = {k: float(np.mean(v)) for k, v in stats_split.items()}
@@ -355,7 +412,10 @@ def main(argv=None):
     dataset.close()
     test_dataset.close()
 
-  out['stats'] = {k: v.tolist() for k, v in stats.items()}
+  out['stats'] = {k: (v[-1] if scan_steps > 1 else v).tolist()
+                  for k, v in stats.items()}
+  if gate is not None:
+    out['keep_fracs'], out['rungs'] = gate.keep_fracs, gate.rungs
   latest = ckpt.latest_step()
   out['checkpoint'] = None if latest is None else ckpt.path(latest)
   return out

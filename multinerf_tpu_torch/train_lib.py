@@ -13,8 +13,15 @@ keep the JAX names, flattened with '/' (``losses/data``,
 ``charb``, RawNeRF's ``rawnerf`` (renders clipped at 1, weighted by the
 log tonemap's gradient) and RobustNeRF's ``robustnerf`` (the residuals of
 patches masked by ``robust.robustnerf_mask`` against the loss
-threshold the previous step returned).  Not ported: weight decay and
-occupancy culling (ROADMAP.md Queue 1).
+threshold the previous step returned).  ``Config.weight_decay_mults`` adds
+``losses/weight``, the weighted squared norms of the named subtrees.  With
+``Config.cast_rays_in_train_step`` the train split ships pixels, which the
+step casts on the device.  With ``Config.occupancy_culling`` the step
+updates the Model's occupancy grid after Adam from the final level's
+feedback (train_lib.py:390-398), a step made with ``cull`` runs the final
+level culled at that capacity, and ``CullingGate`` holds the protocol of
+train.py:156-179 and 260-289: which rung each step runs, and the grid's
+refresh with the self-gate.
 """
 
 from __future__ import annotations
@@ -27,7 +34,9 @@ import torch
 
 from multinerf_tpu_torch import bridge
 from multinerf_tpu_torch import robust
+from multinerf_tpu_torch.data import cameras as camera_lib
 from multinerf_tpu_torch.data import types
+from multinerf_tpu_torch.models import culling
 from multinerf_tpu_torch.models import mlp as mlp_lib
 from multinerf_tpu_torch.models import nerf as nerf_lib
 from multinerf_tpu_torch.ops import image_ops
@@ -342,20 +351,34 @@ def flatten_patches(batch, config):
   return rays, lambda x: x.reshape(batch.rgb.shape[:3] + x.shape[1:])
 
 
+def subtree_norm_sq(params, key):
+  """The squared L2 norm of the parameters under `key` ('NerfMLP_0',
+  'NerfMLP_0/Dense_0', ...): JAX's tree_norm_sq of that subtree."""
+  leaves = [p for name, p in params.items()
+            if name == key or name.startswith(key + '/')]
+  if not leaves:
+    raise KeyError(key)
+  return sum(torch.sum(p**2) for p in leaves)
+
+
 def loss_and_grads(model, config, batch, train_frac, generator=None,
-                   loss_threshold=1.0):
+                   loss_threshold=1.0, cull=None):
   """The training loss of `batch` and its gradient (the loss_fn of
   train_lib.py:302-373 under value_and_grad, with ``zero_glo=False``):
   (loss, {name: loss term}, stats of compute_data_loss, {flax name: raw
   gradient}).  Leaves ``.grad`` set on the model's parameters.  Patches of
   patch_size > 1 go through the model as flat rays and come back shaped
-  [P, ps, ps, ...] for the data loss (RobustNeRF votes over them)."""
+  [P, ps, ps, ...] for the data loss (RobustNeRF votes over them).  With
+  occupancy culling the stats also hold the final level's grid feedback
+  'occ_cells' and 'occ_density' and 'occ_keep_frac', the largest keep
+  fraction any level reports."""
   rays, unflatten = flatten_patches(batch, config)
   compute_extras = (config.compute_disp_metrics or
                     config.compute_normal_metrics)
   renderings, ray_history = model(rays, train_frac,
                                   compute_extras=compute_extras,
-                                  generator=generator, zero_glo=False)
+                                  generator=generator, zero_glo=False,
+                                  cull=cull)
   shaped = [{k: v if k.startswith('ray_') or v is None else unflatten(v)
              for k, v in r.items()} for r in renderings]
   losses = {}
@@ -373,6 +396,17 @@ def loss_and_grads(model, config, batch, train_frac, generator=None,
       config.predicted_normal_loss_mult > 0):
     losses['predicted_normals'] = predicted_normal_loss(model, ray_history,
                                                         config)
+  if config.weight_decay_mults:
+    params = bridge.named_parameters(model)
+    losses['weight'] = torch.sum(torch.stack([
+        m * subtree_norm_sq(params, k)
+        for k, m in config.weight_decay_mults.items()]))
+  if config.occupancy_culling:
+    stats['occ_cells'] = ray_history[-1]['occ_cells']
+    stats['occ_density'] = ray_history[-1]['occ_density']
+    keep_fracs = [r['occ_keep_frac'] for r in ray_history
+                  if 'occ_keep_frac' in r]
+    stats['occ_keep_frac'] = torch.max(torch.stack(keep_fracs)).detach()
   loss = torch.sum(torch.stack(list(losses.values())))
   loss.backward()
   grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
@@ -381,15 +415,19 @@ def loss_and_grads(model, config, batch, train_frac, generator=None,
           grads)
 
 
-def create_train_step(model, config, device):
+def create_train_step(model, config, device, cull=None, dataset=None):
   """(generator, state, batch, train_frac, compute_stats[, loss_threshold])
   -> (state, stats).
 
   One optimizer step of `model` on a device Batch (``batch_to_device``),
   with ``state.optimizer`` holding Adam over the model's parameters.
   `generator` (a torch.Generator on `device`) draws the jitter when
-  ``config.randomized``.  stats: 'loss', 'losses/{data,interlevel,
-  distortion,orientation,predicted_normals}', 'mses', 'psnrs', 'psnr'
+  ``config.randomized``.  With `cull` (a capacity; needs
+  Config.occupancy_culling) the final level runs culled.  With
+  Config.cast_rays_in_train_step a batch of Pixels is cast on `device` by
+  the cameras of `dataset` (the train split).  stats: 'loss',
+  'losses/{data,interlevel,distortion,orientation,predicted_normals,
+  weight}', 'mses', 'psnrs', 'psnr'
   and, with the metrics on, 'disparity_mses' and 'normal_maes', with the
   ``robustnerf`` loss 'loss_threshold' (this batch's inlier quantile, the
   next step's `loss_threshold`: a 0-d tensor on the device, so that
@@ -397,22 +435,27 @@ def create_train_step(model, config, device):
   (detached tensors), plus with
   `compute_stats` the tree statistics 'weight_l2s/...' (before the update),
   'grad_norms/...', 'grad_maxes/...' (raw gradients), 'opt_update_norms/...'
-  and 'opt_update_maxes/...'.
+  and 'opt_update_maxes/...', and with occupancy culling 'occ_keep_frac'.
   """
-  del device  # The batch and the model already live there.
-  later = 'ROADMAP.md Queue 1'
-  if config.weight_decay_mults:
-    raise NotImplementedError(
-        f'Not ported yet: weight_decay_mults ({later} item 2b).')
   lr_fn = learning_rate_fn(config)
+  cameras = None
+  if config.cast_rays_in_train_step:
+    if dataset is None:
+      raise ValueError('cast_rays_in_train_step needs the train dataset, '
+                       'whose cameras cast the pixels.')
+    cameras = camera_lib.cameras_to_device(dataset.cameras, device)
+    camtype = dataset.camtype
 
   def train_step(generator, state, batch, train_frac, compute_stats,
                  loss_threshold=1.0):
+    if cameras is not None and isinstance(batch.rays, types.Pixels):
+      batch = dataclasses.replace(batch, rays=camera_lib.cast_ray_batch(
+          cameras, batch.rays, camtype, xnp=torch))
     params = bridge.named_parameters(model)
     state.optimizer.zero_grad(set_to_none=True)
     loss, losses, stats, grads = loss_and_grads(
         model, config, batch, train_frac,
-        generator if config.randomized else None, loss_threshold)
+        generator if config.randomized else None, loss_threshold, cull)
 
     stats = dict(stats, loss=loss)
     stats.update({f'losses/{k}': v for k, v in losses.items()})
@@ -423,6 +466,13 @@ def create_train_step(model, config, device):
       before = {k: p.detach().clone() for k, p in params.items()}
 
     state = apply_gradients(state, grads, config, lr_fn)
+    if config.occupancy_culling:
+      # After Adam, which never sees the grid (train_lib.py:390-398).
+      grid = model.occupancy.grid
+      with torch.no_grad():
+        grid.copy_(culling.update_grid(
+            grid, stats.pop('occ_cells'), stats.pop('occ_density'),
+            config.occupancy_grid_decay))
 
     if compute_stats:
       delta = {k: p.detach() - before[k] for k, p in params.items()}
@@ -503,15 +553,62 @@ def create_render_fn(model):
   return render_eval_fn
 
 
-def setup_model(config, seed, device):
+def setup_model(config, seed, device, dataset=None):
   """(model, state, render_eval_fn, train_step, lr_fn), as train_lib.py:480:
   the gin-configured Model with weights drawn from torch.Generator(seed),
-  its TrainState at step 0 (the model's parameters and the Adam optimizer
-  over them), its render function and its training step."""
+  its TrainState at step 0 (the model's parameters and buffers, and the
+  Adam optimizer over the parameters), its render function (unculled, as
+  JAX renders: train_lib.py:487-492) and its unculled training step
+  (casting pixels with `dataset`'s cameras under
+  Config.cast_rays_in_train_step)."""
   generator = torch.Generator().manual_seed(seed)
   model = nerf_lib.construct_model(config, generator, device)
-  params = bridge.named_parameters(model)
-  optimizer, lr_fn = create_optimizer(config, params)
-  state = checkpoints.TrainState(step=0, params=params, optimizer=optimizer)
+  optimizer, lr_fn = create_optimizer(config, bridge.named_parameters(model))
+  state = checkpoints.TrainState(step=0, params=bridge.named_variables(model),
+                                 optimizer=optimizer)
   return (model, state, create_render_fn(model),
-          create_train_step(model, config, device), lr_fn)
+          create_train_step(model, config, device, dataset=dataset), lr_fn)
+
+
+def capacity_ladder(config):
+  """The culled step's capacities, ascending (train.py:158-160)."""
+  return tuple(sorted(config.occupancy_capacity_ladder or
+                      (config.occupancy_capacity_frac,)))
+
+
+class CullingGate:
+  """The culling protocol of train.py:156-179 and 260-289, shared by the
+  host path and the multi-step window.
+
+  ``cull(step)`` is the capacity step `step` runs at: the engaged rung once
+  past ``occupancy_warmup_steps``, else None (unculled).  ``after_step``,
+  every ``occupancy_grid_refresh_every`` steps, refreshes the grid with
+  jitter from a generator seeded by the step (JAX's PRNGKey(step)) and
+  engages the smallest rung that holds the step's keep fraction, none
+  above the top rung.  That keep fraction is the one value read back to
+  the host, once per refresh.  ``keep_fracs`` records it by step, ``rungs``
+  the capacity of every culled step."""
+
+  def __init__(self, model, config):
+    self.ladder = capacity_ladder(config)
+    self.rung = None
+    self.keep_fracs = {}
+    self.rungs = {}
+    self._model = model
+    self._config = config
+
+  def cull(self, step):
+    if self.rung is not None and step > self._config.occupancy_warmup_steps:
+      self.rungs[step] = self.rung
+      return self.rung
+    return None
+
+  def after_step(self, step, stats):
+    """Refresh and gate after `step`, whose stats are `stats`."""
+    if step % self._config.occupancy_grid_refresh_every:
+      return
+    grid = self._model.occupancy.grid
+    generator = torch.Generator(grid.device).manual_seed(step)
+    culling.refresh_grid(self._model, self._config, generator)
+    keep_frac = self.keep_fracs[step] = float(stats['occ_keep_frac'])
+    self.rung = next((c for c in self.ladder if keep_frac <= c), None)

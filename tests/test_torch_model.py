@@ -224,7 +224,6 @@ def test_cast_ray_batch_matches_jax(xnp):
     (['NerfMLP.disable_density_normals = False',
       "NerfMLP.trunk_dtype = 'int8'"], 'int8 trunks with density'),
     (["NerfMLP.trunk_dtype = 'float16'"], 'float16'),
-    (['Config.occupancy_culling = True'], 'occupancy culling'),
 ])
 def test_unported_options_raise(bindings, match):
   _, torch_config = tp.configs(tp.SMALL_BINDINGS + tuple(bindings))

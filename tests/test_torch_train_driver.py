@@ -192,17 +192,6 @@ def test_tree_statistics_rows_of_a_print_window():
   np.testing.assert_array_equal(split['mses/2'], [2, 5])
 
 
-@pytest.mark.parametrize('binding,item', [
-    ('Config.occupancy_culling = True', 'item 5'),
-    ('Config.steps_per_jit_call = 4', 'item 5'),
-    ("Config.weight_decay_mults = {'NerfMLP_0': 0.1}", 'item 2b')])
-def test_driver_refuses_what_is_not_ported(tmp_path, binding, item):
-  with pytest.raises(NotImplementedError, match=item):
-    train.main(['--device=cpu'] + _argv(tp.SMALL_BINDINGS + (
-        binding, "Config.dataset_loader = 'dummy'",
-        f"Config.checkpoint_dir = '{tmp_path}'")))
-
-
 def test_early_exit_steps_zero_runs_no_step_and_saves_what_jax_saves(
     tmp_path):
   # train.py:235-238: early_exit_steps = 0 runs no step; the final save of

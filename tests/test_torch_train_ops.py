@@ -355,10 +355,6 @@ def test_train_refuses_cuda_without_a_gpu(tmp_path):
 
 
 def test_training_options_outside_the_slice_raise():
-  _, config = tp.configs(tp.SMALL_BINDINGS + (
-      "Config.weight_decay_mults = {'NerfMLP_0': 0.1}",))
-  with pytest.raises(NotImplementedError, match='weight_decay_mults'):
-    train_lib.setup_model(config, 0, 'cpu')
   # An unknown data loss raises JAX's error; RawNeRF's is ported
   # (tests/test_torch_rawnerf.py holds it against JAX).
   batch = types.Batch(rays=tp.torch_rays(tp.rays(4)), rgb=torch.ones(4, 3))
