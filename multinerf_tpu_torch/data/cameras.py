@@ -490,6 +490,49 @@ def cast_ray_batch(cameras, pixels: dtypes.Pixels,
       exposure_values=pixels.exposure_values)
 
 
+def cast_spherical_rays(camtoworld, height: int, width: int, near: float,
+                        far: float, xnp=np) -> dtypes.Rays:
+  """The rays of every pixel of a 360 equirectangular (pano) camera at
+  `camtoworld` [3, 4], [H, W] batch dims (cameras.py:541-576).  On tensors
+  the grid takes `camtoworld`'s dtype and device."""
+  if xnp is torch:
+    kw = dict(dtype=camtoworld.dtype, device=camtoworld.device)
+    theta_vals = torch.linspace(0, 2 * math.pi, width + 1, **kw)
+    phi_vals = torch.linspace(0, math.pi, height + 1, **kw)
+    diff = lambda a, axis: torch.diff(a, dim=axis)
+    norm = lambda a: torch.linalg.vector_norm(a, dim=-1)
+  else:
+    theta_vals = np.linspace(0, 2 * np.pi, width + 1)
+    phi_vals = np.linspace(0, np.pi, height + 1)
+    diff = lambda a, axis: np.diff(a, axis=axis)
+    norm = lambda a: np.linalg.norm(a, axis=-1)
+  theta, phi = xnp.meshgrid(theta_vals, phi_vals, indexing='xy')
+
+  # Spherical directions in the camera frame (y up).
+  directions = xnp.stack([
+      -xnp.sin(phi) * xnp.sin(theta),
+      xnp.cos(phi),
+      xnp.sin(phi) * xnp.cos(theta),
+  ], -1)
+  directions = _rotate(camtoworld[:3, :3], directions, xnp)
+
+  dy = diff(directions[:, :-1], 0)
+  dx = diff(directions[:-1, :], 1)
+  directions = directions[:-1, :-1]
+  origins = xnp.broadcast_to(camtoworld[:3, -1], directions.shape)
+  radii = (0.5 * (norm(dx) + norm(dy)))[..., None] * 2 / math.sqrt(12)
+  imageplane = xnp.zeros_like(directions[..., :2])
+  if xnp is torch:
+    scalar = lambda v, dtype=radii.dtype: torch.full(
+        radii.shape, v, dtype=dtype, device=radii.device)
+  else:
+    scalar = lambda v, dtype=None: np.broadcast_to(v, radii.shape)
+  return dtypes.Rays(
+      origins=origins, directions=directions, viewdirs=directions,
+      radii=radii, imageplane=imageplane, lossmult=scalar(1.0),
+      near=scalar(near), far=scalar(far), cam_idx=scalar(0, torch.int64))
+
+
 def cameras_to_device(cameras, device):
   """A dataset's (pixtocams, camtoworlds, distortion_params, pixtocam_ndc)
   with its arrays as float32 tensors on `device`, for the torch cast."""

@@ -296,11 +296,13 @@ class Dataset(metaclass=abc.ABCMeta):
                                 lossmult=lossmult)
 
   def generate_ray_batch(self, cam_idx: int) -> types.Batch:
-    """The rays of every pixel of camera `cam_idx`, [H, W] batch dims."""
+    """The rays of every pixel of camera `cam_idx`, [H, W] batch dims: a
+    pano camera's spherical fan under ``Config.render_camtype = 'pano'``."""
     if self._render_spherical:
-      raise NotImplementedError(
-          'Not ported yet: pano rendering (ROADMAP.md Queue 1 item 1: '
-          'serving slice, deferred items).')
+      rays = camera_lib.cast_spherical_rays(
+          self.camtoworlds[cam_idx], self.height, self.width, self.near,
+          self.far, xnp=np)
+      return types.Batch(rays=rays)
     pix_x_int, pix_y_int = camera_lib.pixel_coordinates(self.width,
                                                         self.height)
     return self._make_ray_batch(pix_x_int, pix_y_int, cam_idx)

@@ -4,7 +4,8 @@
         --gin_bindings="Config.checkpoint_dir='...'" [--device=cuda]
 
 A port of eval.py: restore the latest checkpoint, render each test view by
-camera index through ``models.nerf.DeviceImageRenderer``, color-correct it
+camera index through ``models.nerf.DeviceImageRenderer`` (a pano camera's
+host rays through ``ImageRenderer``), color-correct it
 against the ground truth, score it (psnr, ssim and, with
 ``Config.lpips_weights_path``, lpips on the card; and their ``_cc``
 variants, and with ``Config.compute_disp_metrics`` /
@@ -255,8 +256,7 @@ def main(argv=None):
   dataset = datasets.load_dataset('test', config.data_dir, config)
   _, state, render_eval_fn, _, _ = train_lib.setup_model(config, SEED, device)
   state = ckpt_lib.TrainState(step=0, params=state.params)
-  renderer = models.DeviceImageRenderer(render_eval_fn, config, dataset,
-                                        device)
+  renderer = models.choose_renderer(render_eval_fn, config, dataset, device)
   postprocess_fn, cc_fn = image_ops.make_postprocess_fns(config, dataset)
   metric_harness = image_ops.MetricHarness(config.lpips_weights_path, device)
 

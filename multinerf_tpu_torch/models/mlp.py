@@ -42,8 +42,9 @@ which promote a bf16 input.  ``use_fused_featurize=None`` takes the fused
 kernels on the CPU too (through their plain versions), unlike mlp.py:288.
 Density and bottleneck noise (RawNeRF's) are drawn from the training
 step's ``torch.Generator`` and are off without one (eval, render).  Int8
-trunks with density normals raise NotImplementedError naming the ROADMAP
-item that brings them.
+trunks with density normals run unfused, their ``quant_dense`` layers
+under the density-normal ``autograd.grad(create_graph=True)``: both int8
+Functions' backwards are differentiable again (``ops/quant.py``).
 """
 
 from __future__ import annotations
@@ -137,22 +138,6 @@ def fused_eligible(cfg: MLPConfig):
           (cfg.net_depth <= 1 or (cfg.net_depth - 1) % cfg.skip_layer != 0))
 
 
-def _unsupported(cfg: MLPConfig):
-  """The first option this port does not cover, with its ROADMAP item."""
-  checks = [
-      (cfg.trunk_dtype not in (*_DTYPES, *_INT8),
-       f'trunk_dtype={cfg.trunk_dtype!r}',
-       'the port takes float32, bfloat16, int8 and int8_hybrid'),
-      (cfg.trunk_dtype in _INT8 and not cfg.disable_density_normals,
-       'int8 trunks with density-gradient normals',
-       'ROADMAP.md Queue 1 item 4: the rest of the model zoo'),
-  ]
-  for bad, what, item in checks:
-    if bad:
-      return f'{what} ({item})'
-  return None
-
-
 class Dense(nn.Module):
   """flax ``nn.Dense``'s parameters: kernel [in, out], bias [out]."""
 
@@ -179,9 +164,10 @@ class MLP(nn.Module):
     """`num_glo_features`: the width of the GLO vector the view branch
     takes per ray (0: none)."""
     super().__init__()
-    problem = _unsupported(cfg)
-    if problem:
-      raise NotImplementedError(f'Not ported yet: {problem}.')
+    if cfg.trunk_dtype not in (*_DTYPES, *_INT8):
+      raise NotImplementedError(
+          f'Not ported yet: trunk_dtype={cfg.trunk_dtype!r} (the port takes '
+          'float32, bfloat16, int8 and int8_hybrid).')
     if cfg.use_reflections and not (cfg.enable_pred_normals or
                                     not cfg.disable_density_normals):
       raise ValueError('Normals must be computed for reflection directions.')

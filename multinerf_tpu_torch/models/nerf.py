@@ -24,9 +24,13 @@ through ``culling.apply_culled`` on the samples its grid keeps
 (nerf.py:207-262); unculled, the final level reports the grid feedback
 ``occ_cells`` and ``occ_density`` and the keep fraction ``occ_keep_frac``.
 
-``DeviceImageRenderer`` (nerf.py:545-660) uploads the cameras once and casts
+``DeviceImageRenderer`` (nerf.py:545-694) uploads the cameras once and casts
 every chunk's rays on the device; one frame is a Python loop over chunks of
-``Config.render_chunk_size`` rays and one transfer of the assembled frame.
+``Config.render_chunk_size`` rays and one transfer of the assembled frame,
+and ``render_many`` renders K cameras with one transfer of the K frames.
+``ImageRenderer`` (nerf.py:406-542) renders rays cast on the host, the pano
+camera's, through the same chunk loop after one copy of the frame's rays to
+the device; ``choose_renderer`` picks between the two as the drivers do.
 """
 
 from __future__ import annotations
@@ -377,10 +381,127 @@ def _assemble_image(outs, config, height, width, chunk, num_chunks,
   return _subsample_ray_bundles(out, config)
 
 
+def _render_frame(render_fn, config, train_frac, height, width, chunk_rays):
+  """One [H, W] frame, left on the device: ``chunk_rays(i, chunk)`` gives
+  the rays of chunk i, each chunk is rendered and its outputs kept
+  (_keep_chunk_outputs), and the chunks are assembled on the device, with
+  no read-back between them."""
+  chunk, num_chunks, padding = _plan_chunks(config, height * width)
+  outs = []
+  for i in range(num_chunks):
+    renderings, _ = render_fn(train_frac, chunk_rays(i, chunk))
+    outs.append(_keep_chunk_outputs(renderings, config))
+  return _assemble_image(_stack(outs), config, height, width, chunk,
+                         num_chunks, padding)
+
+
+def _stack(frames):
+  """A list of rendering dicts -> one dict stacked on a new leading axis
+  (each level of a 'ray_' bundle stacked on its own)."""
+  out = {}
+  for k, v in frames[0].items():
+    if isinstance(v, list):
+      out[k] = [torch.stack([f[k][lvl] for f in frames])
+                for lvl in range(len(v))]
+    else:
+      out[k] = torch.stack([f[k] for f in frames])
+  return out
+
+
+def _to_host(rendering):
+  """A rendering dict of tensors -> numpy ('ray_' bundles stay lists)."""
+  return {k: ([r.cpu().numpy() for r in v] if isinstance(v, list)
+              else v.cpu().numpy()) for k, v in rendering.items()}
+
+
+class ImageRenderer:
+  """Whole-image renderer of rays cast on the host (nerf.py:406-542): the
+  fallback for cameras the device cast does not cover, the pano camera.
+
+  Per frame the [H, W] host rays are flattened, padded by edge replication
+  to whole chunks (_plan_chunks), packed into one float32 array and copied
+  to the device once; the chunks are rendered through the same
+  ``render_fn`` as DeviceImageRenderer's (so the fused kernels run) and
+  assembled on the device, and the frame comes back in one transfer.
+  """
+
+  def __init__(self, render_fn, config, dataset, device):
+    """Args:
+      render_fn: (train_frac, rays) -> (renderings, history), e.g. from
+        train_lib.create_render_fn.
+      config: Config (render_chunk_size, vis_num_rays).
+      dataset: a Dataset whose ``generate_ray_batch`` casts the rays of a
+        camera index (None where only ``render_rays`` is called).
+      device: where the frame is rendered.
+    """
+    self._render_fn = render_fn
+    self._config = config
+    self._dataset = dataset
+    self._device = torch.device(device)
+
+  def _upload(self, rays, num_rays, padded):
+    """[H, W, ...] numpy Rays -> Rays of [padded, ...] tensors on the
+    device, from one copy of every field packed side by side; the index
+    fields (exact in float32) are cast back to int64."""
+    fields = {f.name: getattr(rays, f.name)
+              for f in dataclasses.fields(rays)
+              if getattr(rays, f.name) is not None}
+    cols = [np.asarray(v, np.float32).reshape(num_rays, -1)
+            for v in fields.values()]
+    packed = np.pad(np.concatenate(cols, -1), ((0, padded - num_rays), (0, 0)),
+                    mode='edge')
+    packed = torch.from_numpy(packed)
+    if self._device.type == 'cuda':
+      packed = packed.pin_memory()
+    packed = packed.to(self._device, non_blocking=True)
+    out, start = {}, 0
+    for name, col in zip(fields, cols):
+      out[name] = packed[:, start:start + col.shape[-1]]
+      start += col.shape[-1]
+      if name in ('cam_idx', 'exposure_idx'):
+        out[name] = out[name].long()
+    return types.Rays(**out)
+
+  def __call__(self, train_frac, cam_idx):
+    """Render the dataset's camera `cam_idx` from the rays the host casts
+    for it (``dataset.generate_ray_batch``, as render.py:199): what
+    ``render_rays`` gives."""
+    return self.render_rays(
+        train_frac, self._dataset.generate_ray_batch(int(cam_idx)).rays)
+
+  def render_rays(self, train_frac, rays):
+    """Render the [H, W] host rays `rays` (a types.Rays of numpy arrays):
+    a dict of [H, W, ...] numpy buffers plus the 'ray_' bundles."""
+    height, width = rays.origins.shape[:2]
+    chunk, num_chunks, _ = _plan_chunks(self._config, height * width)
+    flat = self._upload(rays, height * width, chunk * num_chunks)
+    chunk_rays = lambda i, chunk: types.Rays(**{
+        f.name: (None if getattr(flat, f.name) is None else
+                 getattr(flat, f.name)[i * chunk:(i + 1) * chunk])
+        for f in dataclasses.fields(flat)})
+    return _to_host(_render_frame(self._render_fn, self._config, train_frac,
+                                  height, width, chunk_rays))
+
+
+def render_image(render_fn, rays, config, device):
+  """Render all pixels of one image once (nerf.py:696-795): a fresh
+  ImageRenderer over ``render_fn`` (rays -> (renderings, history)).
+
+  JAX picks, by ``Config.render_scan_chunks``, between a scan over the
+  chunks and a host loop whose outputs are the same; on one device the
+  port has one loop for both settings: the chunks are launched one after
+  the other and the frame is read back once.
+  """
+  renderer = ImageRenderer(lambda _, chunk_rays: render_fn(chunk_rays),
+                           config, None, device)
+  return renderer.render_rays(None, rays)
+
+
 class DeviceImageRenderer:
   """Whole-image renderer that casts rays on the device from cameras
-  uploaded once; per frame only the camera index goes to the device and
-  the assembled rendering comes back."""
+  uploaded once (nerf.py:545-694); per frame only the camera index goes to
+  the device and the assembled rendering comes back.  Pano cameras are
+  not cast here (``supports``): the drivers take ImageRenderer for them."""
 
   def __init__(self, render_fn, config, dataset, device):
     """Args:
@@ -390,10 +511,7 @@ class DeviceImageRenderer:
       dataset: a Dataset (cameras, camtype, size, near/far, exposures).
       device: where the rays are cast and rendered.
     """
-    if dataset._render_spherical:  # pylint: disable=protected-access
-      raise NotImplementedError(
-          'Not ported yet: pano rendering (ROADMAP.md Queue 1 item 1: '
-          'serving slice, deferred items).')
+    self._spherical = dataset._render_spherical  # pylint: disable=protected-access
     self._render_fn = render_fn
     self._config = config
     self._device = device
@@ -414,6 +532,11 @@ class DeviceImageRenderer:
       self._exposure_values = as_f32(np.broadcast_to(
           np.asarray(records['exposure_values'], np.float32), (n_cams,)))
 
+  def supports(self):
+    """Whether the device cast covers the dataset's cameras: every
+    projective camera, not the pano fan (nerf.py:600-603)."""
+    return not self._spherical
+
   def _cast_chunk(self, chunk_start, chunk, cam_idx):
     """Rays for [chunk_start, chunk_start + chunk), clamped at the image
     end (the clamped duplicates are dropped at assembly)."""
@@ -433,24 +556,34 @@ class DeviceImageRenderer:
     return camera_lib.cast_ray_batch(self._cameras, pixels, self._camtype,
                                      xnp=torch)
 
+  def _frame(self, train_frac, cam_idx):
+    if not self.supports():
+      raise ValueError('pano cameras are cast on the host: render them '
+                       'with ImageRenderer.')
+    cam_idx = int(cam_idx)
+    return _render_frame(
+        self._render_fn, self._config, train_frac, self._height, self._width,
+        lambda i, chunk: self._cast_chunk(i * chunk, chunk, cam_idx))
+
   def __call__(self, train_frac, cam_idx):
     """Render the dataset's camera `cam_idx`: a dict of [H, W, ...] numpy
     buffers plus the 'ray_' bundles (lists of one array per level)."""
-    height, width = self._height, self._width
-    chunk, num_chunks, padding = _plan_chunks(self._config, height * width)
-    outs = []
-    for i in range(num_chunks):
-      rays = self._cast_chunk(i * chunk, chunk, int(cam_idx))
-      renderings, _ = self._render_fn(train_frac, rays)
-      outs.append(_keep_chunk_outputs(renderings, self._config))
-    stacked = {}
-    for k, v in outs[0].items():
-      if k.startswith('ray_'):
-        stacked[k] = [torch.stack([o[k][lvl] for o in outs])
-                      for lvl in range(len(v))]
-      else:
-        stacked[k] = torch.stack([o[k] for o in outs])
-    rendering = _assemble_image(stacked, self._config, height, width, chunk,
-                                num_chunks, padding)
-    return {k: ([r.cpu().numpy() for r in v] if isinstance(v, list)
-                else v.cpu().numpy()) for k, v in rendering.items()}
+    return _to_host(self._frame(train_frac, cam_idx))
+
+  def render_many(self, train_frac, cam_indices):
+    """Render the cameras `cam_indices` (K of them) with no read-back
+    between frames (nerf.py:662-694): a dict of [K, H, W, ...] numpy
+    buffers (and [K, ...] per level of each 'ray_' bundle), read back
+    once, after the last frame.  Each frame is what ``__call__`` gives."""
+    return _to_host(_stack([self._frame(train_frac, idx)
+                            for idx in cam_indices]))
+
+
+def choose_renderer(render_fn, config, dataset, device):
+  """The renderer the JAX drivers choose (render.py:222-227): the
+  DeviceImageRenderer where it supports the dataset's cameras, else an
+  ImageRenderer; both are called as (train_frac, cam_idx)."""
+  renderer = DeviceImageRenderer(render_fn, config, dataset, device)
+  if renderer.supports():
+    return renderer
+  return ImageRenderer(render_fn, config, dataset, device)

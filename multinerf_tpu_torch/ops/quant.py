@@ -11,6 +11,21 @@ The int8 view branch of the NerfMLP (``MLP.trunk_dtype='int8'`` or
   through the forward's own dequantized weights ``q8(w) * sw``
   (quant.py:123-139).
 
+Both backwards are differentiable again, as density-gradient normals need
+(a loss on the gradient of the density in the sample means): their ops
+are torch ops on the saved inputs, so a second derivative flows through
+the absmax scales and the bf16 casts, and not through the quantized
+values, whose round and int8 cast carry no gradient, as in JAX's autodiff
+of its backward rules.  The hybrid's backward uses the forward's saved
+``q8(w) * sw``, and recomputes it from the saved ``w`` when it is itself
+differentiated (``create_graph``).  The Functions' outputs keep
+their custom backward at every order.  JAX's hybrid forward rule computes
+its output in plain code instead (quant.py:123-127), so under
+``jax.value_and_grad`` that output's derivative reaches ``w`` through the
+scales alone; the port follows the function JAX's rule means to define,
+whose forward rule returns the custom function's own output, as
+``int8_matmul``'s does (quant.py:88-89).
+
 Scales are ``max(absmax, 1e-30) / 127`` in f32; the quantizer divides by
 the scale (no reciprocal) and rounds half to even, as ``jnp.round``.  These
 are plain products, as in the JAX package, where XLA computes them outside
@@ -94,12 +109,17 @@ class _Int8MatmulHybrid(torch.autograd.Function):
   @staticmethod
   def forward(ctx, x, w):
     y, wq, sw = _forward(x, w)
-    ctx.save_for_backward(x, wq.float() * sw)
+    ctx.save_for_backward(x, w, wq.float() * sw)
     return y
 
   @staticmethod
   def backward(ctx, g):
-    x, w_deq = ctx.saved_tensors
+    x, w, w_deq = ctx.saved_tensors
+    if torch.is_grad_enabled():
+      # A backward that is differentiated again: the same dequantized
+      # weights, recomputed to be differentiable in w through sw.
+      wq, sw = absmax_quantize(w, 0)
+      w_deq = wq.float() * sw
     g16 = g.to(torch.bfloat16).float()
     dx = dw = None
     # bf16 x bf16 products are exact in f32: an f32 product of the rounded

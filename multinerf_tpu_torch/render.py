@@ -6,7 +6,9 @@
 A port of render.py:50-252 with the same flags, frame striping over jobs
 (``Config.render_job_id`` / ``render_num_jobs``), resume by skipping
 finished frames, latest-checkpoint restore and output file names.  Frames
-are rendered by the device-casting renderer.  When every frame is on disk,
+are rendered by the device-casting renderer, or from host-cast rays for a
+pano camera (``Config.render_camtype = 'pano'``, render.py:222-227).  When
+every frame is on disk,
 the job assembles one video per channel as render.py:105-147 does (frames
 read back, depth through one normalization fit on frame 0 and the turbo
 colormap), written as MJPEG AVIs (``utils/video.py``: the card's machine
@@ -210,8 +212,7 @@ def main(argv=None):
   dataset = datasets.load_dataset('test', config.data_dir, config)
   _, state, render_eval_fn, _, _ = train_lib.setup_model(config, SEED,
                                                          device)
-  renderer = models.DeviceImageRenderer(render_eval_fn, config, dataset,
-                                        device)
+  renderer = models.choose_renderer(render_eval_fn, config, dataset, device)
   postprocess_fn, _ = image_ops.make_postprocess_fns(config, dataset)
 
   ckpt = ckpt_lib.CheckpointManager(config.checkpoint_dir, keep=100)

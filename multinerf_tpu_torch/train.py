@@ -243,8 +243,8 @@ def main(argv=None):
     for cap in gate.ladder:
       train_steps[cap] = train_lib.create_train_step(
           model, config, device, cull=cap, dataset=dataset)
-  renderer = models.DeviceImageRenderer(render_eval_fn, config, test_dataset,
-                                        device)
+  renderer = models.choose_renderer(render_eval_fn, config, test_dataset,
+                                    device)
   num_params = sum(p.numel() for p in state.params.values())
   print(f'Number of parameters being optimized: {num_params}')
   if (dataset.size > model.cfg.num_glo_embeddings and

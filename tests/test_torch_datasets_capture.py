@@ -432,5 +432,9 @@ def test_refusals(tmp_path):
   _, config = tp.configs(('Config.factor = 2', 'Config.render_path = True',
                           "Config.render_camtype = 'pano'"))
   dataset = datasets.load_dataset('test', str(tmp_path), config)
-  with pytest.raises(NotImplementedError, match='pano.*item 1'):
-    dataset.generate_ray_batch(0)
+  # Pano is ported (tests/test_torch_pano.py holds it against JAX): the
+  # equirectangular fan over the whole render resolution, unit directions.
+  rays = dataset.generate_ray_batch(0).rays
+  assert rays.origins.shape == (dataset.height, dataset.width, 3)
+  np.testing.assert_allclose(np.linalg.norm(rays.directions, axis=-1), 1,
+                             rtol=1e-6)

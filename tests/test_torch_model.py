@@ -221,8 +221,6 @@ def test_cast_ray_batch_matches_jax(xnp):
 
 
 @pytest.mark.parametrize('bindings,match', [
-    (['NerfMLP.disable_density_normals = False',
-      "NerfMLP.trunk_dtype = 'int8'"], 'int8 trunks with density'),
     (["NerfMLP.trunk_dtype = 'float16'"], 'float16'),
 ])
 def test_unported_options_raise(bindings, match):
@@ -230,6 +228,28 @@ def test_unported_options_raise(bindings, match):
   with pytest.raises(NotImplementedError, match=match):
     nerf.construct_model(torch_config, torch.Generator().manual_seed(0),
                          'cpu')
+
+
+@pytest.mark.parametrize('mode', ['int8', 'int8_hybrid'])
+def test_int8_trunks_take_density_normals(mode):
+  """Once refused: an int8 NerfMLP with density normals runs unfused, its
+  normals the negated, normalized density gradient through the int8
+  products (tests/test_torch_int8_normals.py holds them against JAX)."""
+  _, torch_config = tp.configs(tp.SMALL_BINDINGS + (
+      'NerfMLP.disable_density_normals = False',
+      f"NerfMLP.trunk_dtype = '{mode}'"))
+  model = nerf.construct_model(torch_config,
+                               torch.Generator().manual_seed(0), 'cpu')
+  assert model.NerfMLP_0.int8 and not model.NerfMLP_0.fused
+  renderings, history = train_lib.create_render_fn(model)(
+      1.0, tp.torch_rays(tp.rays(4)))
+  normals, grad = history[-1]['normals'], history[-1]['raw_grad_density']
+  assert normals.shape == grad.shape == (4, 8, 3)
+  assert torch.isfinite(renderings[-1]['normals']).all()
+  np.testing.assert_allclose(
+      normals.numpy(),
+      -(grad / torch.linalg.vector_norm(grad, dim=-1, keepdim=True)).numpy(),
+      atol=1e-5)
 
 
 @pytest.mark.parametrize('bindings,table,shape', [
