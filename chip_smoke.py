@@ -61,7 +61,12 @@ card's cast), ``render_many`` of 8 test views against 8 single calls
 (bitwise, and the ms a frame of both), ``blender_refnerf.gin`` under both
 int8 bindings (train, eval with normal MAEs, a frame, a step GPU vs CPU,
 no kernel), and ``blender_256.gin`` and ``debug.gin`` trained, evaluated
-and rendered briefly.
+and rendered briefly.  Last, data parallelism through ``python -m
+torch.distributed.run`` (``phase_ddp``): the train entry point at one NCCL
+rank, its losses bitwise those of the run with no launcher; two gloo ranks
+sharing the card, their fixed-batch step held against one process's, the
+train driver (K1-K4 every step on each rank, only rank 0 writing) and eval
+against one rank's; two NCCL ranks where there are two cards.
 
 Run from the repository root, with no arguments:
 
@@ -78,6 +83,7 @@ import ctypes
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import struct
 import subprocess
@@ -3624,6 +3630,254 @@ def phase_debug(card):
   return paths
 
 
+# Data parallelism (multinerf_tpu_torch/parallel/mesh.py) through
+# ``python -m torch.distributed.run``, each launch running
+# ``multinerf_tpu_torch.ddp_probe``'s parts under its own time limit.
+DDP_TIMEOUT_S = 150
+DDP_STEPS = 20
+DDP_PARITY_STEPS = 3
+DDP_EVAL_VIEWS = 3
+# The fixed-batch step's losses against one process's: step 1 within
+# ddp_probe.LOSS_RTOL (1e-5); steps 2-3 (bf16 trunk; int8 on two cards)
+# within ddp_probe.LATER_LOSS_RTOL, which the control (the same steps with
+# rank 1's share of the gradient dropped, run in every launch) must miss.
+DDP_BASE = ("Config.dataset_loader='dummy_unbounded'",
+            f'Config.batch_size={TRAIN_RAYS}', f'Config.max_steps={DDP_STEPS}',
+            'Config.lr_delay_steps=0', 'Config.print_every=10')
+
+
+def _gin_argv(bindings):
+  return [f'--gin_configs={os.path.join(REPO, "configs", "360.gin")}'] + [
+      f'--gin_bindings={b}' for b in bindings]
+
+
+def _start_ranks(tag, nproc, spec, out_dir):
+  """Start ddp_probe's parts of `spec` at `nproc` ranks; _finish_ranks
+  waits for them."""
+  from multinerf_tpu_torch import ddp_probe
+  return tag, nproc, spec, out_dir, ddp_probe.start_parts(nproc, spec,
+                                                          out_dir)
+
+
+def _finish_ranks(launch):
+  """The results of a _start_ranks launch, {part name: [each rank's
+  result]}; its whole process group is killed DDP_TIMEOUT_S after its
+  start."""
+  from multinerf_tpu_torch import ddp_probe
+  tag, nproc, spec, out_dir, ranks = launch
+  try:
+    ranks.wait(DDP_TIMEOUT_S)
+  except ddp_probe.LaunchError as e:
+    raise SystemExit(f'FAIL {tag}: {e}') from None
+  results = ddp_probe.part_results(nproc, spec, out_dir)
+  log(f'{tag}: {nproc} rank(s), {time.perf_counter() - ranks.started:.1f} s '
+      'from the launch; rank 0\'s parts ' + ', '.join(
+          f'{k} {v[0]["seconds"]:.1f} s' for k, v in results.items()))
+  return results
+
+
+def _ddp_train_checks(tag, ranks, ckpt_dir):
+  """Every rank launched K1-K4 in every step and no plain version; only
+  rank 0 wrote checkpoints, config.gin and the event file; every rank's
+  losses are the global batch's.  Returns the launches summed over the
+  ranks."""
+  for r, res in enumerate(ranks):
+    if len(res['per_step']) != DDP_STEPS:
+      raise SystemExit(f'FAIL {tag}: rank {r} counted '
+                       f'{len(res["per_step"])} steps.')
+    fewest = {k: min(c[k] for c in res['per_step'])
+              for k in res['per_step'][0]}
+    _check_launches(f'{tag} rank {r} (every step)', fewest, res['plain'],
+                    (F32_TRAIN[0], ()))
+  if any(res['writes'] for res in ranks[1:]):
+    raise SystemExit(f'FAIL {tag}: ranks > 0 wrote '
+                     f'{[res["writes"] for res in ranks[1:]]}')
+  mine = {os.path.basename(p) for p in ranks[0]['writes']}
+  events = [f for f in os.listdir(ckpt_dir) if f.startswith('events.')]
+  want = {'config.gin', 'checkpoint_1.pt.tmp',
+          f'checkpoint_{DDP_STEPS}.pt.tmp'}
+  if (not want <= mine or len(events) != 1 or
+      not events[0].endswith(f'.{ranks[0]["pid"]}')):
+    raise SystemExit(f'FAIL {tag}: rank 0 wrote {sorted(mine)}; event '
+                     f'files {events}')
+  if any(res['losses'] != ranks[0]['losses'] for res in ranks[1:]):
+    raise SystemExit(f'FAIL {tag}: the ranks report other losses.')
+  step_ms = [1e3 * statistics.median(res['step_seconds'][5:])
+             for res in ranks]
+  log(f'{tag}: K1-K4 every step on each rank, only rank 0 wrote; median '
+      f'step per rank {", ".join(f"{ms:.3f}" for ms in step_ms)} ms at '
+      f'{TRAIN_RAYS // len(ranks)} rays a rank; data losses '
+      f'{ranks[0]["losses"][0]:.5f} -> {ranks[0]["losses"][-1]:.5f}')
+  return {k: sum(sum(c[k] for c in res['per_step']) for res in ranks)
+          for k in ranks[0]['per_step'][0]}
+
+
+def _eval_frames(out_dir, views):
+  from multinerf_tpu_torch.utils import io as io_lib
+  frames = []
+  for i in range(views):
+    name = lambda key, ext: os.path.join(out_dir, f'{key}_{i:03d}.{ext}')
+    frames.append({'rgb': io_lib.load_img(name('color', 'png')) / 255.0,
+                   **{k: io_lib.load_img(name(k, 'tiff')) for k in (
+                       'acc', 'distance_mean', 'distance_median')}})
+  return frames
+
+
+def _hold_parity(tag, results, part, refs, cap, later_rtol, kernels):
+  """ddp_probe.hold_parity of the fixed-batch `part` (and its control,
+  `part`_drop) against one process's steps `refs` (plain, nudged); every
+  rank launched `kernels` in every step.  Returns the launches summed over
+  the ranks."""
+  from multinerf_tpu_torch import ddp_probe
+  for r, res in enumerate(results[part]):
+    _check_launches(f'{tag} {part} rank {r} (every step)',
+                    {k: min(c[k] for c in res['per_step'])
+                     for k in res['per_step'][0]}, res['plain'], kernels)
+  held = ddp_probe.hold_parity(results[part], *refs, cap, later_rtol,
+                               results[f'{part}_drop'])
+  nproc = len(results[part])
+  log(f'{tag} {part}: {DDP_PARITY_STEPS} steps of {TRAIN_RAYS // nproc} '
+      f'rays a rank, losses {held["losses"]} vs one process '
+      f'{held["one_process_losses"]}: relative gaps {held["loss_gaps"]}, '
+      f'bounds {held["loss_bounds"]}; with rank 1\'s gradient dropped '
+      f'{held["control_loss_gaps"]}; step 1\'s gradient, worst leaf '
+      f'{held["worst_gradient_leaf"][1]:.3f} of its bound '
+      f'({held["worst_gradient_leaf"][0]}); the ranks\' parameters bitwise '
+      f'equal {held["replicated"]}')
+  if not held['ok']:
+    raise SystemExit(f'FAIL {tag} {part}: {held}')
+  return {k: sum(sum(c[k] for c in res['per_step']) for res in results[part])
+          for k in results[part][0]['per_step'][0]}
+
+
+def _ddp_checks(tag, results, refs, ckpt_dir, eval_argv, device):
+  """The parity, train and eval parts of an N-rank launch against one
+  process: _hold_parity of each fixed-batch step (``refs``: {part: (cap,
+  later bound, kernels, one process's steps, nudged)}); _ddp_train_checks;
+  eval's frames against one rank's eval of the same checkpoint within
+  REFERENCE_BOUNDS.  Returns {path: launches}."""
+  from multinerf_tpu_torch import configs
+  from multinerf_tpu_torch import ddp_probe
+  from multinerf_tpu_torch import eval as eval_lib
+  paths = {f'{tag} {part}': _hold_parity(tag, results, part, ref, cap,
+                                         later_rtol, kernels)
+           for part, (cap, later_rtol, kernels, *ref) in refs.items()}
+  paths[f'{tag} train'] = _ddp_train_checks(f'{tag} train', results['train'],
+                                            ckpt_dir)
+  evaluated = results['eval']
+  for r, res in enumerate(evaluated):
+    _check_launches(f'{tag} eval rank {r}', res['launches'], res['plain'],
+                    (F32_RENDER[0], F32_TRAIN[0][2:] + F32_RENDER[1]))
+  one_rank = ckpt_dir + '_one_rank'
+  os.makedirs(one_rank)
+  for f in os.listdir(ckpt_dir):
+    if f.startswith('checkpoint_'):
+      shutil.copy(os.path.join(ckpt_dir, f), one_rank)
+  eval_lib.main(eval_argv(one_rank) + [f'--device={device}'])
+  near = configs.load_config(ddp_probe.configs_args(eval_argv(one_rank))).near
+  for i, (got, want) in enumerate(zip(
+      _eval_frames(os.path.join(ckpt_dir, 'test_preds'), DDP_EVAL_VIEWS),
+      _eval_frames(os.path.join(one_rank, 'test_preds'), DDP_EVAL_VIEWS))):
+    _hold_frames(f'{tag} eval view {i} ({len(evaluated)} ranks vs 1)', got,
+                 want, near)
+  paths[f'{tag} eval'] = {k: sum(res['launches'][k] for res in evaluated)
+                          for k in evaluated[0]['launches']}
+  return paths
+
+
+def phase_ddp(card, device='cuda', bindings=()):
+  """Data parallelism through ``python -m torch.distributed.run``, with
+  360.gin at full width: (1) NCCL at world size 1, the train driver for
+  DDP_STEPS steps of 4,096 rays, its losses bitwise equal to the same run
+  with no launcher; (2) two ranks sharing cuda:0 over gloo, bf16 trunk,
+  2,048 rays a rank: DDP_PARITY_STEPS steps on one fixed batch with no
+  jitter held against one process's steps on the 4,096-ray batch (and the
+  control, rank 1's gradient dropped, caught), the train driver for
+  DDP_STEPS steps on the device plane and eval of DDP_EVAL_VIEWS views,
+  against one rank's; (3) where there are two cards or more, the same with
+  NCCL and one rank on each of two cards, and the int8 trunk's
+  fixed-batch step too.
+  `device` and `bindings` (more gin bindings) let the phase be rehearsed
+  on the CPU at small widths.  Returns {path: launches}."""
+  from multinerf_tpu_torch import ddp_probe
+  from multinerf_tpu_torch import train
+  t0 = time.perf_counter()
+  paths = {}
+  base = DDP_BASE + tuple(bindings)
+  bf16 = BF16_BINDINGS + base
+  parity_argv = {
+      'parity': _gin_argv(bf16 + ('Config.randomized=False',)),
+      'parity_int8': _gin_argv(tuple(int8_bindings('int8')) + base + (
+          'Config.randomized=False',))}
+  eval_argv = lambda ckpt_dir: _gin_argv(bf16 + (
+      f"Config.checkpoint_dir='{ckpt_dir}'",
+      f'Config.eval_dataset_limit={DDP_EVAL_VIEWS}'))
+
+  def ranks(tag, nproc, where, ckpt_dir, parities):
+    spec = dict(where, parts=[
+        {'name': name + drop, 'kind': 'step', 'argv': parity_argv[name],
+         'rays': TRAIN_RAYS, 'steps': DDP_PARITY_STEPS,
+         **({'drop_rank': 1} if drop else {})}
+        for name in parities for drop in ('', '_drop')] + [
+        {'name': 'train', 'kind': 'train', 'argv': _gin_argv(
+            bf16 + ('Config.device_data_plane=True',
+                    f"Config.checkpoint_dir='{ckpt_dir}'"))},
+        {'name': 'eval', 'kind': 'eval', 'argv': eval_argv(ckpt_dir)}])
+    return _start_ranks(tag, nproc, spec, f'{ckpt_dir}_out')
+
+  def one_process(name, cap, later_rtol, kernels):
+    return (cap, later_rtol, kernels) + tuple(
+        ddp_probe.run_steps(parity_argv[name], torch.device(device),
+                            TRAIN_RAYS, DDP_PARITY_STEPS, nudge=nudge)
+        for nudge in (False, True))
+
+  cards = torch.cuda.device_count() if device == 'cuda' else 0
+  if device == 'cuda':
+    torch.cuda.empty_cache()  # The card is shared with the launched ranks.
+  with tempfile.TemporaryDirectory() as tmp:
+    # The world-size-1 launch and the two gloo ranks share the card with
+    # this process, which meanwhile runs the references.
+    shared = 'cuda:0' if device == 'cuda' else device
+    gloo = ranks(f'ddp gloo x2 {shared}', 2,
+                 {'device': shared, 'backend': 'gloo'}, f'{tmp}/gloo',
+                 ('parity',))
+    tag = 'ddp nccl x1'
+    nccl1 = _start_ranks(tag, 1, {'device': device, 'parts': [
+        {'name': 'train', 'kind': 'train', 'argv': _gin_argv(
+            base + (f"Config.checkpoint_dir='{tmp}/nccl1'",))}]},
+                         f'{tmp}/nccl1_out')
+    plain = train.main(_gin_argv(base + (
+        f"Config.checkpoint_dir='{tmp}/plain'",)) + [f'--device={device}'])
+    refs = {'parity': one_process('parity', TRAIN_GAP_CAP,
+                                  ddp_probe.LATER_LOSS_RTOL, F32_TRAIN)}
+
+    results = _finish_ranks(nccl1)
+    got = results['train'][0]['losses']
+    if got != plain['losses']:
+      raise SystemExit(f'FAIL {tag}: losses {got} under the launcher, '
+                       f'{plain["losses"]} without it.')
+    log(f'{tag}: {DDP_STEPS} losses bitwise equal to the run with no '
+        'launcher')
+    paths[f'{tag} train'] = _ddp_train_checks(f'{tag} train',
+                                              results['train'],
+                                              f'{tmp}/nccl1')
+    paths.update(_ddp_checks(gloo[0], _finish_ranks(gloo), refs,
+                             f'{tmp}/gloo', eval_argv, device))
+    if cards >= 2:
+      tag = 'ddp nccl x2'
+      nccl = ranks(tag, 2, {'device': 'cuda'}, f'{tmp}/nccl',
+                   ('parity', 'parity_int8'))
+      refs['parity_int8'] = one_process('parity_int8', INT8_TRAIN_GAP_CAP,
+                                        ddp_probe.LATER_LOSS_RTOL,
+                                        INT8_TRAIN)
+      paths.update(_ddp_checks(tag, _finish_ranks(nccl), refs,
+                               f'{tmp}/nccl', eval_argv, device))
+    else:
+      log('ddp nccl x2: one card, not run')
+  log(f'ddp ({card}): {time.perf_counter() - t0:.1f} s')
+  return paths
+
+
 SOURCES = {
     'density_mlp': ('multinerf_tpu_torch/csrc/density_mlp.cu',
                     'multinerf_tpu/ops/pallas/density_mlp.py:65'),
@@ -3697,6 +3951,7 @@ def main():
       results[name][key] = summary
   paths.update(phase_blender_256(card))
   paths.update(phase_debug(card))
+  paths.update(phase_ddp(card))
   bounds = kernel_bounds()
   chunk = bounds.pop('int8_trunk_render_chunk')
   results['int8_trunk']['render_chunk'].update(

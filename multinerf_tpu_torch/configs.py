@@ -22,6 +22,7 @@ from multinerf_tpu_torch import ginlite
 from multinerf_tpu_torch.models import initializers
 from multinerf_tpu_torch.ops import coord
 from multinerf_tpu_torch.ops import mathx
+from multinerf_tpu_torch.parallel import mesh
 
 # --- gin externals: names configs refer to with '@'. ------------------------
 for _name, _fn in [
@@ -178,10 +179,35 @@ def add_common_flags(parser: argparse.ArgumentParser):
                       help='Gin parameter bindings.')
 
 
+def add_device_flags(parser: argparse.ArgumentParser):
+  """The entry points' --device flag."""
+  parser.add_argument('--device', default='cuda',
+                      help="torch device: 'cuda' (default; under "
+                      "torch.distributed.run each rank's own card, "
+                      "cuda:LOCAL_RANK), 'cuda:i' or 'cpu'.")
+
+
+def setup_device(requested='cuda', backend=None) -> torch.device:
+  """This process's device for the `requested` one, after joining the
+  process group when ``torch.distributed.run`` launched it (NCCL on cards,
+  gloo on the CPU, unless `backend` names one).  A CUDA device fails when
+  CUDA is not available: there is no CPU fallback."""
+  device = torch.device(requested)
+  if device.type == 'cuda' and not torch.cuda.is_available():
+    raise RuntimeError(f'--device={requested} but CUDA is not available.')
+  # The configs' hidden layers are float32: keep their products in full f32.
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  device = mesh.local_device(device)
+  mesh.init_from_env(device, backend)
+  return device
+
+
 def load_config(args, save_config=False):
   """Parse the gin files and bindings of parsed `args` into a Config; with
-  `save_config`, write the resolved bindings to ``config.gin`` in
-  ``Config.checkpoint_dir`` (configs.py:222-233 of the JAX package).
+  `save_config`, rank 0 writes the resolved bindings to ``config.gin`` in
+  ``Config.checkpoint_dir`` (configs.py:222-233 of the JAX package).  The
+  batch must divide over the ranks (train.py:123 of the JAX package).
 
   Earlier bindings are cleared first, so one process can load several
   configurations in turn.
@@ -190,9 +216,12 @@ def load_config(args, save_config=False):
   ginlite.add_search_path(_REPO_ROOT)
   ginlite.parse_config_files_and_bindings(args.gin_configs, args.gin_bindings)
   config = ginlite.make('Config')
-  if save_config:
-    if config.checkpoint_dir is None:
-      raise ValueError('Config.checkpoint_dir must name the output directory.')
+  if config.batch_size % mesh.world_size():
+    raise ValueError('Batch size must be divisible by the number of '
+                     'processes.')
+  if save_config and config.checkpoint_dir is None:
+    raise ValueError('Config.checkpoint_dir must name the output directory.')
+  if save_config and mesh.is_main():
     os.makedirs(config.checkpoint_dir, exist_ok=True)
     with open(os.path.join(config.checkpoint_dir, 'config.gin'), 'w') as f:
       f.write(ginlite.config_str())

@@ -47,12 +47,14 @@ from multinerf_tpu_torch.data import colmap
 from multinerf_tpu_torch.data import raw as raw_lib
 from multinerf_tpu_torch.data import types
 from multinerf_tpu_torch.ops import image_ops
+from multinerf_tpu_torch.parallel import mesh
 from multinerf_tpu_torch.utils import io as io_lib
 
 
 def load_dataset(split, train_dir, config, seed=0):
   """Load a split of a dataset using config.dataset_loader; `seed` seeds
-  the train split's pixel draws."""
+  the train split's pixel draws.  Across ranks a train batch is this rank's
+  ``config.batch_size / world size`` rays (datasets.py:108)."""
   loaders = {
       'blender': Blender,
       'llff': LLFF,
@@ -118,10 +120,10 @@ class Dataset(metaclass=abc.ABCMeta):
     self._thread = None
     self._test_camera_idx = 0
     self._patch_size = max(config.patch_size, 1)
-    self._batch_size = config.batch_size
+    self._batch_size = mesh.process_local_slice(config.batch_size)
     if self._patch_size**2 > self._batch_size:
       raise ValueError(f'Patch size {self._patch_size}^2 too large for '
-                       f'batch size {self._batch_size}')
+                       f'per-process batch size {self._batch_size}')
     self._batching = types.BatchingMethod(config.batching)
     self._load_disps = config.compute_disp_metrics
     self._load_normals = config.compute_normal_metrics

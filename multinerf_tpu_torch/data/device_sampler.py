@@ -23,6 +23,7 @@ import torch
 from multinerf_tpu_torch.data import cameras as camera_lib
 from multinerf_tpu_torch.data import raw
 from multinerf_tpu_torch.data import types
+from multinerf_tpu_torch.parallel import mesh
 
 
 class DeviceDataPlane:
@@ -34,7 +35,9 @@ class DeviceDataPlane:
     self.device = torch.device(device)
     self.camtype = dataset.camtype
     self._patch_size = max(config.patch_size, 1)
-    self._num_patches = config.batch_size // self._patch_size**2
+    # This rank's share of the batch (device_sampler.py:45).
+    self._num_patches = (mesh.process_local_slice(config.batch_size) //
+                         self._patch_size**2)
     self._height, self._width = dataset.height, dataset.width
     self._border = config.num_border_pixels_to_mask
     self._single_image = config.batching == 'single_image'

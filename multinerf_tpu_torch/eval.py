@@ -18,7 +18,9 @@ names (``color_XXX.png``, ``color_cc_XXX.png``,
 TensorBoard summaries and showcase images under ``checkpoint_dir/eval``.
 Frames are rendered and scored one after the other (the JAX driver overlaps
 the two).  ``--device`` defaults to ``cuda`` and the run fails when CUDA is
-not available: there is no CPU fallback.
+not available: there is no CPU fallback.  Under ``torch.distributed.run``
+every rank renders its rows of each view, and rank 0 scores them and writes
+the files and summaries (eval.py:244, 262).
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from multinerf_tpu_torch.data import datasets
 from multinerf_tpu_torch.models import nerf as models
 from multinerf_tpu_torch.ops import image_ops
 from multinerf_tpu_torch.ops import ref_utils
+from multinerf_tpu_torch.parallel import mesh
 from multinerf_tpu_torch.utils import checkpoints as ckpt_lib
 from multinerf_tpu_torch.utils import io as io_lib
 from multinerf_tpu_torch.utils import summary
@@ -204,13 +207,16 @@ def evaluate_checkpoint(step, renderer, dataset, config, out_dir,
                         summary_writer, postprocess_fn, cc_fn,
                         metric_harness):
   """Render and score the test views of one checkpoint.  Returns
-  {'eval_metrics': [per frame], 'eval_metrics_cc': [...], 'render_times'}."""
+  {'eval_metrics': [per frame], 'eval_metrics_cc': [...], 'render_times'}
+  (empty lists but on rank 0, which alone scores and writes)."""
   num_eval = min(dataset.size, config.eval_dataset_limit)
   showcase_indices = pick_showcases(config, num_eval, step)
 
   metrics, metrics_cc, showcases, render_times = [], [], [], []
   for idx, batch, rendering, render_s in render_frames(
       renderer, dataset, step, config, num_eval):
+    if not mesh.is_main():
+      continue
     render_times.append(render_s)
     print(f'Rendered in {render_s:0.3f}s')
     gt = prepare_frame(rendering, batch, cc_fn)
@@ -230,7 +236,7 @@ def evaluate_checkpoint(step, renderer, dataset, config, out_dir,
   if summary_writer is not None:
     log_tb_summaries(summary_writer, step, config, frame_metrics,
                      showcases, render_times, postprocess_fn)
-  if config.eval_save_output and not config.render_path:
+  if config.eval_save_output and not config.render_path and mesh.is_main():
     write_metric_files(out_dir, step, config, frame_metrics, render_times,
                        showcases)
   return dict(frame_metrics, render_times=render_times)
@@ -242,15 +248,9 @@ def main(argv=None):
   evaluate_checkpoint's result} and 'out_dir'."""
   parser = argparse.ArgumentParser(description='Evaluate a model.')
   configs.add_common_flags(parser)
-  parser.add_argument('--device', default='cuda',
-                      help="torch device: 'cuda' (default) or 'cpu'.")
+  configs.add_device_flags(parser)
   args = parser.parse_args(argv)
-  device = torch.device(args.device)
-  if device.type == 'cuda' and not torch.cuda.is_available():
-    raise RuntimeError('--device=cuda but CUDA is not available.')
-  # The configs' hidden layers are float32: keep their products in full f32.
-  torch.backends.cuda.matmul.allow_tf32 = False
-  torch.backends.cudnn.allow_tf32 = False
+  device = configs.setup_device(args.device)
 
   config = configs.load_config(args)
   dataset = datasets.load_dataset('test', config.data_dir, config)
@@ -265,7 +265,7 @@ def main(argv=None):
       'path_renders' if config.render_path else 'test_preds')
   ckpt = ckpt_lib.CheckpointManager(config.checkpoint_dir, keep=100)
   summary_writer = None
-  if not config.eval_only_once:
+  if not config.eval_only_once and mesh.is_main():
     summary_writer = summary.SummaryWriter(
         os.path.join(config.checkpoint_dir, 'eval'))
 
@@ -280,7 +280,7 @@ def main(argv=None):
         time.sleep(10)
         continue
       print(f'Evaluating checkpoint at step {step}.')
-      if config.eval_save_output:
+      if config.eval_save_output and mesh.is_main():
         os.makedirs(out_dir, exist_ok=True)
       out[step] = evaluate_checkpoint(step, renderer, dataset, config,
                                       out_dir, summary_writer, postprocess_fn,
@@ -301,3 +301,4 @@ def main(argv=None):
 
 if __name__ == '__main__':
   main(sys.argv[1:])
+  mesh.shutdown()

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from multinerf_tpu_torch.ops import coord
+from multinerf_tpu_torch.parallel import mesh
 
 
 def cell_ids(means, resolution: int):
@@ -65,12 +66,13 @@ def keep_mask(occ, config, t_edges=None, dirs=None):
 
 def update_grid(grid, cells, densities, decay: float):
   """max(decay * grid, the largest density landing in each cell): the
-  EMA-max of culling.py:101-110.  The maximum does not depend on the order
-  of the writers, on the CPU or on the card."""
+  EMA-max of culling.py:101-110, over the samples of every rank.  The
+  maximum does not depend on the order of the writers, on the CPU or on the
+  card, nor on the ranks', so the grid stays the same on every rank."""
   hit = torch.zeros_like(grid).scatter_reduce(
       0, cells.reshape(-1), densities.detach().reshape(-1).to(grid.dtype),
       'amax', include_self=True)
-  return torch.maximum(grid * decay, hit)
+  return torch.maximum(grid * decay, mesh.all_reduce_max(hit))
 
 
 def refresh_jitter(generator, resolution: int, device=None):
@@ -115,7 +117,9 @@ def refresh_grid(model, config, generator):
 
 def round_capacity(n: int, frac: float) -> int:
   """The compact buffer's size: a multiple of 256 in [256, n]
-  (culling.py:245-249)."""
+  (culling.py:245-249).  Across ranks `n` is a rank's samples: each rank
+  compacts its own, where JAX compacts the global batch (ROADMAP.md,
+  Queue 3)."""
   c = int(n * frac)
   c = max(256, (c // 256) * 256)
   return min(c, n)

@@ -31,6 +31,9 @@ and ``render_many`` renders K cameras with one transfer of the K frames.
 ``ImageRenderer`` (nerf.py:406-542) renders rays cast on the host, the pano
 camera's, through the same chunk loop after one copy of the frame's rays to
 the device; ``choose_renderer`` picks between the two as the drivers do.
+Across ranks (``parallel/mesh.py``) every chunk divides by the world size,
+each rank renders its rows of every chunk, and one all-gather a frame gives
+every rank the whole frame, as the JAX renderers' replicated outputs do.
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ from multinerf_tpu_torch.models import mlp as mlp_lib
 from multinerf_tpu_torch.ops import coord
 from multinerf_tpu_torch.ops import rendering
 from multinerf_tpu_torch.ops import stepfun
+from multinerf_tpu_torch.parallel import mesh
 
 
 def _schlick_ease(t, slope):
@@ -354,9 +358,12 @@ def _subsample_ray_bundles(rendering, config):
 
 
 def _plan_chunks(config, num_rays):
-  """(chunk, num_chunks, padding) of a whole-image render on one device
-  (nerf.py:369 with a device count of 1)."""
-  chunk = min(config.render_chunk_size, num_rays)
+  """(chunk, num_chunks, padding) of a whole-image render (nerf.py:369):
+  chunks divide by the world size, and no more than one world size of
+  padding is rendered past the image."""
+  n_dev = mesh.world_size()
+  chunk = min(config.render_chunk_size, -(-num_rays // n_dev) * n_dev)
+  chunk = max(n_dev, chunk // n_dev * n_dev)
   num_chunks = -(-num_rays // chunk)
   return chunk, num_chunks, num_chunks * chunk - num_rays
 
@@ -382,17 +389,51 @@ def _assemble_image(outs, config, height, width, chunk, num_chunks,
 
 
 def _render_frame(render_fn, config, train_frac, height, width, chunk_rays):
-  """One [H, W] frame, left on the device: ``chunk_rays(i, chunk)`` gives
-  the rays of chunk i, each chunk is rendered and its outputs kept
-  (_keep_chunk_outputs), and the chunks are assembled on the device, with
-  no read-back between them."""
+  """One [H, W] frame, left on the device: ``chunk_rays(start, n)`` gives
+  the rays of rows [start, start + n) of the flattened image (padded to
+  whole chunks), this rank renders its rows of each chunk (nerf.py:470-495)
+  and keeps their outputs (_keep_chunk_outputs), and the chunks are
+  assembled on the device, with no read-back between them.  Across ranks
+  the rows of every rank are gathered first."""
   chunk, num_chunks, padding = _plan_chunks(config, height * width)
+  world = mesh.world_size()
+  rows = chunk // world
+  first = mesh.rank() * rows
   outs = []
   for i in range(num_chunks):
-    renderings, _ = render_fn(train_frac, chunk_rays(i, chunk))
+    renderings, _ = render_fn(train_frac, chunk_rays(i * chunk + first, rows))
     outs.append(_keep_chunk_outputs(renderings, config))
-  return _assemble_image(_stack(outs), config, height, width, chunk,
-                         num_chunks, padding)
+  outs = _stack(outs)
+  if world > 1:
+    outs = _gather_chunks(outs, config, world)
+  return _assemble_image(outs, config, height, width, chunk, num_chunks,
+                         padding)
+
+
+def _gather_chunks(outs, config, world):
+  """The chunk outputs of every rank, each chunk's rows in rank order:
+  {k: [num_chunks, chunk / world, ...]} -> {k: [num_chunks, chunk, ...]}
+  through one all-gather.  A ray bundle keeps the first vis_num_rays rays
+  of each chunk, as one device rendering the whole chunk does."""
+  leaves = []
+  for k, v in outs.items():
+    for level, t in (enumerate(v) if isinstance(v, list) else [(None, v)]):
+      if not t.is_floating_point():
+        raise TypeError(f'{k} is not a floating-point output.')
+      leaves.append((k, level, t))
+  flat = torch.cat([t.reshape(-1).to(torch.float32) for _, _, t in leaves])
+  gathered = mesh.all_gather_rows(flat[None])
+  out, start = {}, 0
+  for k, level, t in leaves:
+    parts = gathered[:, start:start + t.numel()].reshape((world,) + t.shape)
+    start += t.numel()
+    merged = parts.transpose(0, 1).reshape(
+        (t.shape[0], world * t.shape[1]) + t.shape[2:]).to(t.dtype)
+    if level is None:
+      out[k] = merged
+    else:
+      out.setdefault(k, []).append(merged[:, :config.vis_num_rays])
+  return out
 
 
 def _stack(frames):
@@ -420,9 +461,10 @@ class ImageRenderer:
 
   Per frame the [H, W] host rays are flattened, padded by edge replication
   to whole chunks (_plan_chunks), packed into one float32 array and copied
-  to the device once; the chunks are rendered through the same
-  ``render_fn`` as DeviceImageRenderer's (so the fused kernels run) and
-  assembled on the device, and the frame comes back in one transfer.
+  to the device once (across ranks, this rank's rows of each chunk); the
+  chunks are rendered through the same ``render_fn`` as
+  DeviceImageRenderer's (so the fused kernels run) and assembled on the
+  device, and the frame comes back in one transfer.
   """
 
   def __init__(self, render_fn, config, dataset, device):
@@ -439,17 +481,23 @@ class ImageRenderer:
     self._dataset = dataset
     self._device = torch.device(device)
 
-  def _upload(self, rays, num_rays, padded):
-    """[H, W, ...] numpy Rays -> Rays of [padded, ...] tensors on the
-    device, from one copy of every field packed side by side; the index
-    fields (exact in float32) are cast back to int64."""
+  def _upload(self, rays, num_rays, chunk, num_chunks):
+    """[H, W, ...] numpy Rays -> Rays of [num_chunks * rows, ...] tensors
+    on the device, this rank's `rows` rays of each chunk in turn (all of
+    them on one rank), from one copy of every field packed side by side;
+    the index fields (exact in float32) are cast back to int64."""
     fields = {f.name: getattr(rays, f.name)
               for f in dataclasses.fields(rays)
               if getattr(rays, f.name) is not None}
     cols = [np.asarray(v, np.float32).reshape(num_rays, -1)
             for v in fields.values()]
-    packed = np.pad(np.concatenate(cols, -1), ((0, padded - num_rays), (0, 0)),
-                    mode='edge')
+    packed = np.pad(np.concatenate(cols, -1),
+                    ((0, num_chunks * chunk - num_rays), (0, 0)), mode='edge')
+    rows = chunk // mesh.world_size()
+    first = mesh.rank() * rows
+    packed = np.ascontiguousarray(packed.reshape(
+        num_chunks, chunk, -1)[:, first:first + rows].reshape(
+            num_chunks * rows, -1))
     packed = torch.from_numpy(packed)
     if self._device.type == 'cuda':
       packed = packed.pin_memory()
@@ -474,11 +522,16 @@ class ImageRenderer:
     a dict of [H, W, ...] numpy buffers plus the 'ray_' bundles."""
     height, width = rays.origins.shape[:2]
     chunk, num_chunks, _ = _plan_chunks(self._config, height * width)
-    flat = self._upload(rays, height * width, chunk * num_chunks)
-    chunk_rays = lambda i, chunk: types.Rays(**{
-        f.name: (None if getattr(flat, f.name) is None else
-                 getattr(flat, f.name)[i * chunk:(i + 1) * chunk])
-        for f in dataclasses.fields(flat)})
+    flat = self._upload(rays, height * width, chunk, num_chunks)
+
+    def chunk_rays(start, rows):
+      # This rank's rows of chunk start // chunk sit together in `flat`.
+      lo = start // chunk * rows
+      return types.Rays(**{
+          f.name: (None if getattr(flat, f.name) is None else
+                   getattr(flat, f.name)[lo:lo + rows])
+          for f in dataclasses.fields(flat)})
+
     return _to_host(_render_frame(self._render_fn, self._config, train_frac,
                                   height, width, chunk_rays))
 
@@ -563,7 +616,7 @@ class DeviceImageRenderer:
     cam_idx = int(cam_idx)
     return _render_frame(
         self._render_fn, self._config, train_frac, self._height, self._width,
-        lambda i, chunk: self._cast_chunk(i * chunk, chunk, cam_idx))
+        lambda start, rows: self._cast_chunk(start, rows, cam_idx))
 
   def __call__(self, train_frac, cam_idx):
     """Render the dataset's camera `cam_idx`: a dict of [H, W, ...] numpy

@@ -37,12 +37,16 @@ def l2_normalize(x, eps=_F32_EPS):
                                     min=eps))
 
 
-def compute_weighted_mae(weights, normals, normals_gt):
-  """Weighted mean angular error in degrees; normals assumed unit length."""
+def compute_weighted_mae(weights, normals, normals_gt, weight_sum=None):
+  """Weighted mean angular error in degrees; normals assumed unit length.
+  `weight_sum` replaces the weights' own sum as the denominator (a sum over
+  ranks, of which this call then gives one rank's share)."""
   one_eps = 1 - _F32_EPS
   angles = torch.arccos(
       torch.clamp((normals * normals_gt).sum(-1), -one_eps, one_eps))
-  return (weights * angles).sum() / weights.sum() * 180.0 / np.pi
+  if weight_sum is None:
+    weight_sum = weights.sum()
+  return (weights * angles).sum() / weight_sum * 180.0 / np.pi
 
 
 def generalized_binomial_coeff(a, k):

@@ -17,8 +17,15 @@ the host.  Device busy time is the union of the CUDA
 kernel, copy and memset intervals of the profiled steps (the CPU ops'
 ``key_averages()`` rows also carry their children's device time, so they
 are not summed); the idle share is 1 - busy / wall, wall being the host
-clock around the profiled steps.  Prints the kernels by device time per
-step and, as the last line, one JSON object with the same numbers.
+clock around the profiled steps.  ``step_ms`` is the median of the
+synchronised warm-up steps after the fifth, unprofiled.  Prints the kernels
+by device time per step and, as the last line, one JSON object with the
+same numbers.
+
+Under ``python -m torch.distributed.run --nproc_per_node=N`` every rank
+takes its steps (``Config.batch_size`` is the global batch; the seeds are
+train.py's, shifted by the rank), and rank 0 profiles and prints, with
+``allreduce_ms``, the device time per step of the NCCL kernels.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from multinerf_tpu_torch import train_lib
 from multinerf_tpu_torch.data import datasets
 from multinerf_tpu_torch.data import device_sampler
 from multinerf_tpu_torch.models import nerf
+from multinerf_tpu_torch.parallel import mesh
 
 
 def _union_us(intervals):
@@ -52,8 +60,8 @@ def _union_us(intervals):
 
 
 def main(argv=None):
-  """Returns {'wall_ms', 'busy_ms', 'idle', 'kernels': [[name, ms]]}, per
-  profiled step (or frame)."""
+  """Returns {'wall_ms', 'busy_ms', 'idle', 'step_ms', 'allreduce_ms',
+  'world_size', 'kernels': [[name, ms]]}, per profiled step (or frame)."""
   parser = argparse.ArgumentParser(
       description='Profile training steps or rendered frames.')
   configs.add_common_flags(parser)
@@ -65,9 +73,8 @@ def main(argv=None):
   args = parser.parse_args(argv)
   if not torch.cuda.is_available():
     raise RuntimeError('profile_step needs CUDA.')
-  device = torch.device('cuda')
-  torch.backends.cuda.matmul.allow_tf32 = False
-  torch.backends.cudnn.allow_tf32 = False
+  device = configs.setup_device()
+  rank = mesh.rank()
 
   config = configs.load_config(args)
   total = args.warmup + args.steps
@@ -83,10 +90,11 @@ def main(argv=None):
       return state
   else:
     dataset = datasets.load_dataset('train', config.data_dir, config,
-                                    seed=train.DATA_SEED)
+                                    seed=train.DATA_SEED + rank)
     _, state, _, train_step, _ = train_lib.setup_model(config, train.SEED,
                                                        device, dataset)
-    generator = torch.Generator(device=device).manual_seed(train.SEED)
+    generator = torch.Generator(device=device).manual_seed(train.SEED +
+                                                           rank)
     if config.device_data_plane:
       plane = device_sampler.DeviceDataPlane(dataset, config, device)
       device_step = device_sampler.create_device_train_step(train_step,
@@ -107,14 +115,25 @@ def main(argv=None):
 
   activities = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
+  warmup_s = []
   with dataset:
     for i in range(1, args.warmup + 1):
-      state = step(i, state)
-    with torch.profiler.profile(activities=activities) as prof:
       t0 = time.perf_counter()
+      state = step(i, state)
+      torch.cuda.synchronize(device)
+      warmup_s.append(time.perf_counter() - t0)
+    if rank == 0:
+      with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for i in range(args.warmup + 1, total + 1):
+          state = step(i, state)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    else:
       for i in range(args.warmup + 1, total + 1):
         state = step(i, state)
-      wall_us = (time.perf_counter() - t0) * 1e6
+  if rank != 0:
+    mesh.shutdown()
+    return None
 
   device_events = [e for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA and
@@ -130,6 +149,11 @@ def main(argv=None):
   per_step = lambda us: us / 1e3 / args.steps
   out = {'wall_ms': per_step(wall_us), 'busy_ms': per_step(busy_us),
          'idle': 1 - busy_us / wall_us,
+         'step_ms': (1e3 * float(np.median(warmup_s[5:]))
+                     if len(warmup_s) > 5 else None),
+         'allreduce_ms': per_step(sum(us for name, us in by_name.items()
+                                      if 'nccl' in name.lower())),
+         'world_size': mesh.world_size(),
          'kernels': [[name, per_step(us)]
                      for name, us in by_name.most_common(args.top)]}
   what = 'frames' if args.frame else 'steps'
@@ -139,6 +163,7 @@ def main(argv=None):
   for name, ms in out['kernels']:
     print(f'{ms:9.3f} ms {ms / per_step(kernel_us):6.1%}  {name[:100]}')
   print(json.dumps(out))
+  mesh.shutdown()
   return out
 
 

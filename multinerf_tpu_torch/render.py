@@ -13,7 +13,9 @@ the job assembles one video per channel as render.py:105-147 does (frames
 read back, depth through one normalization fit on frame 0 and the turbo
 colormap), written as MJPEG AVIs (``utils/video.py``: the card's machine
 has no h264 encoder).  ``--device`` defaults to ``cuda`` and the run fails
-when CUDA is not available: there is no silent CPU fallback.
+when CUDA is not available: there is no silent CPU fallback.  Under
+``torch.distributed.run`` every rank renders its rows of each frame, and
+rank 0 writes the frames and assembles the videos (render.py:189, 250).
 """
 
 from __future__ import annotations
@@ -26,13 +28,13 @@ import sys
 import time
 
 import numpy as np
-import torch
 
 from multinerf_tpu_torch import configs
 from multinerf_tpu_torch import train_lib
 from multinerf_tpu_torch.data import datasets
 from multinerf_tpu_torch.models import nerf as models
 from multinerf_tpu_torch.ops import image_ops
+from multinerf_tpu_torch.parallel import mesh
 from multinerf_tpu_torch.utils import checkpoints as ckpt_lib
 from multinerf_tpu_torch.utils import io as io_lib
 from multinerf_tpu_torch.utils import video as video_lib
@@ -63,7 +65,8 @@ class FrameStore:
     self._pool = (concurrent.futures.ThreadPoolExecutor(max_workers=4)
                   if use_async else None)
     self._writes = []
-    os.makedirs(out_dir, exist_ok=True)
+    if mesh.is_main():
+      os.makedirs(out_dir, exist_ok=True)
 
   def frame_name(self, tag, idx):
     return os.path.join(self.out_dir,
@@ -174,18 +177,20 @@ def plan_frames(config, store, num_frames):
 
 
 def render_job(config, dataset, renderer, store, postprocess_fn):
-  """Render this job's frames.  Returns {'frames', 'seconds',
-  'renderings'}: frame indices, seconds per frame (render + fetch) and the
-  host renderings."""
+  """Render this job's frames (on every rank; rank 0 writes them).  Returns
+  {'frames', 'seconds', 'renderings'}: frame indices, seconds per frame
+  (render + fetch) and the host renderings."""
   out = {'frames': [], 'seconds': [], 'renderings': {}}
-  for idx in plan_frames(config, store, dataset.size):
+  # Planned before any frame is written, so that every rank plans the same.
+  for idx in list(plan_frames(config, store, dataset.size)):
     print(f'Evaluating image {idx + 1}/{dataset.size}')
     t0 = time.perf_counter()
     rendering = renderer(1.0, idx)
     seconds = time.perf_counter() - t0
     print(f'Rendered in {seconds:0.3f}s')
     rendering['rgb'] = postprocess_fn(rendering['rgb'])
-    store.put(rendering, idx)
+    if mesh.is_main():
+      store.put(rendering, idx)
     out['frames'].append(idx)
     out['seconds'].append(seconds)
     out['renderings'][idx] = rendering
@@ -198,15 +203,9 @@ def main(argv=None):
   'videos' (the paths written, none until every frame is on disk)."""
   parser = argparse.ArgumentParser(description='Render frames of a model.')
   configs.add_common_flags(parser)
-  parser.add_argument('--device', default='cuda',
-                      help="torch device: 'cuda' (default) or 'cpu'.")
+  configs.add_device_flags(parser)
   args = parser.parse_args(argv)
-  device = torch.device(args.device)
-  if device.type == 'cuda' and not torch.cuda.is_available():
-    raise RuntimeError('--device=cuda but CUDA is not available.')
-  # The configs' hidden layers are float32: keep their products in full f32.
-  torch.backends.cuda.matmul.allow_tf32 = False
-  torch.backends.cudnn.allow_tf32 = False
+  device = configs.setup_device(args.device)
 
   config = configs.load_config(args)
   dataset = datasets.load_dataset('test', config.data_dir, config)
@@ -230,8 +229,8 @@ def main(argv=None):
                      use_async=config.render_save_async)
   summary = render_job(config, dataset, renderer, store, postprocess_fn)
   summary['videos'] = []
-  # Whichever job finishes the set assembles the videos.
-  if store.count_frames() == dataset.size:
+  # Whichever job finishes the set assembles the videos, on rank 0.
+  if mesh.is_main() and store.count_frames() == dataset.size:
     print(f'All files found, creating videos (job {config.render_job_id}).')
     summary['videos'] = assemble_videos(config, store, base_dir, out_name,
                                         dataset.size)
@@ -241,3 +240,4 @@ def main(argv=None):
 
 if __name__ == '__main__':
   main(sys.argv[1:])
+  mesh.shutdown()

@@ -15,6 +15,8 @@ from typing import Mapping, Tuple
 import torch
 import torch.nn.functional as F
 
+from multinerf_tpu_torch.parallel import mesh
+
 _EPS = 1e-3
 
 
@@ -39,15 +41,17 @@ def robustnerf_mask(errors: torch.Tensor, loss_threshold, config
   Returns:
     (mask [n, h, w, 1], stats): the stats hold 'loss_threshold', this
     batch's inlier quantile of the per-pixel errors (the next step's
-    threshold), and the inlier shares 'is_inlier_loss',
-    'has_inlier_neighbors', 'is_inlier_patch' and 'mask', all 0-d
-    tensors with no gradient.
+    threshold; across ranks, of the global batch's errors), and the inlier
+    shares 'is_inlier_loss', 'has_inlier_neighbors', 'is_inlier_patch' and
+    'mask' of these patches, all 0-d tensors with no gradient.  The mask
+    depends only on `loss_threshold` and each patch, so each rank makes
+    its own.
   """
   dtype = errors.dtype
   error_per_pixel = torch.mean(errors, dim=-1, keepdim=True)  # [n, h, w, 1]
   epp = error_per_pixel.detach()
   stats = {
-      'loss_threshold': torch.quantile(epp.flatten(),
+      'loss_threshold': torch.quantile(mesh.all_gather_rows(epp.flatten()),
                                        config.robustnerf_inlier_quantile),
   }
   mask = torch.ones_like(epp)

@@ -41,6 +41,19 @@ when fewer steps ran).  Each step is synchronised with the device, so the
 step times it reports are device-complete.  ``--device`` defaults to
 ``cuda`` and the run fails when CUDA is not available: there is no CPU
 fallback.
+
+On N GPUs, one process each (``parallel/mesh.py``):
+
+    python -m torch.distributed.run --nproc_per_node=N --max-restarts=0 \
+        -m multinerf_tpu_torch.train --gin_configs=...
+
+Each rank draws ``batch_size / N`` rays a step, from the numpy seed
+``DATA_SEED + rank`` (or, on the device plane, the step generator) and
+jitters them from a step generator seeded ``SEED + rank``, so rank 0 keeps
+a single process's streams; the step is the global-batch step
+(``train_lib``).  Rank 0 alone writes ``config.gin``, checkpoints, events
+and the profile, and prints; every rank renders the in-train test views,
+whose rows they share.
 """
 
 from __future__ import annotations
@@ -60,6 +73,7 @@ from multinerf_tpu_torch.data import datasets
 from multinerf_tpu_torch.data import device_sampler
 from multinerf_tpu_torch.models import nerf as models
 from multinerf_tpu_torch.ops import image_ops
+from multinerf_tpu_torch.parallel import mesh
 from multinerf_tpu_torch.utils import checkpoints as ckpt_lib
 from multinerf_tpu_torch.utils import summary
 from multinerf_tpu_torch.utils import visualize as vis
@@ -133,12 +147,15 @@ def in_train_test_render(step, renderer, train_frac, test_dataset, config,
                          summary_writer, metric_harness, postprocess_fn,
                          cam_idx):
   """Render test view `cam_idx` mid-training and log its speed, metrics and
-  visualizations (train.py:53-125).  Returns the rays per second."""
+  visualizations (train.py:53-125).  Every rank renders; rank 0 logs.
+  Returns the rays per second."""
   t0 = time.time()
   rendering = renderer(train_frac, cam_idx)
   test_case = next(test_dataset)  # The same camera: the views come in turn.
   dt = time.time() - t0
   n_rays = int(np.prod(test_case.rays.directions.shape[:-1]))
+  if not mesh.is_main():
+    return n_rays / dt
   summary_writer.scalar('test_rays_per_sec', n_rays / dt, step)
   print(f'Eval {step}: {dt:0.3f}s., {n_rays / dt:0.0f} rays/sec')
 
@@ -217,20 +234,16 @@ def main(argv=None):
   {step: capacity} at each culled step)}."""
   parser = argparse.ArgumentParser(description='Train a model.')
   configs.add_common_flags(parser)
-  parser.add_argument('--device', default='cuda',
-                      help="torch device: 'cuda' (default) or 'cpu'.")
+  configs.add_device_flags(parser)
   args = parser.parse_args(argv)
-  device = torch.device(args.device)
-  if device.type == 'cuda' and not torch.cuda.is_available():
-    raise RuntimeError('--device=cuda but CUDA is not available.')
-  # The configs' hidden layers are float32: keep their products in full f32.
-  torch.backends.cuda.matmul.allow_tf32 = False
-  torch.backends.cudnn.allow_tf32 = False
+  device = configs.setup_device(args.device)
+  rank = mesh.rank()
 
   config = configs.load_config(args, save_config=True)
   scan_steps = window_steps(config)
+  # Each rank draws its own rays (train.py:119-120).
   dataset = datasets.load_dataset('train', config.data_dir, config,
-                                  seed=DATA_SEED)
+                                  seed=DATA_SEED + rank)
   test_dataset = datasets.load_dataset('test', config.data_dir, config)
   postprocess_fn, _ = image_ops.make_postprocess_fns(config, test_dataset)
   model, state, render_eval_fn, train_step, lr_fn = train_lib.setup_model(
@@ -246,7 +259,8 @@ def main(argv=None):
   renderer = models.choose_renderer(render_eval_fn, config, test_dataset,
                                     device)
   num_params = sum(p.numel() for p in state.params.values())
-  print(f'Number of parameters being optimized: {num_params}')
+  if mesh.is_main():
+    print(f'Number of parameters being optimized: {num_params}')
   if (dataset.size > model.cfg.num_glo_embeddings and
       model.cfg.num_glo_features > 0):
     raise ValueError(f'Number of glo embeddings '
@@ -257,13 +271,14 @@ def main(argv=None):
   ckpt = ckpt_lib.CheckpointManager(config.checkpoint_dir, keep=100)
   state = ckpt.restore_latest(state)
   init_step = state.step + 1
-  summary_writer = summary.SummaryWriter(config.checkpoint_dir)
+  summary_writer = summary.writer_for_rank(config.checkpoint_dir)
   if config.rawnerf_mode:
     for name, data in zip(['train', 'test'], [dataset, test_dataset]):
       for k in ['exposure_idx', 'exposure_values', 'unique_shutters']:
         summary_writer.text(f'{name}_{k}', str(data.metadata[k]), 0)
   exposure_table = state.params.get('exposure_scaling_offsets/embedding')
-  generator = torch.Generator(device=device).manual_seed(SEED)
+  # Independent jitter (and device-plane draws) per rank (train.py:230).
+  generator = torch.Generator(device=device).manual_seed(SEED + rank)
   # RobustNeRF's threshold: each step's inlier quantile, fed back to the
   # next step as a device tensor (train.py:296-297).
   loss_threshold = 1.0
@@ -300,7 +315,8 @@ def main(argv=None):
         train_start_time = time.time()
         reset_stats = False
 
-      if config.profile_step > 0 and step0 <= config.profile_step <= step:
+      if (config.profile_step > 0 and mesh.is_main() and
+          step0 <= config.profile_step <= step):
         profiler = _profile(device, os.path.join(config.checkpoint_dir,
                                                  'profile'))
       if (profiler is not None and step0 <= config.profile_step +
@@ -352,7 +368,7 @@ def main(argv=None):
       if will_print:
         elapsed_time = time.time() - train_start_time
         steps_per_sec = len(stats_buffer) * scan_steps / elapsed_time
-        rays_per_sec = config.batch_size * steps_per_sec
+        rays_per_sec = config.batch_size * steps_per_sec  # All ranks'.
         # Robust total-time accumulation, resilient to preemption.
         total_time += int(round(TIME_PRECISION * elapsed_time))
         total_steps += len(stats_buffer) * scan_steps
@@ -386,8 +402,9 @@ def main(argv=None):
             for j_s, value in enumerate(scalings[i_s]):
               summary_writer.scalar(f'exposure/scaling_{i_s}_{j_s}', value,
                                     step)
-        print(_console_line(step, config, avg_stats, learning_rate,
-                            rays_per_sec), flush=True)
+        if mesh.is_main():
+          print(_console_line(step, config, avg_stats, learning_rate,
+                              rays_per_sec), flush=True)
         reset_stats = True
 
       if step == 1 or step % config.checkpoint_every == 0:
@@ -423,3 +440,4 @@ def main(argv=None):
 
 if __name__ == '__main__':
   main(sys.argv[1:])
+  mesh.shutdown()

@@ -14,7 +14,12 @@ keep the JAX names, flattened with '/' (``losses/data``,
 log tonemap's gradient) and RobustNeRF's ``robustnerf`` (the residuals of
 patches masked by ``robust.robustnerf_mask`` against the loss
 threshold the previous step returned).  ``Config.weight_decay_mults`` adds
-``losses/weight``, the weighted squared norms of the named subtrees.  With
+``losses/weight``, the weighted squared norms of the named subtrees.
+Across ranks (``parallel/mesh.py``) the step is the global-batch step of
+the JAX package's sharded batch: each rank's loss is its share of the
+global loss, so that one all-reduce (SUM) of the gradients gives the
+global gradient before the clip, Adam runs replicated, and the step's
+statistics are global values from one more all-reduce.  With
 ``Config.cast_rays_in_train_step`` the train split ships pixels, which the
 step casts on the device.  With ``Config.occupancy_culling`` the step
 updates the Model's occupancy grid after Adam from the final level's
@@ -43,6 +48,7 @@ from multinerf_tpu_torch.ops import image_ops
 from multinerf_tpu_torch.ops import mathx
 from multinerf_tpu_torch.ops import ref_utils
 from multinerf_tpu_torch.ops import stepfun
+from multinerf_tpu_torch.parallel import mesh
 from multinerf_tpu_torch.utils import checkpoints
 
 _F32_EPS = float(np.finfo(np.float32).eps)
@@ -88,13 +94,17 @@ def compute_data_loss(batch, renderings, rays, loss_threshold, config):
   stats holding the per-level 'mses', with the metrics on
   'disparity_mses' and 'normal_maes', and with the ``robustnerf`` loss the
   mask's statistics of the last level (``robust.robustnerf_mask``; its
-  'loss_threshold' is the next step's `loss_threshold`), all detached."""
+  'loss_threshold' is the next step's `loss_threshold`), all detached.
+  Across ranks the ratios of sums ('mses', the data loss, 'normal_maes')
+  divide by denominators summed over the ranks: each is this rank's share
+  of the global value, and 'disparity_mses' is this rank's mean."""
   if config.data_loss_type not in ('mse', 'charb', 'rawnerf', 'robustnerf'):
     raise ValueError(f'Unknown data loss type {config.data_loss_type}')
   lossmult = torch.broadcast_to(rays.lossmult, batch.rgb[..., :3].shape)
   if config.disable_multiscale_loss:
     lossmult = torch.ones_like(lossmult)
-  denom = lossmult.sum()
+  # lossmult is data (RawNeRF's Bayer mask differs from rank to rank).
+  denom = mesh.all_reduce_sum(lossmult.sum())
   mses, data_losses = [], []
   metrics = {}
   for rendering in renderings:
@@ -125,10 +135,11 @@ def compute_data_loss(batch, renderings, rays, loss_threshold, config):
             ((disp - batch.disps)**2).mean())
       if config.compute_normal_metrics:
         if 'normals' in rendering:
+          mae_weights = rendering['acc'] * batch.alphas
           normal_mae = ref_utils.compute_weighted_mae(
-              rendering['acc'] * batch.alphas,
-              ref_utils.l2_normalize(rendering['normals']),
-              ref_utils.l2_normalize(batch.normals))
+              mae_weights, ref_utils.l2_normalize(rendering['normals']),
+              ref_utils.l2_normalize(batch.normals),
+              weight_sum=mesh.all_reduce_sum(mae_weights.sum()))
         else:
           normal_mae = torch.full((), torch.nan, device=denom.device)
         metrics.setdefault('normal_maes', []).append(normal_mae)
@@ -361,17 +372,48 @@ def subtree_norm_sq(params, key):
   return sum(torch.sum(p**2) for p in leaves)
 
 
+# Statistics of a step that are means over a rank's rays: averaged over
+# the ranks, which hold as many rays each.  The others are shares of a
+# global sum, but for the ones in _NOT_SUMMED: the RobustNeRF threshold,
+# already global, and the grid feedback, reduced by update_grid.
+_RANK_MEANS = ('disparity_mses', 'is_inlier_loss', 'has_inlier_neighbors',
+               'is_inlier_patch', 'mask', 'occ_keep_fracs')
+_NOT_SUMMED = ('loss_threshold', 'occ_cells', 'occ_density')
+
+
+def _reduce_over_ranks(loss, losses, stats, grads):
+  """The global loss, loss terms, statistics and gradient from this rank's
+  shares: one all-reduce of the gradients, one of the statistics."""
+  world = mesh.world_size()
+  if world == 1:
+    return loss, losses, stats, grads
+  grads = mesh.all_reduce_sum_dict(grads)
+  values = {'loss': loss}
+  values.update({f'losses/{k}': v for k, v in losses.items()})
+  values.update({k: v for k, v in stats.items() if k not in _NOT_SUMMED})
+  values = mesh.all_reduce_sum_dict(values)
+  for k in _RANK_MEANS:
+    if k in values:
+      values[k] = values[k] / world
+  loss = values.pop('loss')
+  losses = {k: values.pop(f'losses/{k}') for k in losses}
+  stats = {k: values.get(k, v) for k, v in stats.items()}
+  return loss, losses, stats, grads
+
+
 def loss_and_grads(model, config, batch, train_frac, generator=None,
                    loss_threshold=1.0, cull=None):
   """The training loss of `batch` and its gradient (the loss_fn of
   train_lib.py:302-373 under value_and_grad, with ``zero_glo=False``):
   (loss, {name: loss term}, stats of compute_data_loss, {flax name: raw
-  gradient}).  Leaves ``.grad`` set on the model's parameters.  Patches of
-  patch_size > 1 go through the model as flat rays and come back shaped
-  [P, ps, ps, ...] for the data loss (RobustNeRF votes over them).  With
-  occupancy culling the stats also hold the final level's grid feedback
-  'occ_cells' and 'occ_density' and 'occ_keep_frac', the largest keep
-  fraction any level reports."""
+  gradient}).  Leaves ``.grad`` set on the model's parameters: across
+  ranks, this rank's part, while the gradient returned is the global one,
+  as are the loss, its terms and the stats.  Patches of patch_size > 1 go
+  through the model as flat rays and come back shaped [P, ps, ps, ...] for
+  the data loss (RobustNeRF votes over them).  With occupancy culling the
+  stats also hold the final level's grid feedback 'occ_cells' and
+  'occ_density' (this rank's samples) and 'occ_keep_frac', the largest
+  keep fraction any level reports."""
   rays, unflatten = flatten_patches(batch, config)
   compute_extras = (config.compute_disp_metrics or
                     config.compute_normal_metrics)
@@ -401,18 +443,28 @@ def loss_and_grads(model, config, batch, train_frac, generator=None,
     losses['weight'] = torch.sum(torch.stack([
         m * subtree_norm_sq(params, k)
         for k, m in config.weight_decay_mults.items()]))
+  world = mesh.world_size()
+  if world > 1:
+    # Every term but the data loss is a mean over rays, or weight decay,
+    # which counts once: this rank's share is 1 / world of it.
+    losses = {k: v if k == 'data' else v / world for k, v in losses.items()}
   if config.occupancy_culling:
     stats['occ_cells'] = ray_history[-1]['occ_cells']
     stats['occ_density'] = ray_history[-1]['occ_density']
-    keep_fracs = [r['occ_keep_frac'] for r in ray_history
-                  if 'occ_keep_frac' in r]
-    stats['occ_keep_frac'] = torch.max(torch.stack(keep_fracs)).detach()
+    stats['occ_keep_fracs'] = torch.stack([
+        r['occ_keep_frac'] for r in ray_history
+        if 'occ_keep_frac' in r]).detach()
   loss = torch.sum(torch.stack(list(losses.values())))
   loss.backward()
   grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
            for k, p in bridge.named_parameters(model).items()}
-  return (loss.detach(), {k: v.detach() for k, v in losses.items()}, stats,
-          grads)
+  loss, losses, stats, grads = _reduce_over_ranks(
+      loss.detach(), {k: v.detach() for k, v in losses.items()}, stats,
+      grads)
+  if config.occupancy_culling:
+    # Each level's keep fraction over the global batch, then their max.
+    stats['occ_keep_frac'] = torch.max(stats.pop('occ_keep_fracs'))
+  return loss, losses, stats, grads
 
 
 def create_train_step(model, config, device, cull=None, dataset=None):

@@ -11,6 +11,11 @@ only one side keep the state's value or are dropped.  It copies the saved
 parameters into the state's own tensors (the model's parameters) and loads
 the optimizer's state, Adam's per-parameter ``step`` included, so a resumed
 run goes on with the same bias correction and learning-rate schedule.
+
+Across ranks (``parallel/mesh.py``) rank 0 writes and prunes, a ``.tmp``
+file renamed into place, and the others wait at a barrier; every rank
+restores the file rank 0 found, and the restored parameters are checked
+equal on every rank.
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ import re
 from typing import Any, Dict, Optional
 
 import torch
+
+from multinerf_tpu_torch.parallel import mesh
 
 
 @dataclasses.dataclass
@@ -49,7 +56,8 @@ class CheckpointManager:
   def __init__(self, directory: str, keep: int = 100):
     self._dir = os.path.abspath(directory)
     self._keep = keep
-    os.makedirs(self._dir, exist_ok=True)
+    if mesh.is_main():
+      os.makedirs(self._dir, exist_ok=True)
 
   def steps(self):
     """The steps of the checkpoints in the directory, ascending."""
@@ -70,17 +78,19 @@ class CheckpointManager:
 
   def save(self, step: int, state: TrainState):
     """Write `state` as the checkpoint of `step`, keeping the newest `keep`
-    checkpoints."""
-    tmp = self.path(step) + '.tmp'
-    # The record keeps the state's own step: the final save of a run that
-    # exits early is named after max_steps (train.py:437-438).
-    record = {'step': int(state.step), 'params': _to_cpu(state.params)}
-    if state.optimizer is not None:
-      record['opt_state'] = _to_cpu(state.optimizer.state_dict())
-    torch.save(record, tmp)
-    os.replace(tmp, self.path(step))
-    for old in self.steps()[:-self._keep]:
-      os.remove(self.path(old))
+    checkpoints: on rank 0, while the other ranks wait."""
+    if mesh.is_main():
+      tmp = self.path(step) + '.tmp'
+      # The record keeps the state's own step: the final save of a run that
+      # exits early is named after max_steps (train.py:437-438).
+      record = {'step': int(state.step), 'params': _to_cpu(state.params)}
+      if state.optimizer is not None:
+        record['opt_state'] = _to_cpu(state.optimizer.state_dict())
+      torch.save(record, tmp)
+      os.replace(tmp, self.path(step))
+      for old in self.steps()[:-self._keep]:
+        os.remove(self.path(old))
+    mesh.barrier()
 
   def restore_latest(self, state: TrainState) -> TrainState:
     """The latest checkpoint loaded into `state`; `state` if none.
@@ -89,8 +99,9 @@ class CheckpointManager:
     and the saved optimizer state, when both sides have one, into
     `state.optimizer` (its tensors moved to the parameters' device).
     """
-    step = self.latest_step()
-    if step is None:
+    latest = self.latest_step()
+    step = mesh.main_value(-1 if latest is None else latest)
+    if step < 0:
       return state
     saved = torch.load(self.path(step), map_location='cpu',
                        weights_only=True)
@@ -98,6 +109,7 @@ class CheckpointManager:
       for name, value in state.params.items():
         if name in saved['params']:
           value.copy_(saved['params'][name])
+    mesh.assert_replicated(state.params, 'restored parameters')
     if state.optimizer is not None and 'opt_state' in saved:
       state.optimizer.load_state_dict(saved['opt_state'])
     return TrainState(step=int(saved['step']), params=state.params,

@@ -9,7 +9,8 @@ hand: the first holds the file version, every later one a ``Summary`` of
 one value.  Scalars are ``simple_value``s, images PNGs (``utils/io.py``'s
 encoder), histograms ``HistogramProto``s of 30 equal buckets, and text a
 string tensor tagged for the text plugin.  ``read_events`` reads such files
-back, checking every CRC.
+back, checking every CRC.  Across ranks only rank 0 writes
+(``writer_for_rank``).
 
 CRC32C is the Castagnoli polynomial (not ``zlib.crc32``'s).  Long records
 (images) are cut into equal blocks whose CRC registers advance together in
@@ -27,6 +28,7 @@ import time
 
 import numpy as np
 
+from multinerf_tpu_torch.parallel import mesh
 from multinerf_tpu_torch.utils import io as io_lib
 
 # --- CRC32C -----------------------------------------------------------------
@@ -238,6 +240,25 @@ class SummaryWriter:
 
   def close(self):
     self._file.close()
+
+
+class NullWriter:
+  """A SummaryWriter's calls, writing nothing: the writer of every rank
+  but rank 0."""
+
+  def scalar(self, tag, value, step):
+    del tag, value, step
+
+  image = histogram = text = scalar
+
+  def close(self):
+    pass
+
+
+def writer_for_rank(log_dir: str):
+  """A SummaryWriter under `log_dir` on rank 0 (train.py:218 of the JAX
+  package), a NullWriter on the other ranks."""
+  return SummaryWriter(log_dir) if mesh.is_main() else NullWriter()
 
 
 # --- Reader -------------------------------------------------------------------

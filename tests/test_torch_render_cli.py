@@ -141,7 +141,8 @@ def test_package_never_imports_jax():
       "                                               pkg.__name__ + '.')]",
       "for name in ('eval', 'train', 'utils.summary', 'utils.visualize',",
       "             'data.device_sampler', 'data.colmap', 'data.raw',",
-      "             'robust', 'utils.jpeg', 'ops.lpips', 'utils.video'):",
+      "             'robust', 'utils.jpeg', 'ops.lpips', 'utils.video',",
+      "             'parallel', 'parallel.mesh'):",
       "  assert 'multinerf_tpu_torch.' + name in names, name",
       'for name in names:',
       '  importlib.import_module(name)',
