@@ -66,7 +66,13 @@ torch.distributed.run`` (``phase_ddp``): the train entry point at one NCCL
 rank, its losses bitwise those of the run with no launcher; two gloo ranks
 sharing the card, their fixed-batch step held against one process's, the
 train driver (K1-K4 every step on each rank, only rank 0 writing) and eval
-against one rank's; two NCCL ranks where there are two cards.
+against one rank's; two NCCL ranks where there are two cards.  Then the
+model axis (``phase_tp_kernels``, ``phase_tp``): K2 and K4 at a model
+rank's 504 -> 512 columns, then two gloo ranks sharing the card at model
+size 2, their bf16 and int8 fixed-batch steps held against one process's
+(with the control of a model rank's part dropped), their launches per
+step, the bytes a rank holds and a test view; two NCCL ranks where there
+are two cards.
 
 Run from the repository root, with no arguments:
 
@@ -2785,30 +2791,10 @@ SCAN_BINDINGS = ('Config.device_data_plane = True',
                  f'Config.print_every = {SCAN_WINDOW}')
 
 
-@contextlib.contextmanager
 def _launch_sizes():
   """{kernel: [N of each launch]} of K2, K4, K5 and K6 while inside."""
-  from multinerf_tpu_torch.ops.kernels import featurize_dense as fd
-  from multinerf_tpu_torch.ops.kernels import int8_trunk as i8t
-  sizes = {}
-  saved = []
-  for module, attr, name in ((fd, '_launch', 'featurize_dense'),
-                             (fd, '_launch_dw', 'featurize_dense_dw'),
-                             (i8t, '_launch', 'int8_trunk'),
-                             (i8t, '_launch_bwd', 'int8_trunk_bwd')):
-    fn = getattr(module, attr)
-    sizes[name] = []
-
-    def record(means, *args, _fn=fn, _name=name, **kwargs):
-      sizes[_name].append(int(means.shape[0]))
-      return _fn(means, *args, **kwargs)
-    saved.append((module, attr, fn))
-    setattr(module, attr, record)
-  try:
-    yield sizes
-  finally:
-    for module, attr, fn in saved:
-      setattr(module, attr, fn)
+  from multinerf_tpu_torch import ddp_probe
+  return ddp_probe.launch_sizes()
 
 
 def _by_n(sizes):
@@ -3723,11 +3709,12 @@ def _eval_frames(out_dir, views):
   return frames
 
 
-def _hold_parity(tag, results, part, refs, cap, later_rtol, kernels):
-  """ddp_probe.hold_parity of the fixed-batch `part` (and its control,
-  `part`_drop) against one process's steps `refs` (plain, nudged); every
-  rank launched `kernels` in every step.  Returns the launches summed over
-  the ranks."""
+def _hold_parity(tag, results, part, refs, cap, later_rtol, kernels,
+                 rays=TRAIN_RAYS, control="rank 1's gradient dropped"):
+  """ddp_probe.hold_parity of the fixed-batch `part` of `rays` rays (and
+  its control, `part`_drop) against one process's steps `refs` (plain,
+  nudged); every rank launched `kernels` in every step.  Returns the
+  launches summed over the ranks."""
   from multinerf_tpu_torch import ddp_probe
   for r, res in enumerate(results[part]):
     _check_launches(f'{tag} {part} rank {r} (every step)',
@@ -3735,11 +3722,12 @@ def _hold_parity(tag, results, part, refs, cap, later_rtol, kernels):
                      for k in res['per_step'][0]}, res['plain'], kernels)
   held = ddp_probe.hold_parity(results[part], *refs, cap, later_rtol,
                                results[f'{part}_drop'])
-  nproc = len(results[part])
-  log(f'{tag} {part}: {DDP_PARITY_STEPS} steps of {TRAIN_RAYS // nproc} '
-      f'rays a rank, losses {held["losses"]} vs one process '
+  first = results[part][0]
+  per_rank = rays * first['model_size'] // first['world_size']
+  log(f'{tag} {part}: {len(held["losses"])} steps of {per_rank} rays a '
+      f'rank, losses {held["losses"]} vs one process '
       f'{held["one_process_losses"]}: relative gaps {held["loss_gaps"]}, '
-      f'bounds {held["loss_bounds"]}; with rank 1\'s gradient dropped '
+      f'bounds {held["loss_bounds"]}; with {control} '
       f'{held["control_loss_gaps"]}; step 1\'s gradient, worst leaf '
       f'{held["worst_gradient_leaf"][1]:.3f} of its bound '
       f'({held["worst_gradient_leaf"][0]}); the ranks\' parameters bitwise '
@@ -3878,6 +3866,178 @@ def phase_ddp(card, device='cuda', bindings=()):
   return paths
 
 
+# Tensor parallelism (multinerf_tpu_torch/parallel/tensor.py): 360.gin's
+# NerfMLP split over a model group of 2 (mesh.create_mesh(model_parallel=2)),
+# each rank running K2 and K4 over its 512 of the 1,024 columns.
+TP_GLOO_RAYS = 1024  # Two ranks on one card: 7 all-reduces of [N, 1024] f32
+# a step go through pinned host memory (134 MB each at 1,024 rays).
+TP_NCCL_RAYS = TRAIN_RAYS
+TP_STEPS = 3
+TP_WIDTH = 512  # A rank's columns of the 1,024-wide trunk.
+# Every step of each rank: K1-K4 twice (two proposal levels; Dense_0 and
+# the skip layer's feature rows), K5/K6 once under int8.
+TP_PER_STEP = {'parity': {'density_mlp': 2, 'featurize_dense': 2,
+                          'density_mlp_bwd': 2, 'featurize_dense_dw': 2,
+                          'int8_trunk': 0, 'int8_trunk_bwd': 0},
+               'parity_int8': {'density_mlp': 2, 'featurize_dense': 0,
+                               'density_mlp_bwd': 2, 'featurize_dense_dw': 0,
+                               'int8_trunk': 1, 'int8_trunk_bwd': 1}}
+TP_BYTES_SHARE = 0.75  # tests/test_train_e2e.py:186's bound.
+
+
+def phase_tp_kernels():
+  """K2 and K4 against their plain versions at a model rank's shape under
+  model_parallel = 2: 504 features -> 512 columns over 131,072 samples."""
+  from multinerf_tpu_torch.ops import geopoly
+  from multinerf_tpu_torch.ops.kernels import featurize_dense as fd
+  basis = np.array(geopoly.generate_basis('icosahedron', 2)).T
+  num_feats = 2 * 12 * basis.shape[-1]
+  n = K2_SAMPLES
+  log_forward_plans(num_feats, basis.shape[-1], w=TP_WIDTH)
+  rng = np.random.RandomState(11)
+  means, covs = _gaussians(n, seed=12)
+  w = _he_uniform(rng, num_feats, TP_WIDTH)
+  b = torch.tensor(rng.randn(TP_WIDTH).astype(np.float32) * 0.1,
+                   device='cuda')
+  g = torch.tensor(rng.randn(n, TP_WIDTH).astype(np.float32), device='cuda')
+  args = lambda k: (means[:k], covs[:k], w, b, basis)
+  results = {'featurize_dense': _compare(
+      'featurize_dense (504 -> 512)',
+      lambda k: fd.featurize_dense(*args(k), use_contract=True),
+      lambda k: fd.featurize_dense_plain(*args(k), use_contract=True), n)}
+  k4 = lambda fn: lambda k: [fn(means[:k], covs[:k], g[:k], basis)]
+  results['featurize_dense_dw'] = _compare_leaves(
+      'featurize_dense_dw (504 -> 512)', k4(fd.featurize_dense_dw),
+      k4(fd.featurize_dense_dw_plain), n)
+  bounds = kernel_bounds(w=TP_WIDTH)
+  for name, summary in results.items():
+    summary.update(n=n, width=TP_WIDTH, **_achieved(summary, bounds[name]),
+                   bound_ms=bounds[name]['bound_ms'],
+                   bound_by=bounds[name]['bound_by'])
+    log(f'{name} (504 -> 512) N={n}: bound {summary["bound_ms"]:.4f} ms '
+        f'(set by {summary["bound_by"]}), {summary["ms"]:.3f} ms')
+  return results
+
+
+def _tp_checks(tag, results, refs, frame, near, rays):
+  """A model-parallel launch's parts against one process's (`refs`:
+  {part: (cap, later bound, kernels, steps, nudged steps)}, `frame` its
+  render): hold_parity with the model-rank control; each rank's launches
+  in every step (TP_PER_STEP) with K2/K4 (and K5/K6) at `rays` x 32
+  samples; the bytes a rank holds; the frame.  Returns {path: launches}."""
+  paths = {}
+  for part, (cap, later_rtol, kernels, *ref) in refs.items():
+    paths[f'{tag} {part}'] = _hold_parity(
+        tag, results, part, ref, cap, later_rtol, kernels, rays,
+        "model rank 1's part zeroed in its first collective")
+    one = ref[0]['bytes']
+    for r, res in enumerate(results[part]):
+      for i, counted in enumerate(res['per_step']):
+        if counted != TP_PER_STEP[part]:
+          raise SystemExit(f'FAIL {tag} {part} rank {r} step {i + 1}: '
+                           f'launches {counted}, want {TP_PER_STEP[part]}')
+      n = rays * 32
+      want = {k: {n: c * TP_STEPS} for k, c in TP_PER_STEP[part].items()
+              if c and k in ('featurize_dense', 'featurize_dense_dw',
+                             'int8_trunk', 'int8_trunk_bwd')}
+      if res['sizes'] != want:
+        raise SystemExit(f'FAIL {tag} {part} rank {r}: launch sizes '
+                         f'{res["sizes"]}, want {want}')
+      if not res['bytes'] < TP_BYTES_SHARE * one:
+        raise SystemExit(f'FAIL {tag} {part} rank {r}: {res["bytes"]:,} '
+                         f'bytes of parameters and Adam state, one process '
+                         f'{one:,}')
+    first = results[part][0]
+    log(f'{tag} {part}: {res["bytes"]:,} bytes of parameters and Adam '
+        f'state a rank, {res["bytes"] / one:.4f} of one process\'s {one:,}; '
+        f'step ms per rank ' + '; '.join(
+            ', '.join(f'{ms:.1f}' for ms in r['step_ms'])
+            for r in results[part]) + ' (one process: ' +
+        ', '.join(f'{ms:.1f}' for ms in ref[0]['step_ms']) + ')' + (
+            f'; NCCL kernels of the last step on rank 0: '
+            f'{first["allreduce_ms"]:.3f} ms of device time'
+            if 'allreduce_ms' in first else ''))
+  renders = results['render']
+  for r, res in enumerate(renders):
+    _check_launches(f'{tag} render rank {r}', res['launches'], res['plain'],
+                    F32_RENDER)
+    _hold_frames(f'{tag} render rank {r} (64x64 test view vs one process)',
+                 res['frame'], frame, near)
+  paths[f'{tag} render'] = {k: sum(res['launches'][k] for res in renders)
+                            for k in renders[0]['launches']}
+  return paths
+
+
+def phase_tp(card, device='cuda', bindings=(), min_dim_to_shard=512):
+  """Tensor parallelism through ``python -m torch.distributed.run`` at
+  model size 2, 360.gin at full width: (1) two gloo ranks sharing cuda:0,
+  the bf16 trunk's fixed-batch step (TP_GLOO_RAYS rays, no jitter,
+  TP_STEPS steps) and the int8 trunk's held against one process's (step
+  1's loss within ddp_probe.LOSS_RTOL, the later steps within
+  ddp_probe.LATER_LOSS_RTOL, which the control with model rank 1's part
+  dropped must miss, step 1's gradient by ``leaf_gaps``), K1-K4 (K1, K3,
+  K5, K6 under int8) in every step of each rank, the bytes a rank holds,
+  and a 64 x 64 test view against one process's; (2) where there are two
+  cards or more, the same with NCCL, one rank a card, at TP_NCCL_RAYS
+  rays, with the NCCL kernels' device time of a step.  `device`,
+  `bindings` and `min_dim_to_shard` let the phase be rehearsed on the CPU
+  at small widths.
+  Returns {path: launches}."""
+  from multinerf_tpu_torch import configs
+  from multinerf_tpu_torch import ddp_probe
+  t0 = time.perf_counter()
+  base = DDP_BASE + tuple(bindings)
+  parity_argv = {
+      'parity': _gin_argv(BF16_BINDINGS + base + ('Config.randomized=False',)),
+      'parity_int8': _gin_argv(tuple(int8_bindings('int8')) + base + (
+          'Config.randomized=False',))}
+  render_argv = _gin_argv(BF16_BINDINGS + base)
+  near = configs.load_config(ddp_probe.configs_args(render_argv)).near
+
+  def spec(where, rays, profile):
+    parts = [{'name': name + drop, 'kind': 'step', 'argv': parity_argv[name],
+              'rays': rays, 'steps': TP_STEPS,
+              **({'drop_model_rank': 1} if drop else {'profile': profile})}
+             for name in parity_argv for drop in ('', '_drop')]
+    return dict(where, model_parallel=2, min_dim_to_shard=min_dim_to_shard,
+                parts=parts + [
+        {'name': 'render', 'kind': 'render', 'argv': render_argv}])
+
+  def one_process(rays):
+    refs = {}
+    for name, cap, kernels in (('parity', TRAIN_GAP_CAP, F32_TRAIN),
+                               ('parity_int8', INT8_TRAIN_GAP_CAP,
+                                INT8_TRAIN)):
+      refs[name] = (cap, ddp_probe.LATER_LOSS_RTOL, kernels) + tuple(
+          ddp_probe.run_steps(parity_argv[name], torch.device(device), rays,
+                              TP_STEPS, nudge=nudge) for nudge in (False, True))
+    return refs, ddp_probe.run_render(render_argv, torch.device(device))['frame']
+
+  paths = {}
+  cards = torch.cuda.device_count() if device == 'cuda' else 0
+  if device == 'cuda':
+    torch.cuda.empty_cache()  # The card is shared with the launched ranks.
+  with tempfile.TemporaryDirectory() as tmp:
+    shared = 'cuda:0' if device == 'cuda' else device
+    tag = f'tp gloo 1x2 {shared}'
+    gloo = _start_ranks(tag, 2, spec({'device': shared, 'backend': 'gloo'},
+                                     TP_GLOO_RAYS, False), f'{tmp}/gloo')
+    refs, frame = one_process(TP_GLOO_RAYS)
+    paths.update(_tp_checks(tag, _finish_ranks(gloo), refs, frame, near,
+                            TP_GLOO_RAYS))
+    if cards >= 2:
+      tag = 'tp nccl 1x2'
+      nccl = _start_ranks(tag, 2, spec({'device': 'cuda'}, TP_NCCL_RAYS,
+                                       True), f'{tmp}/nccl')
+      refs, frame = one_process(TP_NCCL_RAYS)
+      paths.update(_tp_checks(tag, _finish_ranks(nccl), refs, frame, near,
+                              TP_NCCL_RAYS))
+    else:
+      log('tp nccl 1x2: one card, not run')
+  log(f'tp ({card}): {time.perf_counter() - t0:.1f} s')
+  return paths
+
+
 SOURCES = {
     'density_mlp': ('multinerf_tpu_torch/csrc/density_mlp.cu',
                     'multinerf_tpu/ops/pallas/density_mlp.py:65'),
@@ -3952,6 +4112,9 @@ def main():
   paths.update(phase_blender_256(card))
   paths.update(phase_debug(card))
   paths.update(phase_ddp(card))
+  for name, summary in phase_tp_kernels().items():
+    results[name]['tp_512'] = summary
+  paths.update(phase_tp(card))
   bounds = kernel_bounds()
   chunk = bounds.pop('int8_trunk_render_chunk')
   results['int8_trunk']['render_chunk'].update(

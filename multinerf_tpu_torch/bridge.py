@@ -7,6 +7,9 @@ joined with '.' the PyTorch ``state_dict`` key.  No transposes.  The
 Model's embedding tables keep flax's names too: ``Embed_0/embedding``
 (GLO) and ``exposure_scaling_offsets/embedding`` (RawNeRF).  The occupancy
 grid, a buffer, keeps the name of its flax collection, ``occupancy/grid``.
+Under a model axis (``parallel/tensor.py``) a model holds each rank's part
+of its split leaves: loading keeps this rank's part of each whole leaf, and
+``jax_params`` gathers them, so whole trees go in and come out.
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+
+from multinerf_tpu_torch.parallel import tensor
 
 
 def flatten(tree: Dict[str, Any], prefix: str = '') -> Dict[str, Any]:
@@ -76,11 +81,13 @@ def adam_moments(params: Dict[str, torch.nn.Parameter],
 
 
 def load_flat(model: torch.nn.Module, flat: Dict[str, Any]):
-  """Copy {'A/B/kernel': array} into the model; names and shapes must
-  match its parameters exactly."""
-  state = {k.replace('/', '.'): (v if isinstance(v, torch.Tensor) else
-                                 torch.tensor(np.asarray(v)))
-           for k, v in flat.items()}
+  """Copy {'A/B/kernel': array} of whole leaves into the model (this
+  rank's part of each split leaf); names and shapes must match its
+  parameters exactly."""
+  splits = tensor.splits_of(named_parameters(model))
+  state = {k.replace('/', '.'): tensor.shard(
+      v if isinstance(v, torch.Tensor) else torch.tensor(np.asarray(v)), k,
+      splits) for k, v in flat.items()}
   model.load_state_dict(state, strict=True)
 
 
@@ -101,5 +108,9 @@ def load_jax_variables(model: torch.nn.Module, variables: Dict[str, Any]):
 
 
 def jax_params(model: torch.nn.Module) -> Dict[str, Any]:
-  """The model's parameters as a JAX-style tree of numpy arrays."""
-  return to_jax_tree(named_parameters(model))
+  """The model's parameters as a JAX-style tree of numpy arrays (split
+  leaves gathered over the model group: every rank of it calls this)."""
+  params = named_parameters(model)
+  splits = tensor.splits_of(params)
+  return to_jax_tree({k: tensor.gather(v, k, splits)
+                      for k, v in params.items()})

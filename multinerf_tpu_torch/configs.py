@@ -216,7 +216,7 @@ def load_config(args, save_config=False):
   ginlite.add_search_path(_REPO_ROOT)
   ginlite.parse_config_files_and_bindings(args.gin_configs, args.gin_bindings)
   config = ginlite.make('Config')
-  if config.batch_size % mesh.world_size():
+  if config.batch_size % mesh.data_size():
     raise ValueError('Batch size must be divisible by the number of '
                      'processes.')
   if save_config and config.checkpoint_dir is None:

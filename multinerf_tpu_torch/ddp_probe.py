@@ -5,9 +5,11 @@
 
 or with no launcher (one process, no process group).  SPEC.json holds
 ``device`` ('cuda': each rank's own card; 'cuda:0': every rank on card 0),
-``backend`` (null: NCCL on CUDA; 'gloo') and ``parts``, run in turn, each
-saving this rank's result, with its seconds and the world size, as
-``OUT_DIR/<name>_rank<r>.pt``:
+``backend`` (null: NCCL on CUDA; 'gloo'), ``model_parallel`` (default 1:
+the ranks of ``mesh.create_mesh``'s model groups, which split the wide
+NerfMLP layers; ``min_dim_to_shard``, default 512, its threshold) and
+``parts``, run in turn, each saving this rank's result, with its seconds,
+the world size and the model size, as ``OUT_DIR/<name>_rank<r>.pt``:
 
 * kind ``step``: ``steps`` optimizer steps of the configuration of the gin
   flags ``argv`` on this rank's rows of one global batch: ``rays`` pixels
@@ -17,10 +19,19 @@ saving this rank's result, with its seconds and the world size, as
   for steps with no jitter.  Each step is ``train_lib.loss_and_grads`` then
   ``train_lib.apply_gradients``, as the train step runs them unculled.
   With ``drop_rank`` that rank's share of the gradient is zeroed before the
-  all-reduce: the control that ``hold_parity``'s bounds must catch.
-  Result: the losses, step 1's gradient (the global one, which the clip
-  sees; rank 0 only), whether the ranks' parameters after the last step
-  are bitwise equal, and the launches of K1-K6 in each step.
+  all-reduce, with ``drop_model_rank`` that model rank's partial sum in the
+  first forward all-reduce over the model group: the controls that
+  ``hold_parity``'s bounds must catch.  Result: the losses, step 1's
+  gradient (the global one, which the clip sees, split leaves gathered;
+  rank 0 only), whether the ranks' parameters after every step are
+  bitwise equal (leaves split over the model group across the data
+  group), the bytes of parameters and Adam state this rank holds
+  (``tensor.per_rank_bytes``), each step's synchronised ms, the launches of
+  K1-K6 in each step, and with ``profile`` (on a card) the device ms of
+  the last step's NCCL kernels on rank 0.
+* kind ``render``: test view 0 of the configuration, rendered on its
+  seed-0 weights by ``DeviceImageRenderer``.  Result: the frame (numpy
+  buffers) and its launches.
 * kind ``train``: ``train.main(argv)`` with the launches of K1-K6 counted
   around every step.  Result: the per-step launches, the plain-version
   calls, the losses, the step seconds, the process id and the files it
@@ -37,6 +48,7 @@ from __future__ import annotations
 
 import argparse
 import builtins
+import collections
 import contextlib
 import json
 import os
@@ -48,6 +60,7 @@ import time
 import numpy as np
 import torch
 
+from multinerf_tpu_torch import bridge
 from multinerf_tpu_torch import configs
 from multinerf_tpu_torch import train_lib
 from multinerf_tpu_torch.data import datasets
@@ -55,7 +68,10 @@ from multinerf_tpu_torch.data import device_sampler
 from multinerf_tpu_torch.ops.kernels import density_mlp
 from multinerf_tpu_torch.ops.kernels import featurize_dense
 from multinerf_tpu_torch.ops.kernels import int8_trunk
+from multinerf_tpu_torch.models import nerf
 from multinerf_tpu_torch.parallel import mesh
+from multinerf_tpu_torch.parallel import tensor
+from multinerf_tpu_torch.utils import checkpoints
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # Step 1's loss: the ranks' shares sum in another order than one process's
@@ -114,7 +130,7 @@ def record_writes(paths):
 def local_rows(batch):
   """This rank's rows (rays, or patches) of a global Batch."""
   n = mesh.process_local_slice(batch.rgb.shape[0])
-  lo = mesh.rank() * n
+  lo = mesh.data_rank() * n
   cut = lambda x: None if x is None else x[lo:lo + n]
   rays = type(batch.rays)(**{f: cut(getattr(batch.rays, f))
                              for f in batch.rays.__dataclass_fields__})
@@ -145,36 +161,149 @@ def drop_gradient(model, rank):
           if p.requires_grad]
 
 
+def drop_model_partial(rank):
+  """On model rank `rank`, zero this rank's part in the next collective
+  over the model group, once: a row layer's partial sum in its forward
+  all-reduce (``tensor.reduce_from_model``), or, where the weights are
+  gathered first (the int8 trunks), a weight's part in its all-gather."""
+  if mesh.model_size() == 1 or mesh.model_rank() != rank:
+    return
+  reduce, gather = tensor.reduce_from_model, tensor.gather_from_model
+
+  def restore():
+    tensor.reduce_from_model, tensor.gather_from_model = reduce, gather
+
+  def dropping_reduce(x):
+    restore()
+    return reduce(x * 0)
+
+  def dropping_gather(part, split):
+    if split is None:
+      return gather(part, split)
+    restore()
+    return gather(part * 0, split)
+
+  tensor.reduce_from_model = dropping_reduce
+  tensor.gather_from_model = dropping_gather
+
+
+@contextlib.contextmanager
+def launch_sizes():
+  """{kernel: [N of each launch]} of K2, K4, K5 and K6 while inside."""
+  sizes = {}
+  saved = []
+  for module, attr, name in ((featurize_dense, '_launch', 'featurize_dense'),
+                             (featurize_dense, '_launch_dw',
+                              'featurize_dense_dw'),
+                             (int8_trunk, '_launch', 'int8_trunk'),
+                             (int8_trunk, '_launch_bwd', 'int8_trunk_bwd')):
+    fn = getattr(module, attr)
+    sizes[name] = []
+
+    def record(means, *args, _fn=fn, _name=name, **kwargs):
+      sizes[_name].append(int(means.shape[0]))
+      return _fn(means, *args, **kwargs)
+    saved.append((module, attr, fn))
+    setattr(module, attr, record)
+  try:
+    yield sizes
+  finally:
+    for module, attr, fn in saved:
+      setattr(module, attr, fn)
+
+
+def replicated(params):
+  """Whether the ranks hold bitwise equal `params` (checkpoints'
+  assert_replicated: split leaves over the data group)."""
+  try:
+    checkpoints.assert_replicated(params)
+    return True
+  except RuntimeError:
+    return False
+
+
+def _sync(device):
+  if torch.device(device).type == 'cuda':
+    torch.cuda.synchronize(device)
+
+
+def _nccl_ms(fn, device):
+  """fn() under torch.profiler: the device ms of its NCCL kernels."""
+  activities = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+  with torch.profiler.profile(activities=activities) as prof:
+    fn()
+    _sync(device)
+  return sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and
+             'nccl' in e.name.lower()) / 1e3
+
+
 def run_steps(argv, device, rays, steps, seed=0, nudge=False,
-              drop_rank=None):
-  """The 'step' part: {'losses', 'grads1' (rank 0), 'replicated',
-  'per_step' (each step's launches), 'plain' (plain-version calls)}."""
+              drop_rank=None, drop_model_rank=None, profile=False):
+  """The 'step' part: {'losses', 'grads1' (rank 0), 'replicated', 'bytes',
+  'step_ms', 'per_step' (each step's launches), 'sizes' ({kernel: {N:
+  launches}} of K2, K4, K5, K6), 'plain' (plain-version calls)}."""
   config = configs.load_config(configs_args(argv))
   model, state, _, _, lr_fn = train_lib.setup_model(config, 0, device)
   batch = global_batch_rows(config, device, rays, seed, nudge)
   if drop_rank is not None:
     drop_gradient(model, drop_rank)
-  out = {'losses': [], 'per_step': []}
+  if drop_model_rank is not None:
+    drop_model_partial(drop_model_rank)
+  splits = tensor.splits_of(state.params)
+  out = {'losses': [], 'per_step': [], 'step_ms': [],
+         'replicated_steps': []}
   first = counts()
-  for step in range(1, steps + 1):
-    before = counts()
+
+  def step():
+    nonlocal state
     state.optimizer.zero_grad(set_to_none=True)
-    train_frac = float(np.clip((step - 1) / (config.max_steps - 1), 0, 1))
+    i = state.step + 1
+    train_frac = float(np.clip((i - 1) / (config.max_steps - 1), 0, 1))
     loss, _, _, grads = train_lib.loss_and_grads(model, config, batch,
                                                  train_frac)
-    if step == 1 and mesh.is_main():
-      out['grads1'] = {k: v.float().cpu().numpy() for k, v in grads.items()}
+    if i == 1:
+      whole = {k: tensor.gather(v, k, splits) for k, v in grads.items()}
+      if mesh.is_main():
+        out['grads1'] = {k: v.float().cpu().numpy()
+                         for k, v in whole.items()}
     state = train_lib.apply_gradients(state, grads, config, lr_fn)
     out['losses'].append(float(loss))
-    out['per_step'].append(_since(before)[0])
+
+  with launch_sizes() as sizes:
+    for i in range(steps):
+      before = counts()
+      _sync(device)
+      t0 = time.perf_counter()
+      if profile and i == steps - 1 and torch.device(device).type == 'cuda':
+        out['allreduce_ms'] = _nccl_ms(step, device)
+      else:
+        step()
+      _sync(device)
+      out['step_ms'].append(1e3 * (time.perf_counter() - t0))
+      out['per_step'].append(_since(before)[0])
+      out['replicated_steps'].append(replicated(state.params))
+  out['sizes'] = {k: dict(sorted(collections.Counter(v).items()))
+                  for k, v in sizes.items() if v}
   out['plain'] = _since(first)[1]
-  try:
-    mesh.assert_replicated(state.params, 'parameters')
-    out['replicated'] = True
-  except RuntimeError:
-    out['replicated'] = False
+  out['replicated'] = all(out['replicated_steps'])
+  out['bytes'] = tensor.per_rank_bytes(bridge.named_parameters(model),
+                                       state.optimizer)
   del model
   return out
+
+
+def run_render(argv, device):
+  """The 'render' part: test view 0 on the seed-0 weights."""
+  config = configs.load_config(configs_args(argv))
+  _, _, render_fn, _, _ = train_lib.setup_model(config, 0, device)
+  before = counts()
+  with datasets.load_dataset('test', config.data_dir, config) as dataset:
+    frame = nerf.DeviceImageRenderer(render_fn, config, dataset,
+                                     device)(1.0, 0)
+  launches, plain = _since(before)
+  return {'frame': frame, 'launches': launches, 'plain': plain}
 
 
 def hold_parity(got, ref, ref_nudged, cap, later_rtol, control):
@@ -329,12 +458,17 @@ def main(argv):
     spec = json.load(f)
   device = configs.setup_device(spec.get('device', 'cuda'),
                                 spec.get('backend'))
+  mesh.create_mesh(spec.get('model_parallel', 1),
+                   spec.get('min_dim_to_shard', 512))
   for part in spec['parts']:
     t0 = time.perf_counter()
     if part['kind'] == 'step':
       result = run_steps(part['argv'], device, part['rays'], part['steps'],
                          part.get('seed', 0), part.get('nudge', False),
-                         part.get('drop_rank'))
+                         part.get('drop_rank'), part.get('drop_model_rank'),
+                         part.get('profile', False))
+    elif part['kind'] == 'render':
+      result = run_render(part['argv'], device)
     elif part['kind'] == 'train':
       result = run_train(part['argv'] + [f'--device={device}'])
     elif part['kind'] == 'eval':
@@ -342,6 +476,7 @@ def main(argv):
     else:
       raise ValueError(f'Unknown part kind {part["kind"]!r}.')
     result['world_size'] = mesh.world_size()
+    result['model_size'] = mesh.model_size()
     result['seconds'] = time.perf_counter() - t0
     torch.save(result, os.path.join(
         out_dir, f'{part["name"]}_rank{mesh.rank()}.pt'))

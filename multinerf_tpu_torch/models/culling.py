@@ -72,7 +72,8 @@ def update_grid(grid, cells, densities, decay: float):
   hit = torch.zeros_like(grid).scatter_reduce(
       0, cells.reshape(-1), densities.detach().reshape(-1).to(grid.dtype),
       'amax', include_self=True)
-  return torch.maximum(grid * decay, mesh.all_reduce_max(hit))
+  return torch.maximum(grid * decay,
+                       mesh.all_reduce_max(hit, mesh.data_group()))
 
 
 def refresh_jitter(generator, resolution: int, device=None):

@@ -69,6 +69,8 @@ from multinerf_tpu_torch.ops import ref_utils
 from multinerf_tpu_torch.ops.kernels import density_mlp as dm
 from multinerf_tpu_torch.ops.kernels import featurize_dense as fd
 from multinerf_tpu_torch.ops.kernels import int8_trunk as i8t
+from multinerf_tpu_torch.parallel import mesh
+from multinerf_tpu_torch.parallel import tensor
 
 _DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
 _INT8 = ('int8', 'int8_hybrid')
@@ -153,6 +155,102 @@ class Dense(nn.Module):
     if dtype is None:
       return x.to(self.kernel.dtype) @ self.kernel + self.bias
     return x.to(dtype) @ self.kernel.to(dtype) + self.bias.to(dtype)
+
+  @property
+  def split(self):
+    """The kernel's ``tensor.Split`` when this rank holds a part of it."""
+    return getattr(self.kernel, 'tp_split', None)
+
+  def shard_(self, splits):
+    """Keep this rank's part of each leaf `splits` ({'kernel' or 'bias':
+    Split}) names, as a contiguous parameter of its own."""
+    for attr, split in splits.items():
+      part = nn.Parameter(tensor.shard(getattr(self, attr).detach(), attr,
+                                       splits))
+      part.tp_split = split
+      setattr(self, attr, part)
+
+  def full(self):
+    """A Dense of the whole kernel and bias, gathered over the model group
+    where this rank holds a part (their gradients come back as this rank's
+    part); this layer itself where it holds all of them."""
+    if self.split is None:
+      return self
+    return _Whole(tensor.gather_from_model(self.kernel, self.split),
+                  tensor.gather_from_model(
+                      self.bias, getattr(self.bias, 'tp_split', None)))
+
+
+class _Whole:
+  """A Dense's gathered kernel and bias, called as the Dense is."""
+
+  split = None
+
+  def __init__(self, kernel, bias):
+    self.kernel, self.bias = kernel, bias
+
+  __call__ = Dense.forward
+
+
+class _Bf16Product(torch.autograd.Function):
+  """a @ b of bf16 operands with an f32 result (a row layer's partial sum
+  under the bf16 trunk, summed over the model group before it is rounded),
+  and the bf16 backward of the one-device bf16 product."""
+
+  @staticmethod
+  def forward(ctx, a, b):
+    ctx.save_for_backward(a, b)
+    if a.is_cuda:
+      return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+  @staticmethod
+  def backward(ctx, g):
+    a, b = ctx.saved_tensors
+    g = g.to(torch.bfloat16)
+    return g @ b.T, a.T @ g
+
+
+class _ColumnBf16(torch.autograd.Function):
+  """x @ w of bf16 operands with a bf16 result, for a column layer: its
+  input's gradient, a partial sum over this rank's columns, is summed over
+  the model group in f32 and then rounded to bf16, as the one-device
+  product's is."""
+
+  @staticmethod
+  def forward(ctx, x, w):
+    ctx.save_for_backward(x, w)
+    return x @ w
+
+  @staticmethod
+  def backward(ctx, g):
+    x, w = ctx.saved_tensors
+    dx = tensor.reduce_from_model(_Bf16Product.apply(g, w.T))
+    return dx.to(torch.bfloat16), x.T @ g
+
+
+def _out_split(layer):
+  """The Split of the columns a column layer leaves on the ranks; None for
+  any other layer."""
+  if layer.split is None or layer.split.kind != tensor.COLUMN:
+    return None
+  return tensor.activation_split(layer.split.shape[-1])
+
+
+def _partial_product(x, kernel, dtype):
+  """x @ kernel in f32, of bf16-rounded operands when `dtype` is bf16."""
+  if dtype == torch.bfloat16:
+    return _Bf16Product.apply(x.to(dtype), kernel.to(dtype))
+  return x.to(kernel.dtype) @ kernel
+
+
+def _summed(partial, bias, dtype):
+  """The sum over the model group of a row layer's `partial` product,
+  rounded to `dtype` as the one-device product is, plus the bias."""
+  y = tensor.reduce_from_model(partial)
+  if dtype == torch.bfloat16:
+    return y.to(dtype) + bias.to(dtype)
+  return y + bias
 
 
 class MLP(nn.Module):
@@ -247,51 +345,134 @@ class MLP(nn.Module):
     layer i - 1 when (i - 1) % skip_layer == 0 and i > 1."""
     return i > 1 and (i - 1) % self.cfg.skip_layer == 0
 
-  def _hidden(self, layer, x):
-    """A hidden layer's product in trunk_dtype (QuantDense under int8)."""
-    if self.int8:
-      return quant.quant_dense(layer, x, self.hybrid)
-    return layer(x, self.hidden_dtype)
+  def _dense(self, layer, x, x_split=None, dtype=None, hidden=False):
+    """(y, y_split): `layer` on `x`, whole (`x_split` None) or split by
+    columns over the model group (`x_split`, its Split), as a hidden layer
+    (trunk_dtype; QuantDense under int8) or with `dtype`.  y_split is the
+    Split of y's columns where a column layer leaves them split, else
+    None."""
+    dtype = self.hidden_dtype if hidden else dtype
+    split = layer.split
+    if split is not None and split.kind == tensor.ROW and not self.int8:
+      if x_split is None:
+        x = tensor.scatter_to_model(
+            x, tensor.activation_split(x.shape[-1]))
+      return _summed(_partial_product(x, layer.kernel, dtype), layer.bias,
+                     dtype), None
+    x = tensor.gather_from_model(x, x_split)
+    if split is None or self.int8:
+      # Int8 products quantize along the whole contraction axis: they run
+      # on the gathered weights.
+      layer = layer.full()
+      if hidden and self.int8:
+        return quant.quant_dense(layer, x, self.hybrid), None
+      return layer(x, dtype), None
+    if dtype == torch.bfloat16:
+      y = _ColumnBf16.apply(x.to(dtype), layer.kernel.to(dtype)) + (
+          layer.bias.to(dtype))
+    else:
+      y = layer(tensor.copy_to_model(x), dtype)
+    return y, _out_split(layer)
+
+  def _head(self, name, x):
+    """A head's output, whole, from the whole trunk output `x`."""
+    y, y_split = self._dense(self.heads[name], x)
+    return tensor.gather_from_model(y, y_split)
+
+  def _skip_dense(self, layer, x, x_split, feats_product, dtype):
+    """(y, y_split) of the skip layer `layer` on [x, features], x whole or
+    split (`x_split`), given `feats_product(kernel)`, the features' f32
+    product with a kernel of feature rows, and the product's `dtype` (as
+    ``_dense`` takes it).  A row-split skip layer multiplies x's columns by
+    its x rows in place and puts its feature columns' product into its
+    columns of the partial sum, the bias added after the sum; None for any
+    other skip layer."""
+    split = layer.split
+    if split is None or split.kind != tensor.SKIP or self.int8:
+      return None
+    x_rows, feat_cols = tensor.skip_parts(layer.kernel, split,
+                                          mesh.model_size())
+    if x_split is None:
+      x = tensor.scatter_to_model(x, tensor.activation_split(x.shape[-1]))
+    width = split.shape[-1]
+    cols = feat_cols.shape[-1]
+    first = mesh.model_rank() * cols
+    partial = _partial_product(x, x_rows, dtype) + F.pad(
+        feats_product(feat_cols), (first, width - first - cols))
+    return _summed(partial, layer.bias, dtype), None
 
   def _fused_trunk(self, means, covs):
+    """(trunk output, its Split where it is split by columns)."""
     cfg = self.cfg
     kw = dict(basis=self.pos_basis_t, min_deg=cfg.min_deg_point,
               max_deg=cfg.max_deg_point,
               use_contract=cfg.warp_fn is coord.contract)
     if self.int8 and cfg.net_activation is torch.relu:
+      layers = [l.full() for l in self.trunk]
       return i8t.int8_trunk(
-          means, covs, [l.kernel for l in self.trunk],
-          [l.bias for l in self.trunk],
+          means, covs, [l.kernel for l in layers], [l.bias for l in layers],
           skip_layers=[i for i in range(cfg.net_depth) if self._is_skip(i)],
-          bwd_bf16=self.hybrid, **kw)
-    first = self.trunk[0]
+          bwd_bf16=self.hybrid, **kw), None
+    first = self.trunk[0].full() if self.int8 else self.trunk[0]
     x = cfg.net_activation(
         fd.featurize_dense(means, covs, first.kernel, first.bias, **kw))
+    x_split = _out_split(first)
     for i, layer in enumerate(self.trunk[1:], start=1):
       if self._is_skip(i):
-        # concat([x, feats]) @ W == x @ W[:width] + feats @ W[width:]; the
-        # feature half runs in the fused kernel, which adds the bias.
-        width_x = x.shape[-1]
-        x = x.to(layer.kernel.dtype) @ layer.kernel[:width_x] + (
-            fd.featurize_dense(means, covs, layer.kernel[width_x:],
-                               layer.bias, **kw))
+        # The feature rows' product in the fused kernel: with no bias, into
+        # this rank's columns of a row-split layer's partial sum.
+        skip = self._skip_dense(
+            layer, x, x_split,
+            lambda w: fd.featurize_dense(means, covs, w,
+                                         torch.zeros_like(w[0]), **kw),
+            None)
+        if skip is not None:
+          x, x_split = skip
+        else:
+          # concat([x, feats]) @ W == x @ W[:width] + feats @ W[width:]; the
+          # feature half runs in the fused kernel, which adds the bias (a
+          # column layer: its own columns, from the whole x).
+          x = tensor.gather_from_model(x, x_split)
+          layer = layer.full() if self.int8 else layer
+          if layer.split is not None:
+            x = tensor.copy_to_model(x)
+          width_x = x.shape[-1]
+          x = x.to(layer.kernel.dtype) @ layer.kernel[:width_x] + (
+              fd.featurize_dense(means, covs, layer.kernel[width_x:],
+                                 layer.bias, **kw))
+          x_split = _out_split(layer)
       else:
-        x = self._hidden(layer, x)
+        x, x_split = self._dense(layer, x, x_split, hidden=True)
       x = cfg.net_activation(x)
-    return x
+    return x, x_split
 
   def _unfused_trunk(self, means, covs):
+    """(trunk output, its Split where it is split by columns)."""
     cfg = self.cfg
     if cfg.warp_fn is not None:
       means, covs = coord.track_linearize(cfg.warp_fn, means, covs)
     feats = coord.integrated_pos_enc_lifted(
         means, covs, self.pos_basis_t, cfg.min_deg_point, cfg.max_deg_point)
-    x = feats
+    x, x_split = feats, None
     for i, layer in enumerate(self.trunk):
-      x = cfg.net_activation(self._hidden(layer, x))
-      if self._is_skip(i + 1):
-        x = torch.cat([x.to(feats.dtype), feats], dim=-1)
-    return x
+      skip = None
+      if self._is_skip(i):
+        dtype = self.hidden_dtype
+        skip = self._skip_dense(
+            layer, x, x_split,
+            lambda w: _partial_product(tensor.copy_to_model(feats), w,
+                                       dtype), dtype)
+        if skip is None:
+          x = torch.cat([tensor.gather_from_model(x, x_split).to(
+              feats.dtype), feats], dim=-1)
+          x_split = None
+      x, x_split = skip or self._dense(layer, x, x_split, hidden=True)
+      x = cfg.net_activation(x)
+    if self._is_skip(cfg.net_depth):
+      x = torch.cat([tensor.gather_from_model(x, x_split).to(feats.dtype),
+                     feats], dim=-1)
+      x_split = None
+    return x, x_split
 
   def _predict_density(self, means, covs, paths=None):
     """(raw density [N], trunk output [N, C] or None); `paths` is a
@@ -301,16 +482,19 @@ class MLP(nn.Module):
     fused, full_density_fusion = paths or (self.fused,
                                            self.full_density_fusion)
     if full_density_fusion:
+      layers = [l.full() for l in self.trunk]
+      head = head.full()
       raw_density = dm.density_mlp(
-          means, covs, [l.kernel for l in self.trunk],
-          [l.bias for l in self.trunk], head.kernel, head.bias[0],
+          means, covs, [l.kernel for l in layers],
+          [l.bias for l in layers], head.kernel, head.bias[0],
           self.pos_basis_t,
           min_deg=cfg.min_deg_point, max_deg=cfg.max_deg_point,
           use_contract=cfg.warp_fn is coord.contract)
       return raw_density, None
     trunk = self._fused_trunk if fused else self._unfused_trunk
-    x = trunk(means, covs)
-    return head(x)[..., 0], x
+    x, x_split = trunk(means, covs)
+    x = tensor.gather_from_model(x, x_split)
+    return self._head('density', x)[..., 0], x
 
   def probe_density(self, means, covs):
     """The density of this MLP's trunk and density head alone, with no
@@ -396,13 +580,14 @@ class MLP(nn.Module):
     grad_pred = normals_pred = None
     normals_to_use = normals
     if cfg.enable_pred_normals:
-      grad_pred = self.heads['grad_pred'](x)
+      grad_pred = self._head('grad_pred', x)
       normals_pred = -ref_utils.l2_normalize(grad_pred)
       normals_to_use = normals_pred
 
     density = cfg.density_activation(raw_density + cfg.density_bias)
 
     roughness = None
+    x_split = None
     if cfg.disable_rgb:
       rgb = torch.zeros_like(means)
     else:
@@ -410,15 +595,15 @@ class MLP(nn.Module):
         if viewdirs is None:
           raise ValueError('this MLP was built to take view directions.')
         if cfg.use_diffuse_color:
-          raw_rgb_diffuse = self.heads['diffuse'](x)
+          raw_rgb_diffuse = self._head('diffuse', x)
         if cfg.use_specular_tint:
-          tint = torch.sigmoid(self.heads['tint'](x))
+          tint = torch.sigmoid(self._head('tint', x))
         if cfg.enable_pred_roughness:
           roughness = cfg.roughness_activation(
-              self.heads['roughness'](x) + cfg.roughness_bias)
+              self._head('roughness', x) + cfg.roughness_bias)
         parts = []
         if 'bottleneck' in self.heads:
-          bottleneck = self.heads['bottleneck'](x)
+          bottleneck = self._head('bottleneck', x)
           if generator is not None and cfg.bottleneck_noise > 0:
             bottleneck = noise(bottleneck, cfg.bottleneck_noise)
           parts.append(bottleneck)
@@ -439,11 +624,16 @@ class MLP(nn.Module):
         x = torch.cat(parts, dim=-1)
         inputs = x
         for i, layer in enumerate(self.view_branch):
-          x = cfg.net_activation(self._hidden(layer, x))
+          x, x_split = self._dense(layer, x, x_split, hidden=True)
+          x = cfg.net_activation(x)
           if i % cfg.skip_layer_dir == 0 and i > 0:
-            x = torch.cat([x.to(inputs.dtype), inputs], dim=-1)
+            x = torch.cat([tensor.gather_from_model(x, x_split).to(
+                inputs.dtype), inputs], dim=-1)
+            x_split = None
+      rgb, rgb_split = self._dense(self.heads['rgb'], x, x_split)
       rgb = cfg.rgb_activation(
-          cfg.rgb_premultiplier * self.heads['rgb'](x) + cfg.rgb_bias)
+          cfg.rgb_premultiplier * tensor.gather_from_model(rgb, rgb_split) +
+          cfg.rgb_bias)
       if cfg.use_diffuse_color:
         # Diffuse starts near 0.25, so the combined linear color is ~0.5.
         diffuse_linear = torch.sigmoid(raw_rgb_diffuse - math.log(3.0))

@@ -31,9 +31,12 @@ and ``render_many`` renders K cameras with one transfer of the K frames.
 ``ImageRenderer`` (nerf.py:406-542) renders rays cast on the host, the pano
 camera's, through the same chunk loop after one copy of the frame's rays to
 the device; ``choose_renderer`` picks between the two as the drivers do.
-Across ranks (``parallel/mesh.py``) every chunk divides by the world size,
-each rank renders its rows of every chunk, and one all-gather a frame gives
-every rank the whole frame, as the JAX renderers' replicated outputs do.
+Across ranks (``parallel/mesh.py``) every chunk divides by the data-axis
+size, each rank renders its rows of every chunk (the ranks of a model group
+render the same rows, in step), and one all-gather over the data group a
+frame gives every rank the whole frame, as the JAX renderers' replicated
+outputs do.  Under a model axis ``construct_model`` keeps each rank's part
+of the layers that ``parallel/tensor.py``'s layout splits.
 """
 
 from __future__ import annotations
@@ -56,6 +59,7 @@ from multinerf_tpu_torch.ops import coord
 from multinerf_tpu_torch.ops import rendering
 from multinerf_tpu_torch.ops import stepfun
 from multinerf_tpu_torch.parallel import mesh
+from multinerf_tpu_torch.parallel import tensor
 
 
 def _schlick_ease(t, slope):
@@ -326,9 +330,45 @@ class Model(nn.Module):
 
 
 def construct_model(config, generator, device):
-  """Build the Model from the gin bindings, initialized from `generator`."""
-  return Model(ginlite.make('Model', config=config), generator=generator,
-               device=device)
+  """Build the Model from the gin bindings, initialized from `generator`:
+  the whole model on every rank, then, under a model axis, each rank keeps
+  its parts of the layers split over its model group (``shard_model``), so
+  that the gathered tree is one process's at the same seed."""
+  model = Model(ginlite.make('Model', config=config), generator=generator,
+                device=device)
+  if mesh.model_size() > 1:
+    shard_model(model)
+  return model
+
+
+def model_splits(model, model_size, min_dim_to_shard=512):
+  """{flax name: tensor.Split} of the leaves of `model` (whole) that a
+  model axis of `model_size` ranks splits: infer_layout's Megatron pairs,
+  each trunk skip layer after a column layer split at its x rows."""
+  names = {id(m): n.replace('.', '/') for n, m in model.named_modules()}
+  shapes = {k.replace('.', '/'): tuple(v.shape)
+            for k, v in model.named_parameters()}
+  skip_x_rows = {}
+  for mlp in model.modules():
+    if isinstance(mlp, mlp_lib.MLP):
+      for i, layer in enumerate(mlp.trunk):
+        if mlp._is_skip(i):  # pylint: disable=protected-access
+          skip_x_rows[names[id(layer)] + '/kernel'] = mlp.cfg.net_width
+  layout = tensor.infer_layout(shapes, model_size, min_dim_to_shard)
+  return tensor.storage_splits(layout, shapes, skip_x_rows)
+
+
+def shard_model(model):
+  """Keep this rank's part of every leaf the model axis splits
+  (``model_splits`` at the mesh's size and threshold)."""
+  by_module = {}
+  for name, split in model_splits(model, mesh.model_size(),
+                                  mesh.min_dim_to_shard()).items():
+    module, _, attr = name.rpartition('/')
+    by_module.setdefault(module, {})[attr] = split
+  modules = dict(model.named_modules())
+  for module, splits in by_module.items():
+    modules[module.replace('/', '.')].shard_(splits)
 
 
 def _keep_chunk_outputs(renderings, config):
@@ -359,9 +399,9 @@ def _subsample_ray_bundles(rendering, config):
 
 def _plan_chunks(config, num_rays):
   """(chunk, num_chunks, padding) of a whole-image render (nerf.py:369):
-  chunks divide by the world size, and no more than one world size of
-  padding is rendered past the image."""
-  n_dev = mesh.world_size()
+  chunks divide by the data-axis size, and no more than one data-axis size
+  of padding is rendered past the image."""
+  n_dev = mesh.data_size()
   chunk = min(config.render_chunk_size, -(-num_rays // n_dev) * n_dev)
   chunk = max(n_dev, chunk // n_dev * n_dev)
   num_chunks = -(-num_rays // chunk)
@@ -394,11 +434,11 @@ def _render_frame(render_fn, config, train_frac, height, width, chunk_rays):
   whole chunks), this rank renders its rows of each chunk (nerf.py:470-495)
   and keeps their outputs (_keep_chunk_outputs), and the chunks are
   assembled on the device, with no read-back between them.  Across ranks
-  the rows of every rank are gathered first."""
+  the rows of every rank of the data group are gathered first."""
   chunk, num_chunks, padding = _plan_chunks(config, height * width)
-  world = mesh.world_size()
+  world = mesh.data_size()
   rows = chunk // world
-  first = mesh.rank() * rows
+  first = mesh.data_rank() * rows
   outs = []
   for i in range(num_chunks):
     renderings, _ = render_fn(train_frac, chunk_rays(i * chunk + first, rows))
@@ -411,7 +451,8 @@ def _render_frame(render_fn, config, train_frac, height, width, chunk_rays):
 
 
 def _gather_chunks(outs, config, world):
-  """The chunk outputs of every rank, each chunk's rows in rank order:
+  """The chunk outputs of every rank of the data group, each chunk's rows
+  in rank order:
   {k: [num_chunks, chunk / world, ...]} -> {k: [num_chunks, chunk, ...]}
   through one all-gather.  A ray bundle keeps the first vis_num_rays rays
   of each chunk, as one device rendering the whole chunk does."""
@@ -422,7 +463,7 @@ def _gather_chunks(outs, config, world):
         raise TypeError(f'{k} is not a floating-point output.')
       leaves.append((k, level, t))
   flat = torch.cat([t.reshape(-1).to(torch.float32) for _, _, t in leaves])
-  gathered = mesh.all_gather_rows(flat[None])
+  gathered = mesh.all_gather_rows(flat[None], mesh.data_group())
   out, start = {}, 0
   for k, level, t in leaves:
     parts = gathered[:, start:start + t.numel()].reshape((world,) + t.shape)
@@ -493,8 +534,8 @@ class ImageRenderer:
             for v in fields.values()]
     packed = np.pad(np.concatenate(cols, -1),
                     ((0, num_chunks * chunk - num_rays), (0, 0)), mode='edge')
-    rows = chunk // mesh.world_size()
-    first = mesh.rank() * rows
+    rows = chunk // mesh.data_size()
+    first = mesh.data_rank() * rows
     packed = np.ascontiguousarray(packed.reshape(
         num_chunks, chunk, -1)[:, first:first + rows].reshape(
             num_chunks * rows, -1))

@@ -74,7 +74,7 @@ def main(argv=None):
   if not torch.cuda.is_available():
     raise RuntimeError('profile_step needs CUDA.')
   device = configs.setup_device()
-  rank = mesh.rank()
+  rank = mesh.data_rank()
 
   config = configs.load_config(args)
   total = args.warmup + args.steps

@@ -51,8 +51,9 @@ def robustnerf_mask(errors: torch.Tensor, loss_threshold, config
   error_per_pixel = torch.mean(errors, dim=-1, keepdim=True)  # [n, h, w, 1]
   epp = error_per_pixel.detach()
   stats = {
-      'loss_threshold': torch.quantile(mesh.all_gather_rows(epp.flatten()),
-                                       config.robustnerf_inlier_quantile),
+      'loss_threshold': torch.quantile(
+          mesh.all_gather_rows(epp.flatten(), mesh.data_group()),
+          config.robustnerf_inlier_quantile),
   }
   mask = torch.ones_like(epp)
 

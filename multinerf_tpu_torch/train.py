@@ -74,6 +74,7 @@ from multinerf_tpu_torch.data import device_sampler
 from multinerf_tpu_torch.models import nerf as models
 from multinerf_tpu_torch.ops import image_ops
 from multinerf_tpu_torch.parallel import mesh
+from multinerf_tpu_torch.parallel import tensor
 from multinerf_tpu_torch.utils import checkpoints as ckpt_lib
 from multinerf_tpu_torch.utils import summary
 from multinerf_tpu_torch.utils import visualize as vis
@@ -237,7 +238,9 @@ def main(argv=None):
   configs.add_device_flags(parser)
   args = parser.parse_args(argv)
   device = configs.setup_device(args.device)
-  rank = mesh.rank()
+  # Seeds by data rank: the ranks of a model group draw the same rays,
+  # jitter and noise.
+  rank = mesh.data_rank()
 
   config = configs.load_config(args, save_config=True)
   scan_steps = window_steps(config)
@@ -258,7 +261,7 @@ def main(argv=None):
           model, config, device, cull=cap, dataset=dataset)
   renderer = models.choose_renderer(render_eval_fn, config, test_dataset,
                                     device)
-  num_params = sum(p.numel() for p in state.params.values())
+  num_params = tensor.whole_numel(state.params)
   if mesh.is_main():
     print(f'Number of parameters being optimized: {num_params}')
   if (dataset.size > model.cfg.num_glo_embeddings and

@@ -19,7 +19,12 @@ Across ranks (``parallel/mesh.py``) the step is the global-batch step of
 the JAX package's sharded batch: each rank's loss is its share of the
 global loss, so that one all-reduce (SUM) of the gradients gives the
 global gradient before the clip, Adam runs replicated, and the step's
-statistics are global values from one more all-reduce.  With
+statistics are global values from one more all-reduce.  Under a model
+axis (``parallel/tensor.py``) those shares and sums run over the data
+group, the ranks of a model group computing the same loss; a leaf split
+over the model group counts once in every norm (the clip's, the
+statistics', weight decay's), its squares summed over the group, and Adam
+updates each rank's part as it is.  With
 ``Config.cast_rays_in_train_step`` the train split ships pixels, which the
 step casts on the device.  With ``Config.occupancy_culling`` the step
 updates the Model's occupancy grid after Adam from the final level's
@@ -49,6 +54,7 @@ from multinerf_tpu_torch.ops import mathx
 from multinerf_tpu_torch.ops import ref_utils
 from multinerf_tpu_torch.ops import stepfun
 from multinerf_tpu_torch.parallel import mesh
+from multinerf_tpu_torch.parallel import tensor
 from multinerf_tpu_torch.utils import checkpoints
 
 _F32_EPS = float(np.finfo(np.float32).eps)
@@ -64,26 +70,45 @@ def _groups(name, max_depth=3):
   return ['/'.join(parts[:d]) for d in range(1, min(len(parts), max_depth) + 1)]
 
 
-def _summarize(flat, leaf_fn, combine):
+def _summarize(flat, leaf_fn, combine, sharded=(), reduce=None):
+  """{module, layer and leaf: the leaves' `leaf_fn` values combined}; the
+  values of the `sharded` leaves (a rank's parts) first reduced over the
+  model group by `reduce` ({name: value} -> {name: whole value})."""
+  values = {name: leaf_fn(value.detach()) for name, value in flat.items()}
+  parts = {k: v for k, v in values.items() if k in sharded}
+  if parts and mesh.model_size() > 1:
+    values.update(reduce(parts))
   out = {}
-  for name, value in flat.items():
-    v = leaf_fn(value.detach())
+  for name, v in values.items():
     for g in _groups(name):
       out[g] = combine(out[g], v) if g in out else v
   return out
 
 
-def norm_sq_stats(flat):
-  """Squared L2 norm of every module, layer and leaf."""
-  return _summarize(flat, lambda x: torch.sum(x.float()**2), torch.add)
+def _model_sum(values):
+  return mesh.all_reduce_sum_dict(values, mesh.model_group())
 
 
-def norm_stats(flat):
-  return {k: torch.sqrt(v) for k, v in norm_sq_stats(flat).items()}
+def _model_max(values):
+  stacked = mesh.all_reduce_max(torch.stack(list(values.values())),
+                                mesh.model_group())
+  return dict(zip(values, stacked))
 
 
-def abs_max_stats(flat):
-  return _summarize(flat, lambda x: torch.max(torch.abs(x)), torch.maximum)
+def norm_sq_stats(flat, sharded=()):
+  """Squared L2 norm of every module, layer and leaf; the leaves named in
+  `sharded` are this rank's parts of leaves split over the model group."""
+  return _summarize(flat, lambda x: torch.sum(x.float()**2), torch.add,
+                    sharded, _model_sum)
+
+
+def norm_stats(flat, sharded=()):
+  return {k: torch.sqrt(v) for k, v in norm_sq_stats(flat, sharded).items()}
+
+
+def abs_max_stats(flat, sharded=()):
+  return _summarize(flat, lambda x: torch.max(torch.abs(x)), torch.maximum,
+                    sharded, _model_max)
 
 
 # --- Loss terms. ----------------------------------------------------------------
@@ -96,15 +121,15 @@ def compute_data_loss(batch, renderings, rays, loss_threshold, config):
   mask's statistics of the last level (``robust.robustnerf_mask``; its
   'loss_threshold' is the next step's `loss_threshold`), all detached.
   Across ranks the ratios of sums ('mses', the data loss, 'normal_maes')
-  divide by denominators summed over the ranks: each is this rank's share
-  of the global value, and 'disparity_mses' is this rank's mean."""
+  divide by denominators summed over the data group: each is this rank's
+  share of the global value, and 'disparity_mses' is this rank's mean."""
   if config.data_loss_type not in ('mse', 'charb', 'rawnerf', 'robustnerf'):
     raise ValueError(f'Unknown data loss type {config.data_loss_type}')
   lossmult = torch.broadcast_to(rays.lossmult, batch.rgb[..., :3].shape)
   if config.disable_multiscale_loss:
     lossmult = torch.ones_like(lossmult)
   # lossmult is data (RawNeRF's Bayer mask differs from rank to rank).
-  denom = mesh.all_reduce_sum(lossmult.sum())
+  denom = mesh.all_reduce_sum(lossmult.sum(), mesh.data_group())
   mses, data_losses = [], []
   metrics = {}
   for rendering in renderings:
@@ -139,7 +164,8 @@ def compute_data_loss(batch, renderings, rays, loss_threshold, config):
           normal_mae = ref_utils.compute_weighted_mae(
               mae_weights, ref_utils.l2_normalize(rendering['normals']),
               ref_utils.l2_normalize(batch.normals),
-              weight_sum=mesh.all_reduce_sum(mae_weights.sum()))
+              weight_sum=mesh.all_reduce_sum(mae_weights.sum(),
+                                             mesh.data_group()))
         else:
           normal_mae = torch.full((), torch.nan, device=denom.device)
         metrics.setdefault('normal_maes', []).append(normal_mae)
@@ -158,7 +184,7 @@ def interlevel_loss(ray_history, config):
   last = ray_history[-1]
   c = last['sdist'].detach()
   w = last['weights'].detach()
-  loss = 0.0
+  loss = torch.zeros((), device=c.device)  # A tensor with one level too.
   for ray_results in ray_history[:-1]:
     loss = loss + torch.mean(stepfun.lossfun_outer(
         c, w, ray_results['sdist'], ray_results['weights']))
@@ -212,21 +238,29 @@ def predicted_normal_loss(model, ray_history, config):
   return total_loss
 
 
-def clip_gradients(grads, config):
+def clip_gradients(grads, config, sharded=()):
   """Clip the gradients of each top-level module (NerfMLP_0, PropMLP_0)
   on its own: by value, then by the module's norm (train_lib.py:192).  A
-  NaN anywhere in a module makes its norm NaN, and so every entry of it."""
+  NaN anywhere in a module makes its norm NaN, and so every entry of it.
+  The leaves named in `sharded` are this rank's parts of leaves split over
+  the model group: their squares are summed over it."""
+  if config.grad_max_val > 0:
+    grads = {k: torch.clamp(v, -config.grad_max_val, config.grad_max_val)
+             for k, v in grads.items()}
+  squares = {}
+  if config.grad_max_norm > 0:
+    squares = {k: torch.sum(v**2) for k, v in grads.items()}
+    parts = {k: v for k, v in squares.items() if k in sharded}
+    if parts and mesh.model_size() > 1:
+      squares.update(_model_sum(parts))
   modules = {}
   for name in grads:
     modules.setdefault(name.split('/')[0], []).append(name)
   out = {}
   for names in modules.values():
     g = {k: grads[k] for k in names}
-    if config.grad_max_val > 0:
-      g = {k: torch.clamp(v, -config.grad_max_val, config.grad_max_val)
-           for k, v in g.items()}
     if config.grad_max_norm > 0:
-      norm = torch.sqrt(sum(torch.sum(v**2) for v in g.values()))
+      norm = torch.sqrt(sum(squares[k] for k in names))
       ratio = config.grad_max_norm / (_F32_EPS + norm)
       mult = torch.minimum(torch.ones_like(ratio), ratio)  # NaN stays NaN.
       g = {k: mult * v for k, v in g.items()}
@@ -263,7 +297,8 @@ def apply_gradients(state, grads, config, lr_fn):
   Adam update at lr_fn(state.step) to `state.params`, the parameters of
   `state.optimizer`.  Returns the TrainState one step on."""
   optimizer = state.optimizer
-  for name, g in clip_gradients(grads, config).items():
+  sharded = tensor.splits_of(state.params)
+  for name, g in clip_gradients(grads, config, sharded).items():
     state.params[name].grad = torch.nan_to_num(g)
   for group in optimizer.param_groups:
     group['lr'] = float(lr_fn(state.step))
@@ -364,12 +399,19 @@ def flatten_patches(batch, config):
 
 def subtree_norm_sq(params, key):
   """The squared L2 norm of the parameters under `key` ('NerfMLP_0',
-  'NerfMLP_0/Dense_0', ...): JAX's tree_norm_sq of that subtree."""
-  leaves = [p for name, p in params.items()
-            if name == key or name.startswith(key + '/')]
+  'NerfMLP_0/Dense_0', ...): JAX's tree_norm_sq of that subtree.  The
+  squares of a rank's parts of split leaves are summed over the model group
+  (their gradient stays this rank's part)."""
+  leaves = {name: p for name, p in params.items()
+            if name == key or name.startswith(key + '/')}
   if not leaves:
     raise KeyError(key)
-  return sum(torch.sum(p**2) for p in leaves)
+  sharded = tensor.splits_of(leaves)
+  total = sum(torch.sum(p**2) for k, p in leaves.items() if k not in sharded)
+  if sharded:
+    total = total + tensor.reduce_from_model(
+        sum(torch.sum(leaves[k]**2) for k in sharded))
+  return total
 
 
 # Statistics of a step that are means over a rank's rays: averaged over
@@ -383,15 +425,17 @@ _NOT_SUMMED = ('loss_threshold', 'occ_cells', 'occ_density')
 
 def _reduce_over_ranks(loss, losses, stats, grads):
   """The global loss, loss terms, statistics and gradient from this rank's
-  shares: one all-reduce of the gradients, one of the statistics."""
-  world = mesh.world_size()
+  shares: one all-reduce of the gradients, one of the statistics, over the
+  data group (a model group's ranks hold parts of one gradient)."""
+  world = mesh.data_size()
   if world == 1:
     return loss, losses, stats, grads
-  grads = mesh.all_reduce_sum_dict(grads)
+  group = mesh.data_group()
+  grads = mesh.all_reduce_sum_dict(grads, group)
   values = {'loss': loss}
   values.update({f'losses/{k}': v for k, v in losses.items()})
   values.update({k: v for k, v in stats.items() if k not in _NOT_SUMMED})
-  values = mesh.all_reduce_sum_dict(values)
+  values = mesh.all_reduce_sum_dict(values, group)
   for k in _RANK_MEANS:
     if k in values:
       values[k] = values[k] / world
@@ -443,7 +487,7 @@ def loss_and_grads(model, config, batch, train_frac, generator=None,
     losses['weight'] = torch.sum(torch.stack([
         m * subtree_norm_sq(params, k)
         for k, m in config.weight_decay_mults.items()]))
-  world = mesh.world_size()
+  world = mesh.data_size()
   if world > 1:
     # Every term but the data loss is a mean over rays, or weight decay,
     # which counts once: this rank's share is 1 / world of it.
@@ -512,9 +556,10 @@ def create_train_step(model, config, device, cull=None, dataset=None):
     stats = dict(stats, loss=loss)
     stats.update({f'losses/{k}': v for k, v in losses.items()})
     if compute_stats:
-      tree_stats = {'weight_l2s': norm_sq_stats(params),
-                    'grad_norms': norm_stats(grads),
-                    'grad_maxes': abs_max_stats(grads)}
+      sharded = tensor.splits_of(params)
+      tree_stats = {'weight_l2s': norm_sq_stats(params, sharded),
+                    'grad_norms': norm_stats(grads, sharded),
+                    'grad_maxes': abs_max_stats(grads, sharded)}
       before = {k: p.detach().clone() for k, p in params.items()}
 
     state = apply_gradients(state, grads, config, lr_fn)
@@ -528,8 +573,8 @@ def create_train_step(model, config, device, cull=None, dataset=None):
 
     if compute_stats:
       delta = {k: p.detach() - before[k] for k, p in params.items()}
-      tree_stats['opt_update_norms'] = norm_stats(delta)
-      tree_stats['opt_update_maxes'] = abs_max_stats(delta)
+      tree_stats['opt_update_norms'] = norm_stats(delta, sharded)
+      tree_stats['opt_update_maxes'] = abs_max_stats(delta, sharded)
       for family, values in tree_stats.items():
         stats.update({f'{family}/{k}': v for k, v in values.items()})
     stats['psnrs'] = image_ops.mse_to_psnr(stats['mses'])

@@ -15,7 +15,12 @@ run goes on with the same bias correction and learning-rate schedule.
 Across ranks (``parallel/mesh.py``) rank 0 writes and prunes, a ``.tmp``
 file renamed into place, and the others wait at a barrier; every rank
 restores the file rank 0 found, and the restored parameters are checked
-equal on every rank.
+equal on every rank.  Under a model axis (``parallel/tensor.py``) a rank
+holds its part of each split leaf (the parameter's ``tp_split``) and of its
+Adam moments: every rank gathers them over its model group before rank 0
+writes, so the file holds the whole tree of one process, and a restore
+keeps each rank's part of the whole leaves; split leaves are checked equal
+over the data group, the others over every rank.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from multinerf_tpu_torch.parallel import mesh
+from multinerf_tpu_torch.parallel import tensor
 
 
 @dataclasses.dataclass
@@ -48,6 +54,39 @@ def _to_cpu(tree: Any) -> Any:
   if isinstance(tree, (list, tuple)):
     return type(tree)(_to_cpu(v) for v in tree)
   return tree
+
+
+_MOMENTS = ('exp_avg', 'exp_avg_sq')
+
+
+def _split_moments(state: 'TrainState', saved, fn):
+  """`saved` (an optimizer state_dict of `state.optimizer`'s parameters)
+  with `fn(moment, name, splits)` (tensor.shard or tensor.gather) in place
+  of the Adam moments of every parameter that is a rank's part of a split
+  leaf."""
+  splits = tensor.splits_of(state.params)
+  names = {id(p): k for k, p in state.params.items()}
+  params = [p for group in state.optimizer.param_groups
+            for p in group['params']]
+  for i, moments in saved['state'].items():
+    name = names[id(params[i])]
+    if name in splits:
+      saved['state'][i] = {k: fn(v, name, splits) if k in _MOMENTS else v
+                           for k, v in moments.items()}
+  return saved
+
+
+def whole_state(state: 'TrainState'):
+  """(params, optimizer state_dict or None) of `state` with every split
+  leaf and its Adam moments gathered over the model group: one process's
+  tree.  Every rank calls it."""
+  splits = tensor.splits_of(state.params)
+  params = {k: tensor.gather(v, k, splits) for k, v in state.params.items()}
+  opt_state = None
+  if state.optimizer is not None:
+    opt_state = _split_moments(state, state.optimizer.state_dict(),
+                               tensor.gather)
+  return params, opt_state
 
 
 class CheckpointManager:
@@ -78,14 +117,16 @@ class CheckpointManager:
 
   def save(self, step: int, state: TrainState):
     """Write `state` as the checkpoint of `step`, keeping the newest `keep`
-    checkpoints: on rank 0, while the other ranks wait."""
+    checkpoints: on rank 0, while the other ranks wait (after gathering
+    the split leaves with it)."""
+    params, opt_state = whole_state(state)
     if mesh.is_main():
       tmp = self.path(step) + '.tmp'
       # The record keeps the state's own step: the final save of a run that
       # exits early is named after max_steps (train.py:437-438).
-      record = {'step': int(state.step), 'params': _to_cpu(state.params)}
-      if state.optimizer is not None:
-        record['opt_state'] = _to_cpu(state.optimizer.state_dict())
+      record = {'step': int(state.step), 'params': _to_cpu(params)}
+      if opt_state is not None:
+        record['opt_state'] = _to_cpu(opt_state)
       torch.save(record, tmp)
       os.replace(tmp, self.path(step))
       for old in self.steps()[:-self._keep]:
@@ -105,12 +146,25 @@ class CheckpointManager:
       return state
     saved = torch.load(self.path(step), map_location='cpu',
                        weights_only=True)
+    splits = tensor.splits_of(state.params)
     with torch.no_grad():
       for name, value in state.params.items():
         if name in saved['params']:
-          value.copy_(saved['params'][name])
-    mesh.assert_replicated(state.params, 'restored parameters')
+          value.copy_(tensor.shard(saved['params'][name], name, splits))
+    assert_replicated(state.params, 'restored parameters')
     if state.optimizer is not None and 'opt_state' in saved:
-      state.optimizer.load_state_dict(saved['opt_state'])
+      state.optimizer.load_state_dict(
+          _split_moments(state, saved['opt_state'], tensor.shard))
     return TrainState(step=int(saved['step']), params=state.params,
                       optimizer=state.optimizer)
+
+
+def assert_replicated(params, what='parameters'):
+  """Raise unless the ranks hold the same `params` ({name: tensor}): the
+  leaves whole on every rank over all ranks, a rank's parts of split leaves
+  over its data group (the ranks that hold the same part)."""
+  splits = tensor.splits_of(params)
+  mesh.assert_replicated({k: v for k, v in params.items() if k not in splits},
+                         what)
+  mesh.assert_replicated({k: v for k, v in params.items() if k in splits},
+                         what, mesh.data_group())
