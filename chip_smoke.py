@@ -72,7 +72,17 @@ rank's 504 -> 512 columns, then two gloo ranks sharing the card at model
 size 2, their bf16 and int8 fixed-batch steps held against one process's
 (with the control of a model rank's part dropped), their launches per
 step, the bytes a rank holds and a test view; two NCCL ranks where there
-are two cards.
+are two cards.  Last, grid-culled rendering (``phase_cull_render``):
+360.gin's 64 x 64 test view through ``train_lib.create_render_fn(model,
+cull=...)`` under the bf16 and the int8 trunk, at capacity 1.0 through a
+grid that keeps every cell (bitwise the unculled frame), and at the rungs
+0.5 and 0.33 through a half-empty grid (a 16 x 16 frame on the card
+against the CPU, which culls by the card's keep masks), K2 and K5
+launched at N = capacity and held there against their plain versions;
+then the quality harnesses (``phase_harnesses``): ``cull_quality``,
+``int8_eval_decision`` and ``keep_frac_probe`` through their entry points
+for a few dozen steps, each in a process of its own with a time limit,
+their outputs' keys checked.
 
 Run from the repository root, with no arguments:
 
@@ -862,14 +872,20 @@ def phase_reference(tag='reference', bindings=(), bounds=REFERENCE_BOUNDS,
                frames['cuda'], frames['cpu'], config.near, bounds)
 
 
-def _hold_frames(tag, got, want, near, bounds=REFERENCE_BOUNDS):
-  """Two renderings of one frame: max |gap| of rgb and acc, and of the
-  distances as near / t, each within its bound."""
+def _frame_gaps(got, want, near):
+  """max |gap| of rgb and acc, and of the distances as near / t."""
   gaps = {key: float(np.abs(got[key] - want[key]).max())
           for key in ('rgb', 'acc')}
   for key in ('distance_mean', 'distance_median'):
     gaps[f'near/{key}'] = float(np.abs(near / got[key] -
                                        near / want[key]).max())
+  return gaps
+
+
+def _hold_frames(tag, got, want, near, bounds=REFERENCE_BOUNDS):
+  """Two renderings of one frame: max |gap| of rgb and acc, and of the
+  distances as near / t, each within its bound."""
+  gaps = _frame_gaps(got, want, near)
   log(f'{tag}: {gaps}, bounds {bounds}')
   if not all(gaps[k] <= bounds[k] for k in bounds):
     raise SystemExit(f'FAIL {tag}: gaps {gaps} over bounds {bounds}')
@@ -4038,6 +4054,330 @@ def phase_tp(card, device='cuda', bindings=(), min_dim_to_shard=512):
   return paths
 
 
+# --- Grid-culled rendering and the quality harnesses.
+
+CULL_RENDER_RUNGS = (0.5, 0.33)
+CULL_RENDER_TRUNKS = (('bfloat16', BF16_BINDINGS, F32_RENDER,
+                       'featurize_dense', REFERENCE_BOUNDS),
+                      ('int8', tuple(int8_bindings('int8')), INT8_RENDER,
+                       'int8_trunk', INT8_REFERENCE_BOUNDS))
+CULL_RENDER_SIZE = 64  # dummy_unbounded's test views: one 4,096-ray chunk.
+CULL_CHUNK_RAYS = 16384  # A whole render chunk of 360.gin.
+HARNESS_TIMEOUT_S = 240
+HARNESS_STEPS = 32
+# The harness smoke's culled arm: refresh every 8 steps and a density
+# threshold no weights reach (CULL_ENGAGED), so the one rung engages at the
+# first refresh and culls steps 9-32 (warmup HARNESS_STEPS // 8).
+HARNESS_CULL_SETTINGS = ('occupancy_grid_refresh_every=8, '
+                         'occupancy_threshold=1000.0')
+
+
+def _cull_render_config(bindings):
+  import argparse
+  from multinerf_tpu_torch import configs
+  return configs.load_config(argparse.Namespace(
+      gin_configs=[os.path.join(REPO, 'configs', '360.gin')],
+      gin_bindings=["Config.dataset_loader = 'dummy_unbounded'",
+                    'Config.occupancy_culling = True', *bindings]))
+
+
+# (b)'s keep masks on the card and on the CPU: a sample within a rounding
+# error of a cell face may land in the neighbouring cell (the bound of
+# tests/test_torch_culling.py's cell ids), and its keep decision with it.
+KEEP_FLIP_SHARE = 1e-3
+
+
+@contextlib.contextmanager
+def _keep_masks(replay=None):
+  """``culling.apply_culled`` with each call's keep mask, as the Model
+  computed it, recorded on the host into the list yielded; given `replay`
+  (such a list), each call culls by its mask in turn instead."""
+  from multinerf_tpu_torch.models import culling
+  apply_culled = culling.apply_culled
+  masks = []
+
+  def hooked(mlp, means, covs, keep, capacity_frac, **kwargs):
+    masks.append(keep.detach().cpu())
+    if replay is not None:
+      keep = replay[len(masks) - 1].to(keep.device)
+    return apply_culled(mlp, means, covs, keep, capacity_frac, **kwargs)
+
+  culling.apply_culled = hooked
+  try:
+    yield masks
+  finally:
+    culling.apply_culled = apply_culled
+
+
+def _cull_render_kernels(sizes_by_kernel):
+  """K2 and K5 against their plain versions at each compact N the culled
+  frames launched them at, and at the rungs' N of a whole render chunk
+  (CULL_CHUNK_RAYS x 32 samples).  Returns {kernel: [summary]}."""
+  from multinerf_tpu_torch.models import culling
+  from multinerf_tpu_torch.ops import geopoly
+  from multinerf_tpu_torch.ops.kernels import featurize_dense as fd
+  from multinerf_tpu_torch.ops.kernels import int8_trunk as i8t
+  basis = np.array(geopoly.generate_basis('icosahedron', 2)).T
+  num_feats = 2 * 12 * basis.shape[-1]
+  chunk_ns = {culling.round_capacity(CULL_CHUNK_RAYS * 32, c)
+              for c in CULL_RENDER_RUNGS}
+  rng = np.random.RandomState(13)
+  w = _he_uniform(rng, num_feats, 1024)
+  b = torch.tensor(rng.randn(1024).astype(np.float32) * 0.1, device='cuda')
+  ws, bs = _nerf_trunk(rng, num_feats)
+  kw = dict(use_contract=True, skip_layers=NERF_SKIP)
+  results = {}
+  for name in ('featurize_dense', 'int8_trunk'):
+    out = results[name] = []
+    for n in sorted(set(sizes_by_kernel[name]) | chunk_ns):
+      means, covs = _gaussians(n, seed=n % 1000)
+      if name == 'featurize_dense':
+        args = lambda k: (means[:k], covs[:k], w, b, basis)
+        summary = _compare(
+            f'{name} (culled render)',
+            lambda k: fd.featurize_dense(*args(k), use_contract=True),
+            lambda k: fd.featurize_dense_plain(*args(k), use_contract=True),
+            n)
+      else:
+        k5 = lambda fn: lambda k: [fn(means[:k], covs[:k], ws, bs, basis,
+                                      **kw)]
+        summary = _compare_rel(f'{name} (culled render)',
+                               k5(i8t.int8_trunk), k5(i8t.int8_trunk_plain),
+                               n, I8_TOL)
+      bound = kernel_bounds(n2=n)[name]
+      summary.update(n=n, whole_chunk=n in chunk_ns,
+                     **_achieved(summary, bound), bound_ms=bound['bound_ms'],
+                     bound_by=bound['bound_by'])
+      log(f'{name} (culled render) N={n}: bound {summary["bound_ms"]:.4f} '
+          f'ms (set by {summary["bound_by"]}), {summary["ms"]:.3f} ms')
+      out.append(summary)
+      del means, covs
+  return results
+
+
+def phase_cull_render(card, device='cuda', bindings=()):
+  """Grid-culled rendering (``train_lib.create_render_fn(model, cull=)``)
+  of 360.gin at full width under the bf16 and the int8 trunk, on the
+  DeviceImageRenderer: (a) a grid whose every cell clears the threshold,
+  at capacity 1.0, bitwise equal to the unculled frame of the 64 x 64
+  test view; (b) the half-empty grid at the rungs 0.5 and 0.33 (at least
+  one overflowing: more samples kept than the capacity), the 64 x 64 view
+  on the card, and a 16 x 16 path frame on the card against the CPU's
+  culled frame on the same weights, grid and keep masks (REFERENCE_BOUNDS;
+  the int8 trunk's, as phase_reference's), the masks the two compute
+  differing in at most KEEP_FLIP_SHARE of the samples.  K2 (K5 under
+  int8) must launch at N = capacity in each culled frame; then both are
+  held against their plain versions at those N and at a whole render
+  chunk's.  Returns ({'render_cull': launches of the culled 64 x 64
+  frames}, {kernel: [summary]}).  `device` and `bindings` let the phase be
+  rehearsed on the CPU at small widths."""
+  from multinerf_tpu_torch import render
+  from multinerf_tpu_torch import train_lib
+  from multinerf_tpu_torch.data import datasets
+  from multinerf_tpu_torch.models import culling
+  from multinerf_tpu_torch.models import nerf
+  t0 = time.perf_counter()
+  card_device = torch.device(device)
+  n = CULL_RENDER_SIZE**2 * 32
+  launches = collections.Counter()
+  compact = collections.defaultdict(list)
+  for trunk, trunk_bindings, kernels, kernel, bounds in CULL_RENDER_TRUNKS:
+    tag = f'cull render {trunk}'
+    trunk_bindings += tuple(bindings)
+    config = _cull_render_config(trunk_bindings)
+    dataset = datasets.load_dataset('test', None, config)
+    model, _, render_fn, _, _ = train_lib.setup_model(config, render.SEED,
+                                                      card_device)
+    grid = model.occupancy.grid
+    unculled = nerf.DeviceImageRenderer(render_fn, config, dataset,
+                                        card_device)(1.0, 0)
+    frames, keeps = {}, {}
+    _reset_counts()
+    with _launch_sizes() as sizes:
+      for cap in (1.0,) + CULL_RENDER_RUNGS:
+        # Every cell over the density threshold (5e-3) for (a), then the
+        # half-empty grid.
+        grid.copy_(torch.ones_like(grid) if cap == 1.0 else
+                   _half_grid(config, card_device))
+        with _keep_masks() as keeps[cap]:
+          frames[cap] = nerf.DeviceImageRenderer(
+              train_lib.create_render_fn(model, cull=cap), config, dataset,
+              card_device)(1.0, 0)
+    counted, plain = _counts()
+    _check_launches(tag, counted, plain, kernels)
+    launches.update(counted)
+    per_chunk = 2 if kernel == 'featurize_dense' else 1
+    want = {culling.round_capacity(n, cap): per_chunk
+            for cap in (1.0,) + CULL_RENDER_RUNGS}
+    got = _by_n(sizes).get(kernel, {})
+    if got != want:
+      raise SystemExit(f'FAIL {tag}: {kernel} launches by N {got}, want '
+                       f'{want}')
+    compact[kernel] += list(got)
+    for name, frame in frames.items():
+      if not all(np.isfinite(v).all() for k, v in frame.items()
+                 if not k.startswith('ray_')):
+        raise SystemExit(f'FAIL {tag} capacity {name}: non-finite output')
+    # (a): the compaction only permutes the samples and every product is
+    # per sample, so the frame is the unculled one bit for bit (measured
+    # so under both trunks).
+    same = all(np.array_equal(frames[1.0][k], unculled[k]) for k in (
+        'rgb', 'acc', 'distance_mean', 'distance_median'))
+    log(f'{tag} (a): every cell kept, capacity 1.0: the 64x64 frame '
+        f'{"bitwise equal to" if same else "differs from"} the unculled one '
+        f'({_frame_gaps(frames[1.0], unculled, config.near)})')
+    if not same:
+      raise SystemExit(f'FAIL {tag} (a): the culled frame differs')
+    overflow = {}
+    for cap in CULL_RENDER_RUNGS:
+      keep = float(keeps[cap][0].float().mean())
+      overflow[cap] = keep > culling.round_capacity(n, cap) / n
+      log(f'{tag} (b) rung {cap}: kept share {keep:.4f} of {n:,} samples, '
+          f'capacity {culling.round_capacity(n, cap):,}'
+          f'{" (overflow)" if overflow[cap] else ""}; rgb '
+          f'{np.abs(frames[cap]["rgb"] - unculled["rgb"]).max():.4f} from '
+          'the unculled frame at most')
+    if not any(overflow.values()):
+      raise SystemExit(f'FAIL {tag} (b): no rung overflows')
+    # (b) on the card against the CPU: the same seed draws the same
+    # weights on both, and both get the same grid.  The CPU culls by the
+    # card's keep masks, so that both compact the same samples; the masks
+    # each side computes are held apart.
+    small = _cull_render_config(trunk_bindings + (
+        'Config.render_path = True', 'Config.render_resolution = (16, 16)'))
+    small_data = datasets.load_dataset('test', None, small)
+    for cap in CULL_RENDER_RUNGS:
+      pair, masks = [], None
+      for d in (card_device, torch.device('cpu')):
+        model_d = train_lib.setup_model(small, render.SEED, d)[0]
+        model_d.occupancy.grid.copy_(_half_grid(small, d))
+        with _keep_masks(replay=masks) as recorded:
+          pair.append(nerf.DeviceImageRenderer(
+              train_lib.create_render_fn(model_d, cull=cap), small,
+              small_data, d)(1.0, 0))
+        masks = masks or recorded
+      flips = sum(int((a != b).sum()) for a, b in zip(masks, recorded))
+      total = sum(m.numel() for m in masks)
+      log(f'{tag} (b) rung {cap}: keep masks on the card and the CPU differ '
+          f'in {flips} of {total:,} samples (bound {KEEP_FLIP_SHARE} of '
+          'them); the CPU culls by the card\'s')
+      if not flips <= KEEP_FLIP_SHARE * total:
+        raise SystemExit(f'FAIL {tag} (b) rung {cap}: {flips} keep decisions '
+                         'differ')
+      _hold_frames(f'{tag} (b) rung {cap} (GPU vs CPU, 16x16 culled frame, '
+                   'the same keep masks)', *pair, small.near, bounds)
+    del model, grid
+  log(f'cull render: launches of the culled 64x64 frames {dict(launches)}, '
+      f'compact N {dict(compact)}')
+  kernels = _cull_render_kernels(compact)
+  log(f'cull render ({card}): {time.perf_counter() - t0:.1f} s')
+  return {'render_cull': dict(launches)}, kernels
+
+
+def _run_harness(tag, args):
+  """`python3 args` from the repository root, killed at
+  HARNESS_TIMEOUT_S; its standard output."""
+  t0 = time.perf_counter()
+  try:
+    proc = subprocess.run([sys.executable, *args], cwd=REPO,
+                          capture_output=True, text=True,
+                          timeout=HARNESS_TIMEOUT_S, check=False)
+  except subprocess.TimeoutExpired:
+    raise SystemExit(f'FAIL {tag}: no end within {HARNESS_TIMEOUT_S} s'
+                     ) from None
+  log(f'{tag}: exit {proc.returncode} in {time.perf_counter() - t0:.1f} s')
+  if proc.returncode:
+    raise SystemExit(f'FAIL {tag}: {proc.stdout[-2000:]}{proc.stderr[-4000:]}')
+  return proc.stdout
+
+
+def _keys(tag, got, want):
+  if set(got) != set(want):
+    raise SystemExit(f'FAIL {tag}: keys {sorted(got)}, want {sorted(want)}')
+
+
+def phase_harnesses(card, device='cuda', setup='', bindings=()):
+  """The quality harnesses through their entry points' ``main``, each in a
+  process of its own killed at HARNESS_TIMEOUT_S, at 360.gin widths for a
+  few dozen steps: ``cull_quality`` (--flagship, bf16, dummy_scatter, the
+  full arm and rung 0.33, HARNESS_STEPS steps with HARNESS_CULL_SETTINGS
+  so that the gate engages: steps 9-32 culled), ``int8_eval_decision`` (16
+  steps a 360 arm, 4 Ref-NeRF steps) and ``keep_frac_probe`` (its four
+  default rules) on the checkpoint of a 20-step 360.gin run of the train
+  entry point (bf16, dummy_unbounded).  Checks each output's keys and the
+  card's line in it.  `device`, `setup` (Python run first in each process)
+  and `bindings` (of the train run) let the phase be rehearsed on the CPU
+  at small widths."""
+  from multinerf_tpu_torch import train
+  t0 = time.perf_counter()
+
+  def run(module, argv, prelude=''):
+    return _run_harness(f'harness {module}', ['-c', '\n'.join([
+        setup, 'from multinerf_tpu_torch import harness', prelude,
+        f'from multinerf_tpu_torch import {module}',
+        f'{module}.main({argv!r}, device={device!r})'])])
+
+  entry = {'step', 'test_psnr', 'train_psnr', 'keep_frac', 'cull_steps'}
+  with tempfile.TemporaryDirectory() as tmp:
+    out = run('cull_quality', [
+        '--flagship', '--trunk_dtype', 'bfloat16', '--loader',
+        'dummy_scatter', '--capacities', '0.33', '--steps',
+        str(HARNESS_STEPS), '--eval_every', '16', '--tag', 'smoke', '--out',
+        tmp], f'harness.TRAIN_SETTINGS.update({HARNESS_CULL_SETTINGS})')
+    log(out.strip())
+    with open(os.path.join(tmp, 'cull_quality_dummy_scatter_smoke.json')) as f:
+      cull = json.load(f)
+    _keys('harness cull_quality', cull, ('steps', 'batch', 'loader',
+                                         'flagship', 'trunk_dtype',
+                                         'keep_rule', 'alpha_eps', 'runs',
+                                         'device'))
+    runs = cull['runs']
+    _keys('harness cull_quality runs', runs, ('full', 'cull_0.33'))
+    last = runs['cull_0.33'][-1]
+    _keys('harness cull_quality culled entry', last, entry | {
+        'test_psnr_cull_render', 'train_time_s', 'keep_frac_trace'})
+    _keys('harness cull_quality full entry', runs['full'][-1],
+          entry | {'train_time_s'})
+    trace = [s for s, _ in last['keep_frac_trace']]
+    if (cull['device'] != card or last['cull_steps'] != HARNESS_STEPS - 8 or
+        trace != [8, 16, 24, 32] or not all(
+            np.isfinite(e[k]) for e in runs['full'] + runs['cull_0.33']
+            for k in e if 'psnr' in k)):
+      raise SystemExit(f'FAIL harness cull_quality: {cull}')
+
+    out = run('int8_eval_decision', ['--steps', '16', '--refnerf_steps', '4',
+                                     '--out', tmp])
+    log(out.strip())
+    with open(os.path.join(tmp, 'INT8_EVAL_DECISION.json')) as f:
+      decision = json.load(f)
+    _keys('harness int8_eval_decision', decision, (
+        'measurements', 'min_psnr_delta_360', 'refnerf_psnr_delta',
+        'refnerf_render_speedup', 'decision', 'device'))
+    arms = [m['arm'] for m in decision['measurements']]
+    if (decision['device'] != card or decision['decision'] not in (
+        'default-on', 'opt-in') or arms != [
+            '360_dummy_sphere', '360_dummy_scatter', '360_dummy_unbounded',
+            'refnerf_dummy_sphere']):
+      raise SystemExit(f'FAIL harness int8_eval_decision: {decision}')
+
+    ckpt = os.path.join(tmp, 'ckpt')
+    train.main(_gin_argv(BF16_BINDINGS + (
+        "Config.dataset_loader='dummy_unbounded'",
+        f'Config.batch_size={TRAIN_RAYS}', 'Config.max_steps=20',
+        'Config.print_every=10', f"Config.checkpoint_dir='{ckpt}'") +
+                         tuple(bindings)) + [f'--device={device}'])
+    out = run('keep_frac_probe', ['--checkpoint_dir', ckpt])
+    log(out.strip())
+    probe = json.loads(out.strip().splitlines()[-1])
+    _keys('harness keep_frac_probe', probe,
+          ('checkpoint', 'loader', 'keep_fracs', 'device'))
+    fracs = probe['keep_fracs']
+    if (probe['device'] != card or len(fracs) != 4 or
+        not all(0 <= v <= 1 for v in fracs.values())):
+      raise SystemExit(f'FAIL harness keep_frac_probe: {probe}')
+  log(f'harnesses ({card}): {time.perf_counter() - t0:.1f} s')
+
+
 SOURCES = {
     'density_mlp': ('multinerf_tpu_torch/csrc/density_mlp.cu',
                     'multinerf_tpu/ops/pallas/density_mlp.py:65'),
@@ -4115,6 +4455,11 @@ def main():
   for name, summary in phase_tp_kernels().items():
     results[name]['tp_512'] = summary
   paths.update(phase_tp(card))
+  more, cull_render = phase_cull_render(card)
+  paths.update(more)
+  for name, summaries in cull_render.items():
+    results[name]['render_cull'] = summaries
+  phase_harnesses(card)
   bounds = kernel_bounds()
   chunk = bounds.pop('int8_trunk_render_chunk')
   results['int8_trunk']['render_chunk'].update(

@@ -635,17 +635,29 @@ def needs_gradients(model):
              if isinstance(m, mlp_lib.MLP))
 
 
-def create_render_fn(model):
+def create_render_fn(model, cull=None):
   """(train_frac, rays) -> (renderings, ray_history), deterministic, with
   the extras, under ``torch.inference_mode``; or under ``torch.no_grad``
   when the model computes density normals, which turn gradients on around
-  their own backward pass (inference tensors cannot enter autograd)."""
+  their own backward pass (inference tensors cannot enter autograd).
+
+  With `cull` the final level renders through the occupancy grid
+  (train_lib.py:447-477): a float is the capacity fraction, True (any
+  other true value) Config.occupancy_capacity_frac; None or False render
+  every sample.  Culling needs Config.occupancy_culling."""
+  capacity = None
+  if cull:
+    if not model.track_occupancy:
+      raise ValueError('cull requires Config.occupancy_culling.')
+    capacity = (cull if isinstance(cull, float)
+                else model.cfg.config.occupancy_capacity_frac)
   no_graph = (torch.no_grad if needs_gradients(model)
               else torch.inference_mode)
 
   def render_eval_fn(train_frac, rays):
     with no_graph():
-      return model(rays, train_frac=train_frac, compute_extras=True)
+      return model(rays, train_frac=train_frac, compute_extras=True,
+                   cull=capacity)
 
   return render_eval_fn
 

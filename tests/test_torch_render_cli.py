@@ -142,7 +142,8 @@ def test_package_never_imports_jax():
       "for name in ('eval', 'train', 'utils.summary', 'utils.visualize',",
       "             'data.device_sampler', 'data.colmap', 'data.raw',",
       "             'robust', 'utils.jpeg', 'ops.lpips', 'utils.video',",
-      "             'parallel', 'parallel.mesh'):",
+      "             'parallel', 'parallel.mesh', 'harness', 'cull_quality',",
+      "             'keep_frac_probe', 'int8_eval_decision'):",
       "  assert 'multinerf_tpu_torch.' + name in names, name",
       'for name in names:',
       '  importlib.import_module(name)',
