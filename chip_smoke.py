@@ -94,6 +94,7 @@ JSON summary.
 """
 
 import collections
+import concurrent.futures
 import contextlib
 import ctypes
 import dataclasses
@@ -1034,16 +1035,6 @@ ZOO_LOSS_TOL = 5e-3
 GRID_CELLS_DIFFER = 0.05
 
 
-def _half_grid(config, device):
-  """An occupancy grid whose cells on the x < 0 side of contracted space
-  are empty and the others dense (uniform 0.5-2, seeded)."""
-  res = config.occupancy_grid_resolution
-  grid = np.zeros((res,) * 3, np.float32)
-  grid[res // 2:] = np.random.RandomState(5).uniform(
-      0.5, 2.0, grid[res // 2:].shape)
-  return torch.tensor(grid.reshape(-1), device=device)
-
-
 def phase_train_reference(tag='train reference', bindings=(),
                           cap=TRAIN_GAP_CAP, loss_tol=LOSS_TOL,
                           gin='360.gin', loader='dummy_unbounded',
@@ -1064,9 +1055,9 @@ def phase_train_reference(tag='train reference', bindings=(),
   a cap of `cap`.  The leaves named in `by_layer` take the same rule with
   their gaps (GPU and nudged CPU to CPU) in the L2 norm of their whole
   layer's CPU gradient, kernel and bias, in place of their own.  With
-  `cull` (a capacity) the final level runs culled
-  through a half-empty occupancy grid (_half_grid) on both sides, and the
-  grids after the step's update are held within TOL * max(1, max |grid|)
+  `cull` (a capacity) the final level runs culled through a half-empty
+  occupancy grid (culling.half_space_grid) on both sides, and the grids
+  after the step's update are held within TOL * max(1, max |grid|)
   on the cells where both sides evaluated as many samples.  A sample
   within a rounding of the grid's empty half keeps on one side only, and
   then its cell, and the one the spare slots take next, differ; at most
@@ -1093,7 +1084,8 @@ def phase_train_reference(tag='train reference', bindings=(),
     model, _, _, _, _ = train_lib.setup_model(config, train.SEED,
                                               torch.device(device))
     if cull is not None:
-      model.occupancy.grid.copy_(_half_grid(config, device))
+      model.occupancy.grid.copy_(culling.half_space_grid(
+          config.occupancy_grid_resolution, device))
     batch = train_lib.batch_to_device(host_batch, torch.device(device))
     if nudge:
       batch = train_lib.nudge_origins(batch)
@@ -2870,15 +2862,14 @@ def _culled_steps(model, config, device):
   return steps
 
 
-def phase_cull_kernels():
-  """K2 and K4 against their plain versions at the compact N of the 0.33
-  rung: 43,008 of a 4,096-ray step's 131,072 final-level samples."""
-  from multinerf_tpu_torch.models import culling
+def _culled_k2_k4(n, tag='culled'):
+  """K2 and K4 against their plain versions at a compact N = `n` (and
+  N - RAGGED) of 360.gin's NerfMLP, with their bounds: {kernel:
+  summary}."""
   from multinerf_tpu_torch.ops import geopoly
   from multinerf_tpu_torch.ops.kernels import featurize_dense as fd
   basis = np.array(geopoly.generate_basis('icosahedron', 2)).T
   num_feats = 2 * 12 * basis.shape[-1]
-  n = culling.round_capacity(K2_SAMPLES, CULL_LADDER[0])
   rng = np.random.RandomState(7)
   means, covs = _gaussians(n, seed=8)
   w = _he_uniform(rng, num_feats, 1024)
@@ -2886,13 +2877,29 @@ def phase_cull_kernels():
   g = torch.tensor(rng.randn(n, 1024).astype(np.float32), device='cuda')
   args = lambda k: (means[:k], covs[:k], w, b, basis)
   results = {'featurize_dense': _compare(
-      'featurize_dense (culled)',
+      f'featurize_dense ({tag})',
       lambda k: fd.featurize_dense(*args(k), use_contract=True),
       lambda k: fd.featurize_dense_plain(*args(k), use_contract=True), n)}
   k4 = lambda fn: lambda k: [fn(means[:k], covs[:k], g[:k], basis)]
   results['featurize_dense_dw'] = _compare_leaves(
-      'featurize_dense_dw (culled)', k4(fd.featurize_dense_dw),
+      f'featurize_dense_dw ({tag})', k4(fd.featurize_dense_dw),
       k4(fd.featurize_dense_dw_plain), n)
+  bounds = kernel_bounds(n2=n)
+  for name, summary in results.items():
+    summary.update(n=n, **_achieved(summary, bounds[name]),
+                   bound_ms=bounds[name]['bound_ms'],
+                   bound_by=bounds[name]['bound_by'])
+    log(f'{name} ({tag}) N={n}: bound {summary["bound_ms"]:.4f} ms (set by '
+        f'{summary["bound_by"]}), {summary["ms"]:.3f} ms')
+  return results
+
+
+def phase_cull_kernels():
+  """K2 and K4 against their plain versions at the compact N of the 0.33
+  rung: 43,008 of a 4,096-ray step's 131,072 final-level samples."""
+  from multinerf_tpu_torch.models import culling
+  n = culling.round_capacity(K2_SAMPLES, CULL_LADDER[0])
+  results = _culled_k2_k4(n)
   # The compaction's overflow on the card: a keep share of 1/2 over the
   # rung of 0.33, one mask on both sides, the maps bitwise.
   keep = torch.tensor(np.random.RandomState(9).rand(TRAIN_RAYS, 32) < 0.5)
@@ -2905,13 +2912,6 @@ def phase_cull_kernels():
       f'{"bitwise equal to" if same else "differ from"} the CPU\'s')
   if not same:
     raise SystemExit('FAIL compaction: the card\'s maps differ from the CPU\'s')
-  bounds = kernel_bounds(n2=n)
-  for name, summary in results.items():
-    summary.update(n=n, **_achieved(summary, bounds[name]),
-                   bound_ms=bounds[name]['bound_ms'],
-                   bound_by=bounds[name]['bound_by'])
-    log(f'{name} (culled) N={n}: bound {summary["bound_ms"]:.4f} ms (set by '
-        f'{summary["bound_by"]}), {summary["ms"]:.3f} ms')
   return results
 
 
@@ -4198,7 +4198,8 @@ def phase_cull_render(card, device='cuda', bindings=()):
         # Every cell over the density threshold (5e-3) for (a), then the
         # half-empty grid.
         grid.copy_(torch.ones_like(grid) if cap == 1.0 else
-                   _half_grid(config, card_device))
+                   culling.half_space_grid(
+                       config.occupancy_grid_resolution, card_device))
         with _keep_masks() as keeps[cap]:
           frames[cap] = nerf.DeviceImageRenderer(
               train_lib.create_render_fn(model, cull=cap), config, dataset,
@@ -4250,7 +4251,8 @@ def phase_cull_render(card, device='cuda', bindings=()):
       pair, masks = [], None
       for d in (card_device, torch.device('cpu')):
         model_d = train_lib.setup_model(small, render.SEED, d)[0]
-        model_d.occupancy.grid.copy_(_half_grid(small, d))
+        model_d.occupancy.grid.copy_(culling.half_space_grid(
+            small.occupancy_grid_resolution, d))
         with _keep_masks(replay=masks) as recorded:
           pair.append(nerf.DeviceImageRenderer(
               train_lib.create_render_fn(model_d, cull=cap), small,
@@ -4378,6 +4380,224 @@ def phase_harnesses(card, device='cuda', setup='', bindings=()):
   log(f'harnesses ({card}): {time.perf_counter() - t0:.1f} s')
 
 
+# profile_step's culled rungs and windows (phase_profile_cull): bf16 at
+# 360.gin's full width, 4,096 rays a step, a few steps each.
+PROFILE_ARGV = ('--gin_configs=configs/360.gin',
+                "--gin_bindings=Config.dataset_loader='dummy_unbounded'",
+                f'--gin_bindings=Config.batch_size={TRAIN_RAYS}') + tuple(
+                    f'--gin_bindings={b}' for b in BF16_BINDINGS)
+PROFILE_RUNS = (  # (capacity or None, window, extra flags)
+    (0.33, 1, ('--cull', '--warmup=4', '--steps=2')),
+    (0.5, 1, ('--cull=0.5', '--warmup=4', '--steps=2')),
+    (None, 8, ('--window=8', '--warmup=2', '--steps=1',
+               '--gin_bindings=Config.device_data_plane=True')),
+    (0.33, 8, ('--cull', '--window=8', '--warmup=2', '--steps=1',
+               '--gin_bindings=Config.device_data_plane=True')),
+)
+PROFILE_KEYS = {'wall_ms', 'busy_ms', 'idle', 'step_ms', 'allreduce_ms',
+                'world_size', 'capacity', 'compact_n', 'keep_frac', 'window',
+                'compaction_ms', 'kernels'}
+# The rungs whose compact N no other phase holds K2/K4 at.
+PROFILE_HELD_RUNGS = (0.5, 0.67)
+RENDER_BENCH_FRAMES = 2
+RENDER_BENCH_KEYS = {'trunk_dtype', 'checkpoint_step', 'frame_hw',
+                     'sec_per_frame', 'rays_per_sec', 'first_frame_s', 'psnr',
+                     'frames', 'device'}
+# The stability run cut short: windows of 10 on the device plane, the
+# ladder engaged from the first refresh (CULL_ENGAGED), killed past step
+# 110 after checkpoint_100.pt, so phase 2 resumes at 101 (90 steps before
+# the next checkpoint could overtake the kill); eval of 4 test views.
+STABILITY_STEPS = 200
+STABILITY_KILL = (100, 110)
+STABILITY_BINDINGS = (f'Config.max_steps={STABILITY_STEPS}',
+                      'Config.steps_per_jit_call=10', 'Config.print_every=10',
+                      'Config.checkpoint_every=100',
+                      'Config.train_render_every=100',
+                      'Config.eval_dataset_limit=4',
+                      'Config.occupancy_warmup_steps=20',
+                      'Config.occupancy_grid_refresh_every=20',
+                      'Config.occupancy_threshold=1000.0')
+STABILITY_TIMEOUT_S = 300
+
+
+def _run_counted(tag, code):
+  """`python3 -c code` from the repository root under HARNESS_TIMEOUT_S
+  (_run_harness), `code` wrapped so that it resets the launch counts,
+  records K2/K4/K5/K6's N, and prints them as its last line: (the run's
+  standard output, {'launches', 'plain', 'sizes' ({kernel: {N: count}})})."""
+  out = _run_harness(tag, ['-c', '\n'.join([
+      'import json', 'import chip_smoke as c', 'c._reset_counts()',
+      'with c._launch_sizes() as sizes:',
+      *('  ' + line for line in code.splitlines()),
+      'launches, plain = c._counts()',
+      "print(json.dumps({'launches': launches, 'plain': plain, "
+      "'sizes': c._by_n(sizes)}))"])])
+  lines = out.strip().splitlines()
+  counted = json.loads(lines[-1])
+  counted['sizes'] = {k: {int(n): v for n, v in by_n.items()}
+                      for k, by_n in counted['sizes'].items()}
+  return '\n'.join(lines[:-1]), counted
+
+
+def phase_profile_cull(card):
+  """``python -m multinerf_tpu_torch.profile_step`` at 360.gin's full width
+  (bf16, 4,096 rays), the four runs in processes of their own at once
+  (their times are not measurements): forced rungs 0.33 (``--cull``) and
+  0.5 on the half grid on the host path, then ``--window=8`` on the device
+  plane unculled and at 0.33.  Checks each JSON's keys, ``compact_n`` =
+  ``culling.round_capacity`` of the rung, a culled step's compaction time,
+  and the launches: K1-K4 2 a step, K2/K4 at N = compact_n in a culled
+  step.  Returns {'profile_cull': launches}."""
+  from multinerf_tpu_torch.models import culling
+  t0 = time.perf_counter()
+  runs = {}
+  with concurrent.futures.ThreadPoolExecutor(len(PROFILE_RUNS)) as pool:
+    for cap, window, flags in PROFILE_RUNS:
+      tag = f'profile_step cull {cap} window {window}'
+      code = ('from multinerf_tpu_torch import profile_step\n'
+              f'profile_step.main({list(PROFILE_ARGV + flags)!r})')
+      runs[tag] = (cap, window, flags, pool.submit(_run_counted, tag, code))
+  launches = collections.Counter()
+  for tag, (cap, window, flags, future) in runs.items():
+    out, counted = future.result()
+    log(out)
+    result = json.loads(out.strip().splitlines()[-1])
+    _keys(tag, result, PROFILE_KEYS)
+    compact_n = None if cap is None else culling.round_capacity(K2_SAMPLES,
+                                                                cap)
+    if (result['capacity'] != cap or result['compact_n'] != compact_n or
+        result['window'] != window or not result['kernels'] or
+        not 0 < result['busy_ms'] <= result['wall_ms']):
+      raise SystemExit(f'FAIL {tag}: {result}')
+    if cap is not None and not (result['compaction_ms'] > 0 and
+                                0 <= result['keep_frac'] <= 1):
+      raise SystemExit(f'FAIL {tag}: compaction {result["compaction_ms"]} '
+                       f'ms, keep {result["keep_frac"]}')
+    steps = window * sum(int(f.split('=')[1]) for f in flags
+                         if f.startswith(('--warmup=', '--steps=')))
+    plain = {k: v for k, v in counted['plain'].items() if v}
+    want = {k: 2 * steps for k in ('density_mlp', 'featurize_dense',
+                                   'density_mlp_bwd', 'featurize_dense_dw')}
+    got = {k: v for k, v in counted['launches'].items() if v}
+    if got != want or plain:
+      raise SystemExit(f'FAIL {tag}: launches {got}, want {want}; plain '
+                       f'calls {plain}')
+    for name in ('featurize_dense', 'featurize_dense_dw'):
+      by_n = counted['sizes'][name]
+      if by_n != {compact_n or K2_SAMPLES: 2 * steps}:
+        raise SystemExit(f'FAIL {tag}: {name} launches by N {by_n}')
+    launches.update(got)
+    log(f'{tag}: compact N {compact_n}, compaction '
+        f'{result["compaction_ms"]} ms, keep {result["keep_frac"]} a step')
+  log(f'profile cull ({card}): launches {dict(launches)}, '
+      f'{time.perf_counter() - t0:.1f} s')
+  return {'profile_cull': dict(launches)}
+
+
+def phase_profile_kernels():
+  """K2 and K4 against their plain versions at the compact N of the rungs
+  0.5 and 0.67, which ``profile_step --cull=0.5`` / ``--cull=0.67`` launch
+  and no other phase holds: {kernel: [summary]}."""
+  from multinerf_tpu_torch.models import culling
+  kernels = collections.defaultdict(list)
+  for cap in PROFILE_HELD_RUNGS:
+    n = culling.round_capacity(K2_SAMPLES, cap)
+    for name, summary in _culled_k2_k4(n, f'culled {cap}').items():
+      kernels[name].append(dict(summary, capacity=cap))
+  return dict(kernels)
+
+
+def phase_render_bench(card, device='cuda', bindings=()):
+  """``multinerf_tpu_torch.render_bench`` with the bf16 and int8 arms,
+  RENDER_BENCH_FRAMES frames each, on the checkpoint of a 20-step 360.gin
+  run of the train entry point (bf16, dummy_unbounded).  Its own check
+  (frame 0's replay within 1e-6) runs inside it; here: the keys, the step,
+  the comparison, and the launches, counted around it: a 64 x 64 frame is
+  one chunk, rendered once to warm up and once timed, 2 K1 and 2 K2 (bf16)
+  or 1 K5 (int8) a frame.  Returns {'render_bench': launches}.  `device`
+  and `bindings` let the phase be rehearsed on the CPU at small widths."""
+  from multinerf_tpu_torch import render_bench
+  from multinerf_tpu_torch import train
+  t0 = time.perf_counter()
+  with tempfile.TemporaryDirectory() as ckpt:
+    train.main(_gin_argv(BF16_BINDINGS + (
+        "Config.dataset_loader='dummy_unbounded'",
+        f'Config.batch_size={TRAIN_RAYS}', 'Config.max_steps=20',
+        'Config.print_every=10', f"Config.checkpoint_dir='{ckpt}'") +
+                         tuple(bindings)) + [f'--device={device}'])
+    _reset_counts()
+    arms, comparison = render_bench.main(
+        ['--checkpoint_dir', ckpt, '--frames', str(RENDER_BENCH_FRAMES),
+         '--trunk_dtypes', 'bfloat16,int8'], device=device)
+    launches, plain = _counts()
+  frames = RENDER_BENCH_FRAMES + 1
+  want = {'density_mlp': 4 * frames, 'featurize_dense': 2 * frames,
+          'int8_trunk': frames}
+  got = {k: v for k, v in launches.items() if v}
+  if device == 'cuda' and (got != want or any(plain.values())):
+    raise SystemExit(f'FAIL render_bench: launches {got}, want {want}; '
+                     f'plain calls {plain}')
+  for arm in arms:
+    _keys(f'render_bench {arm["trunk_dtype"]}', arm, RENDER_BENCH_KEYS)
+    if (arm['checkpoint_step'] != 20 or arm['frames'] != RENDER_BENCH_FRAMES
+        or arm['device'] != card or not np.isfinite(arm['psnr'])):
+      raise SystemExit(f'FAIL render_bench: {arm}')
+    log(f'render_bench {arm["trunk_dtype"]} ({card}): '
+        f'{arm["sec_per_frame"] * 1e3:.3f} ms a {arm["frame_hw"]} frame, '
+        f'{arm["rays_per_sec"]:.0f} rays/s, PSNR {arm["psnr"]:.3f}')
+  if set(comparison) != {'int8'}:
+    raise SystemExit(f'FAIL render_bench: comparison {comparison}')
+  log(f'render_bench ({card}): int8 {comparison["int8"]}; '
+      f'{time.perf_counter() - t0:.1f} s')
+  return {'render_bench': got}
+
+
+def phase_stability(card, device='cuda', bindings=()):
+  """``python -m multinerf_tpu_torch.stability_run`` cut short
+  (STABILITY_BINDINGS after the script's own: STABILITY_STEPS steps in
+  windows of 10 on the device plane, the ladder on), killed past step 110
+  after checkpoint_100.pt, in a process of its own killed at
+  STABILITY_TIMEOUT_S.  Its exit code says whether phase 1 was killed,
+  phase 2 resumed at 101, the last checkpoint is there and eval wrote its
+  metrics; the JSON is held to the same here.  `device` and `bindings`
+  let the phase be rehearsed on the CPU at small widths."""
+  t0 = time.perf_counter()
+  kill_at, kill_past = STABILITY_KILL
+  with tempfile.TemporaryDirectory() as ckpt:
+    argv = [ckpt, f'--kill_at={kill_at}', f'--kill_past={kill_past}'] + [
+        f'--gin_bindings={b}' for b in STABILITY_BINDINGS + tuple(bindings)]
+    try:
+      proc = subprocess.run(
+          [sys.executable, '-c', 'from multinerf_tpu_torch import '
+           f'stability_run; stability_run.main({argv!r}, device={device!r})'],
+          cwd=REPO, capture_output=True, text=True,
+          timeout=STABILITY_TIMEOUT_S, check=False)
+    except subprocess.TimeoutExpired:
+      raise SystemExit(f'FAIL stability: no end within {STABILITY_TIMEOUT_S}'
+                       ' s') from None
+    if proc.returncode:
+      logs = ''
+      for name in ('train_phase1', 'train_phase2', 'eval_final'):
+        path = os.path.join(ckpt, f'{name}.log')
+        if os.path.exists(path):
+          with open(path) as f:
+            logs += f'--- {name}\n{f.read()[-3000:]}'
+      raise SystemExit(f'FAIL stability: rc {proc.returncode}\n'
+                       f'{proc.stdout[-3000:]}{proc.stderr[-3000:]}{logs}')
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+  one, two = out['phase1'], out['phase2']
+  if (not out['ok'] or not one['killed'] or two['init_step'] != kill_at + 1
+      or one['last_logged_step'] < kill_past or
+      two['last_logged_step'] != STABILITY_STEPS or out['device'] != card or
+      set(out['metrics']) != {'psnr', 'ssim'}):
+    raise SystemExit(f'FAIL stability: {out}')
+  log(f'stability ({card}): phase 1 killed at step '
+      f'{one["last_logged_step"]} in {one["seconds"]:.1f} s, phase 2 from '
+      f'{two["init_step"]} in {two["seconds"]:.1f} s, losses '
+      f'{out["losses"]}, eval PSNR {out["metrics"]["psnr"]}; '
+      f'{time.perf_counter() - t0:.1f} s')
+
+
 SOURCES = {
     'density_mlp': ('multinerf_tpu_torch/csrc/density_mlp.cu',
                     'multinerf_tpu/ops/pallas/density_mlp.py:65'),
@@ -4460,6 +4680,15 @@ def main():
   for name, summaries in cull_render.items():
     results[name]['render_cull'] = summaries
   phase_harnesses(card)
+  # The stability run's processes and profile_step's run beside each
+  # other; the kernels are timed once both are done.
+  with concurrent.futures.ThreadPoolExecutor(1) as pool:
+    stability = pool.submit(phase_stability, card)
+    paths.update(phase_profile_cull(card))
+    stability.result()
+  for name, summaries in phase_profile_kernels().items():
+    results[name]['profile_cull'] = summaries
+  paths.update(phase_render_bench(card))
   bounds = kernel_bounds()
   chunk = bounds.pop('int8_trunk_render_chunk')
   results['int8_trunk']['render_chunk'].update(

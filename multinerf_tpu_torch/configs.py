@@ -172,11 +172,25 @@ class Config:
 
 
 def add_common_flags(parser: argparse.ArgumentParser):
-  """The JAX CLI's flags: repeatable --gin_configs and --gin_bindings."""
+  """The JAX CLI's flags: repeatable --gin_configs and --gin_bindings, and
+  absl's --logtostderr, which the launchers scripts/{train,eval,render}_*.sh
+  pass: it only routes absl's logs to stderr, and the port logs there
+  already, so it does nothing."""
   parser.add_argument('--gin_configs', action='append', default=[],
                       help='Gin config files.')
   parser.add_argument('--gin_bindings', action='append', default=[],
                       help='Gin parameter bindings.')
+  parser.add_argument('--logtostderr', action='store_true',
+                      help='Accepted for the JAX launchers; does nothing.')
+
+
+def parse_entry_flags(description, argv=None):
+  """The flags of the train, eval and render entry points:
+  add_common_flags and add_device_flags, parsed from `argv`."""
+  parser = argparse.ArgumentParser(description=description)
+  add_common_flags(parser)
+  add_device_flags(parser)
+  return parser.parse_args(argv)
 
 
 def add_device_flags(parser: argparse.ArgumentParser):

@@ -25,7 +25,6 @@ the files and summaries (eval.py:244, 262).
 
 from __future__ import annotations
 
-import argparse
 import os
 import sys
 import time
@@ -242,14 +241,16 @@ def evaluate_checkpoint(step, renderer, dataset, config, out_dir,
   return dict(frame_metrics, render_times=render_times)
 
 
+def parse_flags(argv=None):
+  """This entry point's command line: ``configs.parse_entry_flags``."""
+  return configs.parse_entry_flags('Evaluate a model.', argv)
+
+
 def main(argv=None):
   """Evaluate the latest checkpoint (and, with eval_only_once=False, each
   newer one until early_exit_steps or max_steps).  Returns {step:
   evaluate_checkpoint's result} and 'out_dir'."""
-  parser = argparse.ArgumentParser(description='Evaluate a model.')
-  configs.add_common_flags(parser)
-  configs.add_device_flags(parser)
-  args = parser.parse_args(argv)
+  args = parse_flags(argv)
   device = configs.setup_device(args.device)
 
   config = configs.load_config(args)

@@ -116,6 +116,32 @@ def refresh_grid(model, config, generator):
     grid.copy_(probe_grid(model.NerfMLP_0, grid, config, jitter))
 
 
+def half_grid(resolution: int, device=None):
+  """[R^3] the half-occupied grid of bench.py:143-149: every other cell of
+  the flat grid at 1.0, the rest empty.  A forced rung's throughput
+  depends on its capacity, not on the grid, and this grid gives the mix of
+  kept samples and overflow a trained scene gives (``profile_step``)."""
+  grid = torch.zeros(resolution**3, device=device)
+  grid[::2] = 1.0
+  return grid
+
+
+def half_space_grid(resolution: int, device=None):
+  """[R^3] a grid whose cells on the x < 0 side of contracted space are
+  empty and the others dense (uniform 0.5-2, seeded): keep decisions flip
+  only at that plane."""
+  grid = np.zeros((resolution,) * 3, np.float32)
+  grid[resolution // 2:] = np.random.RandomState(5).uniform(
+      0.5, 2.0, grid[resolution // 2:].shape)
+  return torch.tensor(grid.reshape(-1), device=device)
+
+
+# The profiler range around the compaction and its gathers in apply_culled;
+# the backward of the ops inside it carries their sequence numbers
+# (profile_step reads both).
+COMPACTION = 'culling.compaction'
+
+
 def round_capacity(n: int, frac: float) -> int:
   """The compact buffer's size: a multiple of 256 in [256, n]
   (culling.py:245-249).  Across ranks `n` is a rank's samples: each rank
@@ -214,36 +240,39 @@ def apply_culled(mlp, means, covs, keep, capacity_frac: float, viewdirs=None,
   b = keep.shape[0]
   n = b * s
   cap = round_capacity(n, capacity_frac)
-  slot, inv = compact_slots(keep, cap)
-  ray_idx = inv // s
-
-  # One row gather for the 12 floats of each sample's Gaussian; the
-  # kernels take the two parts contiguous.
-  packed = torch.cat([means.reshape(n, 3), covs.reshape(n, 9)], dim=-1)[inv]
-  c_means = packed[:, :3].contiguous().reshape(cap, 1, 3)
-  c_covs = packed[:, 3:].contiguous().reshape(cap, 1, 3, 3)
   per_ray = lambda x: None if x is None else x.reshape(
       (b,) + x.shape[len(batch_shape):])[ray_idx]
-  results = mlp(c_means, c_covs, viewdirs=per_ray(viewdirs),
-                glo_vec=per_ray(glo_vec), generator=generator)
+  with torch.profiler.record_function(COMPACTION):
+    slot, inv = compact_slots(keep, cap)
+    ray_idx = inv // s
+    # One row gather for the 12 floats of each sample's Gaussian; the
+    # kernels take the two parts contiguous.
+    packed = torch.cat([means.reshape(n, 3), covs.reshape(n, 9)],
+                       dim=-1)[inv]
+    c_means = packed[:, :3].contiguous().reshape(cap, 1, 3)
+    c_covs = packed[:, 3:].contiguous().reshape(cap, 1, 3, 3)
+    c_viewdirs, c_glo_vec = per_ray(viewdirs), per_ray(glo_vec)
+  results = mlp(c_means, c_covs, viewdirs=c_viewdirs, glo_vec=c_glo_vec,
+                generator=generator)
 
   # Scatter back with one row gather over every output, packed as columns
   # of a [cap + 1, C] buffer whose last row is the fill: 0 for every
   # output (density 0 has alpha 0).
-  names = [k for k, v in results.items() if v is not None]
-  cols = [results[k].reshape(cap, -1).float() for k in names]
-  ext = torch.cat(cols, dim=-1)
-  ext = torch.cat([ext, ext.new_zeros((1, ext.shape[-1]))])
-  gathered = GatherRows.apply(ext, slot, inv)
-  out = {k: None for k in results}
-  ofs = 0
-  for name, col in zip(names, cols):
-    w = col.shape[-1]
-    out[name] = gathered[:, ofs:ofs + w].reshape(
-        batch_shape + (s,) + results[name].shape[2:])
-    ofs += w
-  out['occ_keep_frac'] = torch.mean(keep.float())
-  if cells is not None:
-    out['occ_cells'] = cells.reshape(n)[inv]
-    out['occ_density'] = results['density'].reshape(cap).detach()
+  with torch.profiler.record_function(COMPACTION):
+    names = [k for k, v in results.items() if v is not None]
+    cols = [results[k].reshape(cap, -1).float() for k in names]
+    ext = torch.cat(cols, dim=-1)
+    ext = torch.cat([ext, ext.new_zeros((1, ext.shape[-1]))])
+    gathered = GatherRows.apply(ext, slot, inv)
+    out = {k: None for k in results}
+    ofs = 0
+    for name, col in zip(names, cols):
+      w = col.shape[-1]
+      out[name] = gathered[:, ofs:ofs + w].reshape(
+          batch_shape + (s,) + results[name].shape[2:])
+      ofs += w
+    out['occ_keep_frac'] = torch.mean(keep.float())
+    if cells is not None:
+      out['occ_cells'] = cells.reshape(n)[inv]
+      out['occ_density'] = results['density'].reshape(cap).detach()
   return out

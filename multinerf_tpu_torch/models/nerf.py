@@ -558,9 +558,11 @@ class ImageRenderer:
     return self.render_rays(
         train_frac, self._dataset.generate_ray_batch(int(cam_idx)).rays)
 
-  def render_rays(self, train_frac, rays):
+  def render_rays(self, train_frac, rays, fetch=True):
     """Render the [H, W] host rays `rays` (a types.Rays of numpy arrays):
-    a dict of [H, W, ...] numpy buffers plus the 'ray_' bundles."""
+    a dict of [H, W, ...] numpy buffers plus the 'ray_' bundles; with
+    `fetch` False the same frame as tensors left on the device (JAX's
+    ``ImageRenderer.__call__(..., fetch=False)``)."""
     height, width = rays.origins.shape[:2]
     chunk, num_chunks, _ = _plan_chunks(self._config, height * width)
     flat = self._upload(rays, height * width, chunk, num_chunks)
@@ -573,8 +575,9 @@ class ImageRenderer:
                    getattr(flat, f.name)[lo:lo + rows])
           for f in dataclasses.fields(flat)})
 
-    return _to_host(_render_frame(self._render_fn, self._config, train_frac,
-                                  height, width, chunk_rays))
+    frame = _render_frame(self._render_fn, self._config, train_frac, height,
+                          width, chunk_rays)
+    return _to_host(frame) if fetch else frame
 
 
 def render_image(render_fn, rays, config, device):

@@ -20,7 +20,6 @@ rank 0 writes the frames and assembles the videos (render.py:189, 250).
 
 from __future__ import annotations
 
-import argparse
 import concurrent.futures
 import glob
 import os
@@ -198,13 +197,15 @@ def render_job(config, dataset, renderer, store, postprocess_fn):
   return out
 
 
+def parse_flags(argv=None):
+  """This entry point's command line: ``configs.parse_entry_flags``."""
+  return configs.parse_entry_flags('Render frames of a model.', argv)
+
+
 def main(argv=None):
   """Run one render job; returns render_job's summary plus 'out_dir' and
   'videos' (the paths written, none until every frame is on disk)."""
-  parser = argparse.ArgumentParser(description='Render frames of a model.')
-  configs.add_common_flags(parser)
-  configs.add_device_flags(parser)
-  args = parser.parse_args(argv)
+  args = parse_flags(argv)
   device = configs.setup_device(args.device)
 
   config = configs.load_config(args)

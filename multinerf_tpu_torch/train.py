@@ -5,7 +5,8 @@
 
 A port of train.py:127-438: the same seeds (weights from 20200823, ray draws
 from 20201473), ``config.gin`` written beside the checkpoints, a resume from
-the latest checkpoint (parameters and Adam state) at ``step + 1``, the save
+the latest checkpoint (parameters and Adam state) at ``step + 1``, printed as
+"Starting at step N.", the save
 at step 1, every ``checkpoint_every`` steps and at ``max_steps``, host
 batches made by the dataset's producer thread and copied to the device one
 step ahead, during the step before (or, with ``Config.device_data_plane``,
@@ -58,7 +59,6 @@ whose rows they share.
 
 from __future__ import annotations
 
-import argparse
 import gc
 import os
 import sys
@@ -225,6 +225,11 @@ def _profile(device, log_dir):
   return prof
 
 
+def parse_flags(argv=None):
+  """This entry point's command line: ``configs.parse_entry_flags``."""
+  return configs.parse_entry_flags('Train a model.', argv)
+
+
 def main(argv=None):
   """Train to Config.max_steps (or early_exit_steps), resuming from the
   latest checkpoint.  Returns {'init_step', 'losses', 'data_losses',
@@ -233,10 +238,7 @@ def main(argv=None):
   file), 'test_rays_per_sec' (per in-train render), 'keep_fracs' and
   'rungs' (with culling: {step: keep fraction} at each grid refresh and
   {step: capacity} at each culled step)}."""
-  parser = argparse.ArgumentParser(description='Train a model.')
-  configs.add_common_flags(parser)
-  configs.add_device_flags(parser)
-  args = parser.parse_args(argv)
+  args = parse_flags(argv)
   device = configs.setup_device(args.device)
   # Seeds by data rank: the ranks of a model group draw the same rays,
   # jitter and noise.
@@ -274,6 +276,8 @@ def main(argv=None):
   ckpt = ckpt_lib.CheckpointManager(config.checkpoint_dir, keep=100)
   state = ckpt.restore_latest(state)
   init_step = state.step + 1
+  if mesh.is_main():
+    print(f'Starting at step {init_step}.', flush=True)
   summary_writer = summary.writer_for_rank(config.checkpoint_dir)
   if config.rawnerf_mode:
     for name, data in zip(['train', 'test'], [dataset, test_dataset]):

@@ -440,3 +440,95 @@ def _port_run(model, state, train_step, batch):
   return {'loss': stats['loss'],
           'updates': {k: v.detach() - params0[k]
                       for k, v in state.params.items()}}
+
+
+# A run of the host path's culling protocol (train.py:260-289) at the lowest
+# rung under overflow: warmup 2, refresh every 2.  The grid's x > 0 half
+# holds 5-20 and its x < 0 half is empty, and the threshold, 2, is over
+# every density these weights reach (~1 at most) and under the dense half
+# however far it decays in 5 steps: no keep decision sits near it, so both
+# sides keep the same samples.  Steps 1-2 look into the empty half, so the
+# refresh after step 2 reads a keep fraction of 0 and the gate engages
+# 0.33; steps 3-4 look into the dense half and keep every sample, past the
+# capacity (256 of 512), and the refresh after step 4 lets the gate go:
+# step 5 is unculled.
+PROTOCOL_RUNG = 0.33
+PROTOCOL_STEPS = 5
+PROTOCOL = BINDINGS + (
+    "Config.dataset_loader = 'dummy_unbounded'", 'Config.randomized = False',
+    f'Config.occupancy_capacity_ladder = ({PROTOCOL_RUNG},)',
+    'Config.occupancy_warmup_steps = 2',
+    'Config.occupancy_grid_refresh_every = 2',
+    'Config.occupancy_threshold = 2.0')
+
+
+def _protocol_batch(step, rays=64):
+  """Rays from near the centre into the x < 0 half (steps 1-2) or the
+  x > 0 half (later steps)."""
+  fields = tp.rays(rays, seed=step, far=1e3)
+  fields['origins'] *= 0.02
+  d = fields['directions']
+  d[:, 0] = (np.abs(d[:, 0]) + 0.5) * (-1 if step <= 2 else 1)
+  fields['viewdirs'] = (d / np.linalg.norm(d, axis=-1, keepdims=True)
+                        ).astype(np.float32)
+  return types.Batch(rays=tp.torch_rays(fields), rgb=torch.tensor(
+      np.random.RandomState(step).rand(rays, 3).astype(np.float32)))
+
+
+def _jax_protocol_run(jax_config, variables):
+  """JAX's host loop (train.py:260-289): per step the capacity it ran at
+  (None unculled), its loss and keep fraction, and the grid after it."""
+  jmodel = jax_gin.make('Model', config=jax_config)
+  jstate, _ = jtrain_lib.create_optimizer(jax_config, variables)
+  mesh = mesh_lib.create_mesh()
+  steps = {cap: jax.jit(jtrain_lib.create_train_step(
+      jmodel, jax_config, mesh, jit=False, cull=cap or False))
+           for cap in (None, PROTOCOL_RUNG)}
+  refresh = jculling.make_refresh_fn(jmodel, jax_config)
+  cull_cap, out = None, []
+  for step in range(1, PROTOCOL_STEPS + 1):
+    cap = (cull_cap if cull_cap is not None and
+           step > jax_config.occupancy_warmup_steps else None)
+    jstate, stats, _ = steps[cap](jax.random.PRNGKey(0), jstate,
+                                  _jax_batch(_protocol_batch(step)), 0.5, 1.0)
+    if step % jax_config.occupancy_grid_refresh_every == 0:
+      grid = refresh(jstate.params, jax.random.PRNGKey(step))
+      jstate = jstate.replace(params={**jstate.params,
+                                      'occupancy': {'grid': grid}})
+      kf = float(stats['occ_keep_frac'])
+      cull_cap = next((c for c in (PROTOCOL_RUNG,) if kf <= c), None)
+    out.append((cap, float(stats['loss']), float(stats['occ_keep_frac']),
+                np.asarray(jstate.params['occupancy']['grid'])))
+  return out
+
+
+def test_culled_run_at_the_lowest_rung_matches_jax(monkeypatch):
+  jax_config, config = tp.configs(PROTOCOL)
+  variables = {'params': tp.jax_params(jax_config, seed=1),
+               'occupancy': {'grid': jnp.asarray(_half_grid() * 10.0)}}
+  want = _jax_protocol_run(jax_config, variables)
+  # The refresh probes at JAX's jitter: its PRNGKey(step), the step being
+  # the seed of the gate's generator.
+  monkeypatch.setattr(culling, 'refresh_jitter', lambda gen, res, device: (
+      torch.tensor(np.asarray(jax.random.uniform(
+          jax.random.PRNGKey(gen.initial_seed()), (res**3, 3),
+          minval=-0.5, maxval=0.5)))))
+  model, state, _, unculled, _ = train_lib.setup_model(config, 0, 'cpu')
+  bridge.load_jax_variables(model, variables)
+  steps = {None: unculled, PROTOCOL_RUNG: train_lib.create_train_step(
+      model, config, 'cpu', cull=PROTOCOL_RUNG)}
+  gate = train_lib.CullingGate(model, config)
+  for step, (cap, loss, keep_frac, grid) in enumerate(want, 1):
+    assert gate.cull(step) == cap, step
+    state, stats = steps[cap](None, state, _protocol_batch(step), 0.5, False)
+    gate.after_step(step, stats)
+    assert float(stats['occ_keep_frac']) == keep_frac, step
+    assert float(stats['loss']) == pytest.approx(loss, rel=1e-3), step
+    tp.assert_close(model.occupancy.grid.numpy(), grid, atol=3e-3,
+                    rtol=3e-3, what=f'grid after step {step}')
+  # JAX's run takes the course set out above.
+  assert [c for c, _, _, _ in want] == [None, None, PROTOCOL_RUNG,
+                                        PROTOCOL_RUNG, None]
+  assert [k for _, _, k, _ in want] == [0.0, 0.0, 1.0, 1.0, 1.0]
+  assert gate.rungs == {3: PROTOCOL_RUNG, 4: PROTOCOL_RUNG}
+  assert gate.rung is None and set(gate.keep_fracs) == {2, 4}

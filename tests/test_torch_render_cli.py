@@ -143,7 +143,8 @@ def test_package_never_imports_jax():
       "             'data.device_sampler', 'data.colmap', 'data.raw',",
       "             'robust', 'utils.jpeg', 'ops.lpips', 'utils.video',",
       "             'parallel', 'parallel.mesh', 'harness', 'cull_quality',",
-      "             'keep_frac_probe', 'int8_eval_decision'):",
+      "             'keep_frac_probe', 'int8_eval_decision', 'render_bench',",
+      "             'stability_run'):",
       "  assert 'multinerf_tpu_torch.' + name in names, name",
       'for name in names:',
       '  importlib.import_module(name)',

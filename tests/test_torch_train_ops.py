@@ -14,6 +14,7 @@ Tolerances:
 * the optimizer: the same arithmetic in another order, 1e-6 relative.
 """
 
+import dataclasses
 import os
 import re
 import subprocess
@@ -43,6 +44,7 @@ from multinerf_tpu_torch import train  # noqa: E402
 from multinerf_tpu_torch import train_lib  # noqa: E402
 from multinerf_tpu_torch.data import datasets  # noqa: E402
 from multinerf_tpu_torch.data import types  # noqa: E402
+from multinerf_tpu_torch.models import culling  # noqa: E402
 from multinerf_tpu_torch.ops import mathx  # noqa: E402
 from multinerf_tpu_torch.ops import stepfun  # noqa: E402
 from multinerf_tpu_torch.ops.kernels import density_mlp as dm  # noqa: E402
@@ -397,6 +399,84 @@ def test_leaf_gaps_bound_by_the_reference_sensitivity_and_a_cap():
                              origins * (1 + train_lib.NUDGE))
   assert torch.equal(batch.rays.origins, origins)
   assert moved.rays.directions is rays.directions and moved.rgb is batch.rgb
+
+
+PROFILE = tp.SMALL_BINDINGS + ("Config.dataset_loader = 'dummy_unbounded'",
+                               'Config.batch_size = 64',
+                               'Config.occupancy_grid_resolution = 8')
+PROFILE_CAP = 0.33
+
+
+def _profile_config(bindings=()):
+  return tp.configs(PROFILE + tuple(bindings))[1]
+
+
+def _params(state):
+  return {k: v.detach().clone() for k, v in state.params.items()}
+
+
+def test_profile_step_forced_rung_is_the_culled_step_on_the_half_grid():
+  config = _profile_config()
+  dataset, state, run, info = profile_step.setup(config, 'cpu', PROFILE_CAP)
+  with dataset:
+    state, stats = run(1, state)
+  got = _params(state)
+  samples = 64 * 8  # The final level's samples: rays x num_nerf_samples.
+  assert info == {'capacity': PROFILE_CAP, 'compact_n': 256, 'window': 1}
+  assert info['compact_n'] == culling.round_capacity(samples, PROFILE_CAP)
+  # The half grid keeps more than the rung holds: the step overflows.
+  assert float(stats['occ_keep_frac']) > PROFILE_CAP
+
+  config = dataclasses.replace(config, occupancy_culling=True,
+                               occupancy_capacity_frac=PROFILE_CAP)
+  with datasets.load_dataset('train', None, config,
+                             seed=train.DATA_SEED) as dataset:
+    model, state, _, _, _ = train_lib.setup_model(config, train.SEED, 'cpu',
+                                                  dataset)
+    model.occupancy.grid.copy_(culling.half_grid(8))
+    step = train_lib.create_train_step(model, config, 'cpu', cull=PROFILE_CAP,
+                                       dataset=dataset)
+    state, want_stats = step(torch.Generator().manual_seed(train.SEED), state,
+                             train_lib.batch_to_device(next(dataset), 'cpu'),
+                             0.0, False)
+  want = _params(state)
+  assert set(got) == set(want) and 'occupancy/grid' in got
+  for name in want:
+    assert torch.equal(got[name], want[name]), name
+  assert torch.equal(stats['loss'], want_stats['loss'])
+
+
+def test_profile_step_window_is_its_single_forced_steps():
+  config = _profile_config(('Config.device_data_plane = True',))
+  runs = {}
+  for window in (4, 1):
+    dataset, state, run, info = profile_step.setup(config, 'cpu', PROFILE_CAP,
+                                                   window)
+    with dataset:
+      for i in range(1, 5 if window == 1 else 2):
+        state, stats = run(i, state)
+    runs[window] = _params(state), stats
+  assert info['window'] == 1 and runs[4][1]['loss'].shape == (4,)
+  for name, value in runs[1][0].items():
+    assert torch.equal(runs[4][0][name], value), name
+  assert torch.equal(runs[4][1]['loss'][-1], runs[1][1]['loss'])
+  with pytest.raises(ValueError, match='device_data_plane'):
+    profile_step.setup(_profile_config(), 'cpu', None, 4)
+
+
+def test_profile_step_compaction_is_read_from_the_profilers_parents():
+  config = _profile_config()
+  dataset, state, run, _ = profile_step.setup(config, 'cpu', PROFILE_CAP)
+  with dataset, torch.profiler.profile(
+      activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+    run(1, state)
+  names = {e.name for e in profile_step.compaction_events(prof.events())}
+  engine = 'autograd::engine::evaluate_function: '
+  assert {culling.COMPACTION, 'aten::cumsum', 'GatherRows',
+          engine + 'GatherRowsBackward', engine + 'CatBackward0'} <= names
+  # Nothing of the MLPs, forward or backward.
+  assert not [n for n in names if 'DensityMLP' in n or 'FeaturizeDense' in n
+              or 'Mm' in n or 'mm' in n]
 
 
 def test_profile_step_busy_time_is_the_union_of_intervals():
