@@ -4396,7 +4396,7 @@ PROFILE_RUNS = (  # (capacity or None, window, extra flags)
 )
 PROFILE_KEYS = {'wall_ms', 'busy_ms', 'idle', 'step_ms', 'allreduce_ms',
                 'world_size', 'capacity', 'compact_n', 'keep_frac', 'window',
-                'compaction_ms', 'kernels'}
+                'compaction_ms', 'span_ms', 'idle_ms', 'kernels'}
 # The rungs whose compact N no other phase holds K2/K4 at.
 PROFILE_HELD_RUNGS = (0.5, 0.67)
 RENDER_BENCH_FRAMES = 2
@@ -4446,9 +4446,12 @@ def phase_profile_cull(card):
   0.5 on the half grid on the host path, then ``--window=8`` on the device
   plane unculled and at 0.33.  Checks each JSON's keys, ``compact_n`` =
   ``culling.round_capacity`` of the rung, a culled step's compaction time,
-  and the launches: K1-K4 2 a step, K2/K4 at N = compact_n in a culled
+  the device time by span (``train/step``'s above 0, all of it charged to
+  spans: no ``trace.UNLINKED``; ``compaction_ms`` that of
+  ``culling.COMPACTION``'s span), and the launches: K1-K4 2 a step, K2/K4 at N = compact_n in a culled
   step.  Returns {'profile_cull': launches}."""
   from multinerf_tpu_torch.models import culling
+  from multinerf_tpu_torch.utils import trace
   t0 = time.perf_counter()
   runs = {}
   with concurrent.futures.ThreadPoolExecutor(len(PROFILE_RUNS)) as pool:
@@ -4473,6 +4476,12 @@ def phase_profile_cull(card):
                                 0 <= result['keep_frac'] <= 1):
       raise SystemExit(f'FAIL {tag}: compaction {result["compaction_ms"]} '
                        f'ms, keep {result["keep_frac"]}')
+    span_ms = result['span_ms']
+    if (trace.UNLINKED in span_ms or
+        not span_ms.get('train/step', 0) > 0 or
+        result['compaction_ms'] != span_ms.get(culling.COMPACTION)):
+      raise SystemExit(f'FAIL {tag}: device ms by span {span_ms}, '
+                       f'compaction {result["compaction_ms"]} ms')
     steps = window * sum(int(f.split('=')[1]) for f in flags
                          if f.startswith(('--warmup=', '--steps=')))
     plain = {k: v for k, v in counted['plain'].items() if v}

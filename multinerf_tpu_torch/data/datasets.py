@@ -49,6 +49,7 @@ from multinerf_tpu_torch.data import types
 from multinerf_tpu_torch.ops import image_ops
 from multinerf_tpu_torch.parallel import mesh
 from multinerf_tpu_torch.utils import io as io_lib
+from multinerf_tpu_torch.utils import trace
 
 
 def load_dataset(split, train_dir, config, seed=0):
@@ -190,7 +191,11 @@ class Dataset(metaclass=abc.ABCMeta):
     if self._thread is None:
       self._thread = threading.Thread(target=self._produce, daemon=True)
       self._thread.start()
-    batch = self._queue.get()
+    try:
+      batch = self._queue.get_nowait()
+    except queue.Empty:
+      with trace.span('data/wait'):  # Starved: the producer is behind.
+        batch = self._queue.get()
     if isinstance(batch, Exception):
       raise batch
     return batch

@@ -24,6 +24,7 @@ from multinerf_tpu_torch.data import cameras as camera_lib
 from multinerf_tpu_torch.data import raw
 from multinerf_tpu_torch.data import types
 from multinerf_tpu_torch.parallel import mesh
+from multinerf_tpu_torch.utils import trace
 
 
 class DeviceDataPlane:
@@ -117,7 +118,8 @@ class DeviceDataPlane:
 
   def sample_batch(self, generator) -> types.Batch:
     """One training batch drawn and cast on the device."""
-    return self.make_batch(*self.draw(generator))
+    with trace.span('data/draw'):
+      return self.make_batch(*self.draw(generator))
 
 
 def create_device_train_step(train_step, plane: DeviceDataPlane):

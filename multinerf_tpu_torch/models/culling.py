@@ -32,6 +32,7 @@ import torch
 
 from multinerf_tpu_torch.ops import coord
 from multinerf_tpu_torch.parallel import mesh
+from multinerf_tpu_torch.utils import trace
 
 
 def cell_ids(means, resolution: int):
@@ -136,10 +137,10 @@ def half_space_grid(resolution: int, device=None):
   return torch.tensor(grid.reshape(-1), device=device)
 
 
-# The profiler range around the compaction and its gathers in apply_culled;
-# the backward of the ops inside it carries their sequence numbers
-# (profile_step reads both).
-COMPACTION = 'culling.compaction'
+# The span of the compaction and its gathers in apply_culled
+# (utils/trace.py); profile_step reads its device time, the backward of
+# its ops included.
+COMPACTION = 'cull/compaction'
 
 
 def round_capacity(n: int, frac: float) -> int:
@@ -242,7 +243,7 @@ def apply_culled(mlp, means, covs, keep, capacity_frac: float, viewdirs=None,
   cap = round_capacity(n, capacity_frac)
   per_ray = lambda x: None if x is None else x.reshape(
       (b,) + x.shape[len(batch_shape):])[ray_idx]
-  with torch.profiler.record_function(COMPACTION):
+  with trace.span(COMPACTION):
     slot, inv = compact_slots(keep, cap)
     ray_idx = inv // s
     # One row gather for the 12 floats of each sample's Gaussian; the
@@ -258,7 +259,7 @@ def apply_culled(mlp, means, covs, keep, capacity_frac: float, viewdirs=None,
   # Scatter back with one row gather over every output, packed as columns
   # of a [cap + 1, C] buffer whose last row is the fill: 0 for every
   # output (density 0 has alpha 0).
-  with torch.profiler.record_function(COMPACTION):
+  with trace.span(COMPACTION):
     names = [k for k, v in results.items() if v is not None]
     cols = [results[k].reshape(cap, -1).float() for k in names]
     ext = torch.cat(cols, dim=-1)

@@ -60,6 +60,7 @@ from multinerf_tpu_torch.ops import rendering
 from multinerf_tpu_torch.ops import stepfun
 from multinerf_tpu_torch.parallel import mesh
 from multinerf_tpu_torch.parallel import tensor
+from multinerf_tpu_torch.utils import trace
 
 
 def _schlick_ease(t, slope):
@@ -441,13 +442,16 @@ def _render_frame(render_fn, config, train_frac, height, width, chunk_rays):
   first = mesh.data_rank() * rows
   outs = []
   for i in range(num_chunks):
-    renderings, _ = render_fn(train_frac, chunk_rays(i * chunk + first, rows))
-    outs.append(_keep_chunk_outputs(renderings, config))
-  outs = _stack(outs)
-  if world > 1:
-    outs = _gather_chunks(outs, config, world)
-  return _assemble_image(outs, config, height, width, chunk, num_chunks,
-                         padding)
+    with trace.span('render/chunk'):
+      renderings, _ = render_fn(train_frac,
+                                chunk_rays(i * chunk + first, rows))
+      outs.append(_keep_chunk_outputs(renderings, config))
+  with trace.span('render/assemble'):
+    outs = _stack(outs)
+    if world > 1:
+      outs = _gather_chunks(outs, config, world)
+    return _assemble_image(outs, config, height, width, chunk, num_chunks,
+                           padding)
 
 
 def _gather_chunks(outs, config, world):
@@ -492,8 +496,9 @@ def _stack(frames):
 
 def _to_host(rendering):
   """A rendering dict of tensors -> numpy ('ray_' bundles stay lists)."""
-  return {k: ([r.cpu().numpy() for r in v] if isinstance(v, list)
-              else v.cpu().numpy()) for k, v in rendering.items()}
+  with trace.span('render/to_host'):
+    return {k: ([r.cpu().numpy() for r in v] if isinstance(v, list)
+                else v.cpu().numpy()) for k, v in rendering.items()}
 
 
 class ImageRenderer:
@@ -555,14 +560,20 @@ class ImageRenderer:
     """Render the dataset's camera `cam_idx` from the rays the host casts
     for it (``dataset.generate_ray_batch``, as render.py:199): what
     ``render_rays`` gives."""
-    return self.render_rays(
-        train_frac, self._dataset.generate_ray_batch(int(cam_idx)).rays)
+    with trace.span('render/frame'):
+      return self._render_rays(
+          train_frac, self._dataset.generate_ray_batch(int(cam_idx)).rays,
+          True)
 
   def render_rays(self, train_frac, rays, fetch=True):
     """Render the [H, W] host rays `rays` (a types.Rays of numpy arrays):
     a dict of [H, W, ...] numpy buffers plus the 'ray_' bundles; with
     `fetch` False the same frame as tensors left on the device (JAX's
     ``ImageRenderer.__call__(..., fetch=False)``)."""
+    with trace.span('render/frame'):
+      return self._render_rays(train_frac, rays, fetch)
+
+  def _render_rays(self, train_frac, rays, fetch):
     height, width = rays.origins.shape[:2]
     chunk, num_chunks, _ = _plan_chunks(self._config, height * width)
     flat = self._upload(rays, height * width, chunk, num_chunks)
@@ -665,15 +676,20 @@ class DeviceImageRenderer:
   def __call__(self, train_frac, cam_idx):
     """Render the dataset's camera `cam_idx`: a dict of [H, W, ...] numpy
     buffers plus the 'ray_' bundles (lists of one array per level)."""
-    return _to_host(self._frame(train_frac, cam_idx))
+    with trace.span('render/frame'):
+      return _to_host(self._frame(train_frac, cam_idx))
 
   def render_many(self, train_frac, cam_indices):
     """Render the cameras `cam_indices` (K of them) with no read-back
     between frames (nerf.py:662-694): a dict of [K, H, W, ...] numpy
     buffers (and [K, ...] per level of each 'ray_' bundle), read back
-    once, after the last frame.  Each frame is what ``__call__`` gives."""
-    return _to_host(_stack([self._frame(train_frac, idx)
-                            for idx in cam_indices]))
+    once, after the last frame.  Each frame is what ``__call__`` gives;
+    the read-back is in no frame's span."""
+    frames = []
+    for idx in cam_indices:
+      with trace.span('render/frame'):
+        frames.append(self._frame(train_frac, idx))
+    return _to_host(_stack(frames))
 
 
 def choose_renderer(render_fn, config, dataset, device):

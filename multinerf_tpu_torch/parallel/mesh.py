@@ -44,6 +44,8 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
+from multinerf_tpu_torch.utils import trace
+
 TIMEOUT_SECONDS = 600
 
 
@@ -217,13 +219,14 @@ def process_local_slice(global_batch_size: int) -> int:
 def _run(collective, tensor, group=None):
   """`collective(t)` in place on `tensor`; with gloo a CUDA tensor goes
   through pinned host memory."""
-  if tensor.is_cuda and dist.get_backend(group) == 'gloo':
-    host = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
-    host.copy_(tensor)
-    collective(host)
-    tensor.copy_(host)
-  else:
-    collective(tensor)
+  with trace.span('parallel/collective'):
+    if tensor.is_cuda and dist.get_backend(group) == 'gloo':
+      host = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
+      host.copy_(tensor)
+      collective(host)
+      tensor.copy_(host)
+    else:
+      collective(tensor)
   return tensor
 
 

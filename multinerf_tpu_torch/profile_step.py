@@ -28,12 +28,15 @@ kernel, copy and memset intervals of the profiled steps (the CPU ops'
 ``key_averages()`` rows also carry their children's device time, so they
 are not summed); the idle share is 1 - busy / wall, wall being the host
 clock around the profiled steps.  ``step_ms`` is the median of the
-synchronised warm-up steps after the fifth, unprofiled.  A culled step's
-``compaction_ms`` is the device time of the kernels launched inside
-``culling.COMPACTION``'s ranges (the compaction and its gathers, forward)
-and by the backward of the ops inside them (autograd's sequence numbers
-link the two).  Prints the kernels by device time per step and, as the
-last line, one JSON object with the same numbers.
+synchronised warm-up steps after the fifth, unprofiled.  The port's spans
+(``utils/trace.py``) split both: ``span_ms`` is each span's device time
+(``trace.device_us_by_span``: the work launched inside it and the backward
+of the ops it made), ``idle_ms`` the device's idle gaps, each by the
+host's innermost span where it begins (``trace.idle_by_span``).  A culled step's
+``compaction_ms`` is the device time of ``culling.COMPACTION``'s span
+(the compaction and its gathers, forward and backward).  Prints the spans
+and kernels by device time per step and, as the last line, one JSON
+object with the same numbers.
 
 Under ``python -m torch.distributed.run --nproc_per_node=N`` every rank
 takes its steps (``Config.batch_size`` is the global batch; the seeds are
@@ -62,56 +65,7 @@ from multinerf_tpu_torch.data import device_sampler
 from multinerf_tpu_torch.models import culling
 from multinerf_tpu_torch.models import nerf
 from multinerf_tpu_torch.parallel import mesh
-
-
-def _union_us(intervals):
-  """Total length of the union of (start, end) intervals."""
-  total, end = 0.0, -np.inf
-  for lo, hi in sorted(intervals):
-    if hi > end:
-      total += hi - max(lo, end)
-      end = hi
-  return total
-
-
-def compaction_events(events):
-  """The CPU events of `events` (a profile's ``events()``) that make up the
-  compaction: those inside a ``culling.COMPACTION`` range, and the
-  backward of the autograd nodes the ops inside it made, with everything
-  under them."""
-  cpu = [e for e in events
-         if e.device_type == torch.autograd.DeviceType.CPU]
-
-  def in_range(e):
-    while e is not None:
-      if e.name == culling.COMPACTION:
-        return True
-      e = e.cpu_parent
-    return False
-
-  found = {id(e): e for e in cpu if in_range(e)}
-  # A forward op records the thread's sequence counter as it starts, and
-  # the op that makes an autograd node takes that number for it: so the
-  # node of number s on a thread was made by the last outermost forward op
-  # that recorded s there.  Its backward carries s and that thread.
-  makers = {}
-  for e in cpu:
-    parent = e.cpu_parent
-    if (e.sequence_nr < 0 or e.fwd_thread or
-        (parent is not None and parent.sequence_nr == e.sequence_nr)):
-      continue
-    key = (e.sequence_nr, e.thread)
-    if key not in makers or (e.time_range.start >
-                             makers[key].time_range.start):
-      makers[key] = e
-  nodes = {key for key, e in makers.items() if id(e) in found}
-  stack = [e for e in cpu if (e.sequence_nr, e.fwd_thread) in nodes]
-  while stack:
-    e = stack.pop()
-    if id(e) not in found:
-      found[id(e)] = e
-      stack.extend(e.cpu_children)
-  return list(found.values())
+from multinerf_tpu_torch.utils import trace
 
 
 def forced_gate(model, config, capacity):
@@ -191,8 +145,8 @@ def setup(config, device, capacity=None, window=1, rank=0):
 def main(argv=None):
   """Returns {'wall_ms', 'busy_ms', 'idle', 'step_ms', 'allreduce_ms',
   'world_size', 'capacity', 'compact_n', 'keep_frac', 'window',
-  'compaction_ms', 'kernels': [[name, ms]]}, per profiled step (or
-  frame)."""
+  'compaction_ms', 'span_ms': {span: ms}, 'idle_ms': {span: ms},
+  'kernels': [[name, ms]]}, per profiled step (or frame)."""
   parser = argparse.ArgumentParser(
       description='Profile training steps or rendered frames.')
   configs.add_common_flags(parser)
@@ -261,13 +215,11 @@ def main(argv=None):
     return None
 
   events = prof.events()
-  device_events = [e for e in events
-                   if e.device_type == torch.autograd.DeviceType.CUDA and
-                   not e.is_user_annotation]
+  device_events = trace.device_events(events)
   if not device_events:
     raise RuntimeError('The profiler recorded no device activity.')
-  busy_us = _union_us([(e.time_range.start, e.time_range.end)
-                       for e in device_events])
+  busy_us = trace.union_us([(e.time_range.start, e.time_range.end)
+                            for e in device_events])
   by_name = collections.Counter()
   for e in device_events:
     by_name[e.name] += e.time_range.end - e.time_range.start
@@ -276,11 +228,12 @@ def main(argv=None):
   keep_frac = None
   if stats is not None and 'occ_keep_frac' in stats:
     keep_frac = float(stats['occ_keep_frac'].reshape(-1)[-1])
+  span_us = trace.device_us_by_span(events)
   compaction_ms = None
   if info['capacity'] is not None:
-    compaction_ms = per_step(sum(k.duration
-                                 for e in compaction_events(events)
-                                 for k in e.kernels))
+    compaction_ms = per_step(span_us.get(culling.COMPACTION, 0.0))
+  by_ms = lambda us: {k: per_step(v) for k, v in sorted(
+      us.items(), key=lambda kv: -kv[1])}
   out = {'wall_ms': per_step(wall_us), 'busy_ms': per_step(busy_us),
          'idle': 1 - busy_us / wall_us,
          'step_ms': (1e3 * float(np.median(warmup_s[5:]))
@@ -288,7 +241,8 @@ def main(argv=None):
          'allreduce_ms': per_step(sum(us for name, us in by_name.items()
                                       if 'nccl' in name.lower())),
          'world_size': mesh.world_size(), **info, 'keep_frac': keep_frac,
-         'compaction_ms': compaction_ms,
+         'compaction_ms': compaction_ms, 'span_ms': by_ms(span_us),
+         'idle_ms': by_ms(trace.idle_by_span(events)),
          'kernels': [[name, per_step(us)]
                      for name, us in by_name.most_common(args.top)]}
   what = 'frame' if args.frame else 'step'
@@ -298,6 +252,11 @@ def main(argv=None):
   if compaction_ms is not None:
     print(f'capacity {info["capacity"]} (compact N {info["compact_n"]:,}, '
           f'keep {keep_frac:.4f}): compaction {compaction_ms:.3f} ms a step')
+  spans, idle = out['span_ms'], out['idle_ms']
+  print(f'device ms, idle ms (gaps by the innermost span where they begin) '
+        f'per {what}:')
+  for name in list(spans) + [k for k in idle if k not in spans]:
+    print(f'{spans.get(name, 0.0):9.3f} {idle.get(name, 0.0):9.3f}  {name}')
   for name, ms in out['kernels']:
     print(f'{ms:9.3f} ms {ms / per_step(kernel_us):6.1%}  {name[:100]}')
   print(json.dumps(out))

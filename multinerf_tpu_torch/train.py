@@ -27,7 +27,9 @@ logged: ``test_rays_per_sec``, ``train_metrics/*``, ``test_true_color``
 ``test_true_color/{p}``).  ``Config.early_exit_steps`` (0 included) stops the run
 after that many steps, as train.py:235-238.  ``Config.profile_step`` traces
 ``profile_num_steps`` steps with torch.profiler into
-``checkpoint_dir/profile``.  With ``Config.occupancy_culling`` the host path
+``checkpoint_dir/profile``, the port's spans (``utils/trace.py``: the
+loop's ``loop/*``, the data plane's ``data/*``, the step's ``train/*``)
+among the kernels.  With ``Config.occupancy_culling`` the host path
 runs one step per capacity rung and ``train_lib.CullingGate``: unculled
 until ``occupancy_warmup_steps``, then the rung the gate engaged at the
 last grid refresh (train.py:156-179, 260-289).  On the device plane
@@ -77,6 +79,7 @@ from multinerf_tpu_torch.parallel import mesh
 from multinerf_tpu_torch.parallel import tensor
 from multinerf_tpu_torch.utils import checkpoints as ckpt_lib
 from multinerf_tpu_torch.utils import summary
+from multinerf_tpu_torch.utils import trace
 from multinerf_tpu_torch.utils import visualize as vis
 
 # train.py:118-120: the key of the weights and the numpy seed of the rays.
@@ -358,71 +361,76 @@ def main(argv=None):
       if config.enable_robustnerf_loss and scan_steps == 1:
         loss_threshold = stats['loss_threshold']
       if device.type == 'cuda':
-        torch.cuda.synchronize(device)
+        with trace.span('loop/sync'):
+          torch.cuda.synchronize(device)
       seconds = time.perf_counter() - t0
       out['step_seconds'] += [seconds / scan_steps] * scan_steps
-      if scan_steps > 1:
-        out['losses'] += stats['loss'].tolist()
-        out['data_losses'] += stats['losses/data'].tolist()
-      else:
-        out['losses'].append(float(stats['loss']))
-        out['data_losses'].append(float(stats['losses/data']))
+      with trace.span('loop/loss'):
+        if scan_steps > 1:
+          out['losses'] += stats['loss'].tolist()
+          out['data_losses'] += stats['losses/data'].tolist()
+        else:
+          out['losses'].append(float(stats['loss']))
+          out['data_losses'].append(float(stats['losses/data']))
 
       if step % config.gc_every == 0:
         gc.collect()
 
       stats_buffer.append(stats)
       if will_print:
-        elapsed_time = time.time() - train_start_time
-        steps_per_sec = len(stats_buffer) * scan_steps / elapsed_time
-        rays_per_sec = config.batch_size * steps_per_sec  # All ranks'.
-        # Robust total-time accumulation, resilient to preemption.
-        total_time += int(round(TIME_PRECISION * elapsed_time))
-        total_steps += len(stats_buffer) * scan_steps
-        approx_total_time = int(round(step * total_time / total_steps))
+        with trace.span('loop/summaries'):
+          elapsed_time = time.time() - train_start_time
+          steps_per_sec = len(stats_buffer) * scan_steps / elapsed_time
+          rays_per_sec = config.batch_size * steps_per_sec  # All ranks'.
+          # Robust total-time accumulation, resilient to preemption.
+          total_time += int(round(TIME_PRECISION * elapsed_time))
+          total_steps += len(stats_buffer) * scan_steps
+          approx_total_time = int(round(step * total_time / total_steps))
 
-        stats_split = split_stats(
-            transpose_stats(stats_buffer, step, config.print_every,
-                            scan_steps), len(stats_buffer) * scan_steps)
-        for k, v in stats_split.items():
-          summary_writer.histogram('train_' + k, v, step)
-        avg_stats = {k: float(np.mean(v)) for k, v in stats_split.items()}
-        max_stats = {k: float(np.max(v)) for k, v in stats_split.items()}
-        for k, v in avg_stats.items():
-          summary_writer.scalar(f'train_avg_{k}', v, step)
-        for k, v in max_stats.items():
-          summary_writer.scalar(f'train_max_{k}', v, step)
-        summary_writer.scalar('train_num_params', num_params, step)
-        summary_writer.scalar('train_learning_rate', learning_rate, step)
-        summary_writer.scalar('train_steps_per_sec', steps_per_sec, step)
-        summary_writer.scalar('train_rays_per_sec', rays_per_sec, step)
-        summary_writer.scalar('train_avg_psnr_timed', avg_stats['psnr'],
-                              total_time // TIME_PRECISION)
-        summary_writer.scalar('train_avg_psnr_timed_approx',
-                              avg_stats['psnr'],
-                              approx_total_time // TIME_PRECISION)
-        if dataset.metadata is not None and exposure_table is not None:
-          # The learned scaling offsets of each shutter bucket.
-          scalings = exposure_table.detach().cpu().numpy()
-          num_shutter_speeds = dataset.metadata['unique_shutters'].shape[0]
-          for i_s in range(num_shutter_speeds):
-            for j_s, value in enumerate(scalings[i_s]):
-              summary_writer.scalar(f'exposure/scaling_{i_s}_{j_s}', value,
-                                    step)
-        if mesh.is_main():
-          print(_console_line(step, config, avg_stats, learning_rate,
-                              rays_per_sec), flush=True)
+          stats_split = split_stats(
+              transpose_stats(stats_buffer, step, config.print_every,
+                              scan_steps), len(stats_buffer) * scan_steps)
+          for k, v in stats_split.items():
+            summary_writer.histogram('train_' + k, v, step)
+          avg_stats = {k: float(np.mean(v)) for k, v in stats_split.items()}
+          max_stats = {k: float(np.max(v)) for k, v in stats_split.items()}
+          for k, v in avg_stats.items():
+            summary_writer.scalar(f'train_avg_{k}', v, step)
+          for k, v in max_stats.items():
+            summary_writer.scalar(f'train_max_{k}', v, step)
+          summary_writer.scalar('train_num_params', num_params, step)
+          summary_writer.scalar('train_learning_rate', learning_rate, step)
+          summary_writer.scalar('train_steps_per_sec', steps_per_sec, step)
+          summary_writer.scalar('train_rays_per_sec', rays_per_sec, step)
+          summary_writer.scalar('train_avg_psnr_timed', avg_stats['psnr'],
+                                total_time // TIME_PRECISION)
+          summary_writer.scalar('train_avg_psnr_timed_approx',
+                                avg_stats['psnr'],
+                                approx_total_time // TIME_PRECISION)
+          if dataset.metadata is not None and exposure_table is not None:
+            # The learned scaling offsets of each shutter bucket.
+            scalings = exposure_table.detach().cpu().numpy()
+            num_shutter_speeds = dataset.metadata['unique_shutters'].shape[0]
+            for i_s in range(num_shutter_speeds):
+              for j_s, value in enumerate(scalings[i_s]):
+                summary_writer.scalar(f'exposure/scaling_{i_s}_{j_s}', value,
+                                      step)
+          if mesh.is_main():
+            print(_console_line(step, config, avg_stats, learning_rate,
+                                rays_per_sec), flush=True)
         reset_stats = True
 
       if step == 1 or step % config.checkpoint_every == 0:
-        ckpt.save(step, state)
+        with trace.span('loop/checkpoint'):
+          ckpt.save(step, state)
 
       if (config.train_render_every > 0 and
           step % config.train_render_every == 0):
-        out['test_rays_per_sec'].append(in_train_test_render(
-            step, renderer, train_frac, test_dataset, config, summary_writer,
-            metric_harness, postprocess_fn,
-            test_render_count % test_dataset.size))
+        with trace.span('loop/test_render'):
+          out['test_rays_per_sec'].append(in_train_test_render(
+              step, renderer, train_frac, test_dataset, config,
+              summary_writer, metric_harness, postprocess_fn,
+              test_render_count % test_dataset.size))
         test_render_count += 1
 
     if config.max_steps % config.checkpoint_every != 0:

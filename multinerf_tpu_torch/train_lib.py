@@ -56,6 +56,7 @@ from multinerf_tpu_torch.ops import stepfun
 from multinerf_tpu_torch.parallel import mesh
 from multinerf_tpu_torch.parallel import tensor
 from multinerf_tpu_torch.utils import checkpoints
+from multinerf_tpu_torch.utils import trace
 
 _F32_EPS = float(np.finfo(np.float32).eps)
 
@@ -364,24 +365,26 @@ class Prefetcher:
     self._staged = None
 
   def stage(self):
-    host = next(self._batches)
-    if self._stream is None:
-      self._staged = (batch_to_device(host, self._device), None)
-      return
-    with torch.cuda.stream(self._stream):
-      self._staged = (batch_to_device(host, self._device),
-                      self._stream.record_event())
+    with trace.span('data/stage'):
+      host = next(self._batches)
+      if self._stream is None:
+        self._staged = (batch_to_device(host, self._device), None)
+        return
+      with torch.cuda.stream(self._stream):
+        self._staged = (batch_to_device(host, self._device),
+                        self._stream.record_event())
 
   def take(self):
-    if self._staged is None:
-      self.stage()
-    (batch, copied), self._staged = self._staged, None
-    if copied is not None:
-      consumer = torch.cuda.current_stream(self._device)
-      consumer.wait_event(copied)
-      for t in _tensors(batch):
-        t.record_stream(consumer)  # Allocated on the side stream.
-    return batch
+    with trace.span('data/take'):
+      if self._staged is None:
+        self.stage()
+      (batch, copied), self._staged = self._staged, None
+      if copied is not None:
+        consumer = torch.cuda.current_stream(self._device)
+        consumer.wait_event(copied)
+        for t in _tensors(batch):
+          t.record_stream(consumer)  # Allocated on the side stream.
+      return batch
 
 
 def flatten_patches(batch, config):
@@ -458,48 +461,51 @@ def loss_and_grads(model, config, batch, train_frac, generator=None,
   stats also hold the final level's grid feedback 'occ_cells' and
   'occ_density' (this rank's samples) and 'occ_keep_frac', the largest
   keep fraction any level reports."""
-  rays, unflatten = flatten_patches(batch, config)
-  compute_extras = (config.compute_disp_metrics or
-                    config.compute_normal_metrics)
-  renderings, ray_history = model(rays, train_frac,
-                                  compute_extras=compute_extras,
-                                  generator=generator, zero_glo=False,
-                                  cull=cull)
-  shaped = [{k: v if k.startswith('ray_') or v is None else unflatten(v)
-             for k, v in r.items()} for r in renderings]
-  losses = {}
-  losses['data'], stats = compute_data_loss(batch, shaped, batch.rays,
-                                            loss_threshold, config)
-  if config.interlevel_loss_mult > 0:
-    losses['interlevel'] = interlevel_loss(ray_history, config)
-  if config.distortion_loss_mult > 0:
-    losses['distortion'] = distortion_loss(ray_history, config)
-  if (config.orientation_coarse_loss_mult > 0 or
-      config.orientation_loss_mult > 0):
-    losses['orientation'] = orientation_loss(rays, model, ray_history,
-                                             config)
-  if (config.predicted_normal_coarse_loss_mult > 0 or
-      config.predicted_normal_loss_mult > 0):
-    losses['predicted_normals'] = predicted_normal_loss(model, ray_history,
-                                                        config)
-  if config.weight_decay_mults:
-    params = bridge.named_parameters(model)
-    losses['weight'] = torch.sum(torch.stack([
-        m * subtree_norm_sq(params, k)
-        for k, m in config.weight_decay_mults.items()]))
-  world = mesh.data_size()
-  if world > 1:
-    # Every term but the data loss is a mean over rays, or weight decay,
-    # which counts once: this rank's share is 1 / world of it.
-    losses = {k: v if k == 'data' else v / world for k, v in losses.items()}
-  if config.occupancy_culling:
-    stats['occ_cells'] = ray_history[-1]['occ_cells']
-    stats['occ_density'] = ray_history[-1]['occ_density']
-    stats['occ_keep_fracs'] = torch.stack([
-        r['occ_keep_frac'] for r in ray_history
-        if 'occ_keep_frac' in r]).detach()
-  loss = torch.sum(torch.stack(list(losses.values())))
-  loss.backward()
+  with trace.span('train/forward'):
+    rays, unflatten = flatten_patches(batch, config)
+    compute_extras = (config.compute_disp_metrics or
+                      config.compute_normal_metrics)
+    renderings, ray_history = model(rays, train_frac,
+                                    compute_extras=compute_extras,
+                                    generator=generator, zero_glo=False,
+                                    cull=cull)
+    shaped = [{k: v if k.startswith('ray_') or v is None else unflatten(v)
+               for k, v in r.items()} for r in renderings]
+    losses = {}
+    losses['data'], stats = compute_data_loss(batch, shaped, batch.rays,
+                                              loss_threshold, config)
+    if config.interlevel_loss_mult > 0:
+      losses['interlevel'] = interlevel_loss(ray_history, config)
+    if config.distortion_loss_mult > 0:
+      losses['distortion'] = distortion_loss(ray_history, config)
+    if (config.orientation_coarse_loss_mult > 0 or
+        config.orientation_loss_mult > 0):
+      losses['orientation'] = orientation_loss(rays, model, ray_history,
+                                               config)
+    if (config.predicted_normal_coarse_loss_mult > 0 or
+        config.predicted_normal_loss_mult > 0):
+      losses['predicted_normals'] = predicted_normal_loss(model, ray_history,
+                                                          config)
+    if config.weight_decay_mults:
+      params = bridge.named_parameters(model)
+      losses['weight'] = torch.sum(torch.stack([
+          m * subtree_norm_sq(params, k)
+          for k, m in config.weight_decay_mults.items()]))
+    world = mesh.data_size()
+    if world > 1:
+      # Every term but the data loss is a mean over rays, or weight decay,
+      # which counts once: this rank's share is 1 / world of it.
+      losses = {k: v if k == 'data' else v / world
+                for k, v in losses.items()}
+    if config.occupancy_culling:
+      stats['occ_cells'] = ray_history[-1]['occ_cells']
+      stats['occ_density'] = ray_history[-1]['occ_density']
+      stats['occ_keep_fracs'] = torch.stack([
+          r['occ_keep_frac'] for r in ray_history
+          if 'occ_keep_frac' in r]).detach()
+    loss = torch.sum(torch.stack(list(losses.values())))
+  with trace.span('train/backward'):
+    loss.backward()
   grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
            for k, p in bridge.named_parameters(model).items()}
   loss, losses, stats, grads = _reduce_over_ranks(
@@ -544,9 +550,16 @@ def create_train_step(model, config, device, cull=None, dataset=None):
 
   def train_step(generator, state, batch, train_frac, compute_stats,
                  loss_threshold=1.0):
+    with trace.span('train/step'):
+      return _step(generator, state, batch, train_frac, compute_stats,
+                   loss_threshold)
+
+  def _step(generator, state, batch, train_frac, compute_stats,
+            loss_threshold):
     if cameras is not None and isinstance(batch.rays, types.Pixels):
-      batch = dataclasses.replace(batch, rays=camera_lib.cast_ray_batch(
-          cameras, batch.rays, camtype, xnp=torch))
+      with trace.span('train/cast'):
+        batch = dataclasses.replace(batch, rays=camera_lib.cast_ray_batch(
+            cameras, batch.rays, camtype, xnp=torch))
     params = bridge.named_parameters(model)
     state.optimizer.zero_grad(set_to_none=True)
     loss, losses, stats, grads = loss_and_grads(
@@ -556,27 +569,30 @@ def create_train_step(model, config, device, cull=None, dataset=None):
     stats = dict(stats, loss=loss)
     stats.update({f'losses/{k}': v for k, v in losses.items()})
     if compute_stats:
-      sharded = tensor.splits_of(params)
-      tree_stats = {'weight_l2s': norm_sq_stats(params, sharded),
-                    'grad_norms': norm_stats(grads, sharded),
-                    'grad_maxes': abs_max_stats(grads, sharded)}
-      before = {k: p.detach().clone() for k, p in params.items()}
+      with trace.span('train/stats'):
+        sharded = tensor.splits_of(params)
+        tree_stats = {'weight_l2s': norm_sq_stats(params, sharded),
+                      'grad_norms': norm_stats(grads, sharded),
+                      'grad_maxes': abs_max_stats(grads, sharded)}
+        before = {k: p.detach().clone() for k, p in params.items()}
 
-    state = apply_gradients(state, grads, config, lr_fn)
-    if config.occupancy_culling:
-      # After Adam, which never sees the grid (train_lib.py:390-398).
-      grid = model.occupancy.grid
-      with torch.no_grad():
-        grid.copy_(culling.update_grid(
-            grid, stats.pop('occ_cells'), stats.pop('occ_density'),
-            config.occupancy_grid_decay))
+    with trace.span('train/optimizer'):
+      state = apply_gradients(state, grads, config, lr_fn)
+      if config.occupancy_culling:
+        # After Adam, which never sees the grid (train_lib.py:390-398).
+        grid = model.occupancy.grid
+        with torch.no_grad():
+          grid.copy_(culling.update_grid(
+              grid, stats.pop('occ_cells'), stats.pop('occ_density'),
+              config.occupancy_grid_decay))
 
     if compute_stats:
-      delta = {k: p.detach() - before[k] for k, p in params.items()}
-      tree_stats['opt_update_norms'] = norm_stats(delta, sharded)
-      tree_stats['opt_update_maxes'] = abs_max_stats(delta, sharded)
-      for family, values in tree_stats.items():
-        stats.update({f'{family}/{k}': v for k, v in values.items()})
+      with trace.span('train/stats'):
+        delta = {k: p.detach() - before[k] for k, p in params.items()}
+        tree_stats['opt_update_norms'] = norm_stats(delta, sharded)
+        tree_stats['opt_update_maxes'] = abs_max_stats(delta, sharded)
+        for family, values in tree_stats.items():
+          stats.update({f'{family}/{k}': v for k, v in values.items()})
     stats['psnrs'] = image_ops.mse_to_psnr(stats['mses'])
     stats['psnr'] = stats['psnrs'][-1]
     return state, stats

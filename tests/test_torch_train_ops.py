@@ -50,6 +50,7 @@ from multinerf_tpu_torch.ops import stepfun  # noqa: E402
 from multinerf_tpu_torch.ops.kernels import density_mlp as dm  # noqa: E402
 from multinerf_tpu_torch.ops.kernels import featurize_dense as fd  # noqa: E402
 from multinerf_tpu_torch.utils import checkpoints  # noqa: E402
+from multinerf_tpu_torch.utils import trace  # noqa: E402
 
 BASIS = np.array(jgeopoly.generate_basis('icosahedron', 2)).T  # [3, 21]
 KERNEL_TOL = 2e-2
@@ -470,7 +471,8 @@ def test_profile_step_compaction_is_read_from_the_profilers_parents():
   with dataset, torch.profiler.profile(
       activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
     run(1, state)
-  names = {e.name for e in profile_step.compaction_events(prof.events())}
+  spans = trace._Spans(prof.events())  # pylint: disable=protected-access
+  names = {e.name for e in spans.cpu if culling.COMPACTION in spans.of(e)}
   engine = 'autograd::engine::evaluate_function: '
   assert {culling.COMPACTION, 'aten::cumsum', 'GatherRows',
           engine + 'GatherRowsBackward', engine + 'CatBackward0'} <= names
@@ -480,8 +482,8 @@ def test_profile_step_compaction_is_read_from_the_profilers_parents():
 
 
 def test_profile_step_busy_time_is_the_union_of_intervals():
-  assert profile_step._union_us([]) == 0
-  assert profile_step._union_us([(5, 6), (0, 2), (1, 3), (1.5, 2.5)]) == 4
+  assert trace.union_us([]) == 0
+  assert trace.union_us([(5, 6), (0, 2), (1, 3), (1.5, 2.5)]) == 4
   if not torch.cuda.is_available():
     with pytest.raises(RuntimeError, match='needs CUDA'):
       profile_step.main([f'--gin_configs={tp.CONFIG_360}'])
