@@ -4396,7 +4396,12 @@ PROFILE_RUNS = (  # (capacity or None, window, extra flags)
 )
 PROFILE_KEYS = {'wall_ms', 'busy_ms', 'idle', 'step_ms', 'allreduce_ms',
                 'world_size', 'capacity', 'compact_n', 'keep_frac', 'window',
-                'compaction_ms', 'span_ms', 'idle_ms', 'kernels'}
+                'compaction_ms', 'split_products', 'span_ms', 'idle_ms',
+                'kernels'}
+# Products a bf16 360.gin step takes through the exact bf16 split
+# (models/mlp.py: _SplitProduct): the NerfMLP's skip layer, density,
+# bottleneck and rgb heads; the PropMLPs' run inside K1.
+PROFILE_SPLIT_PRODUCTS = 4
 # The rungs whose compact N no other phase holds K2/K4 at.
 PROFILE_HELD_RUNGS = (0.5, 0.67)
 RENDER_BENCH_FRAMES = 2
@@ -4448,8 +4453,10 @@ def phase_profile_cull(card):
   ``culling.round_capacity`` of the rung, a culled step's compaction time,
   the device time by span (``train/step``'s above 0, all of it charged to
   spans: no ``trace.UNLINKED``; ``compaction_ms`` that of
-  ``culling.COMPACTION``'s span), and the launches: K1-K4 2 a step, K2/K4 at N = compact_n in a culled
-  step.  Returns {'profile_cull': launches}."""
+  ``culling.COMPACTION``'s span), the products through the exact bf16
+  split (PROFILE_SPLIT_PRODUCTS a step), and the launches: K1-K4 2 a step,
+  K2/K4 at N = compact_n in a culled step.  Returns {'profile_cull':
+  launches}."""
   from multinerf_tpu_torch.models import culling
   from multinerf_tpu_torch.utils import trace
   t0 = time.perf_counter()
@@ -4482,6 +4489,9 @@ def phase_profile_cull(card):
         result['compaction_ms'] != span_ms.get(culling.COMPACTION)):
       raise SystemExit(f'FAIL {tag}: device ms by span {span_ms}, '
                        f'compaction {result["compaction_ms"]} ms')
+    if result['split_products'] != PROFILE_SPLIT_PRODUCTS:
+      raise SystemExit(f'FAIL {tag}: {result["split_products"]} split '
+                       f'products a step, want {PROFILE_SPLIT_PRODUCTS}')
     steps = window * sum(int(f.split('=')[1]) for f in flags
                          if f.startswith(('--warmup=', '--steps=')))
     plain = {k: v for k, v in counted['plain'].items() if v}

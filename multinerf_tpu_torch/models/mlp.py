@@ -38,7 +38,10 @@ encoding (``pos_enc`` per ray, or the IDE of reflected directions per
 sample), n.v, the view branch and the rgb head, with the diffuse/specular
 combination through ``linear_to_srgb`` (mlp.py:404-504), the view branch taking
 the per-ray GLO vector last (mlp.py:481-482).  The heads are f32 products,
-which promote a bf16 input.  ``use_fused_featurize=None`` takes the fused
+which promote a bf16 input; on a layer whole on its rank such a product
+(the heads', the skip layer's activation rows) runs on the card as bf16
+products of the exact three-way bf16 split of the f32 weight, summed in
+f32 (``_SplitProduct``).  ``use_fused_featurize=None`` takes the fused
 kernels on the CPU too (through their plain versions), unlike mlp.py:288.
 Density and bottleneck noise (RawNeRF's) are drawn from the training
 step's ``torch.Generator`` and are off without one (eval, render).  Int8
@@ -153,7 +156,7 @@ class Dense(nn.Module):
     """x @ kernel + bias; with `dtype`, inputs, kernel and bias are cast to
     it first (flax ``nn.Dense(dtype=...)``), else x is promoted to f32."""
     if dtype is None:
-      return x.to(self.kernel.dtype) @ self.kernel + self.bias
+      return _f32_product(x, self.kernel, self.split) + self.bias
     return x.to(dtype) @ self.kernel.to(dtype) + self.bias.to(dtype)
 
   @property
@@ -200,15 +203,112 @@ class _Bf16Product(torch.autograd.Function):
   @staticmethod
   def forward(ctx, a, b):
     ctx.save_for_backward(a, b)
-    if a.is_cuda:
-      return torch.mm(a, b, out_dtype=torch.float32)
-    return a.float() @ b.float()
+    return _mm_f32(a, b)
 
   @staticmethod
   def backward(ctx, g):
     a, b = ctx.saved_tensors
     g = g.to(torch.bfloat16)
     return g @ b.T, a.T @ g
+
+
+def _mm_f32(a, b, acc=None):
+  """a @ b of bf16 operands, summed in f32 into an f32 result; with `acc`
+  (on the card), added to it in place.  On the card one cuBLAS call (f32
+  output, so no reduced-precision reduction); on the CPU the same product
+  of the operands promoted to f32, where bf16 products are exact."""
+  if not a.is_cuda:
+    return a.float() @ b.float()
+  if acc is None:
+    return torch.mm(a, b, out_dtype=torch.float32)
+  return torch.addmm(acc, a, b, out_dtype=torch.float32, out=acc)
+
+
+# Products taken through _SplitProduct (forward), in the idiom of the
+# kernel wrappers' `counts`.
+split_counts = {'forward': 0}
+
+
+def reset_split_counts():
+  split_counts['forward'] = 0
+
+
+def split_bf16(w):
+  """(hi, mid, lo): bf16 pieces of the f32 `w` with hi + mid + lo == w
+  exactly, each the bf16 rounding of what the pieces before it leave (each
+  subtraction is exact in f32, and three 8-bit significands with their
+  rounding cover f32's 24)."""
+  hi = w.to(torch.bfloat16)
+  rest = w - hi.float()
+  mid = rest.to(torch.bfloat16)
+  return hi, mid, (rest - mid.float()).to(torch.bfloat16)
+
+
+# A product with at most this many output columns is narrow: bound by
+# reading x, it reads it once.
+_NARROW = 8
+# Rows of w a narrow product's partial sums take.
+_SLAB = 128
+
+
+def _split_mm(x, w):
+  """x @ w in f32 for a bf16 x [N, K] and an f32 w [K, M], as bf16
+  products of w's exact split summed in f32: wide, x @ hi, then x @ mid
+  and x @ lo added into it; narrow, one product of x with a block-diagonal
+  weight that holds the three pieces' columns for each slab of _SLAB rows
+  of w, whose partial sums are then added (the tensor cores' f32 sums lose
+  more over a long K than a matrix-vector kernel's, and slabs of 128 keep
+  them within its error)."""
+  hi, mid, lo = split_bf16(w)
+  k, m = w.shape
+  if m > _NARROW:
+    return _mm_f32(x, lo, _mm_f32(x, mid, _mm_f32(x, hi)))
+  slabs = k // _SLAB if k % _SLAB == 0 else 1
+  blocks = torch.stack([hi, mid, lo], 1).reshape(slabs, k // slabs, 3 * m)
+  wide = torch.block_diag(*blocks.unbind(0))
+  return _mm_f32(x, wide).view(-1, 3 * slabs, m).sum(1)
+
+
+class _SplitProduct(torch.autograd.Function):
+  """x @ w in f32 for a bf16 x and an f32 w: the product of x promoted to
+  f32, on the card's tensor cores through ``_split_mm`` (the same f32
+  product up to the order of its sums, where the promoted product runs on
+  the CUDA cores with TF32 off); on the CPU its plain version, the promoted
+  product itself.  The backward is the promoted product's, bit for bit:
+  g @ w^T rounded to bf16 (as ``ToCopyBackward`` rounds it) and
+  x.float()^T @ g, in plain operations that a double backward
+  differentiates."""
+
+  @staticmethod
+  def forward(ctx, x, w):
+    ctx.save_for_backward(x, w)
+    split_counts['forward'] += 1
+    x2 = x.reshape(-1, x.shape[-1])
+    y = _split_mm(x2, w) if x.is_cuda else x2.float() @ w
+    return y.view(*x.shape[:-1], w.shape[-1])
+
+  @staticmethod
+  def backward(ctx, g):
+    x, w = ctx.saved_tensors
+    g = g.reshape(-1, g.shape[-1])
+    dx = dw = None
+    if ctx.needs_input_grad[0]:
+      dx = g.mm(w.t()).to(x.dtype).view(x.shape)
+    if ctx.needs_input_grad[1]:
+      dw = x.reshape(-1, x.shape[-1]).float().t().mm(g)
+    return dx, dw
+
+
+def _f32_product(x, kernel, split):
+  """x @ kernel in f32, x promoted as flax promotes a bf16 input of an f32
+  Dense: through ``_SplitProduct`` when x is bf16, the kernel f32 and the
+  layer whole on this rank (`split`, its Split, None: a one-device layer,
+  or one gathered by ``Dense.full()``, as the int8 model's layers are under
+  tensor parallelism); else the promoted product."""
+  if (split is None and x.dtype == torch.bfloat16 and
+      kernel.dtype == torch.float32):
+    return _SplitProduct.apply(x, kernel)
+  return x.to(kernel.dtype) @ kernel
 
 
 class _ColumnBf16(torch.autograd.Function):
@@ -437,7 +537,7 @@ class MLP(nn.Module):
           if layer.split is not None:
             x = tensor.copy_to_model(x)
           width_x = x.shape[-1]
-          x = x.to(layer.kernel.dtype) @ layer.kernel[:width_x] + (
+          x = _f32_product(x, layer.kernel[:width_x], layer.split) + (
               fd.featurize_dense(means, covs, layer.kernel[width_x:],
                                  layer.bias, **kw))
           x_split = _out_split(layer)

@@ -38,7 +38,9 @@ from multinerf_tpu_torch import configs  # noqa: E402
 from multinerf_tpu_torch import train_lib  # noqa: E402
 from multinerf_tpu_torch.data import datasets  # noqa: E402
 from multinerf_tpu_torch.data import types  # noqa: E402
+from multinerf_tpu_torch.models import mlp as mlp_lib  # noqa: E402
 from multinerf_tpu_torch.models import nerf  # noqa: E402
+from multinerf_tpu_torch.ops import coord  # noqa: E402
 from multinerf_tpu_torch.ops import geopoly  # noqa: E402
 from multinerf_tpu_torch.ops.kernels import density_mlp as dm  # noqa: E402
 from multinerf_tpu_torch.ops.kernels import featurize_dense as fd  # noqa: E402
@@ -643,3 +645,73 @@ def test_int8_trunk_backward_kernel_at_small_n(cuda, n, width, depth, skip,
     assert bool(torch.isfinite(a).all()), k
   gaps = train_lib.leaf_gaps(got, want, nudged)
   assert all(gap <= bound for gap, _, bound in gaps.values()), gaps
+
+
+# The exact bf16 split of an f32 weight (models/mlp.py: _SplitProduct), which
+# the heads and the skip layer's activation rows take for a bf16 activation,
+# on the tensor cores at 65,536 rows of the 360 NerfMLP's products (1,024 in,
+# 1,024 / 256 / 1 out).  Against a float64 product its error is held to
+# twice that of the product it replaces, the promoted activation's f32
+# product with TF32 off (readings: 0.9-1.3 times); bf16 partial sums in a
+# split-K reduction would miss that by orders of magnitude.
+@pytest.mark.parametrize('m', [1024, 256, 1])
+def test_split_product_error_is_within_twice_the_f32_products(cuda, m):
+  gen = torch.Generator(device=cuda).manual_seed(m)
+  x = torch.relu(torch.randn(65536, 1024, device=cuda, generator=gen)).to(
+      torch.bfloat16)
+  w = (torch.rand(1024, m, device=cuda, generator=gen) * 2 - 1) * np.sqrt(
+      6.0 / 1024)
+  want = x.double() @ w.double()
+  mlp_lib.reset_split_counts()
+  got = mlp_lib._SplitProduct.apply(x, w)
+  promoted = x.float() @ w
+  torch.cuda.synchronize()
+  assert mlp_lib.split_counts['forward'] == 1 and got.dtype == torch.float32
+  err = float((got.double() - want).abs().max())
+  bound = 2 * float((promoted.double() - want).abs().max())
+  assert err <= bound, f'm={m}: {err:.3e} > {bound:.3e}'
+
+
+def test_split_products_match_the_promoted_ones_in_the_360_mlp(
+    cuda, monkeypatch):
+  # The 360 NerfMLP (8 x 1,024, bf16 trunk, K2/K4 on the card) forward and
+  # backward on 65,536 samples, its four split products (skip layer,
+  # density, bottleneck, rgb) against the same model with them promoted.
+  # Bounds of test_train_step_on_the_gpu_matches_the_cpu: the loss terms
+  # 1e-3 relative, each gradient leaf by train_lib.leaf_gaps, the promoted
+  # run on nudged means giving the reference's own move.
+  cfg = mlp_lib.NerfMLP(net_depth=8, net_width=1024, warp_fn=coord.contract,
+                        disable_density_normals=True, trunk_dtype='bfloat16')
+  model = mlp_lib.MLP(cfg, generator=torch.Generator().manual_seed(0),
+                      device=cuda)
+  n_rays, n_samples = 2048, 32
+  means, covs = _gaussians(n_rays * n_samples, 9, cuda)
+  viewdirs = torch.as_tensor(tp.rays(n_rays, seed=10)['viewdirs'],
+                             device=cuda)
+  gen = torch.Generator(device=cuda).manual_seed(11)
+  cot_density = torch.rand(n_rays, n_samples, device=cuda, generator=gen)
+  cot_rgb = torch.rand(n_rays, n_samples, 3, device=cuda, generator=gen)
+
+  def run(means):
+    model.zero_grad()
+    mlp_lib.reset_split_counts()
+    out = model(means.view(n_rays, n_samples, 3),
+                covs.view(n_rays, n_samples, 3, 3), viewdirs)
+    terms = {'density': (out['density'] * cot_density).sum(),
+             'rgb': (out['rgb'] * cot_rgb).sum()}
+    sum(terms.values()).backward()
+    return ({k: float(v) for k, v in terms.items()},
+            {k: p.grad.cpu() for k, p in model.named_parameters()},
+            mlp_lib.split_counts['forward'])
+
+  got_terms, got, split = run(means)
+  monkeypatch.setattr(
+      mlp_lib, '_f32_product',
+      lambda x, kernel, split: x.to(kernel.dtype) @ kernel)
+  want_terms, want, promoted = run(means)
+  _, nudged, _ = run(means * (1 + train_lib.NUDGE))
+  assert (split, promoted) == (4, 0)
+  for k, v in want_terms.items():
+    assert got_terms[k] == pytest.approx(v, rel=1e-3), k
+  for k, (gap, _, bound) in train_lib.leaf_gaps(got, want, nudged).items():
+    assert gap <= bound, f'{k}: {gap:.3e} > {bound:.3e}'
